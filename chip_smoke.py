@@ -5,16 +5,21 @@
 
 Phase 0  refuse to run without CUDA; print the card's name and power limit.
 Phase 1  build the CUDA kernels from csrc/ (nvcc, sm_90a) and load them.
-Phase 2  hold each kernel against its plain PyTorch version on the card at
-         the main path's shapes; time both with CUDA events.
+Phase 2  hold each of the seven kernels against its plain PyTorch version on
+         the card at the main path's shapes; time both with CUDA events,
+         time the one PyTorch library call that computes the same function
+         where there is one, and compute the card's lower bound for the work.
 Phase 3  tiny config at 256x256, float32, 2 steps, deterministic: the same
          weights on the card (kernels) and on the CPU (plain versions) must
-         give the same frames; the warp, attention and lookup kernels must
-         have been launched.
-Phase 4  the slice at full width: 5 frames x4 to 512x512, 50 guided steps,
-         bf16 UNet / struct-cond / VAE / CLIP and float32 RAFT with seeded
-         random weights, through ``MGLDVSRPipeline.restore_segment``; every
-         kernel must have been launched by that run.
+         give the same frames, once in the default configuration and once
+         with MGLD_FUSED_GN_CONV=1.
+Phase 4  the default configuration at full width: 5 frames x4 to 512x512, 50
+         guided steps, bf16 UNet / struct-cond / VAE / CLIP and float32 RAFT
+         with seeded random weights, through
+         ``MGLDVSRPipeline.restore_segment``; every kernel but the fused
+         GroupNorm+SiLU+conv must have been launched by that run.
+Phase 5  the fused configuration (MGLD_FUSED_GN_CONV=1) at the same width,
+         clip, seed and weights: the fused kernel must have been launched.
 
 Prints one JSON line describing the kernels before the last line, and the
 result line ``{"ok": true, "device": {...}}`` last. Any failure raises and
@@ -23,7 +28,9 @@ exits non-zero without the result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -42,7 +49,43 @@ KERNELS = {
                     "mgldvsr_tpu/ops/pallas/corr_lookup.py:94"),
     "channel_sums": ("triton", "mgldvsr_tpu_torch/ops/kernels/groupnorm.py",
                      "mgldvsr_tpu/ops/pallas/groupnorm.py:55"),
+    "fused_group_norm": ("triton", "mgldvsr_tpu_torch/ops/kernels/groupnorm.py",
+                         "mgldvsr_tpu/ops/pallas/groupnorm.py:139"),
+    "gn_silu_conv3x3": ("cuda", "mgldvsr_tpu_torch/csrc/gn_silu_conv.cu",
+                        "mgldvsr_tpu/ops/pallas/gn_silu_conv.py:154"),
 }
+FUSED_ONLY = "gn_silu_conv3x3"  # launched by the fused configuration alone
+
+# NVIDIA H100 SXM data sheet, dense: device memory bytes/s, tensor-core
+# flop/s for bf16 and fp16, fp32 flop/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}
+
+
+def bound(nbytes: float, flops: float, kind: str):
+    """(least ms the card could take, what binds it): the larger of bytes
+    over the memory rate and operations over the peak rate of ``kind``."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[kind]
+    return 1000 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@contextlib.contextmanager
+def fused_switch(on: bool):
+    """Set MGLD_FUSED_GN_CONV for the enclosed calls (it is read at call
+    time) and restore the previous value."""
+    before = os.environ.get("MGLD_FUSED_GN_CONV")
+    os.environ["MGLD_FUSED_GN_CONV"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["MGLD_FUSED_GN_CONV"]
+        else:
+            os.environ["MGLD_FUSED_GN_CONV"] = before
 
 
 def log(msg: str) -> None:
@@ -106,43 +149,55 @@ def calm_raft(pipe) -> None:
 def phase2(card: str):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
+    import torch.nn.functional as F
 
     from mgldvsr_tpu_torch.flow.raft import build_corr_pyramid
+    from mgldvsr_tpu_torch.ops.kernels import _build
     from mgldvsr_tpu_torch.ops.kernels import attention as attn_mod
     from mgldvsr_tpu_torch.ops.kernels import corr_lookup as corr_mod
     from mgldvsr_tpu_torch.ops.kernels import flow_warp as warp_mod
+    from mgldvsr_tpu_torch.ops.kernels import gn_silu_conv as conv_mod
     from mgldvsr_tpu_torch.ops.kernels import groupnorm as gn_mod
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
 
-    def record(name, err, tol, ms, plain_ms, shape):
+    def record(name, err, tol, ms, plain_ms, shape, bound_ms, bound_by, library_ms=None):
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"[phase2] {name} {shape}: max_abs_err {err:.3e} (limit {tol:.1e}) "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, "
+            f"bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
         if not err <= tol:
             raise AssertionError(f"{name}: kernel disagrees with its plain version "
                                  f"({err:.3e} > {tol:.1e})")
-        results.setdefault(name, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        # the JSON line carries each kernel's first shape; max_abs_err its worst
+        first = results.setdefault(name, {
+            "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+        first["max_abs_err"] = max(first["max_abs_err"], err)
 
-    # guidance warp: 2(t-2) = 6 latents of one 5-frame window at 64x64x4
+    # guidance warp: 2(t-2) = 6 latents of one 5-frame window at 64x64x4;
+    # 4 taps of 2 flops and ~12 flops of weights per output element
     x = torch.randn(6, 64, 64, 4, device=dev, generator=gen)
     flow = torch.randn(6, 64, 64, 2, device=dev, generator=gen) * 3
     g = torch.randn(6, 64, 64, 4, device=dev, generator=gen)
     shape = "x[6,64,64,4] f32"
+    warp_bound = bound(nbytes(x, flow, x), 20 * x.numel(), "f32")
     record("warp_forward", max_err(warp_mod.warp_forward(x, flow), warp_mod.warp_plain(x, flow)),
            1e-5, cuda_ms(lambda: warp_mod.warp_forward(x, flow)),
-           cuda_ms(lambda: warp_mod.warp_plain(x, flow)), shape)
+           cuda_ms(lambda: warp_mod.warp_plain(x, flow)), shape, *warp_bound)
     xr = x.clone().requires_grad_(True)
     warp_mod.warp_plain(xr, flow).backward(g)
     dx = warp_mod.warp_dx(g, flow)
     err = max(max_err(dx, warp_mod.warp_dx_plain(g, flow)), max_err(dx, xr.grad))
     record("warp_dx", err, 1e-5, cuda_ms(lambda: warp_mod.warp_dx(g, flow)),
-           cuda_ms(lambda: warp_mod.warp_dx_plain(g, flow)), shape + " (vs plain and autograd)")
+           cuda_ms(lambda: warp_mod.warp_dx_plain(g, flow)), shape + " (vs plain and autograd)",
+           *warp_bound)
 
     # attention: UNet self-attention at 64^2 (5 frames x 5 heads) and 32^2
     # (5 x 10), head dim 64, bf16; the plain version rounds its
-    # probabilities to bf16, hence the limit
+    # probabilities to bf16, hence the limit. 4 N^2 D flops per head.
     for bh, n in ((25, 4096), (50, 1024), (20, 4096)):
         q, k, v = (torch.randn(bh, n, 64, device=dev, generator=gen).to(torch.bfloat16)
                    for _ in range(3))
@@ -150,10 +205,13 @@ def phase2(card: str):
         record("attention", max_err(out, attn_mod.attention_plain(q, k, v)), 2e-2,
                cuda_ms(lambda: attn_mod.attention(q, k, v), iters=10),
                cuda_ms(lambda: attn_mod.attention_plain(q, k, v), iters=10),
-               f"[{bh},{n},64] bf16")
+               f"[{bh},{n},64] bf16", *bound(nbytes(q, k, v, out), 4.0 * bh * n * n * 64, "bf16"),
+               cuda_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]),
+                       iters=10))
         del q, k, v, out
 
-    # RAFT lookup: 8 frame pairs, 64x64 queries at 1/8 of 512px, 4 levels, r=4
+    # RAFT lookup: 8 frame pairs, 64x64 queries at 1/8 of 512px, 4 levels, r=4.
+    # Data-dependent reads: a query touches at most (2r+2)^2 cells of a level.
     f1 = torch.randn(8, 256, 64, 64, device=dev, generator=gen)
     f2 = torch.randn(8, 256, 64, 64, device=dev, generator=gen)
     pyr = [p.contiguous() for p in build_corr_pyramid(f1, f2, 4)]
@@ -161,12 +219,14 @@ def phase2(card: str):
                             indexing="ij")
     coords = (torch.stack([gx, gy], -1)[None]
               + torch.randn(8, 64, 64, 2, device=dev, generator=gen) * 4).contiguous()
-    record("corr_lookup",
-           max_err(corr_mod.lookup_corr(pyr, coords, 4), corr_mod.lookup_corr_plain(pyr, coords, 4)),
+    got = corr_mod.lookup_corr(pyr, coords, 4)
+    cells = sum(min(100, p.shape[-1] * p.shape[-2]) for p in pyr)
+    record("corr_lookup", max_err(got, corr_mod.lookup_corr_plain(pyr, coords, 4)),
            1e-4, cuda_ms(lambda: corr_mod.lookup_corr(pyr, coords, 4)),
            cuda_ms(lambda: corr_mod.lookup_corr_plain(pyr, coords, 4), iters=5),
-           "pyramid [8,4096,64^2..8^2] f32, coords [8,64,64,2]")
-    del f1, f2, pyr
+           "pyramid [8,4096,64^2..8^2] f32, coords [8,64,64,2]",
+           *bound(8 * 4096 * cells * 4 + nbytes(coords, got), 8.0 * got.numel(), "f32"))
+    del f1, f2, pyr, got
 
     # GroupNorm sums: the VAE's 512^2 level, 5 frames x 128 channels, bf16;
     # float32 sums of 262144 terms: the limit is relative to the sums' size
@@ -180,7 +240,77 @@ def phase2(card: str):
     err = max(max_err(s[0], p[0]), max_err(s[1], p[1]))
     record("channel_sums", err, 1e-5 * float(p[1].abs().max()),
            cuda_ms(lambda: gn_mod.channel_sums(xb)),
-           cuda_ms(lambda: gn_mod.channel_sums_plain(xb)), "[5,128,512,512] bf16")
+           cuda_ms(lambda: gn_mod.channel_sums_plain(xb)), "[5,128,512,512] bf16",
+           *bound(nbytes(xb, *s), 3.0 * xb.numel(), "f32"))
+    del xb, s, p
+
+    # fused GroupNorm: the UNet's levels, the 960-channel skip concat whose
+    # slab exceeds shared memory, a 5-D temporal input, and float32. The
+    # folded scale and shift may round to the neighbouring bf16, so the limit
+    # is 2 ulps at max |y|; float32 1e-5 (sums in another order).
+    bf16, f32 = torch.bfloat16, torch.float32
+    for shp, dtype, eps in (((5, 320, 64, 64), bf16, 1e-5), ((5, 960, 64, 64), bf16, 1e-5),
+                            ((5, 1280, 8, 8), bf16, 1e-6), ((1, 1280, 5, 8, 8), bf16, 1e-5),
+                            ((5, 32, 64, 64), f32, 1e-5), ((5, 32, 64, 64), f32, 1e-6)):
+        x = (torch.randn(shp, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+        w = torch.randn(shp[1], device=dev, generator=gen)
+        b = torch.randn(shp[1], device=dev, generator=gen)
+        got = gn_mod.fused_group_norm(x, w, b, 32, eps)
+        want = gn_mod.fused_group_norm_plain(x, w, b, 32, eps)
+        tol = 1e-5 + (2 * 2 ** -8 * float(want.float().abs().max()) if dtype == bf16 else 0.0)
+        wd, bd = w.to(dtype), b.to(dtype)
+        record("fused_group_norm", max_err(got, want), tol,
+               cuda_ms(lambda: gn_mod.fused_group_norm(x, w, b, 32, eps)),
+               cuda_ms(lambda: gn_mod.fused_group_norm_plain(x, w, b, 32, eps)),
+               f"{list(shp)} {'bf16' if dtype == bf16 else 'f32'} eps {eps:g}",
+               *bound(nbytes(x, got, w, b), 8.0 * x.numel(), "f32"),
+               cuda_ms(lambda: F.group_norm(x, 32, wd, bd, eps)))
+        del x, got, want
+
+    # fused GroupNorm+SiLU+conv3x3: UNet res-block chains, the skip concat,
+    # the 8^2 level, the 4-channel output conv, the VAE's 512^2 level, and a
+    # small float32 case. bf16: the plain version rounds the conv's result
+    # and again after the bias, the kernel once: 3 ulps at max |y|; float32
+    # 1e-4 of max |y| (sums in another order; TF32 is off).
+    for (n, c, h, w_, co), dtype in (((5, 320, 64, 64, 320), bf16), ((5, 960, 64, 64, 320), bf16),
+                                     ((5, 2560, 8, 8, 1280), bf16), ((5, 320, 64, 64, 4), bf16),
+                                     ((5, 128, 512, 512, 128), bf16), ((2, 64, 16, 8, 96), f32)):
+        x = (torch.randn(n, c, h, w_, device=dev, generator=gen) * 1.5 + 0.3).to(dtype)
+        gw = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+        gb = 0.1 * torch.randn(c, device=dev, generator=gen)
+        wt = (torch.randn(co, c, 3, 3, device=dev, generator=gen) * (9 * c) ** -0.5).to(dtype)
+        bias = 0.1 * torch.randn(co, device=dev, generator=gen)
+        got = conv_mod.gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5)
+        want = conv_mod.gn_silu_conv3x3_plain(x, gw, gb, wt, bias, 32, 1e-5)
+        rel = 3 * 2 ** -8 if dtype == bf16 else 1e-4
+        gwd, gbd, biasd = gw.to(dtype), gb.to(dtype), bias.to(dtype)
+        iters = 5 if h >= 512 else 20
+        record("gn_silu_conv3x3", max_err(got, want), rel * float(want.float().abs().max()),
+               cuda_ms(lambda: conv_mod.gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5), iters),
+               cuda_ms(lambda: conv_mod.gn_silu_conv3x3_plain(x, gw, gb, wt, bias, 32, 1e-5),
+                       iters),
+               f"[{n},{c},{h},{w_}]->{co} {'bf16' if dtype == bf16 else 'f32'}",
+               *bound(nbytes(x, wt, got, gw, gb, bias), 18.0 * c * co * n * h * w_,
+                      "bf16" if dtype == bf16 else "f32"),
+               cuda_ms(lambda: F.conv2d(F.silu(F.group_norm(x, 32, gwd, gbd, 1e-5)), wt, biasd,
+                                        padding=1), iters))
+        # the wrapper's two parts timed alone: the statistics (channel sums and
+        # the fold on [N,C], a dozen small launches) and the conv kernel itself
+        def stats():
+            return gn_mod.group_scale_shift(*gn_mod.channel_sums(x), float(h * w_ * (c // 32)),
+                                            gw, gb, 32, 1e-5)
+
+        scale, shift = (t.contiguous() for t in stats())
+        entry = getattr(_build.library(), conv_mod._ENTRY[dtype])
+        stream = _build.stream_ptr(dev)
+
+        def conv_only():
+            _build.check(entry(x.data_ptr(), scale.data_ptr(), shift.data_ptr(), wt.data_ptr(),
+                               bias.data_ptr(), got.data_ptr(), n, c, h, w_, co, stream), "conv")
+
+        log(f"[phase2]   of which channel sums + fold {cuda_ms(stats, iters):.4f} ms, conv "
+            f"kernel alone {cuda_ms(conv_only, iters):.4f} ms")
+        del x, wt, got, want
     return results
 
 
@@ -204,7 +334,9 @@ def tiny_config(frames: int = 5):
         raft=RAFTConfig(iters=2))
 
 
-def phase3(seed: int, card: str) -> float:
+def phase3(seed: int, card: str, fused: bool) -> float:
+    """The tiny restore on the card against the CPU, in the default or the
+    fused configuration."""
     import torch
 
     from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline, upscale_frames
@@ -215,25 +347,29 @@ def phase3(seed: int, card: str) -> float:
     cpu = MGLDVSRPipeline(cfg, "cpu")
     init_pipeline_weights(cpu, seed)
     calm_raft(cpu)
-    gpu = MGLDVSRPipeline(cfg, "cuda")
+    gpu = MGLDVSRPipeline(cfg)
     for name, tower in gpu.towers().items():
         tower.load_state_dict(cpu.towers()[name].state_dict(), strict=True)
     frames = upscale_frames(torch.from_numpy(lq_clip(seed + 1, 64)), 4)
-    want = cpu.restore_segment(frames, deterministic=True)
-    kernels.reset_launch_counts()
-    got = gpu.restore_segment(frames.cuda(), deterministic=True)
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    with fused_switch(fused):
+        want = cpu.restore_segment(frames, deterministic=True)
+        kernels.reset_launch_counts()
+        got = gpu.restore_segment(frames.cuda(), deterministic=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
     err = max_err(got.cpu(), want)
-    log(f"[phase3] tiny 256x256 fp32 2 steps: card vs CPU max_abs_err {err:.3e} "
-        f"(limit 1e-3), launches {counts}  [{card}]")
+    log(f"[phase3] tiny 256x256 fp32 2 steps, fused conv {'on' if fused else 'off'}: card vs "
+        f"CPU max_abs_err {err:.3e} (limit 1e-3), launches {counts}  [{card}]")
     if got.shape != (5, 256, 256, 3) or not torch.isfinite(got).all():
         raise AssertionError(f"phase 3 output {tuple(got.shape)} is not finite [5,256,256,3]")
     if not err <= 1e-3:
         raise AssertionError(f"phase 3: card and CPU disagree ({err:.3e})")
-    for name in ("warp_forward", "warp_dx", "attention", "corr_lookup"):
+    must = ["warp_forward", "warp_dx", "attention", "corr_lookup", "fused_group_norm"]
+    for name in must + [FUSED_ONLY] * fused:
         if counts[name] == 0:
             raise AssertionError(f"phase 3: kernel {name} was never launched")
+    if not fused and counts[FUSED_ONLY]:
+        raise AssertionError(f"phase 3: {FUSED_ONLY} launched with the switch off")
     return err
 
 
@@ -256,16 +392,15 @@ def full_config(steps: int):
         raft=RAFTConfig(iters=10))
 
 
-def phase4(seed: int, steps: int, card: str):
+def full_pipeline(seed: int, steps: int):
+    """The full-width pipeline with seeded weights and the 512px test clip."""
     import torch
 
-    from mgldvsr_tpu_torch.core.diffusion import temporal_warp_loss
     from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline, upscale_frames
     from mgldvsr_tpu_torch.io.init_weights import init_pipeline_weights
-    from mgldvsr_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
-    pipe = MGLDVSRPipeline(full_config(steps), "cuda")
+    pipe = MGLDVSRPipeline(full_config(steps))
     init_pipeline_weights(pipe, seed)
     calm_raft(pipe)
     pipe.cast_to_compute_dtypes()
@@ -274,32 +409,50 @@ def phase4(seed: int, steps: int, card: str):
     log(f"[phase4] weights on the card in {time.perf_counter() - t0:.2f} s "
         f"({sum(p.numel() for t in pipe.towers().values() for p in t.parameters()) / 1e6:.1f}"
         f"M parameters)")
+    return pipe, frames
 
+
+def full_restore(pipe, frames, seed: int, steps: int, card: str, fused: bool):
+    """One restore at full width; returns (frames out, launch counts)."""
+    import torch
+
+    from mgldvsr_tpu_torch.ops import kernels
+
+    phase = "phase5" if fused else "phase4"
     gen = torch.Generator(device="cuda").manual_seed(seed)
     stages: dict = {}
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = pipe.restore_segment(frames, gen, stage_seconds=stages)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    with fused_switch(fused):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = pipe.restore_segment(frames, gen, stage_seconds=stages)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     stage_txt = ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
-    log(f"[phase4] 512x512, 5 frames, {steps} steps: {stage_txt}; total {wall:.3f} s, "
-        f"{5 / wall:.4f} frames/s, sampler {1000 * stages['sampler'] / steps:.2f} ms/step, "
-        f"peak {peak / 2**30:.2f} GiB  [{card}]")
-    log(f"[phase4] launches {counts}  [{card}]")
+    log(f"[{phase}] fused conv {'on' if fused else 'off'}, 512x512, 5 frames, {steps} steps: "
+        f"{stage_txt}; total {wall:.3f} s, {5 / wall:.4f} frames/s, sampler "
+        f"{1000 * stages['sampler'] / steps:.2f} ms/step, peak {peak / 2**30:.2f} GiB  [{card}]")
+    log(f"[{phase}] launches {counts}  [{card}]")
     if out.shape != (5, 512, 512, 3):
-        raise AssertionError(f"phase 4 output shape {tuple(out.shape)}")
+        raise AssertionError(f"{phase} output shape {tuple(out.shape)}")
     if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
-        raise AssertionError("phase 4 output is not finite in [0, 1]")
+        raise AssertionError(f"{phase} output is not finite in [0, 1]")
     for name, n in counts.items():
-        if n == 0:
-            raise AssertionError(f"phase 4: kernel {name} was never launched")
+        if (n == 0) != (name == FUSED_ONLY and not fused):
+            raise AssertionError(f"{phase}: kernel {name} was launched {n} times")
+    return out, counts
 
-    # the guidance gradient on this clip's flows must be non-zero
+
+def guidance_check(pipe, frames, seed: int) -> None:
+    """The guidance gradient on this clip's flows must be non-zero."""
+    import torch
+
+    from mgldvsr_tpu_torch.core.diffusion import temporal_warp_loss
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     (ff, fb), masks = pipe.compute_flows(frames)
     lat = torch.randn(5, 64, 64, 4, device="cuda", generator=gen).requires_grad_(True)
     (grad,) = torch.autograd.grad(temporal_warp_loss(lat, (ff, fb), masks, 5), lat)
@@ -311,12 +464,12 @@ def phase4(seed: int, steps: int, card: str):
         f"{occluded:.3f}, guidance grad norm {gnorm:.4e}")
     if not gnorm > 0:
         raise AssertionError("phase 4: the guidance gradient is zero")
-    return counts
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=50, help="phase-4 respaced DDPM steps")
+    ap.add_argument("--steps", type=int, default=50,
+                    help="respaced DDPM steps of phases 4 and 5")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -339,11 +492,21 @@ def main() -> int:
     log(f"[phase1] built {so.name} in {secs:.2f} s (nvcc, sm_90a)")
 
     results = phase2(card)
-    phase3(args.seed, card)
-    counts = phase4(args.seed, args.steps, card)
+    phase3(args.seed, card, fused=False)
+    phase3(args.seed, card, fused=True)
+    pipe, frames = full_pipeline(args.seed, args.steps)
+    out4, counts4 = full_restore(pipe, frames, args.seed, args.steps, card, fused=False)
+    guidance_check(pipe, frames, args.seed)
+    out5, counts5 = full_restore(pipe, frames, args.seed, args.steps, card, fused=True)
+    log(f"[phase5] mean |fused - default| over the frames {float((out5 - out4).abs().mean()):.4e} "
+        f"(bf16 rounds at other places in the two configurations; no limit)")
 
+    # launches: the count on the path that runs the kernel (the fused
+    # configuration for the fused conv, the default one for the others)
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
-                "launches": counts[name], **results[name]}
+                "launches": (counts5 if name == FUSED_ONLY else counts4)[name],
+                "launches_default": counts4[name], "launches_fused": counts5[name],
+                **results[name]}
                for name, (route, src, rep) in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))
     log(card)

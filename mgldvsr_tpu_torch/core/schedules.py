@@ -111,6 +111,8 @@ class DiffusionSchedule:
     @classmethod
     def create(
         cls,
+        *,
+        device: torch.device | str,
         timesteps: int = 1000,
         beta_schedule: str = "linear",
         linear_start: float = 0.00085,
@@ -120,8 +122,9 @@ class DiffusionSchedule:
         v_posterior: float = 0.0,
         parameterization: str = "eps",
         timestep_map: Sequence[int] | None = None,
-        device: torch.device | str = "cpu",
     ) -> "DiffusionSchedule":
+        """``device`` has no default: the caller says where the tensors
+        live (the pipeline passes its own device)."""
         if given_betas is not None:
             betas = np.asarray(given_betas, dtype=np.float64)
         else:

@@ -86,12 +86,20 @@ class MGLDVSRPipeline:
     The towers are built with PyTorch's default initialisation; fill them
     with :func:`mgldvsr_tpu_torch.io.init_weights.init_pipeline_weights`,
     the converters of :mod:`mgldvsr_tpu_torch.io.from_jax`, or
-    ``load_state_dict``, then call :meth:`cast_to_compute_dtypes`."""
+    ``load_state_dict``, then call :meth:`cast_to_compute_dtypes`.
+
+    The device defaults to the GPU, where the hand-written kernels run;
+    without CUDA the constructor raises. ``device="cpu"`` is for parity
+    tests: every kernel wrapper then takes its plain version."""
 
     def __init__(self, cfg: PipelineConfig = PipelineConfig(),
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "MGLDVSRPipeline runs on a CUDA device and none is available; "
+                "pass device=\"cpu\" to run the plain versions on the CPU")
         with self.device:
             self.unet = InflatedUNetDualCond(cfg.unet).eval()
             self.structcond = StructCondEncoder(cfg.structcond).eval()
@@ -149,7 +157,7 @@ class MGLDVSRPipeline:
 
     @torch.no_grad()
     def embed_empty_prompt(self, batch: int) -> torch.Tensor:
-        tokens = empty_prompt_tokens(batch, self.cfg.clip.context_length, self.device)
+        tokens = empty_prompt_tokens(batch, self.cfg.clip.context_length, device=self.device)
         return self.clip(tokens)
 
     @torch.no_grad()

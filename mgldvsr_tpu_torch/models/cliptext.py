@@ -34,9 +34,10 @@ class CLIPTextConfig:
     dtype: torch.dtype = torch.float32
 
 
-def empty_prompt_tokens(batch: int, context_length: int = 77,
-                        device: torch.device | str = "cpu") -> torch.Tensor:
-    """Token ids of the empty prompt: [SOT, EOT, 0, ...] per row."""
+def empty_prompt_tokens(batch: int, context_length: int = 77, *,
+                        device: torch.device | str) -> torch.Tensor:
+    """Token ids of the empty prompt: [SOT, EOT, 0, ...] per row, on
+    ``device`` (no default: the pipeline passes its own)."""
     row = torch.zeros(context_length, dtype=torch.int64, device=device)
     row[0] = SOT_TOKEN
     row[1] = EOT_TOKEN

@@ -9,9 +9,22 @@ GroupNorm has the JAX package's two semantics. In float32 it is flax's
 ``nn.GroupNorm`` (float32 mean of x and x^2 per group). In a low-precision
 dtype it is the bandwidth-lean one-pass form: per-channel float32 sums of
 the low-precision input, folded into groups, and one fused scale-shift in
-the input dtype. There, a 4-D input with H*W >= 16384 (the VAE's 128^2 and
-larger levels) takes the channel-sums kernel. ``MGLD_GN_FP32=1`` forces the
-float32 semantics everywhere, read when a GroupNorm is built.
+the input dtype. ``MGLD_GN_FP32=1`` forces the float32 semantics
+everywhere, read when a GroupNorm is built.
+
+On a CUDA tensor both run as kernels: a 4-D low-precision input with
+H*W >= 16384 (the VAE's 128^2 and larger levels) takes the channel-sums
+kernel, exactly where the JAX module does, and everything else the fused
+GroupNorm kernel. The JAX package wrote that second kernel too but left it
+undispatched, because pulling GroupNorm out of XLA's conv+norm fusion made
+the TPU program slower; eager PyTorch has no such fusion to lose, and the
+plain form is about eight small launches per call. On a CPU tensor both
+keep their plain code.
+
+``MGLD_FUSED_GN_CONV`` (read at call time; ``1``/``true``/``on``, or
+``auto`` = on for CUDA tensors) sends every 4-D GroupNorm -> SiLU -> conv3x3
+chain through the one-kernel :func:`gn_silu_conv3x3`; the modules and their
+state-dict keys are the same either way.
 """
 from __future__ import annotations
 
@@ -21,7 +34,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mgldvsr_tpu_torch.ops.kernels.groupnorm import channel_sums
+from mgldvsr_tpu_torch.ops.kernels.gn_silu_conv import gn_silu_conv3x3
+from mgldvsr_tpu_torch.ops.kernels.groupnorm import (
+    channel_sums,
+    fused_group_norm,
+    group_scale_shift,
+)
 
 
 class Conv2d(nn.Conv2d):
@@ -97,9 +115,12 @@ class GroupNorm(nn.Module):
 
 def group_norm_fp32(x, weight, bias, groups: int, eps: float) -> torch.Tensor:
     """flax ``nn.GroupNorm`` semantics: float32 stats (E[x^2] - E[x]^2,
-    clipped at 0) and a float32 result."""
+    clipped at 0) and a float32 result. On a CUDA tensor: the fused
+    GroupNorm kernel on ``x.float()``."""
     n, c = x.shape[:2]
     xf = x.float()
+    if x.device.type == "cuda":
+        return fused_group_norm(xf.contiguous(), weight, bias, groups, eps)
     xg = xf.reshape(n, groups, -1)
     mean = xg.mean(dim=-1, keepdim=True)
     var = ((xg * xg).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
@@ -110,27 +131,52 @@ def group_norm_fp32(x, weight, bias, groups: int, eps: float) -> torch.Tensor:
 
 def group_norm_lean(x, weight, bias, groups: int, eps: float, dtype) -> torch.Tensor:
     """One-pass low-precision GroupNorm: fp32 channel sums of the ``dtype``
-    input, group fold on [N, C], one scale-shift in ``dtype``."""
+    input, group fold on [N, C], one scale-shift in ``dtype``. On a CUDA
+    tensor: the channel-sums kernel for a 4-D input with H*W >= 16384, the
+    fused GroupNorm kernel otherwise."""
     x = x.to(dtype)
     n, c = x.shape[:2]
+    big = x.ndim == 4 and x.shape[2] * x.shape[3] >= 16384
+    if x.device.type == "cuda" and not big:
+        return fused_group_norm(x.contiguous(), weight, bias, groups, eps)
     spatial = tuple(range(2, x.ndim))
-    count = float(x[0, 0].numel() * (c // groups))
-    if x.ndim == 4 and x.shape[2] * x.shape[3] >= 16384:
+    if big:
         s1, s2 = channel_sums(x.contiguous())
     else:
         s1 = x.sum(dim=spatial, dtype=torch.float32)
         s2 = (x * x).sum(dim=spatial, dtype=torch.float32)
-    mean = s1.reshape(n, groups, -1).sum(-1, keepdim=True) / count
-    var = (s2.reshape(n, groups, -1).sum(-1, keepdim=True) / count - mean * mean).clamp_min(0.0)
-    inv = torch.rsqrt(var + eps)
-    a = inv.expand(n, groups, c // groups).reshape(n, c) * weight.float()
-    b = bias.float() - (mean * inv).expand(n, groups, c // groups).reshape(n, c) * weight.float()
+    count = float(x[0, 0].numel() * (c // groups))
+    a, b = group_scale_shift(s1, s2, count, weight, bias, groups, eps)
     shape = (n, c) + (1,) * (x.ndim - 2)
     return x * a.to(dtype).reshape(shape) + b.to(dtype).reshape(shape)
 
 
+def fused_gn_conv_enabled(x: torch.Tensor) -> bool:
+    """``MGLD_FUSED_GN_CONV``: ``1``/``true``/``on`` force the fused
+    GroupNorm+SiLU+conv kernel on, ``auto`` turns it on for a CUDA tensor,
+    anything else (default ``0``) leaves it off. Read at call time."""
+    flag = os.environ.get("MGLD_FUSED_GN_CONV", "0").lower()
+    if flag in ("1", "true", "on"):
+        return True
+    if flag == "auto":
+        return x.device.type == "cuda"
+    return False
+
+
+def norm_silu_conv(norm: GroupNorm, conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(silu(norm(x)))`` for a 3x3, stride-1, padding-1 ``conv``: one
+    fused kernel when the switch is on and ``x`` is 4-D, else the plain
+    composition of the two modules. Both read the same parameters."""
+    if x.ndim == 4 and fused_gn_conv_enabled(x):
+        dtype = conv.weight.dtype
+        return gn_silu_conv3x3(x.to(dtype).contiguous(), norm.weight, norm.bias, conv.weight,
+                               conv.bias, norm.num_groups, norm.eps)
+    return conv(F.silu(norm(x)))
+
+
 def norm_silu_conv3x3(cin: int, cout: int, dtype, eps: float = 1e-5) -> nn.Sequential:
-    """GroupNorm -> SiLU -> 3x3 conv as the plain composition (keys .0, .2)."""
+    """GroupNorm, SiLU, 3x3 conv as children (keys .0, .2); run it with
+    ``norm_silu_conv(seq[0], seq[2], x)``."""
     return nn.Sequential(GroupNorm(cin, eps=eps, dtype=dtype), nn.SiLU(), conv3x3(cin, cout))
 
 
@@ -180,14 +226,15 @@ class UNetResBlock(nn.Module):
         super().__init__()
         self.in_layers = norm_silu_conv3x3(cin, cout, dtype)
         self.emb_layers = nn.Sequential(nn.SiLU(), Linear(emb_channels, cout))
+        # norm, SiLU, dropout 0, conv: children kept for their keys (.0, .3)
         self.out_layers = nn.Sequential(GroupNorm(cout, dtype=dtype), nn.SiLU(),
                                         nn.Dropout(0.0), conv3x3(cout, cout))
         self.skip_connection = conv1x1(cin, cout) if cin != cout else nn.Identity()
 
     def residual(self, x, emb):
-        h = self.in_layers(x)
+        h = norm_silu_conv(self.in_layers[0], self.in_layers[2], x)
         h = h + self.emb_layers(emb)[:, :, None, None].to(h.dtype)
-        return self.out_layers(h)
+        return norm_silu_conv(self.out_layers[0], self.out_layers[3], h)
 
     def forward(self, x, emb):
         h = self.residual(x, emb)
@@ -208,8 +255,8 @@ class VAEResnetBlock(nn.Module):
             self.nin_shortcut = conv1x1(cin, cout)
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = norm_silu_conv(self.norm1, self.conv1, x)
+        h = norm_silu_conv(self.norm2, self.conv2, h)
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h

@@ -22,6 +22,7 @@ from mgldvsr_tpu_torch.models.layers import (
     UNetResBlock,
     Upsample,
     conv3x3,
+    norm_silu_conv,
     norm_silu_conv3x3,
     timestep_embed_mlp,
 )
@@ -143,7 +144,7 @@ class InflatedUNetDualCond(nn.Module):
         for block in self.output_blocks:
             h = torch.cat([h, hs.pop().to(h.dtype)], dim=1)
             h = _run(block, h, emb, context, struct_cond)
-        return self.out(h).float()
+        return norm_silu_conv(self.out[0], self.out[2], h).float()
 
 
 @dataclasses.dataclass(frozen=True)

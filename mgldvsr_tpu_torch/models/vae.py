@@ -23,6 +23,7 @@ from mgldvsr_tpu_torch.models.layers import (
     VAEResnetBlock,
     conv1x1,
     conv3x3,
+    norm_silu_conv,
 )
 from mgldvsr_tpu_torch.models.temporal import SpatialTemporalConv
 
@@ -43,10 +44,6 @@ class VAEConfig:
     enable_fusion: bool = False  # LQ-feature fusion taps at up-levels 1, 2
     num_fuse_block: int = 2
     dtype: torch.dtype = torch.float32
-
-
-def _norm_silu(norm: GroupNorm, x):
-    return F.silu(norm(x))
 
 
 class _Level(nn.Module):
@@ -102,7 +99,7 @@ class Encoder(nn.Module):
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
         h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
-        h = self.conv_out(_norm_silu(self.norm_out, h))
+        h = norm_silu_conv(self.norm_out, self.conv_out, h)
         return (h, fea_list) if return_fea else h
 
 
@@ -119,8 +116,8 @@ class SimpleResBlock(nn.Module):
             self.conv_out = conv1x1(cin, cout)
 
     def forward(self, x):
-        h = self.conv1(_norm_silu(self.norm1, x))
-        h = self.conv2(_norm_silu(self.norm2, h))
+        h = norm_silu_conv(self.norm1, self.conv1, x)
+        h = norm_silu_conv(self.norm2, self.conv2, h)
         if hasattr(self, "conv_out"):
             x = self.conv_out(x)
         return x + h
@@ -226,7 +223,7 @@ class Decoder(nn.Module):
                 h = getattr(self, f"fusion_layer_{i}")(enc_fea[i - 1], h, fusion_w)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
-        return self.conv_out(_norm_silu(self.norm_out, h))
+        return norm_silu_conv(self.norm_out, self.conv_out, h)
 
 
 class DiagonalGaussian:

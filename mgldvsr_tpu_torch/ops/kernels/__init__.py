@@ -4,7 +4,13 @@ attribute ``launches``; :func:`launch_counts` and
 :func:`reset_launch_counts` read and clear them all."""
 from __future__ import annotations
 
-from mgldvsr_tpu_torch.ops.kernels import attention, corr_lookup, flow_warp, groupnorm
+from mgldvsr_tpu_torch.ops.kernels import (
+    attention,
+    corr_lookup,
+    flow_warp,
+    gn_silu_conv,
+    groupnorm,
+)
 
 WRAPPERS = {
     "warp_forward": flow_warp.warp_forward,
@@ -12,6 +18,8 @@ WRAPPERS = {
     "attention": attention.attention,
     "corr_lookup": corr_lookup.lookup_corr,
     "channel_sums": groupnorm.channel_sums,
+    "fused_group_norm": groupnorm.fused_group_norm,
+    "gn_silu_conv3x3": gn_silu_conv.gn_silu_conv3x3,
 }
 
 

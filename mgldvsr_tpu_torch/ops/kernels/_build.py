@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA C++ kernels.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` into one shared library
-with a plain C interface for Hopper (``sm_90a``) and loaded with ``ctypes``.
-The build happens at first use, into ``mgldvsr_tpu_torch/_build/`` under a
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for Hopper (``sm_90a``),
+one compiler process per source and all at once, then linked into one
+shared library with a plain C interface and loaded with ``ctypes``. The
+build happens at first use, into ``mgldvsr_tpu_torch/_build/`` under a
 name keyed by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as is. Nothing here runs at import.
 """
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +40,10 @@ SIGNATURES = {
     "mgld_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     # corr, coords, out, b, hw, hl, wl, level, n_levels, radius, stream
     "mgld_corr_lookup_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, scale, shift, weight, bias, out, n, c, h, w, co, stream
+    "mgld_gn_silu_conv_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mgld_gn_silu_conv_f16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mgld_gn_silu_conv_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -69,18 +74,29 @@ def build() -> tuple[Path, float]:
     if so.is_file():
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", str(src),
+                   "-o", str(Path(work) / (src.stem + ".o"))]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.PIPE, text=True)))
+        results = [(cmd, proc, *proc.communicate()) for cmd, proc in jobs]
+        for cmd, proc, out, err in results:
+            _raise_on_failure(cmd, proc.returncode, out, err)
+        tmp = str(Path(work) / "lib.so")
+        cmd = [nvcc, "-shared", "-o", tmp, *(job[0][-1] for job in jobs)]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        _raise_on_failure(cmd, link.returncode, link.stdout, link.stderr)
+        os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
     return so, time.perf_counter() - t0
+
+
+def _raise_on_failure(cmd, returncode: int, out: str, err: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
 
 
 @functools.cache

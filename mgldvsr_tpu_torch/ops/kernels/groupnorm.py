@@ -1,15 +1,28 @@
-"""GroupNorm statistics: a Triton one-pass channel-sums kernel and its plain
-version.
+"""GroupNorm kernels in Triton, each beside its plain version: the one-pass
+channel sums and the fully fused GroupNorm.
 
-Replaces ``mgldvsr_tpu/ops/pallas/groupnorm.py``: ``channel_sums`` (kernel
-``_stats_kernel``). It is bound by device-memory bandwidth: one read of a
-bf16 [N, C, H, W] activation (the VAE's 128^2 to 512^2 levels). Each
-program reduces one contiguous H*W row of one (n, c) in fp32 and writes
-both sums, so the activation is read once and no fp32 copy of it is ever
-materialised; the group fold and scale-shift stay in PyTorch on [N, C]
-data.
+``channel_sums`` replaces ``mgldvsr_tpu/ops/pallas/groupnorm.py``
+``channel_sums`` (kernel ``_stats_kernel``). It is bound by device-memory
+bandwidth: one read of a bf16 [N, C, H, W] activation (the VAE's 128^2 to
+512^2 levels). Each program reduces one contiguous H*W row of one (n, c) in
+fp32 and writes both sums, so the activation is read once and no fp32 copy
+of it is ever materialised; the group fold and scale-shift stay in PyTorch
+on [N, C] data. Its gradient is the JAX package's formula in plain tensor
+code (the JAX backward is plain ``jnp`` too).
 
-``triton`` is imported only inside the launching function, so this module
+``fused_group_norm`` replaces ``fused_group_norm`` of the same JAX file
+(kernel ``_fused_gn_kernel``). It is bound by device-memory bandwidth too:
+the least it can move is one read and one write of the activation. The TPU
+kernel held one NHWC sample in fast memory and folded channels into groups
+with one-hot matmuls, because its compiler cannot split the lane dimension.
+In NCHW one (sample, group) is one contiguous slab of C/G * S elements, so
+here one program owns one slab: it reduces it in fp32, then walks it again
+writing ``y = x * a_c + b_c``. The largest slab on the restore path (30
+channels x 64^2 bf16 = 240 KB) exceeds a block's shared memory, so the
+second walk re-reads global memory and is served by the L2 cache, which
+holds the whole tensor; nothing but x and y touches device memory.
+
+``triton`` is imported only inside the launching functions, so this module
 imports where Triton is absent. A CPU tensor takes the plain version; a
 CUDA tensor launches the kernel or raises.
 """
@@ -18,6 +31,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+_FLOATS = (torch.bfloat16, torch.float16, torch.float32)
 
 
 def channel_sums_plain(x: torch.Tensor):
@@ -28,7 +43,7 @@ def channel_sums_plain(x: torch.Tensor):
 
 
 @functools.cache
-def _triton_kernel():
+def _channel_sums_kernel():
     import triton
     import triton.language as tl
 
@@ -49,25 +64,205 @@ def _triton_kernel():
     return channel_sums_kernel
 
 
+def _launch_channel_sums(x: torch.Tensor):
+    n, c, h, w = x.shape
+    s1 = torch.empty(n, c, dtype=torch.float32, device=x.device)
+    s2 = torch.empty(n, c, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _channel_sums_kernel()[(n * c,)](x, s1, s2, h * w, BLOCK=2048, num_warps=8)
+    channel_sums.launches += 1
+    return s1, s2
+
+
+class _ChannelSums(torch.autograd.Function):
+    """Forward: the kernel. Backward: d(sum)/dx = 1, d(sumsq)/dx = 2x, in
+    fp32, cast to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _launch_channel_sums(x)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        (x,) = ctx.saved_tensors
+        dx = g1.float()[:, :, None, None] + 2.0 * x.float() * g2.float()[:, :, None, None]
+        return dx.to(x.dtype)
+
+
 def channel_sums(x: torch.Tensor):
     """(sum, sum of squares), each [N, C] float32, of a contiguous
-    [N, C, H, W] tensor, reduced over H and W in one read."""
+    [N, C, H, W] tensor, reduced over H and W in one read. Differentiable:
+    dx = g1 + 2 x g2."""
     if x.device.type == "cpu":
         return channel_sums_plain(x)
     if x.ndim != 4 or not x.is_contiguous() or x.device.type != "cuda":
         raise ValueError(f"channel_sums: need a contiguous CUDA [N,C,H,W] tensor, got "
                          f"{tuple(x.shape)} on {x.device}")
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+    if x.dtype not in _FLOATS:
         raise TypeError(f"channel_sums: floating input only, got {x.dtype}")
     if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError("channel_sums: forward only; call it under torch.no_grad()")
-    n, c, h, w = x.shape
-    s1 = torch.empty(n, c, dtype=torch.float32, device=x.device)
-    s2 = torch.empty(n, c, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _triton_kernel()[(n * c,)](x, s1, s2, h * w, BLOCK=2048, num_warps=8)
-    channel_sums.launches += 1
-    return s1, s2
+        return _ChannelSums.apply(x)
+    return _launch_channel_sums(x)
 
 
 channel_sums.launches = 0
+
+
+def group_scale_shift(s1: torch.Tensor, s2: torch.Tensor, count: float, weight: torch.Tensor,
+                      bias: torch.Tensor, groups: int, eps: float):
+    """Fold per-(n, c) fp32 sums into GroupNorm's per-(n, c) fp32 affine
+    ``y = x * a + b``: ``var = max(E[x^2] - E[x]^2, 0)``,
+    ``inv = rsqrt(var + eps)``, ``a = inv * weight``,
+    ``b = bias - mean * inv * weight``. ``count`` is the number of elements
+    of one (sample, group)."""
+    n, c = s1.shape
+    cg = c // groups
+    mean = s1.reshape(n, groups, cg).sum(-1, keepdim=True) / count
+    var = (s2.reshape(n, groups, cg).sum(-1, keepdim=True) / count - mean * mean).clamp_min(0.0)
+    inv = torch.rsqrt(var + eps)
+    a = inv.expand(n, groups, cg).reshape(n, c) * weight.float()
+    b = bias.float() - (mean * inv).expand(n, groups, cg).reshape(n, c) * weight.float()
+    return a, b
+
+
+def fused_group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                           groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """Plain version: GroupNorm of [N, C, *spatial] from fp32 sums of the
+    input as it is, the affine folded per (n, c), rounded to x's dtype, and
+    one scale-shift in x's dtype. Output dtype = input dtype."""
+    n, c = x.shape[:2]
+    spatial = tuple(range(2, x.ndim))
+    xf = x.float()
+    s1 = xf.sum(dim=spatial)
+    s2 = (xf * xf).sum(dim=spatial)
+    count = float(x[0, 0].numel() * (c // groups))
+    a, b = group_scale_shift(s1, s2, count, weight, bias, groups, eps)
+    shape = (n, c) + (1,) * (x.ndim - 2)
+    return x * a.to(x.dtype).reshape(shape) + b.to(x.dtype).reshape(shape)
+
+
+def group_norm_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                         groups: int, eps: float) -> torch.Tensor:
+    """Two-pass fp32 GroupNorm cast to x's dtype: the form the fused
+    kernel's gradient is taken through (the JAX ``_gn_reference``)."""
+    n, c = x.shape[:2]
+    xg = x.float().reshape(n, groups, -1)
+    mean = xg.mean(dim=-1, keepdim=True)
+    var = xg.var(dim=-1, unbiased=False, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    shape = (1, c) + (1,) * (x.ndim - 2)
+    return (y * weight.float().reshape(shape) + bias.float().reshape(shape)).to(x.dtype)
+
+
+@functools.cache
+def _fused_gn_kernel():
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def fused_gn_kernel(x_ptr, w_ptr, b_ptr, y_ptr, slab, s, cg, groups, eps,
+                        BLOCK: tl.constexpr):
+        """One program per (sample, group): ``slab = cg * s`` contiguous
+        elements starting at ``pid * slab``; ``s`` spatial elements per
+        channel."""
+        pid = tl.program_id(0)
+        g = pid % groups
+        base = pid.to(tl.int64) * slab
+        acc1 = tl.zeros([BLOCK], dtype=tl.float32)
+        acc2 = tl.zeros([BLOCK], dtype=tl.float32)
+        for start in range(0, slab, BLOCK):
+            offs = start + tl.arange(0, BLOCK)
+            v = tl.load(x_ptr + base + offs, mask=offs < slab, other=0.0).to(tl.float32)
+            acc1 += v
+            acc2 += v * v
+        mean = tl.sum(acc1, axis=0) / slab
+        var = tl.maximum(tl.sum(acc2, axis=0) / slab - mean * mean, 0.0)
+        inv = 1.0 / tl.sqrt(var + eps)
+        out_ty = y_ptr.dtype.element_ty
+        for start in range(0, slab, BLOCK):
+            offs = start + tl.arange(0, BLOCK)
+            mask = offs < slab
+            ch = g * cg + offs // s
+            a = inv * tl.load(w_ptr + ch, mask=mask, other=0.0)
+            b = tl.load(b_ptr + ch, mask=mask, other=0.0) - mean * a
+            # as the plain version: a and b rounded to x's dtype, the product
+            # rounded, then the sum rounded (no fused multiply-add across them)
+            a = a.to(out_ty).to(tl.float32)
+            b = b.to(out_ty).to(tl.float32)
+            v = tl.load(x_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
+            t = (v * a).to(out_ty).to(tl.float32)
+            tl.store(y_ptr + base + offs, (t + b).to(out_ty), mask=mask)
+
+    return fused_gn_kernel
+
+
+def _launch_fused_gn(x, weight, bias, groups: int, eps: float) -> torch.Tensor:
+    n, c = x.shape[:2]
+    s = x[0, 0].numel()
+    cg = c // groups
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _fused_gn_kernel()[(n * groups,)](x, weight, bias, y, cg * s, s, cg, groups, float(eps),
+                                          BLOCK=2048, num_warps=8)
+    fused_group_norm.launches += 1
+    return y
+
+
+class _FusedGroupNorm(torch.autograd.Function):
+    """Forward: the kernel. Backward: autograd of the two-pass fp32
+    GroupNorm on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.groups, ctx.eps = groups, eps
+        return _launch_fused_gn(x, weight, bias, groups, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_recompute_grads(
+            lambda *a: group_norm_reference(*a, ctx.groups, ctx.eps), ctx.saved_tensors, g,
+            ctx.needs_input_grad[:3]), None, None)
+
+
+def _recompute_grads(fn, saved, g, needs):
+    """Gradients of ``fn(*saved)`` against the cotangent ``g`` for the inputs
+    flagged in ``needs`` (None for the others)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+        out = fn(*leaves)
+        wanted = [t for t, need in zip(leaves, needs) if need]
+        grads = iter(torch.autograd.grad(out, wanted, g.to(out.dtype)))
+    return tuple(next(grads) if need else None for need in needs)
+
+
+def fused_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm of a contiguous [N, C, *spatial] tensor in one kernel:
+    fp32 statistics per (sample, group), ``y = x * a + b`` in x's dtype;
+    float32 ``weight`` and ``bias`` of [C]. Output dtype = input dtype."""
+    if x.device.type == "cpu":
+        return fused_group_norm_plain(x, weight, bias, groups, eps)
+    if x.ndim < 3 or not x.is_contiguous() or x.device.type != "cuda":
+        raise ValueError(f"fused_group_norm: need a contiguous CUDA [N,C,*spatial] tensor, got "
+                         f"{tuple(x.shape)} (contiguous={x.is_contiguous()}) on {x.device}")
+    if x.dtype not in _FLOATS:
+        raise TypeError(f"fused_group_norm: floating input only, got {x.dtype}")
+    c = x.shape[1]
+    if c % groups or weight.shape != (c,) or bias.shape != (c,):
+        raise ValueError(f"fused_group_norm: {c} channels, {groups} groups, weight "
+                         f"{tuple(weight.shape)}, bias {tuple(bias.shape)}")
+    if weight.device != x.device or bias.device != x.device:
+        raise ValueError("fused_group_norm: weight and bias must be on x's device")
+    if x[0].numel() // groups >= 2 ** 31:
+        raise ValueError("fused_group_norm: one (sample, group) slab exceeds 2^31 elements")
+    weight = weight.float().contiguous()
+    bias = bias.float().contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return _FusedGroupNorm.apply(x, weight, bias, groups, eps)
+    return _launch_fused_gn(x, weight, bias, groups, eps)
+
+
+fused_group_norm.launches = 0

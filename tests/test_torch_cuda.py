@@ -20,7 +20,13 @@ from mgldvsr_tpu_torch.ops.kernels.flow_warp import (
     warp_forward,
     warp_plain,
 )
-from mgldvsr_tpu_torch.ops.kernels.groupnorm import channel_sums, channel_sums_plain
+from mgldvsr_tpu_torch.ops.kernels.gn_silu_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
+from mgldvsr_tpu_torch.ops.kernels.groupnorm import (
+    channel_sums,
+    channel_sums_plain,
+    fused_group_norm,
+    fused_group_norm_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -77,6 +83,111 @@ def test_channel_sums_kernel_matches_plain(dev):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-2)
 
 
+def test_channel_sums_gradient_on_card(dev):
+    """dx = g1 + 2 x g2 through the autograd Function, against autograd of
+    the plain version (fp32, 1e-5)."""
+    gen = _gen(dev, 1)
+    x = torch.randn(2, 8, 16, 16, device=dev, generator=gen)
+    g1, g2 = (torch.randn(2, 8, device=dev, generator=gen) for _ in range(2))
+    grads = []
+    for fn in (channel_sums, channel_sums_plain):
+        xr = x.clone().requires_grad_(True)
+        s1, s2 = fn(xr)
+        ((s1 * g1).sum() + (s2 * g2).sum()).backward()
+        grads.append(xr.grad)
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape,dtype,eps", [
+    ((5, 320, 64, 64), torch.bfloat16, 1e-5),
+    ((2, 960, 64, 64), torch.bfloat16, 1e-5),
+    ((5, 1280, 8, 8), torch.bfloat16, 1e-6),
+    ((1, 1280, 5, 8, 8), torch.bfloat16, 1e-5),
+    ((3, 64, 7, 9), torch.float16, 1e-5),
+    ((5, 32, 64, 64), torch.float32, 1e-5),
+    ((2, 64, 13, 11), torch.float32, 1e-6),
+])
+def test_fused_group_norm_kernel_matches_plain(dev, shape, dtype, eps):
+    """fp32: 1e-5 (sums in another order). bf16/fp16: the folded scale and
+    shift can round to the neighbouring value, so 2 ulps at max |y|."""
+    gen = _gen(dev, sum(shape))
+    x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+    w = torch.randn(shape[1], device=dev, generator=gen)
+    b = torch.randn(shape[1], device=dev, generator=gen)
+    got = fused_group_norm(x, w, b, 32, eps)
+    want = fused_group_norm_plain(x, w, b, 32, eps)
+    assert got.dtype == dtype and got.shape == x.shape
+    ulp = {torch.float32: 0.0, torch.bfloat16: 2 ** -8, torch.float16: 2 ** -11}[dtype]
+    tol = 1e-5 + 2 * ulp * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("n,c,h,w,co,dtype", [
+    (5, 320, 64, 64, 320, torch.bfloat16),
+    (2, 960, 32, 32, 320, torch.bfloat16),
+    (5, 2560, 8, 8, 1280, torch.bfloat16),
+    (5, 320, 64, 64, 4, torch.bfloat16),
+    (1, 128, 130, 70, 3, torch.bfloat16),
+    (2, 64, 19, 23, 96, torch.bfloat16),
+    (2, 96, 16, 8, 40, torch.float16),
+    (2, 64, 16, 8, 96, torch.float32),
+    (3, 32, 9, 21, 5, torch.float32),
+])
+def test_gn_silu_conv_kernel_matches_plain(dev, n, c, h, w, co, dtype):
+    """Ragged frames, Co below and off the channel tile, C off the stage
+    (96). fp32: 1e-4 of max |y| (sums in another order, TF32 off). bf16 and
+    fp16: the plain version rounds the conv's result and then the biased
+    sum, the kernel once; with the rare activation that rounds the other
+    way, 3 ulps at max |y|."""
+    gen = _gen(dev, n + c + h + w + co)
+    x = (torch.randn(n, c, h, w, device=dev, generator=gen) * 1.5 + 0.3).to(dtype)
+    gw = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+    gb = 0.1 * torch.randn(c, device=dev, generator=gen)
+    wt = (torch.randn(co, c, 3, 3, device=dev, generator=gen) * (9 * c) ** -0.5).to(dtype)
+    bias = 0.1 * torch.randn(co, device=dev, generator=gen)
+    got = gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5)
+    want = gn_silu_conv3x3_plain(x, gw, gb, wt, bias, 32, 1e-5)
+    assert got.dtype == dtype and got.shape == (n, co, h, w)
+    rel = {torch.float32: 1e-4, torch.bfloat16: 3 * 2 ** -8, torch.float16: 3 * 2 ** -11}[dtype]
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=rel * float(want.float().abs().max()), rtol=0)
+
+
+def test_new_kernels_gradients_on_card(dev):
+    """Forward the kernel, backward autograd of the plain/reference form:
+    gradients equal those of the plain version within fp32 noise."""
+    gen = _gen(dev, 7)
+    x = torch.randn(2, 64, 8, 8, device=dev, generator=gen)
+    gw, gb = (torch.randn(64, device=dev, generator=gen) for _ in range(2))
+    wt = torch.randn(32, 64, 3, 3, device=dev, generator=gen) * 0.05
+    bias = torch.randn(32, device=dev, generator=gen)
+    for fn, plain, args in (
+            (fused_group_norm, fused_group_norm_plain, (x, gw, gb)),
+            (gn_silu_conv3x3, gn_silu_conv3x3_plain, (x, gw, gb, wt, bias))):
+        grads = []
+        for f in (fn, plain):
+            leaves = [a.clone().requires_grad_(True) for a in args]
+            f(*leaves).square().sum().backward()
+            grads.append([a.grad for a in leaves])
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, atol=2e-3 * float(b.abs().max()), rtol=0)
+
+
+def test_new_kernels_raise_on_non_contiguous_input(dev):
+    """No fallback: a CUDA tensor the kernel does not take raises."""
+    x = torch.randn(2, 8, 8, 64, device=dev).permute(0, 3, 1, 2)  # NCHW view of NHWC
+    gw, gb = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    wt, bias = torch.randn(16, 64, 3, 3, device=dev), torch.zeros(16, device=dev)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError):
+        fused_group_norm(x, gw, gb)
+    with pytest.raises(ValueError):
+        gn_silu_conv3x3(x, gw, gb, wt, bias)
+    with pytest.raises(TypeError):
+        gn_silu_conv3x3(x.contiguous(), gw, gb, wt.to(torch.bfloat16), bias)
+    assert kernels.launch_counts() == before
+
+
 def test_wrappers_raise_on_bad_input(dev):
     x = torch.randn(2, 8, 8, 4, device=dev)
     with pytest.raises(TypeError):
@@ -93,5 +204,15 @@ def test_tiny_restore_on_card_matches_cpu(dev):
     the same frames within 1e-3 on [0,1], and the kernels were launched."""
     import chip_smoke
 
-    chip_smoke.phase3(0, "test")
+    chip_smoke.phase3(0, "test", fused=False)
     assert kernels.launch_counts()["attention"] > 0
+    assert kernels.launch_counts()["gn_silu_conv3x3"] == 0
+
+
+def test_tiny_restore_fused_configuration_matches_cpu(dev):
+    """The same under MGLD_FUSED_GN_CONV=1: the fused kernel on the card
+    against its plain version on the CPU."""
+    import chip_smoke
+
+    chip_smoke.phase3(0, "test", fused=True)
+    assert kernels.launch_counts()["gn_silu_conv3x3"] > 0

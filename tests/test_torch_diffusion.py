@@ -75,7 +75,7 @@ def _toy_denoisers():
 
 def _schedules(steps):
     return (js.respace_schedule(js.DiffusionSchedule.create(), steps),
-            ts.respace_schedule(ts.DiffusionSchedule.create(), steps))
+            ts.respace_schedule(ts.DiffusionSchedule.create(device="cpu"), steps))
 
 
 @pytest.mark.parametrize("guided", [True, False])
@@ -133,7 +133,7 @@ def test_sample_video_start_T_and_deterministic():
 
 
 def test_initial_latents_match():
-    jb, tb = js.DiffusionSchedule.create(), ts.DiffusionSchedule.create()
+    jb, tb = js.DiffusionSchedule.create(), ts.DiffusionSchedule.create(device="cpu")
     rs = np.random.RandomState(9)
     z, noise = (rs.randn(5, 8, 8, 4).astype(np.float32) for _ in range(2))
     want = jd.initial_latents(jb, jnp.asarray(z), jax.random.PRNGKey(0), noise=jnp.asarray(noise))

@@ -20,7 +20,15 @@ from mgldvsr_tpu_torch.ops.kernels.flow_warp import (
     warp_forward,
     warp_plain,
 )
-from mgldvsr_tpu_torch.ops.kernels.groupnorm import channel_sums, channel_sums_plain
+from mgldvsr_tpu_torch.ops.kernels import gn_silu_conv as conv_mod
+from mgldvsr_tpu_torch.ops.kernels import groupnorm as gn_mod
+from mgldvsr_tpu_torch.ops.kernels.gn_silu_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
+from mgldvsr_tpu_torch.ops.kernels.groupnorm import (
+    channel_sums,
+    channel_sums_plain,
+    fused_group_norm,
+    fused_group_norm_plain,
+)
 
 
 def _warp_inputs(seed=0, n=3, h=8, w=12, c=4):
@@ -118,6 +126,164 @@ def test_channel_sums_plain_matches_pallas():
     np.testing.assert_allclose(g2.numpy(), np.asarray(s2), rtol=1e-5, atol=1e-3)
 
 
+def _nchw(a):
+    """NHWC numpy -> contiguous NCHW float32 tensor."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32).transpose(0, 3, 1, 2)))
+
+
+def _nhwc(t):
+    return t.detach().float().permute(0, 2, 3, 1).numpy()
+
+
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_group_norm_plain_matches_pallas(dtype, eps):
+    """float32: 1e-5 (sums in another order). bfloat16: both round the
+    folded scale and shift to bf16 and compute x*a+b in bf16; 2 bf16 ulps of
+    max |y| cover a scale or shift that rounds to the neighbouring value."""
+    from mgldvsr_tpu.ops.pallas.groupnorm import fused_group_norm as jax_gn
+
+    rs = np.random.RandomState(5)
+    x = jnp.asarray(rs.randn(2, 6, 5, 64) * 2 + 0.5, dtype)
+    scale, bias = rs.randn(64).astype(np.float32), rs.randn(64).astype(np.float32)
+    want = np.asarray(jax_gn(x, jnp.asarray(scale), jnp.asarray(bias), 32, eps, interpret=True),
+                      np.float32)
+    xt = _nchw(x).to(getattr(torch, dtype))
+    got = fused_group_norm_plain(xt, torch.from_numpy(scale), torch.from_numpy(bias), 32, eps)
+    assert got.dtype == xt.dtype
+    tol = 1e-5 if dtype == "float32" else 2 * 2 ** -8 * np.abs(want).max()
+    np.testing.assert_allclose(_nhwc(got), want, atol=tol, rtol=0)
+
+
+def test_fused_group_norm_plain_5d_matches_lean_group_norm():
+    """The port-only 5-D (temporal) case: the plain version against the lean
+    GroupNorm the layers use, bf16, 2 ulps of max |y| (x^2 is squared in
+    fp32 here and in bf16 there)."""
+    from mgldvsr_tpu_torch.models.layers import group_norm_lean
+
+    gen = torch.Generator().manual_seed(0)
+    x = (torch.randn(1, 64, 5, 6, 7, generator=gen) * 2 + 0.5).to(torch.bfloat16)
+    w, b = torch.randn(64, generator=gen), torch.randn(64, generator=gen)
+    want = group_norm_lean(x, w, b, 32, 1e-6, torch.bfloat16).float()
+    got = fused_group_norm_plain(x, w, b, 32, 1e-6).float()
+    assert got.shape == x.shape
+    torch.testing.assert_close(got, want, atol=2 * 2 ** -8 * float(want.abs().max()), rtol=0)
+
+
+def _conv_inputs(t, h, w, c, co, seed=0):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(t, h, w, c).astype(np.float32),
+            (rs.randn(c) * 0.5 + 1.0).astype(np.float32), (rs.randn(c) * 0.2).astype(np.float32),
+            (rs.randn(3, 3, c, co) * 0.05).astype(np.float32),
+            (rs.randn(co) * 0.1).astype(np.float32))
+
+
+def _port_conv_args(x, gw, gb, k, b, dtype=torch.float32):
+    """JAX layouts (NHWC, HWIO) -> the port's (NCHW, OIHW)."""
+    return (_nchw(x).to(dtype), torch.from_numpy(gw), torch.from_numpy(gb),
+            torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1))).to(dtype),
+            torch.from_numpy(b))
+
+
+@pytest.mark.parametrize("t,h,w,c,co,groups", [
+    (2, 8, 8, 64, 96, 32),     # co not a tile multiple
+    (1, 16, 8, 32, 32, 8),     # rectangular
+    (3, 8, 8, 64, 128, 32),
+])
+def test_gn_silu_conv_plain_matches_pallas(t, h, w, c, co, groups):
+    """float32 against the Pallas kernel in interpret mode, 2e-4 (the JAX
+    package's own limit for this kernel against its composition)."""
+    from mgldvsr_tpu.ops.pallas.gn_silu_conv import gn_silu_conv3x3 as jax_fused
+
+    args = _conv_inputs(t, h, w, c, co)
+    want = jax_fused(*map(jnp.asarray, args), groups=groups, co_tile=64, interpret=True)
+    got = gn_silu_conv3x3_plain(*_port_conv_args(*args), groups=groups, eps=1e-5)
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), atol=2e-4, rtol=0)
+
+
+def test_gn_silu_conv_plain_bf16_matches_pallas():
+    """bf16 in and out, fp32 statistics and accumulation on both sides; 0.1
+    as in the JAX package's bf16 test."""
+    from mgldvsr_tpu.ops.pallas.gn_silu_conv import gn_silu_conv3x3 as jax_fused
+
+    x, gw, gb, k, b = _conv_inputs(2, 8, 8, 64, 64, seed=1)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = jax_fused(xb, jnp.asarray(gw), jnp.asarray(gb), jnp.asarray(k, jnp.bfloat16),
+                     jnp.asarray(b), groups=16, interpret=True)
+    got = gn_silu_conv3x3_plain(
+        *_port_conv_args(np.asarray(xb, np.float32), gw, gb, k, b, torch.bfloat16),
+        groups=16, eps=1e-5)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want, np.float32), atol=0.1, rtol=0)
+
+
+def test_gn_silu_conv_plain_zero_pads_the_normalised_activation():
+    """A constant input normalises to the GroupNorm bias; a corner sees 4
+    taps and the centre 9, which only zero padding of the normalised
+    activation gives. Against the Pallas kernel: 1e-4, plus 1e-5 relative
+    (the outputs reach 90, so float32 rounding alone is 3e-4 there)."""
+    from mgldvsr_tpu.ops.pallas.gn_silu_conv import gn_silu_conv3x3 as jax_fused
+
+    c = co = 32
+    args = (np.ones((1, 8, 8, c), np.float32), np.ones(c, np.float32),
+            np.full(c, 0.5, np.float32), np.ones((3, 3, c, co), np.float32),
+            np.zeros(co, np.float32))
+    want = np.asarray(jax_fused(*map(jnp.asarray, args), groups=8, interpret=True))
+    got = _nhwc(gn_silu_conv3x3_plain(*_port_conv_args(*args), groups=8, eps=1e-5))
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(got[0, 0, 0, 0] / got[0, 4, 4, 0], 4 / 9, rtol=1e-5)
+
+
+def _on_cpu_through_the_function(monkeypatch, which):
+    """The card-only autograd Functions, run on the CPU with their kernel
+    launch replaced by the plain version: their backward is what is tested."""
+    if which == "channel_sums":
+        monkeypatch.setattr(gn_mod, "_launch_channel_sums", channel_sums_plain)
+        return gn_mod._ChannelSums.apply
+    if which == "fused_group_norm":
+        monkeypatch.setattr(gn_mod, "_launch_fused_gn", fused_group_norm_plain)
+        return lambda x, w, b: gn_mod._FusedGroupNorm.apply(x, w, b, 8, 1e-5)
+    monkeypatch.setattr(conv_mod, "_launch", gn_silu_conv3x3_plain)
+    return lambda *a: conv_mod._GNSiLUConv.apply(*a, 8, 1e-5)
+
+
+@pytest.mark.parametrize("which", ["channel_sums", "fused_group_norm", "gn_silu_conv3x3"])
+@pytest.mark.parametrize("through", ["wrapper", "function"])
+def test_new_wrappers_gradients_match_jax(monkeypatch, which, through):
+    """Gradients of sum(out^2) against ``jax.grad`` of the JAX function,
+    float32, 2e-3 (the JAX package's limit for the fused conv's gradient).
+    ``wrapper`` is the public function on a CPU tensor (autograd through the
+    plain version); ``function`` is the autograd Function the card uses."""
+    from mgldvsr_tpu.ops.pallas.gn_silu_conv import gn_silu_conv3x3 as jax_fused
+    from mgldvsr_tpu.ops.pallas.groupnorm import channel_sums as jax_sums
+    from mgldvsr_tpu.ops.pallas.groupnorm import fused_group_norm_vjp
+
+    x, gw, gb, k, b = _conv_inputs(1, 8, 8, 32, 32, seed=2)
+    if which == "channel_sums":
+        jargs, targs = (x,), (_nchw(x),)
+        jfn = lambda a: sum(jnp.sum(s ** 2) for s in jax_sums(a, interpret=True))  # noqa: E731
+        tfn = channel_sums
+    elif which == "fused_group_norm":
+        jargs, targs = (x, gw, gb), _port_conv_args(x, gw, gb, k, b)[:3]
+        jfn = lambda *a: jnp.sum(fused_group_norm_vjp(*a, 8, 1e-5) ** 2)  # noqa: E731
+        tfn = lambda *a: fused_group_norm(*a, 8, 1e-5)  # noqa: E731
+    else:
+        jargs, targs = (x, gw, gb, k, b), _port_conv_args(x, gw, gb, k, b)
+        jfn = lambda *a: jnp.sum(jax_fused(*a, groups=8, interpret=True) ** 2)  # noqa: E731
+        tfn = lambda *a: gn_silu_conv3x3(*a, 8, 1e-5)  # noqa: E731
+    if through == "function":
+        tfn = _on_cpu_through_the_function(monkeypatch, which)
+    want = jax.grad(jfn, argnums=tuple(range(len(jargs))))(*map(jnp.asarray, jargs))
+    leaves = [t.clone().requires_grad_(True) for t in targs]
+    out = tfn(*leaves)
+    sum(o.square().sum() for o in (out if isinstance(out, tuple) else (out,))).backward()
+    for i, (leaf, w) in enumerate(zip(leaves, want)):
+        got = leaf.grad.numpy()
+        if got.ndim == 4:  # NCHW -> NHWC; OIHW -> HWIO
+            got = got.transpose(0, 2, 3, 1) if i == 0 else got.transpose(2, 3, 1, 0)
+        np.testing.assert_allclose(got, np.asarray(w), atol=2e-3, rtol=1e-4)
+
+
 def test_wrappers_take_the_plain_path_on_cpu():
     """A CPU tensor goes to the plain version; no launch is counted."""
     kernels.reset_launch_counts()
@@ -132,5 +298,10 @@ def test_wrappers_take_the_plain_path_on_cpu():
     xb = torch.randn(2, 8, 16, 16).to(torch.bfloat16)
     for a, b in zip(channel_sums(xb), channel_sums_plain(xb)):
         assert torch.equal(a, b)
+    w8, b8 = torch.rand(8) + 0.5, torch.rand(8)
+    assert torch.equal(fused_group_norm(xb, w8, b8, 4), fused_group_norm_plain(xb, w8, b8, 4))
+    wt, bias = torch.randn(6, 8, 3, 3).to(torch.bfloat16), torch.rand(6)
+    assert torch.equal(gn_silu_conv3x3(xb, w8, b8, wt, bias, 4),
+                       gn_silu_conv3x3_plain(xb, w8, b8, wt, bias, 4))
     assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
 

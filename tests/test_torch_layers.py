@@ -1,7 +1,8 @@
 """Port building blocks against the JAX package on the CPU: both GroupNorm
 semantics (flax float32, and the one-pass bf16 form with its channel-sums
-branch at H*W >= 16384), the MGLD_GN_FP32 knob, and the attention gate and
-dispatch.
+branch at H*W >= 16384), the MGLD_GN_FP32 knob, the attention gate and
+dispatch, and the MGLD_FUSED_GN_CONV switch (the res blocks with the switch
+on against the JAX blocks with it on, float32, 1e-4 as the towers' tests).
 
 Tolerances: float32 paths 1e-5. The bf16 GroupNorm rounds its input and
 its folded scale and shift to bf16 on both sides, then computes x*a+b in
@@ -13,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from mgldvsr_tpu_torch.io import from_jax
+from mgldvsr_tpu_torch.models import layers
 from mgldvsr_tpu_torch.models.layers import GroupNorm
 from mgldvsr_tpu_torch.ops import kernels
 
@@ -98,3 +101,88 @@ def test_attend_matches_jax(n, m, heads, d):
     want = jax.jit(jax_attend)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     got = attend(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def _nchw(a):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
+
+
+def _blocks(name):
+    """(JAX module, its call arguments in numpy, port module factory, the
+    from_jax writer for its parameters)."""
+    from mgldvsr_tpu.models.layers import VAEResnetBlock as JaxVAEResnet
+    from mgldvsr_tpu.models.unet import DualResBlock as JaxDual
+    from mgldvsr_tpu.models.vae import SimpleResBlock as JaxSimple
+    from mgldvsr_tpu_torch.models.unet import DualResBlock
+    from mgldvsr_tpu_torch.models.vae import SimpleResBlock
+
+    rs = np.random.RandomState(7)
+    x = rs.randn(2, 8, 6, 32).astype(np.float32)
+    if name == "dual":
+        args = (x, rs.randn(2, 16).astype(np.float32),
+                {"6": rs.randn(2, 8, 6, 16).astype(np.float32)})
+        return (JaxDual(64, 16, 16), args, lambda: DualResBlock(32, 64, 16, 16),
+                lambda g, p: from_jax._resblock(g, p, dual=True))
+    if name == "vae_resnet":
+        return (JaxVAEResnet(64), (x,), lambda: layers.VAEResnetBlock(32, 64),
+                from_jax._vae_resnet)
+    return JaxSimple(64), (x,), lambda: SimpleResBlock(32, 64, torch.float32), \
+        from_jax._simple_resblock
+
+
+def _to_port(a):
+    if isinstance(a, dict):
+        return {k: _nchw(v) for k, v in a.items()}
+    return _nchw(a) if a.ndim == 4 else torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("flag", ["0", "1"])
+@pytest.mark.parametrize("name", ["dual", "vae_resnet", "simple"])
+def test_res_blocks_match_jax_in_both_configurations(monkeypatch, name, flag):
+    """MGLD_FUSED_GN_CONV on both sides: the JAX block reaches the Pallas
+    kernel in interpret mode, the port the fused function's plain version.
+    One JAX parameter tree, converted once, serves both settings."""
+    jmod, args, make, write = _blocks(name)
+    monkeypatch.setenv("MGLD_FUSED_GN_CONV", "0")
+    params = jmod.init(jax.random.PRNGKey(3), *map(jnp.asarray, args)) if name != "dual" else \
+        jmod.init(jax.random.PRNGKey(3), jnp.asarray(args[0]), jnp.asarray(args[1]),
+                  {k: jnp.asarray(v) for k, v in args[2].items()})
+    # zero-initialised convs would hide the second chain: randomise every leaf
+    leaves, tree = jax.tree_util.tree_flatten(params)
+    rs = np.random.RandomState(11)
+    params = jax.tree_util.tree_unflatten(
+        tree, [jnp.asarray(rs.randn(*l.shape).astype(np.float32) * 0.2 + (l.ndim == 1))
+               for l in leaves])
+    sd = {}
+    write(from_jax._SD(sd), jax.tree_util.tree_map(np.asarray, params["params"]))
+    port = make()
+    port.load_state_dict(sd, strict=True)
+
+    monkeypatch.setenv("MGLD_FUSED_GN_CONV", flag)
+    jargs = [({k: jnp.asarray(v) for k, v in a.items()} if isinstance(a, dict)
+              else jnp.asarray(a)) for a in args]
+    want = jmod.apply(params, *jargs)
+    with torch.no_grad():
+        got = port(*map(_to_port, args))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
+    assert set(port.state_dict()) == set(sd)
+
+
+@pytest.mark.parametrize("flag,on_cpu", [("0", False), ("1", True), ("true", True), ("ON", True),
+                                         ("auto", False), ("2", False), (None, False)])
+def test_fused_switch_values(monkeypatch, flag, on_cpu):
+    """The JAX meaning: 1/true/on force it on, ``auto`` follows the device (off
+    for a CPU tensor), anything else and the default are off; read at call
+    time; 5-D inputs never fuse."""
+    if flag is None:
+        monkeypatch.delenv("MGLD_FUSED_GN_CONV", raising=False)
+    else:
+        monkeypatch.setenv("MGLD_FUSED_GN_CONV", flag)
+    assert layers.fused_gn_conv_enabled(torch.zeros(1)) is on_cpu
+    calls = []
+    monkeypatch.setattr(layers, "gn_silu_conv3x3",
+                        lambda x, *a: calls.append(x.ndim) or torch.zeros(1))
+    norm, conv = GroupNorm(32), layers.conv3x3(32, 8)
+    layers.norm_silu_conv(norm, conv, torch.randn(1, 32, 4, 4))
+    assert calls == ([4] if on_cpu else [])

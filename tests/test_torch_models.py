@@ -82,8 +82,13 @@ def tiny():
     return jcfg, jpipe, params, cfg, sds
 
 
-def test_unet_forward_matches_jax(tiny):
+@pytest.mark.parametrize("fused", ["0", "1"])
+def test_unet_forward_matches_jax(tiny, monkeypatch, fused):
+    """Also with MGLD_FUSED_GN_CONV=1 on both sides: every res-block chain
+    and the output conv go through the fused function (Pallas interpret mode
+    in JAX, the plain version in the port), same state dict."""
     jcfg, jpipe, params, cfg, sds = tiny
+    monkeypatch.setenv("MGLD_FUSED_GN_CONV", fused)
     rs = np.random.RandomState(0)
     x = rs.randn(5, 8, 8, 4).astype(np.float32)
     t = np.array([999, 500, 10, 0, 250], np.int32)
@@ -101,8 +106,10 @@ def test_unet_forward_matches_jax(tiny):
     assert np.abs(np.asarray(want)).max() > 1e-2  # random out conv: output is not zero
 
 
-def test_structcond_forward_matches_jax(tiny):
+@pytest.mark.parametrize("fused", ["0", "1"])
+def test_structcond_forward_matches_jax(tiny, monkeypatch, fused):
     jcfg, jpipe, params, cfg, sds = tiny
+    monkeypatch.setenv("MGLD_FUSED_GN_CONV", fused)
     rs = np.random.RandomState(1)
     x = rs.randn(5, 8, 8, 4).astype(np.float32)
     t = np.array([999, 700, 300, 20, 0], np.int32)
@@ -117,8 +124,10 @@ def test_structcond_forward_matches_jax(tiny):
                                    rtol=1e-4, atol=1e-4)
 
 
-def test_vae_encode_decode_match_jax(tiny):
+@pytest.mark.parametrize("fused", ["0", "1"])
+def test_vae_encode_decode_match_jax(tiny, monkeypatch, fused):
     jcfg, jpipe, params, cfg, sds = tiny
+    monkeypatch.setenv("MGLD_FUSED_GN_CONV", fused)
     rs = np.random.RandomState(2)
     x = (rs.rand(5, 32, 32, 3) * 2 - 1).astype(np.float32)
     moments, fea = jax.jit(functools.partial(jpipe.vae.apply, method="encode"))(
@@ -145,7 +154,7 @@ def test_clip_matches_jax(tiny):
     from mgldvsr_tpu_torch.models.cliptext import empty_prompt_tokens
 
     jcfg, jpipe, params, cfg, sds = tiny
-    tokens = empty_prompt_tokens(3)
+    tokens = empty_prompt_tokens(3, device="cpu")
     np.testing.assert_array_equal(tokens.numpy(), np.asarray(jax_tokens(3)))
     want = jax.jit(jpipe.clip.apply)(params["clip"], jax_tokens(3))
     net = OpenCLIPTextEncoder(cfg.clip)

@@ -38,7 +38,8 @@ def test_space_timesteps_equal(counts):
 
 def test_schedule_and_respacing_match():
     jb = js.DiffusionSchedule.create(1000, "linear", 0.00085, 0.0120)
-    tb = ts.DiffusionSchedule.create(1000, "linear", 0.00085, 0.0120)
+    tb = ts.DiffusionSchedule.create(timesteps=1000, beta_schedule="linear", linear_start=0.00085,
+                                     linear_end=0.0120, device="cpu")
     jr, tr = js.respace_schedule(jb, 50), ts.respace_schedule(tb, 50)
     for jsched, tsched in ((jb, tb), (jr, tr)):
         for name in ("betas", "alphas_cumprod", "alphas_cumprod_prev", "sqrt_alphas_cumprod",
@@ -53,7 +54,7 @@ def test_schedule_and_respacing_match():
 
 def test_pointwise_schedule_ops_match():
     jr = js.respace_schedule(js.DiffusionSchedule.create(), 50)
-    tr = ts.respace_schedule(ts.DiffusionSchedule.create(), 50)
+    tr = ts.respace_schedule(ts.DiffusionSchedule.create(device="cpu"), 50)
     rs = np.random.RandomState(0)
     x0, xt, eps = (rs.randn(4, 6, 6, 4).astype(np.float32) for _ in range(3))
     t = np.array([49, 20, 3, 0])

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from mgldvsr_tpu.infer.pipeline import MGLDVSRPipeline as JaxPipeline
 from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline
 from mgldvsr_tpu_torch.io import from_jax
 from tests.test_pipeline import tiny_config
@@ -41,14 +42,21 @@ def pipes():
     params = numpy_tree(params)
     params["raft"]["params"]["update_scan"]["update_block"]["flow_head_conv2"]["kernel"] *= 1e-2
     cfg = port_config(jcfg)
-    pipe = MGLDVSRPipeline(cfg)
+    pipe = MGLDVSRPipeline(cfg, device="cpu")
     for name, sd in from_jax.pipeline_state_dicts(params, cfg).items():
         pipe.towers()[name].load_state_dict(sd, strict=True)
     return jpipe, jax.tree_util.tree_map(jnp.asarray, params), pipe
 
 
-def test_restore_segment_deterministic_matches_jax(pipes):
+@pytest.mark.parametrize("fused", ["0", "1"])
+def test_restore_segment_deterministic_matches_jax(pipes, monkeypatch, fused):
+    """Both configurations: MGLD_FUSED_GN_CONV off, and on on both sides (the
+    JAX package reads it while tracing, so it gets a fresh pipeline; the
+    parameters and the port's loaded state dicts are the same)."""
     jpipe, params, pipe = pipes
+    monkeypatch.setenv("MGLD_FUSED_GN_CONV", fused)
+    if fused == "1":
+        jpipe = JaxPipeline(jpipe.cfg)
     frames = _frames(0)
     want = jax.jit(lambda p, f: jpipe.restore_segment(
         p, f, jax.random.PRNGKey(0), deterministic=True))(params, jnp.asarray(frames))
@@ -95,3 +103,12 @@ def test_restore_segment_sampling_needs_a_generator(pipes):
     out = pipe.restore_segment(frames, torch.Generator().manual_seed(0), stage_seconds=stages)
     assert out.shape == (5, 64, 64, 3) and torch.isfinite(out).all()
     assert list(stages) == ["encode", "clip", "flows", "sampler", "decode"]
+
+
+def test_default_device_is_the_card_and_is_required():
+    """No device argument means the GPU; where there is none the constructor
+    raises instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MGLDVSRPipeline(port_config(tiny_config(num_frames=5, ddpm_steps=2)))

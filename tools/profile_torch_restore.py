@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Profile one full-width restore of the PyTorch port on the GPU.
 
-    python3 tools/profile_torch_restore.py [--steps 50] [--top 25]
+    python3 tools/profile_torch_restore.py [--steps 50] [--top 25] [--fused]
 
 Builds the chip smoke's full-width pipeline (seeded random weights, bf16
 towers, float32 RAFT) and runs one warm-up restore. Then it times a warm
 restore without the profiler (per-stage wall seconds), and profiles a third
 with ``torch.profiler``: the summed kernel time against that run's wall
-time, and the top kernels by device time.
+time, and the top kernels by device time. ``--fused`` sets
+``MGLD_FUSED_GN_CONV=1``, so every GroupNorm -> SiLU -> conv3x3 chain runs
+as the one fused kernel.
 """
 from __future__ import annotations
 
@@ -24,7 +26,10 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fused", action="store_true",
+                    help="profile the fused GroupNorm+SiLU+conv configuration")
     args = ap.parse_args()
+    os.environ["MGLD_FUSED_GN_CONV"] = "1" if args.fused else "0"
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -37,7 +42,7 @@ def main() -> int:
     from mgldvsr_tpu_torch.io.init_weights import init_pipeline_weights
 
     card = chip_smoke.card_line()
-    pipe = MGLDVSRPipeline(chip_smoke.full_config(args.steps), "cuda")
+    pipe = MGLDVSRPipeline(chip_smoke.full_config(args.steps))
     init_pipeline_weights(pipe, args.seed)
     chip_smoke.calm_raft(pipe)
     pipe.cast_to_compute_dtypes()
@@ -50,6 +55,7 @@ def main() -> int:
     pipe.restore_segment(frames, gen, stage_seconds=stages)
     wall = time.perf_counter() - t0
     print(card)
+    print(f"fused conv {'on' if args.fused else 'off'}")
     print("warm run, no profiler (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
           + f"; wall {wall:.3f}; sampler {1000 * stages['sampler'] / args.steps:.2f} ms/step")
 
