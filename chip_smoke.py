@@ -9,6 +9,9 @@ Phase 2  hold each of the seven kernels against its plain PyTorch version on
          the card at the main path's shapes; time both with CUDA events,
          time the one PyTorch library call that computes the same function
          where there is one, and compute the card's lower bound for the work.
+         Attention also: ragged N, large logits, the [B,N,H,D] strided entry
+         bit for bit against the folded call, and which of its two kernels
+         (tensor-core or FMA) each type and head dim takes.
 Phase 3  tiny config at 256x256, float32, 2 steps, deterministic: the same
          weights on the card (kernels) and on the CPU (plain versions) must
          give the same frames, once in the default configuration and once
@@ -17,7 +20,9 @@ Phase 4  the default configuration at full width: 5 frames x4 to 512x512, 50
          guided steps, bf16 UNet / struct-cond / VAE / CLIP and float32 RAFT
          with seeded random weights, through
          ``MGLDVSRPipeline.restore_segment``; every kernel but the fused
-         GroupNorm+SiLU+conv must have been launched by that run.
+         GroupNorm+SiLU+conv must have been launched by that run, and every
+         gated attention call (14 per step) must have taken the tensor-core
+         kernel.
 Phase 5  the fused configuration (MGLD_FUSED_GN_CONV=1) at the same width,
          clip, seed and weights: the fused kernel must have been launched.
 
@@ -146,12 +151,77 @@ def calm_raft(pipe) -> None:
         pipe.raft.update_block.flow_head.conv2.weight.mul_(1e-2)
 
 
+def attention_checks(dev, gen) -> None:
+    """The attention kernels off the timed shapes: ragged N, large logits,
+    the strided entry, and the dispatch between the two kernels."""
+    import torch
+
+    from mgldvsr_tpu_torch.ops import kernels
+    from mgldvsr_tpu_torch.ops.kernels import attention as attn_mod
+
+    bf16 = torch.bfloat16
+
+    def check(what, got, want, tol, routes):
+        err = max_err(got, want)
+        log(f"[phase2] attention {what}: max_abs_err {err:.3e} (limit {tol:.1e}), {routes}")
+        if not err <= tol or not torch.isfinite(got).all():
+            raise AssertionError(f"attention {what}: {err:.3e} > {tol:.1e}")
+
+    def qkv(bh, n, d, dtype):
+        return [torch.randn(bh, n, d, device=dev, generator=gen).to(dtype) for _ in range(3)]
+
+    # N off the 128-row tiles: masked keys, unwritten query rows
+    for rows in (128, 64):
+        q, k, v = qkv(8, 1100, 64, bf16)
+        kernels.reset_launch_counts()
+        check(f"ragged [8,1100,64] bf16, {rows}-row blocks",
+              attn_mod.attention(q, k, v, block_rows=rows), attn_mod.attention_plain(q, k, v),
+              2e-2, kernels.attention_route_counts())
+    # logits of tens (q scaled by 8): the running max moves and the accumulator
+    # is rescaled from tile to tile. The plain version in bf16 rounds its
+    # logits to bf16 (a relative 2^-9 of ~60 is several percent of a
+    # probability), so the reference here is the plain version in float32 on
+    # the same bf16 values; the kernel's own rounding of P to bf16 stays
+    # within the same 2e-2.
+    q, k, v = qkv(8, 1100, 64, bf16)
+    q = q * 8
+    kernels.reset_launch_counts()
+    check("large logits [8,1100,64] bf16 vs the plain version in f32",
+          attn_mod.attention(q, k, v), attn_mod.attention_plain(q.float(), k.float(), v.float()),
+          2e-2, kernels.attention_route_counts())
+    # the same heads through [B,N,H,D] strides, as the UNet's CrossAttention
+    # hands them over: bit for bit the folded call, no copy made
+    for b, n, h in ((5, 4096, 5), (5, 1024, 10)):
+        q, k, v = (z.reshape(b, n, h, 64) for z in qkv(b, n, h * 64, bf16))
+        folded = attn_mod.attention(*(z.permute(0, 2, 1, 3).reshape(b * h, n, 64).contiguous()
+                                      for z in (q, k, v)))
+        kernels.reset_launch_counts()
+        got = attn_mod.attention_bnhd(q, k, v)
+        routes = kernels.attention_route_counts()
+        same = torch.equal(got, folded.reshape(b, h, n, 64).permute(0, 2, 1, 3))
+        log(f"[phase2] attention strided [{b},{n},{h},64] bf16: bit-equal to the folded call "
+            f"{same}, output contiguous {got.is_contiguous()}, {routes}")
+        if not same or not got.is_contiguous() or routes != {"wgmma": 1, "fma": 0, "strided": 1}:
+            raise AssertionError("attention: the strided entry differs from the folded call")
+    # float32 (the parity mode) and bf16 at head dim 16 take the FMA kernel
+    for d, dtype, tol in ((64, torch.float32, 1e-4), (16, bf16, 2e-2)):
+        q, k, v = qkv(8, 1024, d, dtype)
+        kernels.reset_launch_counts()
+        got = attn_mod.attention(q, k, v)
+        routes = kernels.attention_route_counts()
+        check(f"[8,1024,{d}] {'bf16' if dtype == bf16 else 'f32'}", got,
+              attn_mod.attention_plain(q, k, v), tol, routes)
+        if routes != {"wgmma": 0, "fma": 1, "strided": 0}:
+            raise AssertionError(f"attention: {dtype} at head dim {d} did not take the FMA kernel")
+
+
 def phase2(card: str):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
     import torch.nn.functional as F
 
     from mgldvsr_tpu_torch.flow.raft import build_corr_pyramid
+    from mgldvsr_tpu_torch.ops import kernels
     from mgldvsr_tpu_torch.ops.kernels import _build
     from mgldvsr_tpu_torch.ops.kernels import attention as attn_mod
     from mgldvsr_tpu_torch.ops.kernels import corr_lookup as corr_mod
@@ -196,19 +266,40 @@ def phase2(card: str):
            *warp_bound)
 
     # attention: UNet self-attention at 64^2 (5 frames x 5 heads) and 32^2
-    # (5 x 10), head dim 64, bf16; the plain version rounds its
-    # probabilities to bf16, hence the limit. 4 N^2 D flops per head.
+    # (5 x 10), struct-cond at 64^2 (5 x 4), head dim 64, bf16: the
+    # tensor-core kernel. The plain version rounds its probabilities to
+    # bf16, hence the limit. 4 N^2 D flops per head.
     for bh, n in ((25, 4096), (50, 1024), (20, 4096)):
         q, k, v = (torch.randn(bh, n, 64, device=dev, generator=gen).to(torch.bfloat16)
                    for _ in range(3))
+        kernels.reset_launch_counts()
         out = attn_mod.attention(q, k, v)
+        if kernels.attention_route_counts()["wgmma"] != 1:
+            raise AssertionError("attention: bf16 at head dim 64 did not take the wgmma kernel")
         record("attention", max_err(out, attn_mod.attention_plain(q, k, v)), 2e-2,
                cuda_ms(lambda: attn_mod.attention(q, k, v), iters=10),
                cuda_ms(lambda: attn_mod.attention_plain(q, k, v), iters=10),
                f"[{bh},{n},64] bf16", *bound(nbytes(q, k, v, out), 4.0 * bh * n * n * 64, "bf16"),
                cuda_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]),
                        iters=10))
+        rows_ms = {rows: cuda_ms(lambda: attn_mod.attention(q, k, v, block_rows=rows), iters=10)
+                   for rows in (128, 64)}
+        log(f"[phase2]   wgmma kernel by block height: 128 rows {rows_ms[128]:.4f} ms, 64 rows "
+            f"{rows_ms[64]:.4f} ms; the wrapper takes {attn_mod.BLOCK_ROWS}")
         del q, k, v, out
+    # one block to an SM against two (33 blocks of 128 rows a head at N = 4224):
+    # what a partial last wave costs
+    wave_ms = {}
+    for bh in (4, 8):
+        q, k, v = (torch.randn(bh, 4224, 64, device=dev, generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        wave_ms[bh] = cuda_ms(lambda: attn_mod.attention(q, k, v), iters=10)
+    log(f"[phase2]   wgmma kernel [4,4224,64] (132 blocks, one to an SM) {wave_ms[4]:.4f} ms, "
+        f"[8,4224,64] (264 blocks, two to an SM) {wave_ms[8]:.4f} ms = "
+        f"{4e-9 * 8 * 4224 * 4224 * 64 / wave_ms[8]:.0f} TFLOP/s  [{card}]")
+    results["attention"]["variant"] = ("wgmma (attention_wgmma_kernel) for bf16 at head dim 64; "
+                                       "fma (attention_kernel) for f32 and other head dims")
+    attention_checks(dev, gen)
 
     # RAFT lookup: 8 frame pairs, 64x64 queries at 1/8 of 512px, 4 levels, r=4.
     # Data-dependent reads: a query touches at most (2r+2)^2 cells of a level.
@@ -429,13 +520,14 @@ def full_restore(pipe, frames, seed: int, steps: int, card: str, fused: bool):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
+        routes = kernels.attention_route_counts()
     peak = torch.cuda.max_memory_allocated()
 
     stage_txt = ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
     log(f"[{phase}] fused conv {'on' if fused else 'off'}, 512x512, 5 frames, {steps} steps: "
         f"{stage_txt}; total {wall:.3f} s, {5 / wall:.4f} frames/s, sampler "
         f"{1000 * stages['sampler'] / steps:.2f} ms/step, peak {peak / 2**30:.2f} GiB  [{card}]")
-    log(f"[{phase}] launches {counts}  [{card}]")
+    log(f"[{phase}] launches {counts}; attention by kernel {routes}  [{card}]")
     if out.shape != (5, 512, 512, 3):
         raise AssertionError(f"{phase} output shape {tuple(out.shape)}")
     if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
@@ -443,6 +535,11 @@ def full_restore(pipe, frames, seed: int, steps: int, card: str, fused: bool):
     for name, n in counts.items():
         if (n == 0) != (name == FUSED_ONLY and not fused):
             raise AssertionError(f"{phase}: kernel {name} was launched {n} times")
+    # 14 gated attention calls per step, all bf16 at head dim 64
+    if not routes["wgmma"] == counts["attention"] == 14 * steps:
+        raise AssertionError(f"{phase}: {counts['attention']} attention launches, "
+                             f"{routes['wgmma']} on the tensor-core kernel, expected {14 * steps}")
+    counts["attention_wgmma"], counts["attention_strided"] = routes["wgmma"], routes["strided"]
     return out, counts
 
 
@@ -508,6 +605,10 @@ def main() -> int:
                 "launches_default": counts4[name], "launches_fused": counts5[name],
                 **results[name]}
                for name, (route, src, rep) in KERNELS.items()]
+    for entry in kernels:
+        if entry["name"] == "attention":
+            entry["wgmma_launches"] = counts4["attention_wgmma"]
+            entry["strided_launches"] = counts4["attention_strided"]
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,15 +3,25 @@
 Counterpart of ``mgldvsr_tpu/ops/attention.py``. Self-attention with
 N == M >= 1024 whose shape passes the JAX gate (``pick_block_q`` nonzero:
 the UNet and struct-cond spatial attention at 64^2 and 32^2 latents) goes
-to :func:`mgldvsr_tpu_torch.ops.kernels.attention.attention`. Every other
-call (cross-attention, temporal attention, the VAE's d=512 mid attention)
-uses the plain fp32-softmax matmul math.
+to :func:`mgldvsr_tpu_torch.ops.kernels.attention.attention_bnhd`. Every
+other call (cross-attention, temporal attention, the VAE's d=512 mid
+attention) uses the plain fp32-softmax matmul math.
+
+The gated calls are bound by operations on the H100, and they are most of
+a sampler step's device time. At full width (bfloat16, head dim 64) they
+run on the tensor cores, and the kernel reads q, k and v through their
+[B, N, H, D] strides: the UNet's ``CrossAttention`` hands over views of its
+[B, N, H*D] projections, which are read in place, and the result comes back
+[B, N, H, D] contiguous, so merging the heads is a view too. The
+struct-cond encoder's ``QKVAttentionBlock`` views have stride N in D; those
+are copied once each. float32 and other head dims take the FMA kernel over
+folded copies.
 """
 from __future__ import annotations
 
 import torch
 
-from mgldvsr_tpu_torch.ops.kernels.attention import attention, pick_block_q
+from mgldvsr_tpu_torch.ops.kernels.attention import attention_bnhd, pick_block_q
 
 
 def attention_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,9 +41,5 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     b, n, h, d = q.shape
     m = k.shape[1]
     if n == m and n >= 1024 and pick_block_q(n, d, q.element_size()):
-        def fold(z):
-            return z.permute(0, 2, 1, 3).reshape(b * h, n, d).contiguous()
-
-        out = attention(fold(q), fold(k), fold(v))
-        return out.reshape(b, h, n, d).permute(0, 2, 1, 3)
+        return attention_bnhd(q, k, v)
     return attention_math(q, k, v)

@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels of the restore path, each beside its plain
 PyTorch version. Each wrapper counts the launches it makes in an integer
 attribute ``launches``; :func:`launch_counts` and
-:func:`reset_launch_counts` read and clear them all."""
+:func:`reset_launch_counts` read and clear them all. The attention wrapper
+also counts which of its two kernels ran and how many calls read their
+operands in place (:func:`attention_route_counts`)."""
 from __future__ import annotations
 
 from mgldvsr_tpu_torch.ops.kernels import (
@@ -27,6 +29,16 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def attention_route_counts() -> dict[str, int]:
+    """Of the attention launches: on the tensor-core kernel, on the FMA
+    kernel, and (tensor-core only) reading q, k and v through their strides."""
+    fn = attention.attention
+    return {"wgmma": fn.wgmma_launches, "fma": fn.launches - fn.wgmma_launches,
+            "strided": fn.strided_launches}
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    attention.attention.wgmma_launches = 0
+    attention.attention.strided_launches = 0

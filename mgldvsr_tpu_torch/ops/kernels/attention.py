@@ -1,19 +1,34 @@
-"""Self-attention: CUDA kernel with an fp32 online softmax, and its plain
-version.
+"""Self-attention: two CUDA kernels with an fp32 online softmax, and their
+plain version.
 
 Replaces ``mgldvsr_tpu/ops/pallas/attention.py`` (``resident_attention``,
-whose kernel is ``_attn_kernel``). It is arithmetic-bound on the H100 at
-the UNet's 64^2 latents: the TPU kernel held a head's K/V resident in fast
-memory, which a 227 KB shared-memory block cannot, so the kernel streams
-K/V tiles through shared memory with a running max and sum per query
-(``csrc/attention.cu``), and never writes the [N, N] logits out. This first
-version uses the fp32 FMA units; tensor cores come later.
+whose kernel is ``_attn_kernel``). The work is bound by operations on the
+H100 (4 N^2 D flops per head against 4 N D elements moved; at D = 64 the
+softmax's exponentials cost about as many clocks as the two products do on
+the tensor cores). The TPU kernel held a head's K/V resident in fast memory,
+which a 227 KB shared-memory block cannot, so both kernels stream K/V tiles
+through shared memory with a running max and sum per query row and never
+write the [N, N] logits out (``csrc/attention.cu``).
+
+The wrapper chooses between two hand-written kernels by type and head dim
+(:func:`kernel_variant`); this is a dispatch, not a fallback, and a CUDA
+tensor launches one of them or raises:
+
+* ``"wgmma"``: bfloat16 at head dim 64, every gated call of the full-width
+  restore. Both products run on the tensor cores (``wgmma.mma_async``), the
+  probabilities stay in registers, the next K/V tile is fetched by
+  ``cp.async`` while the current one is multiplied, and q, k, v are read
+  through their [B, N, H, D] strides, so head-interleaved projections need
+  no copy and the output is written [B, N, H, D] contiguous.
+* ``"fma"``: float32 (the parity mode, no TF32) and bfloat16 at head dims
+  8, 16, 32 and 128, on the fp32 FMA units over contiguous [BH, N, D].
 
 Forward only: the restore path runs the towers without gradients. A CPU
-tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+tensor takes the plain version.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -26,13 +41,40 @@ def pick_block_q(n: int, d: int, itemsize: int, budget: int = 10 * 1024 * 1024) 
     """The JAX package's dispatch gate (``ops/pallas/attention.pick_block_q``)
     kept verbatim, so the kernel serves exactly the calls the TPU kernel
     served: nonzero when a [bq, N] fp32 panel pair plus K/V fit the budget.
-    The CUDA kernel has no such limit; only the gate is kept."""
+    The CUDA kernels have no such limit; only the gate is kept."""
     np_ = (n + 127) // 128 * 128
     kv = 2 * np_ * d * itemsize
     for bq in (512, 256, 128):
         if np_ % bq == 0 and 2 * bq * np_ * 4 + kv <= budget:
             return bq
     return 0
+
+
+def kernel_variant(dtype: torch.dtype, d: int) -> str:
+    """Which of the two kernels serves a call: ``"wgmma"`` or ``"fma"``."""
+    return "wgmma" if dtype == torch.bfloat16 and d == 64 else "fma"
+
+
+def route(dtype: torch.dtype, shape: tuple[int, ...], strides: tuple[int, ...],
+          byte_offset: int = 0) -> tuple[str, bool]:
+    """(kernel variant, read in place) for one [B, N, H, D] operand of a
+    gated call. The tensor-core kernel reads a view through its strides when
+    D has unit stride and the base (``byte_offset`` from a 16-byte boundary)
+    and the batch, row and head strides are multiples of 16 bytes, the size
+    of its loads; otherwise the caller copies the view. The FMA kernel takes
+    folded contiguous copies only."""
+    variant = kernel_variant(dtype, shape[-1])
+    itemsize = torch.finfo(dtype).bits // 8
+    *outer, last = strides
+    in_place = (variant == "wgmma" and last == 1 and byte_offset % 16 == 0
+                and all(s * itemsize % 16 == 0 for s in outer))
+    return variant, in_place
+
+
+# Query rows per block of the tensor-core kernel. 64 (one warpgroup, three
+# blocks to an SM) is built too and can be asked for; on the H100 it ties
+# with 128 at [25,4096,64] and loses 8% at [20,4096,64] (PERF.md).
+BLOCK_ROWS = 128
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -44,24 +86,59 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return torch.einsum("bnm,bmd->bnd", probs, v)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d)) v for contiguous [BH, N, D] float32 or
-    bfloat16 tensors; output in the input dtype."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v)
-    if not (q.shape == k.shape == v.shape) or q.ndim != 3:
-        raise ValueError(f"attention: q, k, v must share one [BH,N,D] shape, got "
+def _fold(z: torch.Tensor) -> torch.Tensor:
+    """[B,N,H,D] -> [B*H,N,D] (a copy unless H is 1)."""
+    b, n, h, d = z.shape
+    return z.permute(0, 2, 1, 3).reshape(b * h, n, d)
+
+
+def attention_bnhd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """:func:`attention_plain` per head on [B,N,H,D] -> [B,N,H,D]."""
+    b, n, h, d = q.shape
+    out = attention_plain(_fold(q), _fold(k), _fold(v))
+    return out.reshape(b, h, n, d).permute(0, 2, 1, 3)
+
+
+def _check(q, k, v, ndim: int, layout: str) -> None:
+    if not (q.shape == k.shape == v.shape) or q.ndim != ndim:
+        raise ValueError(f"attention: q, k, v must share one {layout} shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attention: float32 or bfloat16 only, got {q.dtype}")
     if not (q.device == k.device == v.device) or q.device.type != "cuda":
         raise ValueError("attention: q, k, v must be on one CUDA device")
+    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"attention: head dim {q.shape[-1]} not in {SUPPORTED_HEAD_DIMS}")
+
+
+def _launch_wgmma(q, k, v, out, b: int, h: int, n: int, strides, block_rows: int) -> None:
+    """The tensor-core kernel on [B,N,H,64] operands with unit stride in D;
+    ``strides``: batch, row and head strides of q, k, v and out, in elements."""
+    err = _build.library().mgld_attention_wgmma_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n,
+        (ctypes.c_longlong * 12)(*strides), 64 ** -0.5, block_rows, _build.stream_ptr(q.device))
+    _build.check(err, "mgld_attention_wgmma_bf16")
+    attention.launches += 1
+    attention.wgmma_launches += 1
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              block_rows: int = BLOCK_ROWS) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v for contiguous [BH, N, D] float32 or
+    bfloat16 tensors; output in the input dtype. bfloat16 at head dim 64
+    takes the tensor-core kernel (as the case B = 1 of its [B, N, H, D]
+    entry; ``block_rows`` 128 or 64 overrides its block height), everything
+    else the FMA kernel."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v)
+    _check(q, k, v, 3, "[BH,N,D]")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention: tensors must be contiguous")
     bh, n, d = q.shape
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"attention: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
     out = torch.empty_like(q)
+    if kernel_variant(q.dtype, d) == "wgmma":
+        _launch_wgmma(q, k, v, out, 1, bh, n, (0, d, n * d) * 4, block_rows)
+        return out
     lib = _build.library()
     fn = lib.mgld_attention_f32 if q.dtype == torch.float32 else lib.mgld_attention_bf16
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, n, d,
@@ -71,4 +148,32 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     return out
 
 
+def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The same per head for [B, N, H, D] views -> [B, N, H, D].
+
+    The tensor-core variant reads each operand through its strides where
+    :func:`route` allows, copies it otherwise, and writes a
+    contiguous [B, N, H, D]; the FMA variant folds all three into contiguous
+    [BH, N, D] copies and returns a permuted view."""
+    if q.device.type == "cpu":
+        return attention_bnhd_plain(q, k, v)
+    _check(q, k, v, 4, "[B,N,H,D]")
+    b, n, h, d = q.shape
+    routes = [route(z.dtype, z.shape, z.stride(), z.data_ptr()) for z in (q, k, v)]
+    if routes[0][0] == "fma":
+        out = attention(*(_fold(z).contiguous() for z in (q, k, v)))
+        return out.reshape(b, h, n, d).permute(0, 2, 1, 3)
+    in_place = [ok for _, ok in routes]
+    q, k, v = (z if ok else z.contiguous() for z, ok in zip((q, k, v), in_place))
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    _launch_wgmma(q, k, v, out, b, h, n,
+                  [s for z in (q, k, v, out) for s in z.stride()[:3]], BLOCK_ROWS)
+    attention.strided_launches += all(in_place)
+    return out
+
+
+# launches: every launch of either kernel; wgmma_launches: those of the
+# tensor-core kernel; strided_launches: those that read q, k and v in place
 attention.launches = 0
+attention.wgmma_launches = 0
+attention.strided_launches = 0

@@ -11,7 +11,11 @@ import pytest
 import torch
 
 from mgldvsr_tpu_torch.ops import kernels
-from mgldvsr_tpu_torch.ops.kernels.attention import attention, attention_plain
+from mgldvsr_tpu_torch.ops.kernels.attention import (
+    attention,
+    attention_bnhd,
+    attention_plain,
+)
 from mgldvsr_tpu_torch.ops.kernels.corr_lookup import lookup_corr, lookup_corr_plain
 from mgldvsr_tpu_torch.ops.kernels.flow_warp import (
     flow_warp_guided,
@@ -58,13 +62,69 @@ def test_warp_kernels_match_plain(dev):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("n,d", [(1100, 64), (1024, 16), (1030, 8), (300, 128)])
+@pytest.mark.parametrize("n,d", [(1100, 64), (1024, 16), (1030, 8), (300, 128),
+                                 (1024, 64), (4096, 64)])
 def test_attention_kernel_matches_plain(dev, dtype, tol, n, d):
-    """bf16: the plain version rounds its probabilities to bf16 (2e-2)."""
+    """bf16: the plain version rounds its probabilities to bf16 (2e-2).
+    bf16 at head dim 64 must run the tensor-core kernel, at both block
+    heights, and everything else the FMA kernel."""
     gen = _gen(dev, n + d)
     q, k, v = (torch.randn(4, n, d, device=dev, generator=gen).to(dtype) for _ in range(3))
-    torch.testing.assert_close(attention(q, k, v).float(), attention_plain(q, k, v).float(),
-                               atol=tol, rtol=0)
+    want = attention_plain(q, k, v).float()
+    kernels.reset_launch_counts()
+    torch.testing.assert_close(attention(q, k, v).float(), want, atol=tol, rtol=0)
+    tensor_cores = dtype == torch.bfloat16 and d == 64
+    assert kernels.attention_route_counts() == {"wgmma": int(tensor_cores),
+                                                "fma": int(not tensor_cores), "strided": 0}
+    if tensor_cores:
+        for rows in (64, 128):
+            torch.testing.assert_close(attention(q, k, v, block_rows=rows).float(), want,
+                                       atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("n", [1024, 1100])
+def test_attention_large_logits_on_card(dev, n):
+    """q scaled by 8: logits of tens, so the running max moves and the
+    accumulator is rescaled from tile to tile. The plain version in bf16
+    rounds its logits to bf16, several percent of a probability at this
+    size, so the reference is the plain version in float32 on the same bf16
+    values; 2e-2 covers the kernel's rounding of P to bf16."""
+    gen = _gen(dev, n)
+    q, k, v = (torch.randn(3, n, 64, device=dev, generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    q = q * 8
+    got = attention(q, k, v)
+    assert torch.isfinite(got).all()
+    want = attention_plain(q.float(), k.float(), v.float())
+    torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("n", [1024, 1100])
+def test_attention_strided_entry_on_card(dev, n):
+    """[B,N,H,D] operands read in place (slices of one [B,N,3,H,D] tensor,
+    as a fused projection would give) equal the folded call bit for bit; a
+    view with stride N in D (the qkv block's layout) is copied and agrees
+    too. The output is contiguous [B,N,H,D]."""
+    gen = _gen(dev, n + 1)
+    qkv = torch.randn(2, n, 3, 5, 64, device=dev, generator=gen).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+
+    def fold(z):
+        return z.permute(0, 2, 1, 3).reshape(10, n, 64).contiguous()
+
+    want = attention(fold(q), fold(k), fold(v)).reshape(2, 5, n, 64).permute(0, 2, 1, 3)
+    kernels.reset_launch_counts()
+    got = attention_bnhd(q, k, v)
+    assert got.is_contiguous() and got.shape == (2, n, 5, 64)
+    assert torch.equal(got, want)
+    assert kernels.attention_route_counts() == {"wgmma": 1, "fma": 0, "strided": 1}
+    chan = torch.randn(2, 5, 3, 64, n, device=dev, generator=gen).to(torch.bfloat16)
+    q, k, v = chan.permute(2, 0, 4, 1, 3).unbind(0)  # [B,N,H,D] with stride N in D
+    got = attention_bnhd(q, k, v)
+    assert kernels.attention_route_counts() == {"wgmma": 2, "fma": 0, "strided": 1}
+    want = attention(fold(q), fold(k), fold(v)).reshape(2, 5, n, 64).permute(0, 2, 1, 3)
+    assert torch.equal(got, want)
 
 
 def test_corr_lookup_kernel_matches_plain(dev):

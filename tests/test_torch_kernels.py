@@ -11,7 +11,12 @@ import pytest
 import torch
 
 from mgldvsr_tpu_torch.ops import kernels
-from mgldvsr_tpu_torch.ops.kernels.attention import attention, attention_plain
+from mgldvsr_tpu_torch.ops.kernels.attention import (
+    attention,
+    attention_bnhd,
+    attention_bnhd_plain,
+    attention_plain,
+)
 from mgldvsr_tpu_torch.ops.kernels.corr_lookup import lookup_corr, lookup_corr_plain
 from mgldvsr_tpu_torch.ops.kernels.flow_warp import (
     flow_warp_guided,
@@ -88,6 +93,76 @@ def test_attention_plain_matches_resident_attention(n, d):
     q, k, v = (rs.randn(3, n, d).astype(np.float32) for _ in range(3))
     want = resident_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 128, True)
     got = attention_plain(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def _tiled_attention(q, k, v, q_rows=128, key_tile=128):
+    """The tensor-core kernel's arithmetic, tile by tile, in plain tensor
+    code: blocks of ``q_rows`` query rows walk ``key_tile``-key tiles (rows
+    past N zero-filled) with a running max and sum in float32; keys >= N are
+    masked to -inf before the max; P = exp2(S scale log2e - max) is rounded
+    to the input type before P V, while the sum keeps the float32 values;
+    the accumulator is rescaled by exp2(old max - new max); query rows >= N
+    are never written."""
+    bh, n, d = q.shape
+    scale_log2 = d ** -0.5 * 1.4426950408889634
+    tiles = -(-n // key_tile)
+    pad = tiles * key_tile - n
+    kp = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    out = torch.full_like(q, float("nan"))
+    for q0 in range(0, n, q_rows):
+        qt = q[:, q0:q0 + q_rows].float()
+        m = torch.full(qt.shape[:2], float("-inf"))
+        l = torch.zeros(qt.shape[:2])
+        acc = torch.zeros(qt.shape)
+        for j in range(tiles):
+            kt = kp[:, j * key_tile:(j + 1) * key_tile].float()
+            vt = vp[:, j * key_tile:(j + 1) * key_tile]
+            s = qt @ kt.transpose(1, 2)
+            keys = j * key_tile + torch.arange(key_tile)
+            s = s.masked_fill(keys >= n, float("-inf"))
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp2((m - m_new) * scale_log2)
+            p = torch.exp2((s - m_new[..., None]) * scale_log2)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p.to(q.dtype).float() @ vt.float()
+            m = m_new
+        out[:, q0:q0 + q_rows] = (acc / l[..., None]).to(q.dtype)
+    assert torch.isfinite(out.float()).all()
+    return out
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n", [1024, 1100, 300])
+def test_tiled_attention_arithmetic_matches_plain(n, dtype, tol):
+    """The kernel's tile-by-tile arithmetic against the plain version.
+    float32 1e-5: sums in another order. bfloat16 2e-2: the plain version
+    rounds its logits and normalised probabilities to bf16, the tiled form
+    the unnormalised ones."""
+    rs = np.random.RandomState(n)
+    q, k, v = (torch.from_numpy(rs.randn(2, n, 64).astype(np.float32)).to(dtype)
+               for _ in range(3))
+    got = _tiled_attention(q, k, v)
+    np.testing.assert_allclose(got.float().numpy(), attention_plain(q, k, v).float().numpy(),
+                               atol=tol, rtol=0)
+    if dtype == torch.bfloat16:  # logits of tens: the running max moves, rescales are large
+        q8 = q * 8
+        want = attention_plain(q8.float(), k.float(), v.float())
+        np.testing.assert_allclose(_tiled_attention(q8, k, v).float().numpy(), want.numpy(),
+                                   atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("n,q_rows", [(300, 128), (1100, 64)])
+def test_tiled_attention_arithmetic_matches_resident_attention(n, q_rows):
+    """The same against the Pallas kernel in interpret mode, float32, 2e-5
+    (fp32 softmax on both sides, sums in another order)."""
+    from mgldvsr_tpu.ops.pallas.attention import resident_attention
+
+    rs = np.random.RandomState(n + 1)
+    q, k, v = (rs.randn(2, n, 64).astype(np.float32) for _ in range(3))
+    want = resident_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 128, True)
+    got = _tiled_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), q_rows)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
@@ -292,6 +367,9 @@ def test_wrappers_take_the_plain_path_on_cpu():
     assert torch.equal(warp_dx(g, flow), warp_dx_plain(g, flow))
     q = torch.randn(2, 64, 16, generator=torch.Generator().manual_seed(0))
     assert torch.equal(attention(q, q, q), attention_plain(q, q, q))
+    q4 = q.reshape(1, 64, 2, 16).to(torch.bfloat16)
+    assert torch.equal(attention_bnhd(q4, q4, q4), attention_bnhd_plain(q4, q4, q4))
+    assert kernels.attention_route_counts() == {"wgmma": 0, "fma": 0, "strided": 0}
     pyr = [torch.randn(1, 16, 4, 4), torch.randn(1, 16, 2, 2)]
     coords = torch.rand(1, 4, 4, 2) * 4
     assert torch.equal(lookup_corr(pyr, coords, 2), lookup_corr_plain(pyr, coords, 2))

@@ -103,6 +103,86 @@ def test_attend_matches_jax(n, m, heads, d):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
+def _cross_attention_views(rs, b, n, heads, d, dtype):
+    """q, k, v as the UNet's ``CrossAttention`` could hand them over: head
+    views of [B, N, H*D] rows, here rows of one wider [B, N, 3*H*D] tensor,
+    so no view is contiguous but each has unit stride in D."""
+    fused = torch.from_numpy(rs.randn(b, n, 3 * heads * d).astype(np.float32)).to(dtype)
+    return [z.reshape(b, n, heads, d) for z in fused.chunk(3, dim=-1)]
+
+
+def _qkv_block_views(rs, b, n, heads, d, dtype):
+    """q, k, v as ``QKVAttentionBlock`` hands them over: [B, 3C, T] conv
+    output, head-interleaved, permuted to [B, T, H, d] with stride T in d."""
+    qkv = torch.from_numpy(rs.randn(b, 3 * heads * d, n).astype(np.float32)).to(dtype)
+    return list(qkv.reshape(b, heads, 3, d, n).permute(2, 0, 4, 1, 3).unbind(0))
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 16), (torch.bfloat16, 64)])
+@pytest.mark.parametrize("layout", [_cross_attention_views, _qkv_block_views])
+def test_attend_on_strided_views(layout, dtype, d):
+    """``attend`` on non-contiguous [B,N,H,D] views equals ``attend`` on
+    contiguous copies exactly (the same plain arithmetic on the CPU, in both
+    kernel variants' routes); float32 also equals the JAX ``attend``, 1e-5."""
+    from mgldvsr_tpu.ops.attention import attend as jax_attend
+    from mgldvsr_tpu_torch.ops.attention import attend
+
+    q, k, v = layout(np.random.RandomState(d), 2, 1024, 2, d, dtype)
+    assert not q.is_contiguous()
+    got = attend(q, k, v)
+    assert got.shape == q.shape
+    assert torch.equal(got, attend(q.contiguous(), k.contiguous(), v.contiguous()))
+    if dtype == torch.float32:
+        want = jax.jit(jax_attend)(*(jnp.asarray(z.numpy()) for z in (q, k, v)))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def _unet_views(b, n, heads, dtype):
+    """Shapes and strides of a full-width ``CrossAttention`` self-attention
+    call, without memory: three [B, N, H*64] projections viewed per head."""
+    return [torch.empty(b, n, heads * 64, dtype=dtype, device="meta").reshape(b, n, heads, 64)
+            for _ in range(3)]
+
+
+def _structcond_views(b, n, heads, dtype):
+    """The same for ``QKVAttentionBlock``: slices of its [B, 3C, T] conv."""
+    qkv = torch.empty(b, 3 * heads * 64, n, dtype=dtype, device="meta")
+    return list(qkv.reshape(b, heads, 3, 64, n).permute(2, 0, 4, 1, 3).unbind(0))
+
+
+@pytest.mark.parametrize("views,n,heads,dtype,want", [
+    (_unet_views, 4096, 5, torch.bfloat16, ("wgmma", True)),      # UNet 64^2, 320 channels
+    (_unet_views, 1024, 10, torch.bfloat16, ("wgmma", True)),     # UNet 32^2, 640 channels
+    (_structcond_views, 4096, 4, torch.bfloat16, ("wgmma", False)),   # struct-cond 64^2
+    (_structcond_views, 1024, 4, torch.bfloat16, ("wgmma", False)),   # struct-cond 32^2
+    (_unet_views, 4096, 5, torch.float32, ("fma", False)),        # the same in float32
+    (_structcond_views, 1024, 4, torch.float32, ("fma", False)),
+])
+def test_attention_route_of_full_width_calls(views, n, heads, dtype, want):
+    """Every gated call of the full-width UNet and struct-cond encoder (5
+    frames): which kernel it takes and whether q, k, v are read in place."""
+    from mgldvsr_tpu_torch.ops.kernels.attention import pick_block_q, route
+
+    for z in views(5, n, heads, dtype):
+        assert z.shape == (5, n, heads, 64) and pick_block_q(n, 64, z.element_size())
+        assert route(z.dtype, z.shape, z.stride(), z.storage_offset() * z.element_size()) == want
+
+
+@pytest.mark.parametrize("dtype,d,strides,offset,want", [
+    (torch.bfloat16, 64, (4096 * 320, 320, 64, 1), 0, ("wgmma", True)),
+    (torch.bfloat16, 64, (4096 * 320, 320, 64, 1), 8, ("wgmma", False)),   # base off 16 bytes
+    (torch.bfloat16, 64, (4096 * 324, 324, 64, 1), 0, ("wgmma", False)),   # rows off 16 bytes
+    (torch.bfloat16, 64, (4096 * 320, 1, 64 * 4096, 4096), 0, ("wgmma", False)),  # stride in D
+    (torch.bfloat16, 16, (4096 * 80, 80, 16, 1), 0, ("fma", False)),
+    (torch.bfloat16, 128, (1024 * 512, 512, 128, 1), 0, ("fma", False)),
+    (torch.float32, 64, (4096 * 320, 320, 64, 1), 0, ("fma", False)),
+])
+def test_attention_route_is_a_function_of_type_shape_and_strides(dtype, d, strides, offset, want):
+    from mgldvsr_tpu_torch.ops.kernels.attention import route
+
+    assert route(dtype, (5, 4096, 5, d), strides, offset) == want
+
+
 def _nchw(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
 

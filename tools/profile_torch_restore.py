@@ -1,35 +1,43 @@
 #!/usr/bin/env python3
-"""Profile one full-width restore of the PyTorch port on the GPU.
+"""Profile warm full-width restores of the PyTorch port on the GPU.
 
     python3 tools/profile_torch_restore.py [--steps 50] [--top 25] [--fused]
+    python3 tools/profile_torch_restore.py --compare PARENT_TREE
 
-Builds the chip smoke's full-width pipeline (seeded random weights, bf16
-towers, float32 RAFT) and runs one warm-up restore. Then it times a warm
-restore without the profiler (per-stage wall seconds), and profiles a third
-with ``torch.profiler``: the summed kernel time against that run's wall
-time, and the top kernels by device time. ``--fused`` sets
+One profile: builds the chip smoke's full-width pipeline (seeded random
+weights, bf16 towers, float32 RAFT) and runs one warm-up restore. Then it
+times a warm restore without the profiler (per-stage wall seconds), and
+profiles a third with ``torch.profiler``: the summed kernel time against
+that run's wall time, the attention kernels' share and launches, the
+number of elementwise launches, and the top kernels by device time. The
+last line is one JSON object with those numbers. ``--fused`` sets
 ``MGLD_FUSED_GN_CONV=1``, so every GroupNorm -> SiLU -> conv3x3 chain runs
-as the one fused kernel.
+as the one fused kernel. ``--root DIR`` profiles the package and
+``chip_smoke.py`` found in DIR instead of this checkout's.
+
+``--compare PARENT_TREE`` sets an unpacked tree of another commit (for
+example ``git archive <commit> | tar -x -C DIR``) against this checkout in
+one call, so that both run on the same card and host: one process per
+profile, in the order parent, change, change, parent, first in the default
+and then in the fused configuration, and a table of the JSON lines at the
+end.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ATTENTION_KERNELS = ("attention_kernel", "attention_wgmma_kernel")
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--top", type=int, default=25)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--fused", action="store_true",
-                    help="profile the fused GroupNorm+SiLU+conv configuration")
-    args = ap.parse_args()
+def profile_one(args) -> int:
     os.environ["MGLD_FUSED_GN_CONV"] = "1" if args.fused else "0"
+    sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -54,26 +62,86 @@ def main() -> int:
     t0 = time.perf_counter()
     pipe.restore_segment(frames, gen, stage_seconds=stages)
     wall = time.perf_counter() - t0
+    step_ms = 1000 * stages["sampler"] / args.steps
     print(card)
-    print(f"fused conv {'on' if args.fused else 'off'}")
+    print(f"tree {os.path.abspath(args.root)}, fused conv {'on' if args.fused else 'off'}")
     print("warm run, no profiler (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-          + f"; wall {wall:.3f}; sampler {1000 * stages['sampler'] / args.steps:.2f} ms/step")
+          + f"; wall {wall:.3f}; sampler {step_ms:.2f} ms/step")
 
-    stages = {}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    prof_stages: dict = {}
+    # device activity only: recording the host's ~10^6 operator events as well
+    # doubles the profiled wall time and takes a minute to summarise
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.restore_segment(frames, gen, stage_seconds=stages)
+        pipe.restore_segment(frames, gen, stage_seconds=prof_stages)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    device_us = sum(e.self_device_time_total for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    print("profiled run (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-          + f"; wall {wall:.3f}")
-    print(f"kernels {device_us / 1e6:.3f} s of {wall:.3f} s profiled wall "
-          f"({100 * device_us / 1e6 / wall:.1f}% busy, kernel times summed)")
-    print(events.table(sort_by="self_device_time_total", row_limit=args.top, max_name_column_width=70))
+        prof_wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(e.self_device_time_total for e in events) / 1e6
+    attn = [e for e in events if any(name in e.key for name in ATTENTION_KERNELS)]
+    attn_s = sum(e.self_device_time_total for e in attn) / 1e6
+    elementwise = sum(e.count for e in events if "elementwise_kernel" in e.key)
+    print("profiled run (s): " + ", ".join(f"{k} {v:.3f}" for k, v in prof_stages.items())
+          + f"; wall {prof_wall:.3f}")
+    print(f"kernels {device_s:.3f} s of {prof_wall:.3f} s profiled wall "
+          f"({100 * device_s / prof_wall:.1f}% busy, kernel times summed); attention "
+          f"{attn_s:.3f} s = {100 * attn_s / device_s:.1f}% over {sum(e.count for e in attn)} "
+          f"launches; {sum(e.count for e in events)} kernel launches, {elementwise} of them "
+          f"elementwise")
+    print(averages.table(sort_by="self_device_time_total", row_limit=args.top,
+                         max_name_column_width=70))
+    print(json.dumps({
+        "tree": args.root, "fused": args.fused, "card": card, "steps": args.steps,
+        "sampler_ms_per_step": step_ms, "wall_s": wall, "stage_s": stages,
+        "profiled_wall_s": prof_wall, "kernel_s": device_s, "attention_s": attn_s,
+        "attention_share": attn_s / device_s,
+        "attention_launches": sum(e.count for e in attn),
+        "kernel_launches": sum(e.count for e in events), "elementwise_launches": elementwise}))
     return 0
+
+
+def compare(args) -> int:
+    """Parent, change, change, parent in each configuration, one process each."""
+    rows = []
+    for fused in (False, True):
+        for name, root in (("parent", args.compare), ("change", HERE), ("change", HERE),
+                           ("parent", args.compare)):
+            cmd = [sys.executable, os.path.abspath(__file__), "--root", root,
+                   "--steps", str(args.steps), "--seed", str(args.seed), "--top", str(args.top)]
+            out = subprocess.run(cmd + ["--fused"] * fused, capture_output=True, text=True)
+            if out.returncode != 0:
+                print(out.stdout + out.stderr)
+                return out.returncode
+            result = json.loads(out.stdout.strip().splitlines()[-1])
+            rows.append((name, result))
+            print(f"== {name}, fused conv {'on' if fused else 'off'} ==")
+            print("\n".join(out.stdout.strip().splitlines()[:-1]), flush=True)
+    print(rows[0][1]["card"])
+    print("tree   fused  sampler ms/step  wall s  kernel s  attention s (share, launches)  "
+          "kernel launches  elementwise launches")
+    for name, r in rows:
+        print(f"{name:6} {str(r['fused']):5}  {r['sampler_ms_per_step']:15.2f}  "
+              f"{r['wall_s']:6.3f}  {r['kernel_s']:8.3f}  {r['attention_s']:.3f} "
+              f"({100 * r['attention_share']:.1f}%, {r['attention_launches']})  "
+              f"{r['kernel_launches']}  {r['elementwise_launches']}")
+    print(json.dumps({"runs": [{"name": name, **r} for name, r in rows]}))
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fused", action="store_true",
+                    help="profile the fused GroupNorm+SiLU+conv configuration")
+    ap.add_argument("--root", default=HERE,
+                    help="tree whose package and chip_smoke.py are profiled")
+    ap.add_argument("--compare", metavar="PARENT_TREE",
+                    help="profile PARENT_TREE and this checkout in turns, both configurations")
+    args = ap.parse_args()
+    return compare(args) if args.compare else profile_one(args)
 
 
 if __name__ == "__main__":
