@@ -137,6 +137,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bh, n, d = q.shape
     out = torch.empty_like(q)
     if kernel_variant(q.dtype, d) == "wgmma":
+        # 16-byte loads: a base off that boundary (a view into the middle of a
+        # row of some larger buffer) is copied to a fresh allocation
+        q, k, v = (z if z.data_ptr() % 16 == 0 else z.clone() for z in (q, k, v))
         _launch_wgmma(q, k, v, out, 1, bh, n, (0, d, n * d) * 4, block_rows)
         return out
     lib = _build.library()

@@ -125,6 +125,11 @@ def test_attention_strided_entry_on_card(dev, n):
     assert kernels.attention_route_counts() == {"wgmma": 2, "fma": 0, "strided": 1}
     want = attention(fold(q), fold(k), fold(v)).reshape(2, 5, n, 64).permute(0, 2, 1, 3)
     assert torch.equal(got, want)
+    # a contiguous [BH,N,D] view whose base is 2 bytes off a 16-byte boundary
+    flat = torch.randn(3, 10 * n * 64 + 1, device=dev, generator=gen).to(torch.bfloat16)
+    q, k, v = (z[1:].view(10, n, 64) for z in flat)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    assert torch.equal(attention(q, k, v), attention(q.clone(), k.clone(), v.clone()))
 
 
 def test_corr_lookup_kernel_matches_plain(dev):
