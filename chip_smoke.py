@@ -123,6 +123,23 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def bf16_ulps(count: int, want) -> float:
+    """``count`` bfloat16 ulps at max |want|: a limit that follows the data."""
+    return count * 2 ** -8 * float(want.float().abs().max())
+
+
+def attention_inputs(bh: int, n: int, d: int, dtype, dev, gen):
+    """q, k ~ N(0,1) and v ~ N(1,1). With a zero-mean v the outputs would be
+    averages of N values around 0, std sqrt(e/N), a few 1e-2, and a limit
+    that catches a dropped key tile or a wrong mask would sit in the rounding
+    noise; with mean 1 the outputs are O(1) and such a fault moves them by
+    several percent."""
+    import torch
+
+    q, k, v = (torch.randn(bh, n, d, device=dev, generator=gen) for _ in range(3))
+    return q.to(dtype), k.to(dtype), (v + 1).to(dtype)
+
+
 def lq_clip(seed: int, size: int, frames: int = 5) -> np.ndarray:
     """[T, size, size, 3] in [0,1]: a smooth seeded pattern moving 2 px
     right and 1 px down per frame, so that flows are non-zero."""
@@ -161,22 +178,29 @@ def attention_checks(dev, gen) -> None:
 
     bf16 = torch.bfloat16
 
-    def check(what, got, want, tol, routes):
+    def check(what, got, want, tol, want_counts):
         err = max_err(got, want)
-        log(f"[phase2] attention {what}: max_abs_err {err:.3e} (limit {tol:.1e}), {routes}")
+        counts = {name: n for name, n in kernels.launch_counts().items() if "attention" in name}
+        log(f"[phase2] attention {what}: max_abs_err {err:.3e} (limit {tol:.3e}), {counts}")
         if not err <= tol or not torch.isfinite(got).all():
-            raise AssertionError(f"attention {what}: {err:.3e} > {tol:.1e}")
+            raise AssertionError(f"attention {what}: {err:.3e} > {tol:.3e}")
+        if counts != want_counts:
+            raise AssertionError(f"attention {what}: launches {counts}, expected {want_counts}")
 
     def qkv(bh, n, d, dtype):
-        return [torch.randn(bh, n, d, device=dev, generator=gen).to(dtype) for _ in range(3)]
+        return attention_inputs(bh, n, d, dtype, dev, gen)
 
-    # N off the 128-row tiles: masked keys, unwritten query rows
-    for rows in (128, 64):
-        q, k, v = qkv(8, 1100, 64, bf16)
+    def counts(wgmma: int, strided: int):
+        return {"attention": 1, "attention_wgmma": wgmma, "attention_strided": strided}
+
+    # N off the 128-row tiles: masked keys, unwritten query rows. Held against
+    # the plain version in bf16 and in float32 on the same bf16 values.
+    q, k, v = qkv(8, 1100, 64, bf16)
+    for name, want in (("bf16", attn_mod.attention_plain(q, k, v)),
+                       ("f32", attn_mod.attention_plain(q.float(), k.float(), v.float()))):
         kernels.reset_launch_counts()
-        check(f"ragged [8,1100,64] bf16, {rows}-row blocks",
-              attn_mod.attention(q, k, v, block_rows=rows), attn_mod.attention_plain(q, k, v),
-              2e-2, kernels.attention_route_counts())
+        check(f"ragged [8,1100,64] bf16 vs the plain version in {name}",
+              attn_mod.attention(q, k, v), want, bf16_ulps(3, want), counts(1, 1))
     # logits of tens (q scaled by 8): the running max moves and the accumulator
     # is rescaled from tile to tile. The plain version in bf16 rounds its
     # logits to bf16 (a relative 2^-9 of ~60 is several percent of a
@@ -188,7 +212,7 @@ def attention_checks(dev, gen) -> None:
     kernels.reset_launch_counts()
     check("large logits [8,1100,64] bf16 vs the plain version in f32",
           attn_mod.attention(q, k, v), attn_mod.attention_plain(q.float(), k.float(), v.float()),
-          2e-2, kernels.attention_route_counts())
+          2e-2, counts(1, 1))
     # the same heads through [B,N,H,D] strides, as the UNet's CrossAttention
     # hands them over: bit for bit the folded call, no copy made
     for b, n, h in ((5, 4096, 5), (5, 1024, 10)):
@@ -197,22 +221,29 @@ def attention_checks(dev, gen) -> None:
                                       for z in (q, k, v)))
         kernels.reset_launch_counts()
         got = attn_mod.attention_bnhd(q, k, v)
-        routes = kernels.attention_route_counts()
-        same = torch.equal(got, folded.reshape(b, h, n, 64).permute(0, 2, 1, 3))
-        log(f"[phase2] attention strided [{b},{n},{h},64] bf16: bit-equal to the folded call "
-            f"{same}, output contiguous {got.is_contiguous()}, {routes}")
-        if not same or not got.is_contiguous() or routes != {"wgmma": 1, "fma": 0, "strided": 1}:
-            raise AssertionError("attention: the strided entry differs from the folded call")
-    # float32 (the parity mode) and bf16 at head dim 16 take the FMA kernel
-    for d, dtype, tol in ((64, torch.float32, 1e-4), (16, bf16, 2e-2)):
+        check(f"strided [{b},{n},{h},64] bf16 vs the folded call, bit for bit", got,
+              folded.reshape(b, h, n, 64).permute(0, 2, 1, 3), 0.0, counts(1, 1))
+        if not got.is_contiguous():
+            raise AssertionError("attention: the strided entry's output is not contiguous")
+    # a [B,N,H,D] operand that is contiguous but whose base is 2 bytes off a
+    # 16-byte boundary cannot be read in place: it is copied, not faulted on
+    flat = [z.reshape(-1) for z in qkv(10, 1025, 64, bf16)]
+    q, k, v = (z[1:1 + 2 * 1024 * 5 * 64].view(2, 1024, 5, 64) for z in flat)
+    if not (q.is_contiguous() and q.data_ptr() % 16 == 2):
+        raise AssertionError("attention: the misaligned operand is not what it should be")
+    want = attn_mod.attention_bnhd(q.clone(), k.clone(), v.clone())
+    kernels.reset_launch_counts()
+    check("[2,1024,5,64] bf16 with bases 2 bytes off 16 vs aligned copies, bit for bit",
+          attn_mod.attention_bnhd(q, k, v), want, 0.0, counts(1, 0))
+    # float32 (the parity mode) and bf16 at head dim 16 take the FMA kernel,
+    # whose probabilities stay in float32
+    for d, dtype in ((64, torch.float32), (16, bf16)):
         q, k, v = qkv(8, 1024, d, dtype)
+        want = attn_mod.attention_plain(q.float(), k.float(), v.float())
         kernels.reset_launch_counts()
-        got = attn_mod.attention(q, k, v)
-        routes = kernels.attention_route_counts()
-        check(f"[8,1024,{d}] {'bf16' if dtype == bf16 else 'f32'}", got,
-              attn_mod.attention_plain(q, k, v), tol, routes)
-        if routes != {"wgmma": 0, "fma": 1, "strided": 0}:
-            raise AssertionError(f"attention: {dtype} at head dim {d} did not take the FMA kernel")
+        check(f"[8,1024,{d}] {'bf16' if dtype == bf16 else 'f32'} vs the plain version in f32",
+              attn_mod.attention(q, k, v), want, bf16_ulps(3, want) if dtype == bf16 else 1e-4,
+              counts(0, 0))
 
 
 def phase2(card: str):
@@ -267,25 +298,31 @@ def phase2(card: str):
 
     # attention: UNet self-attention at 64^2 (5 frames x 5 heads) and 32^2
     # (5 x 10), struct-cond at 64^2 (5 x 4), head dim 64, bf16: the
-    # tensor-core kernel. The plain version rounds its probabilities to
-    # bf16, hence the limit. 4 N^2 D flops per head.
+    # tensor-core kernel. Outputs are O(1) (attention_inputs) and the limit
+    # is 3 bf16 ulps at max |want|, about 1e-2: the kernel and the plain
+    # version each round the probabilities and the output to bf16 once. It
+    # holds against the plain version on the same bf16 inputs and against the
+    # plain version in float32 on the same values. 4 N^2 D flops per head.
     for bh, n in ((25, 4096), (50, 1024), (20, 4096)):
-        q, k, v = (torch.randn(bh, n, 64, device=dev, generator=gen).to(torch.bfloat16)
-                   for _ in range(3))
+        q, k, v = attention_inputs(bh, n, 64, torch.bfloat16, dev, gen)
         kernels.reset_launch_counts()
         out = attn_mod.attention(q, k, v)
-        if kernels.attention_route_counts()["wgmma"] != 1:
+        if kernels.launch_counts()["attention_wgmma"] != 1:
             raise AssertionError("attention: bf16 at head dim 64 did not take the wgmma kernel")
-        record("attention", max_err(out, attn_mod.attention_plain(q, k, v)), 2e-2,
+        want32 = attn_mod.attention_plain(q.float(), k.float(), v.float())
+        err32, tol = max_err(out, want32), bf16_ulps(3, want32)
+        log(f"[phase2] attention [{bh},{n},64] bf16 vs the plain version in f32: max_abs_err "
+            f"{err32:.3e} (limit {tol:.3e}), max |want| {float(want32.abs().max()):.3f}")
+        if not err32 <= tol:
+            raise AssertionError(f"attention: kernel disagrees with the plain version in f32 "
+                                 f"({err32:.3e} > {tol:.3e})")
+        del want32
+        record("attention", max_err(out, attn_mod.attention_plain(q, k, v)), tol,
                cuda_ms(lambda: attn_mod.attention(q, k, v), iters=10),
                cuda_ms(lambda: attn_mod.attention_plain(q, k, v), iters=10),
                f"[{bh},{n},64] bf16", *bound(nbytes(q, k, v, out), 4.0 * bh * n * n * 64, "bf16"),
                cuda_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]),
                        iters=10))
-        rows_ms = {rows: cuda_ms(lambda: attn_mod.attention(q, k, v, block_rows=rows), iters=10)
-                   for rows in (128, 64)}
-        log(f"[phase2]   wgmma kernel by block height: 128 rows {rows_ms[128]:.4f} ms, 64 rows "
-            f"{rows_ms[64]:.4f} ms; the wrapper takes {attn_mod.BLOCK_ROWS}")
         del q, k, v, out
     # one block to an SM against two (33 blocks of 128 rows a head at N = 4224):
     # what a partial last wave costs
@@ -520,26 +557,25 @@ def full_restore(pipe, frames, seed: int, steps: int, card: str, fused: bool):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
-        routes = kernels.attention_route_counts()
     peak = torch.cuda.max_memory_allocated()
 
     stage_txt = ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
     log(f"[{phase}] fused conv {'on' if fused else 'off'}, 512x512, 5 frames, {steps} steps: "
         f"{stage_txt}; total {wall:.3f} s, {5 / wall:.4f} frames/s, sampler "
         f"{1000 * stages['sampler'] / steps:.2f} ms/step, peak {peak / 2**30:.2f} GiB  [{card}]")
-    log(f"[{phase}] launches {counts}; attention by kernel {routes}  [{card}]")
+    log(f"[{phase}] launches {counts}  [{card}]")
     if out.shape != (5, 512, 512, 3):
         raise AssertionError(f"{phase} output shape {tuple(out.shape)}")
     if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
         raise AssertionError(f"{phase} output is not finite in [0, 1]")
-    for name, n in counts.items():
-        if (n == 0) != (name == FUSED_ONLY and not fused):
-            raise AssertionError(f"{phase}: kernel {name} was launched {n} times")
+    for name in KERNELS:
+        if (counts[name] == 0) != (name == FUSED_ONLY and not fused):
+            raise AssertionError(f"{phase}: kernel {name} was launched {counts[name]} times")
     # 14 gated attention calls per step, all bf16 at head dim 64
-    if not routes["wgmma"] == counts["attention"] == 14 * steps:
+    if not counts["attention_wgmma"] == counts["attention"] == 14 * steps:
         raise AssertionError(f"{phase}: {counts['attention']} attention launches, "
-                             f"{routes['wgmma']} on the tensor-core kernel, expected {14 * steps}")
-    counts["attention_wgmma"], counts["attention_strided"] = routes["wgmma"], routes["strided"]
+                             f"{counts['attention_wgmma']} on the tensor-core kernel, "
+                             f"expected {14 * steps}")
     return out, counts
 
 

@@ -35,24 +35,23 @@
 //  * softmax on the accumulator fragment: each thread holds two rows, the
 //    row max is reduced over the four lanes that share a row by shuffles,
 //    exp2 with scale*log2(e) folded in, keys >= N masked to -inf.
-//  * a block is NWG warpgroups of 64 query rows (128 or 64 rows) of one
-//    head; 80 or 72 KB of shared memory, so two or three blocks share an
-//    SM and one block's softmax overlaps another's products.
+//  * a block is two warpgroups of 64 query rows each (128 rows) of one
+//    head with 80 KB of shared memory, so two blocks share an SM and one
+//    block's softmax overlaps another's products.
 //  * q, k, v and o are [B, N, H, D] with unit stride in D and explicit
 //    batch, row and head strides, so the caller's head-interleaved
 //    projections are read in place and the output needs no permute.
 //
-// Partial waves: the grid is (ceil(N/rows), B*H). With 128-row blocks, two
-// to an SM, 264 are resident: [25,4096,64] has 800 blocks (3.03 waves: the
-// last 8 blocks run alone), [20,4096,64] 640 (2.42), [50,1024,64] 400
-// (1.52). Two blocks on an SM take about 1.5 times as long as one alone, so
-// a wave of single blocks costs two thirds of a full one: [25,4096,64] pays
-// up to that for its last 8 blocks. With 64-row blocks, three to an SM, 396
-// are resident: 1600 blocks (4.04 waves) and 800 (2.02) fall as badly, and
-// the K/V traffic from L2 doubles; on an H100 the two heights tie at
-// [25,4096,64] and 64 rows lose 8% at [20,4096,64]. The wrapper takes 128
-// rows; both heights are built, checked and timed by chip_smoke.py, which
-// also times one and two blocks to an SM, and PERF.md holds the numbers.
+// Partial waves: the grid is (ceil(N/128), B*H). Two blocks to an SM, 264
+// are resident: [25,4096,64] has 800 blocks (3.03 waves: the last 8 blocks
+// run alone), [20,4096,64] 640 (2.42), [50,1024,64] 400 (1.52). Two blocks
+// on an SM take about 1.5 times as long as one alone, so a wave of single
+// blocks costs two thirds of a full one: [25,4096,64] pays up to that for
+// its last 8 blocks. A 64-row block (one warpgroup, three to an SM, 396
+// resident) was built and timed on an H100 and dropped: 1600 blocks (4.04
+// waves) and 800 (2.02) fall as badly, the K/V traffic from L2 doubles, and
+// it tied at [25,4096,64] and lost 8% at [20,4096,64]. chip_smoke.py times
+// one and two blocks to an SM, and PERF.md holds the numbers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -173,6 +172,9 @@ constexpr int KEYS = 128;             // keys per tile
 constexpr int ROW_BYTES = HD * 2;    // 128: one swizzle row
 constexpr int KV_BYTES = KEYS * ROW_BYTES;  // one K or V tile, 16 KB
 constexpr int WG_ROWS = 64;          // query rows of one warpgroup (a wgmma tile)
+constexpr int NWG = 2;               // warpgroups of a block
+constexpr int THREADS = 128 * NWG;
+constexpr int QROWS = WG_ROWS * NWG;  // query rows of a block
 
 struct Strides {  // of a [B, N, H, D] view, in elements; D has stride 1
   long long b, n, h;
@@ -206,7 +208,7 @@ __device__ __forceinline__ void fence_proxy_async() {
 // into ``dst`` (the tile's base + r0 * 128 + ((c ^ (r0 % 8)) << 4)) once.
 // ``src`` points at chunk c of row ``first_row`` (the tile's first row + r0);
 // rows >= n become zeros and read nothing (``safe`` is any valid address).
-template <int ROWS, int THREADS>
+template <int ROWS>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src,
                                           long long row_stride, int first_row, int n,
                                           const __nv_bfloat16* safe) {
@@ -315,14 +317,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // rows 16w..16w+15; lane l holds, in register i, row 16w + l/4 + 8*((i/2)%2)
 // and column 8*(i/4) + 2*(l%4) + i%2. So a thread has two rows ("lo": l/4,
 // "hi": l/4 + 8), and the four lanes l%4 share them.
-template <int NWG>
-__global__ void __launch_bounds__(128 * NWG, NWG == 2 ? 2 : 3)
+__global__ void __launch_bounds__(THREADS, 2)
 attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                        int heads, int n, Strides sq, Strides sk, Strides sv, Strides so,
                        float scale_log2) {
-  constexpr int THREADS = 128 * NWG;
-  constexpr int QROWS = WG_ROWS * NWG;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle needs 1 KB
   const uint32_t k_s = q_s + QROWS * ROW_BYTES;                // two stages of K
@@ -343,9 +342,9 @@ attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const __nv_bfloat16* k_src = kg + r0 * sk.n + ch * 8;  // advances a tile at a time
   const __nv_bfloat16* v_src = vg + r0 * sv.n + ch * 8;
 
-  load_tile<QROWS, THREADS>(q_s + chunk, qg + (q0 + r0) * sq.n + ch * 8, sq.n, q0 + r0, n, qg);
-  load_tile<KEYS, THREADS>(k_s + chunk, k_src, sk.n, r0, n, kg);
-  load_tile<KEYS, THREADS>(v_s + chunk, v_src, sv.n, r0, n, vg);
+  load_tile<QROWS>(q_s + chunk, qg + (q0 + r0) * sq.n + ch * 8, sq.n, q0 + r0, n, qg);
+  load_tile<KEYS>(k_s + chunk, k_src, sk.n, r0, n, kg);
+  load_tile<KEYS>(v_s + chunk, v_src, sv.n, r0, n, vg);
   cp_async_commit();
 
   float acc[32];  // O fragment: 64 rows x 64 columns over the warpgroup
@@ -364,8 +363,8 @@ attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
       k_src += KEYS * sk.n;
       v_src += KEYS * sv.n;
       const int first_row = (j + 1) * KEYS + r0;
-      load_tile<KEYS, THREADS>(k_s + (st ^ 1) * KV_BYTES + chunk, k_src, sk.n, first_row, n, kg);
-      load_tile<KEYS, THREADS>(v_s + (st ^ 1) * KV_BYTES + chunk, v_src, sv.n, first_row, n, vg);
+      load_tile<KEYS>(k_s + (st ^ 1) * KV_BYTES + chunk, k_src, sk.n, first_row, n, kg);
+      load_tile<KEYS>(v_s + (st ^ 1) * KV_BYTES + chunk, v_src, sv.n, first_row, n, vg);
       cp_async_commit();
     }
 
@@ -465,16 +464,15 @@ attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   }
 }
 
-template <int NWG>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int batch, int heads,
                  int n, const long long* st, float scale_log2, cudaStream_t s) {
   // Q tile + two stages of K and V + room to align the base to 1 KB
-  constexpr int smem = WG_ROWS * NWG * ROW_BYTES + 4 * KV_BYTES + 1024;
-  auto kern = attention_wgmma_kernel<NWG>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = QROWS * ROW_BYTES + 4 * KV_BYTES + 1024;
+  cudaError_t err = cudaFuncSetAttribute(attention_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((n + WG_ROWS * NWG - 1) / (WG_ROWS * NWG)), (unsigned)(batch * heads));
-  kern<<<grid, 128 * NWG, smem, s>>>(
+  dim3 grid((unsigned)((n + QROWS - 1) / QROWS), (unsigned)(batch * heads));
+  attention_wgmma_kernel<<<grid, THREADS, smem, s>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (__nv_bfloat16*)o, heads, n, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, scale_log2);
@@ -496,17 +494,12 @@ extern "C" int mgld_attention_bf16(const void* q, const void* k, const void* v, 
 // bf16, head dim 64, [B, N, H, D] views: strides holds the batch, row and
 // head strides in elements of q, k, v and o in turn (12 values); D has
 // stride 1 and every base and stride is a multiple of 8 elements (16 bytes;
-// the output's of 2). block_rows is 128 or 64.
+// the output's of 2).
 extern "C" int mgld_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o,
                                          int batch, int heads, int n, const long long* strides,
-                                         float scale, int block_rows, void* stream) {
+                                         float scale, void* stream) {
   if (batch <= 0 || heads <= 0 || n <= 0 || (long long)batch * heads > 65535)
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = scale * 1.4426950408889634f;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (block_rows == 128)
-    return launch_wgmma<2>(q, k, v, o, batch, heads, n, strides, scale_log2, s);
-  if (block_rows == 64)
-    return launch_wgmma<1>(q, k, v, o, batch, heads, n, strides, scale_log2, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_wgmma(q, k, v, o, batch, heads, n, strides, scale_log2, (cudaStream_t)stream);
 }

@@ -3,7 +3,7 @@ PyTorch version. Each wrapper counts the launches it makes in an integer
 attribute ``launches``; :func:`launch_counts` and
 :func:`reset_launch_counts` read and clear them all. The attention wrapper
 also counts which of its two kernels ran and how many calls read their
-operands in place (:func:`attention_route_counts`)."""
+operands in place."""
 from __future__ import annotations
 
 from mgldvsr_tpu_torch.ops.kernels import (
@@ -26,15 +26,13 @@ WRAPPERS = {
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
-
-
-def attention_route_counts() -> dict[str, int]:
-    """Of the attention launches: on the tensor-core kernel, on the FMA
-    kernel, and (tensor-core only) reading q, k and v through their strides."""
-    fn = attention.attention
-    return {"wgmma": fn.wgmma_launches, "fma": fn.launches - fn.wgmma_launches,
-            "strided": fn.strided_launches}
+    """Launches by wrapper; and of the attention launches, those on the
+    tensor-core kernel (``attention_wgmma``; the rest took the FMA kernel)
+    and those of them that read q, k and v in place (``attention_strided``)."""
+    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
+    counts["attention_wgmma"] = attention.attention.wgmma_launches
+    counts["attention_strided"] = attention.attention.strided_launches
+    return counts
 
 
 def reset_launch_counts() -> None:

@@ -39,8 +39,8 @@ SIGNATURES = {
     # q, k, v, o, bh, n, d, scale, stream
     "mgld_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     "mgld_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
-    # q, k, v, o, batch, heads, n, strides[12], scale, block_rows, stream
-    "mgld_attention_wgmma_bf16": (_P, _P, _P, _P, _I, _I, _I, _LP, _F, _I, _P),
+    # q, k, v, o, batch, heads, n, strides[12], scale, stream
+    "mgld_attention_wgmma_bf16": (_P, _P, _P, _P, _I, _I, _I, _LP, _F, _P),
     # corr, coords, out, b, hw, hl, wl, level, n_levels, radius, stream
     "mgld_corr_lookup_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, scale, shift, weight, bias, out, n, c, h, w, co, stream

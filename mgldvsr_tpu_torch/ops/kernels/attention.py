@@ -56,25 +56,17 @@ def kernel_variant(dtype: torch.dtype, d: int) -> str:
 
 
 def route(dtype: torch.dtype, shape: tuple[int, ...], strides: tuple[int, ...],
-          byte_offset: int = 0) -> tuple[str, bool]:
-    """(kernel variant, read in place) for one [B, N, H, D] operand of a
-    gated call. The tensor-core kernel reads a view through its strides when
-    D has unit stride and the base (``byte_offset`` from a 16-byte boundary)
+          byte_offset: int = 0) -> bool:
+    """Whether the kernel reads one [B, N, H, D] operand of a gated call in
+    place. The tensor-core kernel reads a view through its strides when D
+    has unit stride and the base (``byte_offset`` from a 16-byte boundary)
     and the batch, row and head strides are multiples of 16 bytes, the size
     of its loads; otherwise the caller copies the view. The FMA kernel takes
     folded contiguous copies only."""
-    variant = kernel_variant(dtype, shape[-1])
     itemsize = torch.finfo(dtype).bits // 8
     *outer, last = strides
-    in_place = (variant == "wgmma" and last == 1 and byte_offset % 16 == 0
-                and all(s * itemsize % 16 == 0 for s in outer))
-    return variant, in_place
-
-
-# Query rows per block of the tensor-core kernel. 64 (one warpgroup, three
-# blocks to an SM) is built too and can be asked for; on the H100 it ties
-# with 128 at [25,4096,64] and loses 8% at [20,4096,64] (PERF.md).
-BLOCK_ROWS = 128
+    return (kernel_variant(dtype, shape[-1]) == "wgmma" and last == 1 and byte_offset % 16 == 0
+            and all(s * itemsize % 16 == 0 for s in outer))
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -111,24 +103,38 @@ def _check(q, k, v, ndim: int, layout: str) -> None:
         raise ValueError(f"attention: head dim {q.shape[-1]} not in {SUPPORTED_HEAD_DIMS}")
 
 
-def _launch_wgmma(q, k, v, out, b: int, h: int, n: int, strides, block_rows: int) -> None:
-    """The tensor-core kernel on [B,N,H,64] operands with unit stride in D;
-    ``strides``: batch, row and head strides of q, k, v and out, in elements."""
+def _readable(z: torch.Tensor) -> torch.Tensor:
+    """A [B,N,H,64] operand as the tensor-core kernel can read it: itself
+    where :func:`route` allows, else a fresh contiguous copy (``clone``, not
+    ``contiguous()``, which would hand back a contiguous view whose base is
+    off a 16-byte boundary as it is)."""
+    if route(z.dtype, z.shape, z.stride(), z.data_ptr()):
+        return z
+    return z.clone(memory_format=torch.contiguous_format)
+
+
+def _launch_wgmma(q, k, v, out) -> None:
+    """The tensor-core kernel on [B,N,H,64] views: q, k, v as :func:`route`
+    allows or as :func:`_readable` copied them, ``out`` with unit stride in
+    D. Counts a strided launch when all three operands are read in place."""
+    b, n, h, _ = q.shape
+    views = (q, k, v)
+    q, k, v = (_readable(z) for z in views)
+    strides = [s for z in (q, k, v, out) for s in z.stride()[:3]]
     err = _build.library().mgld_attention_wgmma_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n,
-        (ctypes.c_longlong * 12)(*strides), 64 ** -0.5, block_rows, _build.stream_ptr(q.device))
+        (ctypes.c_longlong * 12)(*strides), 64 ** -0.5, _build.stream_ptr(q.device))
     _build.check(err, "mgld_attention_wgmma_bf16")
     attention.launches += 1
     attention.wgmma_launches += 1
+    attention.strided_launches += all(a is z for a, z in zip((q, k, v), views))
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              block_rows: int = BLOCK_ROWS) -> torch.Tensor:
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v for contiguous [BH, N, D] float32 or
     bfloat16 tensors; output in the input dtype. bfloat16 at head dim 64
     takes the tensor-core kernel (as the case B = 1 of its [B, N, H, D]
-    entry; ``block_rows`` 128 or 64 overrides its block height), everything
-    else the FMA kernel."""
+    entry), everything else the FMA kernel."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     _check(q, k, v, 3, "[BH,N,D]")
@@ -137,10 +143,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bh, n, d = q.shape
     out = torch.empty_like(q)
     if kernel_variant(q.dtype, d) == "wgmma":
-        # 16-byte loads: a base off that boundary (a view into the middle of a
-        # row of some larger buffer) is copied to a fresh allocation
-        q, k, v = (z if z.data_ptr() % 16 == 0 else z.clone() for z in (q, k, v))
-        _launch_wgmma(q, k, v, out, 1, bh, n, (0, d, n * d) * 4, block_rows)
+        # [BH,N,D] is the case B = 1 of [B,N,H,D] with the heads outermost
+        _launch_wgmma(*(z[None].transpose(1, 2) for z in (q, k, v, out)))
         return out
     lib = _build.library()
     fn = lib.mgld_attention_f32 if q.dtype == torch.float32 else lib.mgld_attention_bf16
@@ -162,21 +166,17 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
         return attention_bnhd_plain(q, k, v)
     _check(q, k, v, 4, "[B,N,H,D]")
     b, n, h, d = q.shape
-    routes = [route(z.dtype, z.shape, z.stride(), z.data_ptr()) for z in (q, k, v)]
-    if routes[0][0] == "fma":
+    if kernel_variant(q.dtype, d) == "fma":
         out = attention(*(_fold(z).contiguous() for z in (q, k, v)))
         return out.reshape(b, h, n, d).permute(0, 2, 1, 3)
-    in_place = [ok for _, ok in routes]
-    q, k, v = (z if ok else z.contiguous() for z, ok in zip((q, k, v), in_place))
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    _launch_wgmma(q, k, v, out, b, h, n,
-                  [s for z in (q, k, v, out) for s in z.stride()[:3]], BLOCK_ROWS)
-    attention.strided_launches += all(in_place)
+    _launch_wgmma(q, k, v, out)
     return out
 
 
 # launches: every launch of either kernel; wgmma_launches: those of the
-# tensor-core kernel; strided_launches: those that read q, k and v in place
+# tensor-core kernel; strided_launches: those of them that read q, k and v
+# in place through their strides, with no copy made
 attention.launches = 0
 attention.wgmma_launches = 0
 attention.strided_launches = 0

@@ -369,7 +369,6 @@ def test_wrappers_take_the_plain_path_on_cpu():
     assert torch.equal(attention(q, q, q), attention_plain(q, q, q))
     q4 = q.reshape(1, 64, 2, 16).to(torch.bfloat16)
     assert torch.equal(attention_bnhd(q4, q4, q4), attention_bnhd_plain(q4, q4, q4))
-    assert kernels.attention_route_counts() == {"wgmma": 0, "fma": 0, "strided": 0}
     pyr = [torch.randn(1, 16, 4, 4), torch.randn(1, 16, 2, 2)]
     coords = torch.rand(1, 4, 4, 2) * 4
     assert torch.equal(lookup_corr(pyr, coords, 2), lookup_corr_plain(pyr, coords, 2))
@@ -381,5 +380,6 @@ def test_wrappers_take_the_plain_path_on_cpu():
     wt, bias = torch.randn(6, 8, 3, 3).to(torch.bfloat16), torch.rand(6)
     assert torch.equal(gn_silu_conv3x3(xb, w8, b8, wt, bias, 4),
                        gn_silu_conv3x3_plain(xb, w8, b8, wt, bias, 4))
-    assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
+    counts = kernels.launch_counts()
+    assert set(kernels.WRAPPERS) <= set(counts) and not any(counts.values())
 

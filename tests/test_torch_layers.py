@@ -161,11 +161,12 @@ def _structcond_views(b, n, heads, dtype):
 def test_attention_route_of_full_width_calls(views, n, heads, dtype, want):
     """Every gated call of the full-width UNet and struct-cond encoder (5
     frames): which kernel it takes and whether q, k, v are read in place."""
-    from mgldvsr_tpu_torch.ops.kernels.attention import pick_block_q, route
+    from mgldvsr_tpu_torch.ops.kernels.attention import kernel_variant, pick_block_q, route
 
     for z in views(5, n, heads, dtype):
         assert z.shape == (5, n, heads, 64) and pick_block_q(n, 64, z.element_size())
-        assert route(z.dtype, z.shape, z.stride(), z.storage_offset() * z.element_size()) == want
+        in_place = route(z.dtype, z.shape, z.stride(), z.storage_offset() * z.element_size())
+        assert (kernel_variant(z.dtype, 64), in_place) == want
 
 
 @pytest.mark.parametrize("dtype,d,strides,offset,want", [
@@ -178,9 +179,9 @@ def test_attention_route_of_full_width_calls(views, n, heads, dtype, want):
     (torch.float32, 64, (4096 * 320, 320, 64, 1), 0, ("fma", False)),
 ])
 def test_attention_route_is_a_function_of_type_shape_and_strides(dtype, d, strides, offset, want):
-    from mgldvsr_tpu_torch.ops.kernels.attention import route
+    from mgldvsr_tpu_torch.ops.kernels.attention import kernel_variant, route
 
-    assert route(dtype, (5, 4096, 5, d), strides, offset) == want
+    assert (kernel_variant(dtype, d), route(dtype, (5, 4096, 5, d), strides, offset)) == want
 
 
 def _nchw(a):
