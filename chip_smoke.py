@@ -5,13 +5,20 @@
 
 Phase 0  refuse to run without CUDA; print the card's name and power limit.
 Phase 1  build the CUDA kernels from csrc/ (nvcc, sm_90a) and load them.
-Phase 2  hold each of the seven kernels against its plain PyTorch version on
-         the card at the main path's shapes; time both with CUDA events,
-         time the one PyTorch library call that computes the same function
-         where there is one, and compute the card's lower bound for the work.
+Phase 2  hold each kernel (the seven that replace a TPU kernel, and the
+         statistics kernel of the fused chain) against its plain PyTorch
+         version on the card at the main path's shapes; time both with CUDA
+         events, time the one PyTorch library call that computes the same
+         function where there is one, and compute the card's lower bound for
+         the work. The kernels that take under 0.1 ms are also replayed from
+         a CUDA graph, which gives their time on the device without the
+         host's launch path (``device_ms``).
          Attention also: ragged N, large logits, the [B,N,H,D] strided entry
          bit for bit against the folded call, and which of its two kernels
          (tensor-core or FMA) each type and head dim takes.
+         The fused GroupNorm+SiLU+conv also: shapes off its tiles, narrow
+         frames, a clipped variance, the re-laid weight bit for bit, and its
+         ``mma.sync`` kernel against its tensor-core kernel.
 Phase 3  tiny config at 256x256, float32, 2 steps, deterministic: the same
          weights on the card (kernels) and on the CPU (plain versions) must
          give the same frames, once in the default configuration and once
@@ -20,11 +27,14 @@ Phase 4  the default configuration at full width: 5 frames x4 to 512x512, 50
          guided steps, bf16 UNet / struct-cond / VAE / CLIP and float32 RAFT
          with seeded random weights, through
          ``MGLDVSRPipeline.restore_segment``; every kernel but the fused
-         GroupNorm+SiLU+conv must have been launched by that run, and every
+         GroupNorm+SiLU+conv's two must have been launched by that run, and every
          gated attention call (14 per step) must have taken the tensor-core
          kernel.
 Phase 5  the fused configuration (MGLD_FUSED_GN_CONV=1) at the same width,
-         clip, seed and weights: the fused kernel must have been launched.
+         clip, seed and weights: every kernel but the channel sums (whose
+         GroupNorms all head a fused chain) must have been launched,
+         every chain as two launches (statistics, conv), and every bf16 chain
+         with more than 8 output channels on the tensor-core kernel.
 
 Prints one JSON line describing the kernels before the last line, and the
 result line ``{"ok": true, "device": {...}}`` last. Any failure raises and
@@ -58,8 +68,14 @@ KERNELS = {
                          "mgldvsr_tpu/ops/pallas/groupnorm.py:139"),
     "gn_silu_conv3x3": ("cuda", "mgldvsr_tpu_torch/csrc/gn_silu_conv.cu",
                         "mgldvsr_tpu/ops/pallas/gn_silu_conv.py:154"),
+    # the statistics of the same TPU function, which it left to XLA
+    "gn_scale_shift": ("cuda", "mgldvsr_tpu_torch/csrc/gn_silu_conv.cu",
+                       "mgldvsr_tpu/ops/pallas/gn_silu_conv.py:161"),
 }
-FUSED_ONLY = "gn_silu_conv3x3"  # launched by the fused configuration alone
+FUSED_ONLY = ("gn_silu_conv3x3", "gn_scale_shift")  # launched by the fused configuration alone
+# launched by the default configuration alone: its GroupNorms of 128^2 pixels
+# and more all head a chain, which the fused configuration gives to the two above
+DEFAULT_ONLY = ("channel_sums",)
 
 # NVIDIA H100 SXM data sheet, dense: device memory bytes/s, tensor-core
 # flop/s for bf16 and fp16, fp32 flop/s outside the tensor cores
@@ -114,6 +130,28 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one ``fn()``: ``iters`` calls are captured into one
+    CUDA graph and the graph is replayed, so the host's launch path is not in
+    the time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -253,7 +291,6 @@ def phase2(card: str):
 
     from mgldvsr_tpu_torch.flow.raft import build_corr_pyramid
     from mgldvsr_tpu_torch.ops import kernels
-    from mgldvsr_tpu_torch.ops.kernels import _build
     from mgldvsr_tpu_torch.ops.kernels import attention as attn_mod
     from mgldvsr_tpu_torch.ops.kernels import corr_lookup as corr_mod
     from mgldvsr_tpu_torch.ops.kernels import flow_warp as warp_mod
@@ -264,10 +301,12 @@ def phase2(card: str):
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
 
-    def record(name, err, tol, ms, plain_ms, shape, bound_ms, bound_by, library_ms=None):
+    def record(name, err, tol, ms, plain_ms, shape, bound_ms, bound_by, library_ms=None,
+               device_ms=None):
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        dev_txt = "" if device_ms is None else f" (on the device {device_ms:.4f} ms)"
         log(f"[phase2] {name} {shape}: max_abs_err {err:.3e} (limit {tol:.1e}) "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, "
+            f"kernel {ms:.4f} ms{dev_txt}, plain {plain_ms:.4f} ms, library {lib}, "
             f"bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
         if not err <= tol:
             raise AssertionError(f"{name}: kernel disagrees with its plain version "
@@ -275,7 +314,8 @@ def phase2(card: str):
         # the JSON line carries each kernel's first shape; max_abs_err its worst
         first = results.setdefault(name, {
             "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "device_ms": device_ms})
         first["max_abs_err"] = max(first["max_abs_err"], err)
 
     # guidance warp: 2(t-2) = 6 latents of one 5-frame window at 64x64x4;
@@ -287,14 +327,15 @@ def phase2(card: str):
     warp_bound = bound(nbytes(x, flow, x), 20 * x.numel(), "f32")
     record("warp_forward", max_err(warp_mod.warp_forward(x, flow), warp_mod.warp_plain(x, flow)),
            1e-5, cuda_ms(lambda: warp_mod.warp_forward(x, flow)),
-           cuda_ms(lambda: warp_mod.warp_plain(x, flow)), shape, *warp_bound)
+           cuda_ms(lambda: warp_mod.warp_plain(x, flow)), shape, *warp_bound,
+           device_ms=graph_ms(lambda: warp_mod.warp_forward(x, flow)))
     xr = x.clone().requires_grad_(True)
     warp_mod.warp_plain(xr, flow).backward(g)
     dx = warp_mod.warp_dx(g, flow)
     err = max(max_err(dx, warp_mod.warp_dx_plain(g, flow)), max_err(dx, xr.grad))
     record("warp_dx", err, 1e-5, cuda_ms(lambda: warp_mod.warp_dx(g, flow)),
            cuda_ms(lambda: warp_mod.warp_dx_plain(g, flow)), shape + " (vs plain and autograd)",
-           *warp_bound)
+           *warp_bound, device_ms=graph_ms(lambda: warp_mod.warp_dx(g, flow)))
 
     # attention: UNet self-attention at 64^2 (5 frames x 5 heads) and 32^2
     # (5 x 10), struct-cond at 64^2 (5 x 4), head dim 64, bf16: the
@@ -369,7 +410,8 @@ def phase2(card: str):
     record("channel_sums", err, 1e-5 * float(p[1].abs().max()),
            cuda_ms(lambda: gn_mod.channel_sums(xb)),
            cuda_ms(lambda: gn_mod.channel_sums_plain(xb)), "[5,128,512,512] bf16",
-           *bound(nbytes(xb, *s), 3.0 * xb.numel(), "f32"))
+           *bound(nbytes(xb, *s), 3.0 * xb.numel(), "f32"),
+           device_ms=graph_ms(lambda: gn_mod.channel_sums(xb)))
     del xb, s, p
 
     # fused GroupNorm: the UNet's levels, the 960-channel skip concat whose
@@ -392,7 +434,30 @@ def phase2(card: str):
                cuda_ms(lambda: gn_mod.fused_group_norm_plain(x, w, b, 32, eps)),
                f"{list(shp)} {'bf16' if dtype == bf16 else 'f32'} eps {eps:g}",
                *bound(nbytes(x, got, w, b), 8.0 * x.numel(), "f32"),
-               cuda_ms(lambda: F.group_norm(x, 32, wd, bd, eps)))
+               cuda_ms(lambda: F.group_norm(x, 32, wd, bd, eps)),
+               graph_ms(lambda: gn_mod.fused_group_norm(x, w, b, 32, eps)))
+        del x, got, want
+
+    # the fused chain's statistics: the folded (scale, shift) of GroupNorm in
+    # one launch, a cluster of blocks per (sample, group) slab; fp32 sums in
+    # another order than the plain version's: 1e-5 of the largest value
+    for shp, eps in (((5, 320, 64, 64), 1e-5), ((5, 960, 64, 64), 1e-5), ((5, 1280, 8, 8), 1e-6),
+                     ((5, 128, 512, 512), 1e-6)):
+        x = (torch.randn(shp, device=dev, generator=gen) * 2 + 0.5).to(bf16)
+        w = torch.randn(shp[1], device=dev, generator=gen)
+        b = torch.randn(shp[1], device=dev, generator=gen)
+
+        def stats():
+            return gn_mod.gn_scale_shift(x, w, b, 32, eps)
+
+        got, want = stats(), gn_mod.gn_scale_shift_plain(x, w, b, 32, eps)
+        err = max(max_err(a, p) / float(p.abs().max()) for a, p in zip(got, want))
+        iters = 5 if shp[2] >= 512 else 20
+        record("gn_scale_shift", err, 1e-5, cuda_ms(stats, iters),
+               cuda_ms(lambda: gn_mod.gn_scale_shift_plain(x, w, b, 32, eps), iters),
+               f"{list(shp)} bf16 eps {eps:g} (error relative to max |scale|, |shift|)",
+               *bound(nbytes(x, w, b, *got), 3.0 * x.numel(), "f32"),
+               device_ms=graph_ms(stats, iters))
         del x, got, want
 
     # fused GroupNorm+SiLU+conv3x3: UNet res-block chains, the skip concat,
@@ -422,24 +487,131 @@ def phase2(card: str):
                       "bf16" if dtype == bf16 else "f32"),
                cuda_ms(lambda: F.conv2d(F.silu(F.group_norm(x, 32, gwd, gbd, 1e-5)), wt, biasd,
                                         padding=1), iters))
-        # the wrapper's two parts timed alone: the statistics (channel sums and
-        # the fold on [N,C], a dozen small launches) and the conv kernel itself
+        # the wrapper's two parts timed alone: the statistics launch and the
+        # conv kernel itself
         def stats():
-            return gn_mod.group_scale_shift(*gn_mod.channel_sums(x), float(h * w_ * (c // 32)),
-                                            gw, gb, 32, 1e-5)
+            return gn_mod.gn_scale_shift(x, gw, gb, 32, 1e-5)
 
-        scale, shift = (t.contiguous() for t in stats())
-        entry = getattr(_build.library(), conv_mod._ENTRY[dtype])
-        stream = _build.stream_ptr(dev)
-
-        def conv_only():
-            _build.check(entry(x.data_ptr(), scale.data_ptr(), shift.data_ptr(), wt.data_ptr(),
-                               bias.data_ptr(), got.data_ptr(), n, c, h, w_, co, stream), "conv")
-
-        log(f"[phase2]   of which channel sums + fold {cuda_ms(stats, iters):.4f} ms, conv "
-            f"kernel alone {cuda_ms(conv_only, iters):.4f} ms")
+        scale, shift = stats()
+        variant = conv_mod.kernel_variant(dtype, co)
+        conv_only = conv_alone(x, scale, shift, wt, bias, got, variant)
+        conv_ms = cuda_ms(conv_only, iters)
+        log(f"[phase2]   {variant} kernel; of which statistics {cuda_ms(stats, iters):.4f} ms, "
+            f"conv kernel alone {conv_ms:.4f} ms = "
+            f"{18e-9 * c * co * n * h * w_ / conv_ms:.0f} TFLOP/s")
         del x, wt, got, want
+    results["gn_silu_conv3x3"]["variant"] = (
+        "wgmma (conv_wgmma_kernel) for bf16 with more than 8 output channels; mma.sync "
+        "(conv_mma_kernel) for f16 and bf16 up to 8 channels; fma (conv_fma_kernel) for f32")
+    conv_checks(dev, gen)
     return results
+
+
+def conv_alone(x, scale, shift, wt, bias, out, variant):
+    """A function that launches only the conv kernel ``variant`` of the fused
+    chain on ready-made statistics."""
+    from mgldvsr_tpu_torch.ops.kernels import _build
+    from mgldvsr_tpu_torch.ops.kernels import gn_silu_conv as conv_mod
+
+    n, c, h, w = x.shape
+    co = wt.shape[0]
+    lib, stream = _build.library(), _build.stream_ptr(x.device)
+    head = (x.data_ptr(), scale.data_ptr(), shift.data_ptr())
+    if variant == "wgmma":
+        relaid = conv_mod.relaid_weight(wt)
+        args = (*head, relaid.data_ptr(), bias.data_ptr(), out.data_ptr(), n, c, relaid.shape[2],
+                h, w, co, stream)
+        entry = lib.mgld_gn_silu_conv_wgmma_bf16
+    else:
+        args = (*head, wt.data_ptr(), bias.data_ptr(), out.data_ptr(), n, c, h, w, co, stream)
+        entry = getattr(lib, conv_mod._ENTRY[x.dtype])
+    return lambda: _build.check(entry(*args), "conv")
+
+
+def conv_checks(dev, gen) -> None:
+    """The fused GroupNorm+SiLU+conv off the timed shapes: C and Co off the
+    tensor-core kernel's tiles, narrow frames, a clipped variance, the re-laid
+    weight, the chain's launches, and the ``mma.sync`` kernel against the
+    tensor-core one."""
+    import torch
+
+    from mgldvsr_tpu_torch.ops import kernels
+    from mgldvsr_tpu_torch.ops.kernels import gn_silu_conv as conv_mod
+    from mgldvsr_tpu_torch.ops.kernels import groupnorm as gn_mod
+
+    bf16 = torch.bfloat16
+
+    def case(n, c, h, w, co, mean=0.3):
+        x = (torch.randn(n, c, h, w, device=dev, generator=gen) * 1.5 + mean).to(bf16)
+        gw = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+        gb = 0.1 * torch.randn(c, device=dev, generator=gen)
+        wt = (torch.randn(co, c, 3, 3, device=dev, generator=gen) * (9 * c) ** -0.5).to(bf16)
+        return x, gw, gb, wt, (0.1 * torch.randn(co, device=dev, generator=gen)).to(bf16)
+
+    def check(what, got, want, tol):
+        err = max_err(got, want)
+        log(f"[phase2] gn_silu_conv3x3 {what}: max_abs_err {err:.3e} (limit {tol:.3e})")
+        if not err <= tol or not torch.isfinite(got).all():
+            raise AssertionError(f"gn_silu_conv3x3 {what}: {err:.3e} > {tol:.3e}")
+
+    # bf16 bias, as the towers' convs hold it; 3 ulps at max |y| as above
+    for n, c, h, w, co, what in ((2, 96, 24, 40, 72, "C and Co off the 64 and 128 tiles"),
+                                 (2, 64, 16, 1, 32, "a frame one pixel wide"),
+                                 (5, 128, 8, 8, 200, "8x8 frames, an odd number of them"),
+                                 (3, 64, 21, 7, 24, "narrow and ragged"),
+                                 (1, 576, 16, 16, 64, "9 stages split among a cluster of 8"),
+                                 (2, 1280, 8, 8, 96, "8x8 tiles, 20 stages among 8 blocks")):
+        args = case(n, c, h, w, co)
+        kernels.reset_launch_counts()
+        got = conv_mod.gn_silu_conv3x3(*args, 32, 1e-5)
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        if counts != {"gn_scale_shift": 1, "gn_silu_conv3x3": 1, "gn_silu_conv3x3_wgmma": 1}:
+            raise AssertionError(f"gn_silu_conv3x3: a bf16 chain launched {counts}")
+        want = conv_mod.gn_silu_conv3x3_plain(*args, 32, 1e-5)
+        check(f"[{n},{c},{h},{w}]->{co} bf16 ({what})", got, want, bf16_ulps(3, want))
+
+    # x with mean >> std: E[x^2] - E[x]^2 cancels in fp32 and clips at 0 for
+    # some groups, in one summation order and not in another. The chain must
+    # stay finite, and the conv kernel on the plain version's statistics must
+    # equal the plain version.
+    x, gw, gb, wt, bias = case(2, 64, 16, 16, 64, mean=300.0)
+    got = conv_mod.gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5)
+    scale, shift = gn_mod.gn_scale_shift(x, gw, gb, 32, 1e-5)
+    if not (torch.isfinite(got).all() and float(scale.abs().max()) <= 1.2 * 1e-5 ** -0.5):
+        raise AssertionError("gn_silu_conv3x3: the clipped variance gave a non-finite chain")
+    scale, shift = (t.contiguous() for t in gn_mod.gn_scale_shift_plain(x, gw, gb, 32, 1e-5))
+    conv_alone(x, scale, shift, wt, conv_mod.bias_fp32(bias), got, "wgmma")()
+    want = conv_mod.gn_silu_conv3x3_plain(x, gw, gb, wt, bias, 32, 1e-5)
+    check("[2,64,16,16]->64 bf16, x = 300 + noise, on the plain version's statistics", got, want,
+          bf16_ulps(3, want))
+
+    # the re-laid weight: a permute bit for bit, zeros beyond C, made once
+    x, gw, gb, wt, bias = case(2, 96, 16, 16, 40)
+    made = conv_mod._derived.made
+    relaid = conv_mod.relaid_weight(wt)
+    if not (relaid.shape == (9, 40, 128) and not relaid[:, :, 96:].any()
+            and torch.equal(relaid[:, :, :96], wt.permute(2, 3, 0, 1).reshape(9, 40, 96))):
+        raise AssertionError("gn_silu_conv3x3: the re-laid weight is not the permuted weight")
+    conv_mod.gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5)
+    conv_mod.gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5)
+    if conv_mod.relaid_weight(wt) is not relaid or conv_mod._derived.made != made + 2:
+        raise AssertionError("gn_silu_conv3x3: the weight or the bias was laid out again")
+    wt.mul_(2)
+    if not torch.equal(conv_mod.relaid_weight(wt), relaid * 2):
+        raise AssertionError("gn_silu_conv3x3: an in-place update left a stale re-laid weight")
+    log("[phase2] gn_silu_conv3x3 re-laid weight [40,96,3,3] -> [9,40,128]: equals the permute "
+        "bit for bit, made once for two calls, made again after an in-place update")
+
+    # the mma.sync kernel (kept for f16 and for up to 8 output channels) on a
+    # shape that bf16 sends to the tensor-core kernel: bf16 products summed in
+    # fp32 in another order, SiLU rounded by two formulas (exp and divide
+    # there, tanh here): 2 ulps at max |y|, one whole step of the largest
+    x, gw, gb, wt, bias = case(2, 320, 32, 32, 320)
+    new = conv_mod.gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5)
+    old = torch.empty_like(new)
+    scale, shift = gn_mod.gn_scale_shift(x, gw, gb, 32, 1e-5)
+    conv_alone(x, scale, shift, wt, conv_mod.bias_fp32(bias), old, "mma")()
+    check("[2,320,32,32]->320 bf16, mma.sync kernel vs wgmma kernel", old, new, bf16_ulps(2, new))
 
 
 def tiny_config(frames: int = 5):
@@ -493,10 +665,10 @@ def phase3(seed: int, card: str, fused: bool) -> float:
     if not err <= 1e-3:
         raise AssertionError(f"phase 3: card and CPU disagree ({err:.3e})")
     must = ["warp_forward", "warp_dx", "attention", "corr_lookup", "fused_group_norm"]
-    for name in must + [FUSED_ONLY] * fused:
+    for name in must + list(FUSED_ONLY) * fused:
         if counts[name] == 0:
             raise AssertionError(f"phase 3: kernel {name} was never launched")
-    if not fused and counts[FUSED_ONLY]:
+    if not fused and any(counts[name] for name in FUSED_ONLY):
         raise AssertionError(f"phase 3: {FUSED_ONLY} launched with the switch off")
     return err
 
@@ -564,18 +736,34 @@ def full_restore(pipe, frames, seed: int, steps: int, card: str, fused: bool):
         f"{stage_txt}; total {wall:.3f} s, {5 / wall:.4f} frames/s, sampler "
         f"{1000 * stages['sampler'] / steps:.2f} ms/step, peak {peak / 2**30:.2f} GiB  [{card}]")
     log(f"[{phase}] launches {counts}  [{card}]")
+    if fused:
+        from mgldvsr_tpu_torch.ops.kernels.gn_silu_conv import derived_bytes
+
+        held, held_bytes = derived_bytes()
+        log(f"[{phase}] re-laid weights and float32 biases kept for the tensor-core conv kernel: "
+            f"{held} tensors, {held_bytes / 2**30:.3f} GiB")
     if out.shape != (5, 512, 512, 3):
         raise AssertionError(f"{phase} output shape {tuple(out.shape)}")
     if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
         raise AssertionError(f"{phase} output is not finite in [0, 1]")
     for name in KERNELS:
-        if (counts[name] == 0) != (name == FUSED_ONLY and not fused):
+        if (counts[name] == 0) != (name in (DEFAULT_ONLY if fused else FUSED_ONLY)):
             raise AssertionError(f"{phase}: kernel {name} was launched {counts[name]} times")
     # 14 gated attention calls per step, all bf16 at head dim 64
     if not counts["attention_wgmma"] == counts["attention"] == 14 * steps:
         raise AssertionError(f"{phase}: {counts['attention']} attention launches, "
                              f"{counts['attention_wgmma']} on the tensor-core kernel, "
                              f"expected {14 * steps}")
+    if fused:
+        # 73 chains a step (45 in the UNet, 28 in the struct-cond encoder) and
+        # 58 in the VAE, each two launches; all on the tensor-core kernel but
+        # the UNet's 4-channel output conv and the VAE's 8- and 3-channel ones
+        chains = 73 * steps + 58
+        got = (counts["gn_silu_conv3x3"], counts["gn_scale_shift"],
+               counts["gn_silu_conv3x3_wgmma"])
+        if got != (chains, chains, chains - steps - 2):
+            raise AssertionError(f"{phase}: (conv, statistics, tensor-core conv) launches {got}, "
+                                 f"expected {(chains, chains, chains - steps - 2)}")
     return out, counts
 
 
@@ -637,7 +825,7 @@ def main() -> int:
     # launches: the count on the path that runs the kernel (the fused
     # configuration for the fused conv, the default one for the others)
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
-                "launches": (counts5 if name == FUSED_ONLY else counts4)[name],
+                "launches": (counts5 if name in FUSED_ONLY else counts4)[name],
                 "launches_default": counts4[name], "launches_fused": counts5[name],
                 **results[name]}
                for name, (route, src, rep) in KERNELS.items()]
@@ -645,6 +833,8 @@ def main() -> int:
         if entry["name"] == "attention":
             entry["wgmma_launches"] = counts4["attention_wgmma"]
             entry["strided_launches"] = counts4["attention_strided"]
+        if entry["name"] == "gn_silu_conv3x3":
+            entry["wgmma_launches"] = counts5["gn_silu_conv3x3_wgmma"]
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,17 +1,29 @@
-"""GroupNorm + SiLU + 3x3 conv in one CUDA kernel, and its plain version.
+"""GroupNorm + SiLU + 3x3 conv as one chain of two launches, and its plain
+version.
 
 Replaces ``mgldvsr_tpu/ops/pallas/gn_silu_conv.py`` (``gn_silu_conv3x3``
 over ``_fused_fwd_impl``, kernel ``_kernel``). It is arithmetic-bound on the
 H100: 18 * C * Co flops per pixel against 2 * (C + Co) bytes. As in the JAX
-package the group statistics are taken outside the kernel, here by the
-channel-sums kernel (one read of x) and a fold on [N, C] data, and arrive as
-one fp32 (scale, shift) per (frame, channel); the kernel
-(``csrc/gn_silu_conv.cu``) normalises, applies SiLU, rounds to the working
-dtype and convolves as an implicit GEMM tiled through shared memory, so the
-normalised activation is never written to device memory. The TPU kernel
-held a whole frame in fast memory and fell back to the plain composition
-where it did not fit; this one tiles and takes every shape, so there is no
-size guard and no fallback.
+package the group statistics are taken outside the conv kernel: one launch
+(``groupnorm.gn_scale_shift``) reads x once and writes the folded fp32
+(scale, shift) per (frame, channel). The conv kernel (``csrc/gn_silu_conv.cu``)
+normalises, applies SiLU, rounds to the working dtype and convolves as an
+implicit GEMM tiled through shared memory, so the normalised activation is
+never written to device memory. The TPU kernel held a whole frame in fast
+memory and fell back to the plain composition where it did not fit; this one
+tiles and takes every shape, so there is no size guard and no fallback.
+
+Three kernels serve it (``kernel_variant``): bfloat16 with more than 8 output
+channels, every chain of the full-width restore but the output convs, runs
+on ``wgmma``; float16 and the few-channel output convs on ``mma.sync``;
+float32 (the parity mode) on the FMA units. The ``wgmma`` kernel reads the
+weight tap-major and channel-contiguous, ``[9][Co][Cp]`` with Cp = C rounded
+up to 64 (``relaid_weight``). That copy is made once per weight tensor and
+kept in a cache beside the module's own ``[Co, C, 3, 3]`` parameter, which
+stays the only copy in the state dict; an in-place update or a
+``load_state_dict`` of the parameter makes the next call lay it out again.
+A conv bias that was cast to the working dtype with its weight gets its
+float32 copy from the same cache, so a warm chain copies nothing.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels
 or raises. The gradient is autograd through the plain version on the saved
@@ -19,18 +31,83 @@ inputs, as in the JAX package (which has no backward kernel either).
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 import torch.nn.functional as F
 
 from mgldvsr_tpu_torch.ops.kernels import _build
 from mgldvsr_tpu_torch.ops.kernels.groupnorm import (
+    _launch_scale_shift,
     _recompute_grads,
-    channel_sums,
-    group_scale_shift,
+    check_group_affine,
 )
 
+# the C entries: the mma.sync kernel (bf16, f16) and the FMA kernel (f32) take
+# the weight as it is, the wgmma kernel (bf16) takes it re-laid
 _ENTRY = {torch.bfloat16: "mgld_gn_silu_conv_bf16", torch.float16: "mgld_gn_silu_conv_f16",
           torch.float32: "mgld_gn_silu_conv_f32"}
+_WGMMA_ENTRY = "mgld_gn_silu_conv_wgmma_bf16"
+STAGE_CHANNELS = 64  # input channels per stage of the wgmma kernel
+
+
+def kernel_variant(dtype: torch.dtype, co: int) -> str:
+    """Which kernel a chain takes: ``"wgmma"`` for bfloat16 with more than 8
+    output channels, ``"fma"`` for float32, ``"mma"`` (``mma.sync``) for
+    float16 and for bfloat16 with up to 8 output channels."""
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if dtype == torch.bfloat16 and co > 8 else "mma"
+
+
+def relayout_weight(weight: torch.Tensor) -> torch.Tensor:
+    """``[Co, C, 3, 3]`` -> ``[9, Co, Cp]``: tap-major, channels contiguous,
+    Cp = C rounded up to a multiple of 64 with zeros beyond C."""
+    co, c = weight.shape[:2]
+    cp = -(-c // STAGE_CHANNELS) * STAGE_CHANNELS
+    out = weight.new_zeros(9, co, cp)
+    out[:, :, :c] = weight.detach().permute(2, 3, 0, 1).reshape(9, co, c)
+    return out
+
+
+_DERIVED: dict[tuple, tuple] = {}  # (id(tensor), what) -> (weak reference, state, copy)
+
+
+def _derived(tensor: torch.Tensor, what: str, make) -> torch.Tensor:
+    """``make(tensor)``, computed at the first call and again after the tensor
+    changed: the cache entry holds the tensor's address, version counter,
+    shape, dtype and device, and goes when the tensor does."""
+    key = (id(tensor), what)
+    entry = _DERIVED.get(key)
+    state = (tensor.data_ptr(), tensor._version, tuple(tensor.shape), tensor.dtype, tensor.device)
+    if entry is not None and entry[0]() is tensor and entry[1] == state:
+        return entry[2]
+    made = make(tensor)
+    _DERIVED[key] = (weakref.ref(tensor, lambda _, key=key: _DERIVED.pop(key, None)), state, made)
+    _derived.made += 1
+    return made
+
+
+_derived.made = 0  # copies made so far (a warm path makes none)
+
+
+def derived_bytes() -> tuple[int, int]:
+    """(tensors, bytes) that the cache holds now."""
+    copies = [entry[2] for entry in _DERIVED.values()]
+    return len(copies), sum(t.numel() * t.element_size() for t in copies)
+
+
+def relaid_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The cached ``relayout_weight(weight)``."""
+    return _derived(weight, "relaid", relayout_weight)
+
+
+def bias_fp32(bias: torch.Tensor) -> torch.Tensor:
+    """The bias as the kernels take it, float32: itself, or a cached copy of
+    a conv bias that was cast to the working dtype with its weight."""
+    if bias.dtype == torch.float32:
+        return bias
+    return _derived(bias, "fp32", lambda t: t.detach().float())
 
 
 def gn_silu_conv3x3_plain(x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Tensor,
@@ -54,17 +131,25 @@ def gn_silu_conv3x3_plain(x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: tor
 def _launch(x, gn_weight, gn_bias, weight, bias, groups: int, eps: float) -> torch.Tensor:
     n, c, h, w = x.shape
     co = weight.shape[0]
-    s1, s2 = channel_sums(x)
-    scale, shift = group_scale_shift(s1, s2, float(h * w * (c // groups)), gn_weight, gn_bias,
-                                     groups, eps)
-    scale, shift = scale.contiguous(), shift.contiguous()
-    bias32 = bias.float().contiguous()
+    scale, shift = _launch_scale_shift(x, gn_weight, gn_bias, groups, eps)
     out = torch.empty(n, co, h, w, dtype=x.dtype, device=x.device)
-    fn = getattr(_build.library(), _ENTRY[x.dtype])
-    err = fn(x.data_ptr(), scale.data_ptr(), shift.data_ptr(), weight.data_ptr(),
-             bias32.data_ptr(), out.data_ptr(), n, c, h, w, co, _build.stream_ptr(x.device))
-    _build.check(err, _ENTRY[x.dtype])
+    bias = bias_fp32(bias)
+    variant = kernel_variant(x.dtype, co)
+    pointers = (x.data_ptr(), scale.data_ptr(), shift.data_ptr())
+    if variant == "wgmma":
+        relaid = relaid_weight(weight)
+        name = _WGMMA_ENTRY
+        err = getattr(_build.library(), name)(
+            *pointers, relaid.data_ptr(), bias.data_ptr(), out.data_ptr(), n, c,
+            relaid.shape[2], h, w, co, _build.stream_ptr(x.device))
+    else:
+        name = _ENTRY[x.dtype]
+        err = getattr(_build.library(), name)(
+            *pointers, weight.data_ptr(), bias.data_ptr(), out.data_ptr(), n, c, h, w, co,
+            _build.stream_ptr(x.device))
+    _build.check(err, name)
     gn_silu_conv3x3.launches += 1
+    gn_silu_conv3x3.wgmma_launches += variant == "wgmma"
     return out
 
 
@@ -91,8 +176,9 @@ def gn_silu_conv3x3(x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Ten
                     eps: float = 1e-5) -> torch.Tensor:
     """conv3x3(SiLU(GroupNorm(x))), zero padding 1, stride 1, for a
     contiguous x [N,C,H,W] in bfloat16, float16 or float32 and a contiguous
-    weight [Co,C,3,3] of the same dtype; float32 ``gn_weight``, ``gn_bias``
-    [C] and ``bias`` [Co]. Output [N,Co,H,W] in x's dtype."""
+    weight [Co,C,3,3] of the same dtype; contiguous float32 ``gn_weight``
+    and ``gn_bias`` [C]; ``bias`` [Co] in float32 or x's dtype. Output
+    [N,Co,H,W] in x's dtype."""
     if x.device.type == "cpu":
         return gn_silu_conv3x3_plain(x, gn_weight, gn_bias, weight, bias, groups, eps)
     if x.ndim != 4 or not x.is_contiguous() or x.device.type != "cuda":
@@ -106,13 +192,15 @@ def gn_silu_conv3x3(x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Ten
                          f"{tuple(weight.shape)} (contiguous={weight.is_contiguous()})")
     if weight.dtype != x.dtype:
         raise TypeError(f"gn_silu_conv3x3: weight is {weight.dtype}, x is {x.dtype}")
-    if c % groups or gn_weight.shape != (c,) or gn_bias.shape != (c,) \
-            or bias.shape != (weight.shape[0],):
-        raise ValueError(f"gn_silu_conv3x3: {c} channels, {groups} groups, GroupNorm affine "
-                         f"{tuple(gn_weight.shape)}/{tuple(gn_bias.shape)}, bias "
-                         f"{tuple(bias.shape)} for {weight.shape[0]} output channels")
-    if any(t.device != x.device for t in (gn_weight, gn_bias, weight, bias)):
+    check_group_affine("gn_silu_conv3x3", x, gn_weight, gn_bias, groups)
+    if bias.shape != (weight.shape[0],):
+        raise ValueError(f"gn_silu_conv3x3: bias {tuple(bias.shape)} for {weight.shape[0]} "
+                         f"output channels")
+    if weight.device != x.device or bias.device != x.device:
         raise ValueError("gn_silu_conv3x3: every tensor must be on x's device")
+    if bias.dtype not in (torch.float32, x.dtype) or not bias.is_contiguous():
+        raise ValueError(f"gn_silu_conv3x3: bias must be contiguous float32 or {x.dtype}, got "
+                         f"{bias.dtype} (contiguous={bias.is_contiguous()})")
     args = (x, gn_weight, gn_bias, weight, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _GNSiLUConv.apply(*args, groups, eps)
@@ -120,3 +208,4 @@ def gn_silu_conv3x3(x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Ten
 
 
 gn_silu_conv3x3.launches = 0
+gn_silu_conv3x3.wgmma_launches = 0  # of them on the tensor-core (wgmma) kernel

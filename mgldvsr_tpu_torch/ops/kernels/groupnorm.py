@@ -1,5 +1,6 @@
-"""GroupNorm kernels in Triton, each beside its plain version: the one-pass
-channel sums and the fully fused GroupNorm.
+"""GroupNorm kernels, each beside its plain version: in Triton the one-pass
+channel sums and the fully fused GroupNorm; in CUDA C++ the folded scale and
+shift that the fused GroupNorm+SiLU+conv kernel takes.
 
 ``channel_sums`` replaces ``mgldvsr_tpu/ops/pallas/groupnorm.py``
 ``channel_sums`` (kernel ``_stats_kernel``). It is bound by device-memory
@@ -22,6 +23,16 @@ channels x 64^2 bf16 = 240 KB) exceeds a block's shared memory, so the
 second walk re-reads global memory and is served by the L2 cache, which
 holds the whole tensor; nothing but x and y touches device memory.
 
+``gn_scale_shift`` is the statistics half of the fused
+GroupNorm+SiLU+conv chain (``mgldvsr_tpu/ops/pallas/gn_silu_conv.py``
+``_fused_fwd_impl``, the reduction ahead of its kernel): the fp32
+``scale[N, C]`` and ``shift[N, C]`` with ``GroupNorm(x) = x * scale + shift``.
+It is bound by one read of x and is one launch of a CUDA C++ kernel
+(``csrc/gn_silu_conv.cu`` ``gn_stats_kernel``, beside the conv kernel it
+feeds): a cluster of 1 to 8 blocks per (sample, group) slab. It is launched
+through ``ctypes`` like the other CUDA kernels, which costs the host a
+quarter of what a Triton launch does; a sampler step makes 73 of them.
+
 ``triton`` is imported only inside the launching functions, so this module
 imports where Triton is absent. A CPU tensor takes the plain version; a
 CUDA tensor launches the kernel or raises.
@@ -31,6 +42,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from mgldvsr_tpu_torch.ops.kernels import _build
 
 _FLOATS = (torch.bfloat16, torch.float16, torch.float32)
 
@@ -124,6 +137,69 @@ def group_scale_shift(s1: torch.Tensor, s2: torch.Tensor, count: float, weight: 
     a = inv.expand(n, groups, cg).reshape(n, c) * weight.float()
     b = bias.float() - (mean * inv).expand(n, groups, cg).reshape(n, c) * weight.float()
     return a, b
+
+
+def gn_scale_shift_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                         groups: int = 32, eps: float = 1e-5):
+    """Plain version: GroupNorm of [N, C, H, W] as fp32 ``(scale, shift)``,
+    each [N, C], with ``GroupNorm(x) = x * scale + shift``; the statistics
+    are fp32 sums of x as it is, the variance clipped at 0."""
+    c = x.shape[1]
+    count = float(x[0, 0].numel() * (c // groups))
+    return group_scale_shift(*channel_sums_plain(x), count, weight, bias, groups, eps)
+
+
+_SCALE_SHIFT_ENTRY = {torch.bfloat16: "mgld_gn_scale_shift_bf16",
+                      torch.float16: "mgld_gn_scale_shift_f16",
+                      torch.float32: "mgld_gn_scale_shift_f32"}
+
+
+def _launch_scale_shift(x, weight, bias, groups: int, eps: float):
+    """The launch without the checks (the fused conv's wrapper made them)."""
+    n, c, h, w = x.shape
+    out = torch.empty(2, n, c, dtype=torch.float32, device=x.device)
+    scale, shift = out[0], out[1]
+    name = _SCALE_SHIFT_ENTRY[x.dtype]
+    err = getattr(_build.library(), name)(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        n, c, h * w, groups, eps, _build.stream_ptr(x.device))
+    _build.check(err, name)
+    gn_scale_shift.launches += 1
+    return scale, shift
+
+
+def gn_scale_shift(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   groups: int = 32, eps: float = 1e-5):
+    """GroupNorm of a contiguous [N, C, H, W] tensor as fp32
+    ``(scale, shift)``, each [N, C]: ``GroupNorm(x) = x * scale + shift``,
+    in one launch. Contiguous float32 ``weight`` and ``bias`` of [C]. No
+    gradient: the fused conv's backward recomputes."""
+    if x.device.type == "cpu":
+        return gn_scale_shift_plain(x, weight, bias, groups, eps)
+    if x.ndim != 4 or not x.is_contiguous() or x.device.type != "cuda":
+        raise ValueError(f"gn_scale_shift: need a contiguous CUDA [N,C,H,W] tensor, got "
+                         f"{tuple(x.shape)} (contiguous={x.is_contiguous()}) on {x.device}")
+    if x.dtype not in _FLOATS:
+        raise TypeError(f"gn_scale_shift: floating input only, got {x.dtype}")
+    check_group_affine("gn_scale_shift", x, weight, bias, groups)
+    return _launch_scale_shift(x, weight, bias, groups, eps)
+
+
+def check_group_affine(who: str, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                       groups: int) -> None:
+    """Raise unless ``weight`` and ``bias`` are contiguous float32 [C] on x's
+    device and ``groups`` divides C: the kernel reads them as they are."""
+    c = x.shape[1]
+    if c % groups or weight.shape != (c,) or bias.shape != (c,):
+        raise ValueError(f"{who}: {c} channels, {groups} groups, GroupNorm weight "
+                         f"{tuple(weight.shape)}, bias {tuple(bias.shape)}")
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{who}: GroupNorm {name} must be contiguous float32 on x's device, "
+                             f"got {t.dtype} (contiguous={t.is_contiguous()}) on {t.device}")
+
+
+gn_scale_shift.launches = 0
 
 
 def fused_group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -24,12 +24,16 @@ from mgldvsr_tpu_torch.ops.kernels.flow_warp import (
     warp_forward,
     warp_plain,
 )
+from mgldvsr_tpu_torch.ops.kernels import _build
+from mgldvsr_tpu_torch.ops.kernels import gn_silu_conv as conv_mod
 from mgldvsr_tpu_torch.ops.kernels.gn_silu_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
 from mgldvsr_tpu_torch.ops.kernels.groupnorm import (
     channel_sums,
     channel_sums_plain,
     fused_group_norm,
     fused_group_norm_plain,
+    gn_scale_shift,
+    gn_scale_shift_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -210,6 +214,12 @@ def test_fused_group_norm_kernel_matches_plain(dev, shape, dtype, eps):
     (5, 320, 64, 64, 4, torch.bfloat16),
     (1, 128, 130, 70, 3, torch.bfloat16),
     (2, 64, 19, 23, 96, torch.bfloat16),
+    (2, 96, 24, 40, 72, torch.bfloat16),    # C and Co off the 64- and 128-channel tiles
+    (2, 64, 16, 1, 32, torch.bfloat16),     # a frame one pixel wide
+    (5, 128, 8, 8, 200, torch.bfloat16),    # 8 x 8 frames: a warpgroup a frame, the last one idle
+    (3, 64, 21, 7, 24, torch.bfloat16),     # narrow and ragged
+    (1, 576, 16, 16, 64, torch.bfloat16),   # 2 tiles, 9 stages: split among a cluster of 8 blocks
+    (2, 1280, 8, 8, 96, torch.bfloat16),    # the same for 8 x 8 tiles
     (2, 96, 16, 8, 40, torch.float16),
     (2, 64, 16, 8, 96, torch.float32),
     (3, 32, 9, 21, 5, torch.float32),
@@ -219,19 +229,134 @@ def test_gn_silu_conv_kernel_matches_plain(dev, n, c, h, w, co, dtype):
     (96). fp32: 1e-4 of max |y| (sums in another order, TF32 off). bf16 and
     fp16: the plain version rounds the conv's result and then the biased
     sum, the kernel once; with the rare activation that rounds the other
-    way, 3 ulps at max |y|."""
+    way, 3 ulps at max |y|. bf16 with more than 8 output channels must run
+    the tensor-core kernel, everything else the other two."""
+    x, gw, gb, wt, bias = _conv_case(dev, n, c, h, w, co, dtype)
+    kernels.reset_launch_counts()
+    got = gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5)
+    counts = kernels.launch_counts()
+    assert counts["gn_silu_conv3x3"] == counts["gn_scale_shift"] == 1
+    assert counts["gn_silu_conv3x3_wgmma"] == int(dtype == torch.bfloat16 and co > 8)
+    want = gn_silu_conv3x3_plain(x, gw, gb, wt, bias, 32, 1e-5)
+    assert got.dtype == dtype and got.shape == (n, co, h, w)
+    torch.testing.assert_close(got.float(), want.float(), atol=_conv_limit(want), rtol=0)
+
+
+def _conv_case(dev, n, c, h, w, co, dtype, mean=0.3):
     gen = _gen(dev, n + c + h + w + co)
-    x = (torch.randn(n, c, h, w, device=dev, generator=gen) * 1.5 + 0.3).to(dtype)
+    x = (torch.randn(n, c, h, w, device=dev, generator=gen) * 1.5 + mean).to(dtype)
     gw = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
     gb = 0.1 * torch.randn(c, device=dev, generator=gen)
     wt = (torch.randn(co, c, 3, 3, device=dev, generator=gen) * (9 * c) ** -0.5).to(dtype)
     bias = 0.1 * torch.randn(co, device=dev, generator=gen)
+    return x, gw, gb, wt, bias
+
+
+def _conv_limit(want):
+    rel = {torch.float32: 1e-4, torch.bfloat16: 3 * 2 ** -8, torch.float16: 3 * 2 ** -11}
+    return rel[want.dtype] * float(want.float().abs().max())
+
+
+def test_gn_silu_conv_mma_kernel_matches_the_wgmma_kernel(dev):
+    """The ``mma.sync`` kernel, which bf16 keeps for up to 8 output channels
+    and fp16 for all, against the tensor-core kernel on the same bf16 chain:
+    both sum bf16 products in fp32, in another order, and they round SiLU by
+    two formulas (exp and divide there, tanh here), so an output may land on
+    the neighbouring bf16: 2 ulps at max |y| (one whole step of the largest
+    outputs)."""
+    x, gw, gb, wt, bias = _conv_case(dev, 2, 320, 32, 32, 320, torch.bfloat16)
+    new = gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5)
+    scale, shift = gn_scale_shift(x, gw, gb, 32, 1e-5)
+    old = torch.empty_like(new)
+    _build.check(_build.library().mgld_gn_silu_conv_bf16(
+        x.data_ptr(), scale.data_ptr(), shift.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+        old.data_ptr(), 2, 320, 32, 32, 320, _build.stream_ptr(dev)), "mgld_gn_silu_conv_bf16")
+    torch.testing.assert_close(old.float(), new.float(),
+                               atol=2 * 2 ** -8 * float(new.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("shape,dtype,eps,mean", [
+    ((5, 320, 64, 64), torch.bfloat16, 1e-5, 0.5),
+    ((2, 960, 32, 32), torch.bfloat16, 1e-6, 0.5),
+    ((2, 128, 130, 70), torch.bfloat16, 1e-6, 0.5),   # long slabs, 8 blocks each, ragged shares
+    ((3, 96, 7, 9), torch.float16, 1e-5, 0.5),        # slabs off the 16-byte vectors
+    ((2, 64, 13, 11), torch.float32, 1e-5, 0.5),
+    ((1, 64, 128, 128), torch.float32, 1e-5, 0.5),
+    ((2, 64, 16, 16), torch.float32, 1e-5, 300.0),    # mean >> std: E[x^2] - E[x]^2 cancels
+])
+def test_gn_scale_shift_kernel_matches_plain(dev, shape, dtype, eps, mean):
+    """The folded scale and shift in one launch (a cluster of blocks a slab)
+    against the plain version: 1e-5 of the largest scale and shift (fp32 sums
+    in another order). At mean >> std the variance is a difference of nearly
+    equal fp32 numbers and may clip at 0 in one order and not in the other,
+    so there only the clipping is held: finite, and no scale above
+    rsqrt(eps)."""
+    gen = _gen(dev, sum(shape))
+    x = (torch.randn(shape, device=dev, generator=gen) * 2 + mean).to(dtype)
+    w = torch.randn(shape[1], device=dev, generator=gen)
+    b = torch.randn(shape[1], device=dev, generator=gen)
+    kernels.reset_launch_counts()
+    scale, shift = gn_scale_shift(x, w, b, 32, eps)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {"gn_scale_shift": 1}
+    assert scale.shape == shift.shape == shape[:2] and scale.dtype == torch.float32
+    assert torch.isfinite(scale).all() and torch.isfinite(shift).all()
+    if mean > 100:
+        assert float((scale.abs() / w.abs()).max()) <= 1.001 * eps ** -0.5
+        return
+    for got, want in zip((scale, shift), gn_scale_shift_plain(x, w, b, 32, eps)):
+        torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=1e-5)
+
+
+def test_gn_silu_conv_with_a_clipped_variance(dev):
+    """x = a large constant plus a little noise: E[x^2] - E[x]^2 is negative
+    in fp32 for some groups and clips at 0. The kernel's chain and the plain
+    version see the same x but sum in another order, so they are compared
+    through their own statistics: the conv kernel on the plain version's
+    scale and shift must equal the plain version."""
+    x, gw, gb, wt, bias = _conv_case(dev, 2, 64, 16, 16, 64, torch.bfloat16, mean=300.0)
     got = gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5)
+    assert torch.isfinite(got).all()
+    scale, shift = (t.contiguous() for t in gn_scale_shift_plain(x, gw, gb, 32, 1e-5))
+    out = torch.empty_like(got)
+    relaid = conv_mod.relaid_weight(wt)
+    _build.check(_build.library().mgld_gn_silu_conv_wgmma_bf16(
+        x.data_ptr(), scale.data_ptr(), shift.data_ptr(), relaid.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), 2, 64, relaid.shape[2], 16, 16, 64, _build.stream_ptr(dev)), "conv")
     want = gn_silu_conv3x3_plain(x, gw, gb, wt, bias, 32, 1e-5)
-    assert got.dtype == dtype and got.shape == (n, co, h, w)
-    rel = {torch.float32: 1e-4, torch.bfloat16: 3 * 2 ** -8, torch.float16: 3 * 2 ** -11}[dtype]
-    torch.testing.assert_close(got.float(), want.float(),
-                               atol=rel * float(want.float().abs().max()), rtol=0)
+    torch.testing.assert_close(out.float(), want.float(), atol=_conv_limit(want), rtol=0)
+
+
+def test_relaid_weight_on_card(dev):
+    """[Co,C,3,3] -> [9,Co,Cp] bit for bit a permute, zero beyond C; made once,
+    reused, and made again after an in-place update or a load_state_dict."""
+    conv = torch.nn.Conv2d(96, 40, 3, padding=1).to(dev).to(torch.bfloat16)
+    made = conv_mod._derived.made
+    relaid = conv_mod.relaid_weight(conv.weight)
+    assert relaid.shape == (9, 40, 128) and relaid.data_ptr() % 16 == 0
+    assert torch.equal(relaid[:, :, :96], conv.weight.detach().permute(2, 3, 0, 1).reshape(9, 40, 96))
+    assert not relaid[:, :, 96:].any()
+    assert conv_mod.relaid_weight(conv.weight) is relaid and conv_mod._derived.made == made + 1
+    with torch.no_grad():
+        conv.weight.mul_(2)
+    again = conv_mod.relaid_weight(conv.weight)
+    assert again is not relaid and torch.equal(again, relaid * 2)
+    conv.load_state_dict({k: torch.zeros_like(v) for k, v in conv.state_dict().items()})
+    assert not conv_mod.relaid_weight(conv.weight).any() and conv_mod._derived.made == made + 3
+
+
+def test_fused_chain_is_two_launches_and_copies_nothing(dev):
+    """A warm bf16 chain with a bf16 conv bias, as the full-width towers run
+    it: the statistics kernel, the conv kernel, and nothing laid out anew."""
+    x, gw, gb, wt, bias = _conv_case(dev, 5, 320, 64, 64, 320, torch.bfloat16)
+    bias = bias.to(torch.bfloat16)
+    want = gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5)
+    made = conv_mod._derived.made
+    kernels.reset_launch_counts()
+    got = gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5)
+    counts = kernels.launch_counts()
+    assert torch.equal(got, want) and conv_mod._derived.made == made
+    assert {k: v for k, v in counts.items() if v} == {
+        "gn_scale_shift": 1, "gn_silu_conv3x3": 1, "gn_silu_conv3x3_wgmma": 1}
 
 
 def test_new_kernels_gradients_on_card(dev):
@@ -266,6 +391,8 @@ def test_new_kernels_raise_on_non_contiguous_input(dev):
         gn_silu_conv3x3(x, gw, gb, wt, bias)
     with pytest.raises(TypeError):
         gn_silu_conv3x3(x.contiguous(), gw, gb, wt.to(torch.bfloat16), bias)
+    with pytest.raises(ValueError):  # GroupNorm's affine is float32: no copy is made for it
+        gn_silu_conv3x3(x.contiguous(), gw.double(), gb.double(), wt, bias)
     assert kernels.launch_counts() == before
 
 

@@ -383,3 +383,170 @@ def test_wrappers_take_the_plain_path_on_cpu():
     counts = kernels.launch_counts()
     assert set(kernels.WRAPPERS) <= set(counts) and not any(counts.values())
 
+
+
+def _tiled_gn_silu_conv(x, scale, shift, weight, bias):
+    """The tensor-core conv kernel's arithmetic, tile by tile, in plain tensor
+    code: the weight re-laid ``[9][Co][Cp]`` (Cp = C rounded up to 64, zeros
+    beyond C); pixel tiles of 8 x 16 by 128 output channels, or 8 x 8 by 64
+    for frames up to 8 pixels wide; per 64-channel stage a halo patch of
+    SiLU in the kernel's form ``h + h * tanh(h)``, ``h = (x * scale + shift) /
+    2``, rounded to x's dtype, zero outside the frame and for channels >= C;
+    nine shifted per-tap products accumulated in float32 over weight rows
+    that are zero past Co; where the tiles are few, the stages split among 2,
+    4 or 8 partial sums that are added at the end (the blocks of a cluster);
+    bias added in float32, one rounding; pixels and channels past the edges
+    never written."""
+    n, c, h, w = x.shape
+    co = weight.shape[0]
+    wre = conv_mod.relayout_weight(weight).float()
+    cp = wre.shape[2]
+    assert wre.shape[:2] == (9, co) and cp % 64 == 0 and 0 <= cp - c < 64
+    th, tw, bn = (8, 16, 128) if w > 8 else (8, 8, 64)
+    stages = cp // 64
+    tiles = -(-h // th) * -(-w // tw)
+    blocks = (tiles * n if w > 8 else -(-tiles * n // 2)) * -(-co // bn)
+    ksplit = 1
+    while ksplit < 8 and blocks * ksplit * 2 <= 264 and ksplit * 2 <= stages:
+        ksplit *= 2
+    out = torch.full((n, co, h, w), float("nan"), dtype=x.dtype)
+    for f in range(n):
+        for y0 in range(0, h, th):
+            for x0 in range(0, w, tw):
+                ys, xs = torch.arange(y0 - 1, y0 + th + 1), torch.arange(x0 - 1, x0 + tw + 1)
+                inside = ((ys >= 0) & (ys < h))[:, None] & ((xs >= 0) & (xs < w))[None, :]
+                for co0 in range(0, co, bn):
+                    parts = torch.zeros(ksplit, th, tw, bn)
+                    for stage in range(stages):
+                        c0 = stage * 64
+                        acc = parts[next(r for r in range(ksplit)
+                                         if stage < stages * (r + 1) // ksplit)]
+                        cs = min(64, c - c0)
+                        raw = x[f, c0:c0 + cs][:, ys.clamp(0, h - 1)][:, :, xs.clamp(0, w - 1)]
+                        v = raw.float() * scale[f, c0:c0 + cs, None, None] \
+                            + shift[f, c0:c0 + cs, None, None]
+                        half = 0.5 * v
+                        act = (half + half * torch.tanh(half)).to(x.dtype).float() * inside
+                        patch = torch.zeros(th + 2, tw + 2, 64)
+                        patch[:, :, :cs] = act.permute(1, 2, 0)
+                        for tap in range(9):
+                            rows = torch.zeros(bn, 64)
+                            live = wre[tap, co0:co0 + bn, c0:c0 + 64]
+                            rows[:live.shape[0]] = live
+                            acc += patch[tap // 3:tap // 3 + th, tap % 3:tap % 3 + tw] @ rows.T
+                    acc = parts[0]
+                    for part in parts[1:]:
+                        acc = acc + part
+                    yv, xv, cv = min(th, h - y0), min(tw, w - x0), min(bn, co - co0)
+                    res = acc[:yv, :xv, :cv] + bias[co0:co0 + cv].float()
+                    out[f, co0:co0 + cv, y0:y0 + yv, x0:x0 + xv] = res.permute(2, 0, 1).to(x.dtype)
+    assert torch.isfinite(out.float()).all()
+    return out
+
+
+_TILED_CASES = [
+    (2, 12, 20, 96, 72, 32),    # C off the 64-channel stage, Co under one tile, ragged frame
+    (1, 9, 7, 32, 70, 8),       # a narrow frame: 8 x 8 tiles by 64 channels, two column tiles
+    (1, 8, 17, 64, 136, 32),    # two column tiles of 128, a one-pixel second tile
+    (1, 8, 8, 288, 24, 32),     # 5 stages (the last half full) split among 4 partial sums
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,h,w,c,co,groups", _TILED_CASES)
+def test_tiled_gn_silu_conv_arithmetic_matches_plain(t, h, w, c, co, groups, dtype):
+    """The kernel's tile-by-tile arithmetic against the plain version.
+    float32: 2e-4 of max |y| (sums in another order). bfloat16: 3 ulps of
+    max |y| (the plain version rounds the conv's result and again after the
+    bias, the tiled form once)."""
+    x, gw, gb, wt, bias = _port_conv_args(*_conv_inputs(t, h, w, c, co, seed=c + co), dtype)
+    scale, shift = gn_mod.gn_scale_shift(x, gw, gb, groups, 1e-5)
+    got = _tiled_gn_silu_conv(x, scale, shift, wt, bias).float()
+    want = gn_silu_conv3x3_plain(x, gw, gb, wt, bias, groups, 1e-5).float()
+    rel = 2e-4 if dtype == torch.float32 else 3 * 2 ** -8
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=rel * float(want.abs().max()),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("t,h,w,c,co,groups", _TILED_CASES)
+def test_tiled_gn_silu_conv_arithmetic_matches_pallas(t, h, w, c, co, groups):
+    """The same against the Pallas kernel in interpret mode, float32, 2e-4
+    (the JAX package's own limit for this kernel against its composition)."""
+    from mgldvsr_tpu.ops.pallas.gn_silu_conv import gn_silu_conv3x3 as jax_fused
+
+    args = _conv_inputs(t, h, w, c, co, seed=c + co)
+    want = jax_fused(*map(jnp.asarray, args), groups=groups, co_tile=64, interpret=True)
+    x, gw, gb, wt, bias = _port_conv_args(*args)
+    scale, shift = gn_mod.gn_scale_shift(x, gw, gb, groups, 1e-5)
+    got = _tiled_gn_silu_conv(x, scale, shift, wt, bias)
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gn_scale_shift_plain_matches_the_jax_fold(monkeypatch, dtype, eps):
+    """The folded (scale, shift) against the ones ``_fused_fwd_impl`` hands
+    its Pallas kernel (caught at the ``pallas_call``), 1e-5: fp32 statistics
+    of the input as it is on both sides. Frame 0 is a constant, whose
+    variance is exactly 0 (clipped), so its scale is ``weight / sqrt(eps)``."""
+    import mgldvsr_tpu.ops.pallas.gn_silu_conv as jax_mod
+
+    caught = {}
+
+    def fake_pallas_call(kernel, out_shape, **kwargs):
+        def run(scale_tc, shift_tc, wk, bk, x):
+            caught["scale"], caught["shift"] = np.asarray(scale_tc), np.asarray(shift_tc)
+            return jnp.zeros(out_shape.shape, out_shape.dtype)
+        return run
+
+    monkeypatch.setattr(jax_mod.pl, "pallas_call", fake_pallas_call)
+    x, gw, gb, k, b = _conv_inputs(3, 6, 10, 64, 8, seed=9)
+    x[0] = 2.0
+    x[2] = x[2] * 3 + 5
+    xj = jnp.asarray(x, dtype)
+    jax_mod._fused_fwd_impl(xj, jnp.asarray(gw), jnp.asarray(gb), jnp.asarray(k, dtype),
+                            jnp.asarray(b), 16, eps, 128, True)
+    xt = _nchw(np.asarray(xj, np.float32)).to(getattr(torch, dtype))
+    scale, shift = gn_mod.gn_scale_shift(xt, torch.from_numpy(gw), torch.from_numpy(gb), 16, eps)
+    assert scale.shape == shift.shape == (3, 64) and scale.dtype == torch.float32
+    for got, want in ((scale, caught["scale"]), (shift, caught["shift"])):
+        want = want.reshape(3, 64)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    np.testing.assert_allclose(scale[0].numpy(), gw * eps ** -0.5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relaid_weight_is_a_permute_made_once(dtype):
+    """[Co,C,3,3] -> [9,Co,Cp] bit for bit a permute with zeros beyond C;
+    reused on a second call; made again after an in-place update and after a
+    ``load_state_dict``; the state dict keeps only the module's own layout."""
+    torch.manual_seed(0)
+    conv = torch.nn.Conv2d(40, 24, 3, padding=1).to(dtype)
+    made = conv_mod._derived.made
+    relaid = conv_mod.relaid_weight(conv.weight)
+    assert relaid.shape == (9, 24, 64) and relaid.dtype == dtype and not relaid.requires_grad
+    assert torch.equal(relaid[:, :, :40],
+                       conv.weight.detach().permute(2, 3, 0, 1).reshape(9, 24, 40))
+    assert not relaid[:, :, 40:].any()
+    assert conv_mod.relaid_weight(conv.weight) is relaid
+    assert conv_mod._derived.made == made + 1
+    with torch.no_grad():
+        conv.weight.mul_(2)
+    doubled = conv_mod.relaid_weight(conv.weight)
+    assert doubled is not relaid and torch.equal(doubled, relaid * 2)
+    conv.load_state_dict({k: torch.ones_like(v) for k, v in conv.state_dict().items()})
+    ones = conv_mod.relaid_weight(conv.weight)
+    assert bool((ones[:, :, :40] == 1).all()) and not ones[:, :, 40:].any()
+    assert conv_mod._derived.made == made + 3
+    assert set(conv.state_dict()) == {"weight", "bias"}
+    # a conv bias cast with its weight gets one cached float32 copy; float32 is itself
+    if dtype == torch.float32:
+        assert conv_mod.bias_fp32(conv.bias) is conv.bias
+    else:
+        copy = conv_mod.bias_fp32(conv.bias)
+        assert copy.dtype == torch.float32 and conv_mod.bias_fp32(conv.bias) is copy
+    # the cache entry goes with its tensor
+    key = (id(conv.weight), "relaid")
+    assert key in conv_mod._DERIVED
+    del conv, relaid, doubled, ones
+    assert key not in conv_mod._DERIVED

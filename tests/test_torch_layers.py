@@ -267,3 +267,46 @@ def test_fused_switch_values(monkeypatch, flag, on_cpu):
     norm, conv = GroupNorm(32), layers.conv3x3(32, 8)
     layers.norm_silu_conv(norm, conv, torch.randn(1, 32, 4, 4))
     assert calls == ([4] if on_cpu else [])
+
+
+_CHAINS = {}
+
+
+def _full_width_chains(dtype):
+    """``tools/bench_fused_conv.chain_shapes``: every fused chain of the
+    full-width towers (5 frames, 512px), listed once per dtype."""
+    import importlib.util
+    import pathlib
+
+    if dtype not in _CHAINS:
+        tool = pathlib.Path(__file__).resolve().parents[1] / "tools" / "bench_fused_conv.py"
+        spec = importlib.util.spec_from_file_location("bench_fused_conv", tool)
+        bench = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(bench)
+        _CHAINS[dtype] = bench.chain_shapes(5, dtype)
+        assert layers.norm_silu_conv.__name__ == "norm_silu_conv"  # the recorder is gone again
+    return _CHAINS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tower,total,few_channels,widths", [
+    ("unet", 45, 1, {64, 32, 16, 8}), ("structcond", 28, 0, {64, 32, 16, 8}),
+    ("vae", 58, 2, {512, 256, 128, 64})])
+def test_fused_conv_kernel_of_full_width_chains(tower, total, few_channels, widths, dtype):
+    """Every gated chain of the full-width UNet, struct-cond encoder and VAE,
+    listed from the towers on the meta device: which conv kernel it takes. In
+    bfloat16 all run on the tensor-core kernel but the few-channel output
+    convs (the UNet's 4, the VAE's 8 and 3), which keep the ``mma.sync``
+    tile; in float32 all take the FMA kernel."""
+    from mgldvsr_tpu_torch.ops.kernels.gn_silu_conv import kernel_variant
+
+    chains = _full_width_chains(dtype)[tower]
+    variants = [kernel_variant(dt, co) for *_, co, dt in chains]
+    assert len(chains) == total and all(dt == dtype for *_, dt in chains)
+    assert {w for _, _, _, w, _, _ in chains} == widths
+    if dtype == torch.float32:
+        assert variants == ["fma"] * total
+    else:
+        assert variants.count("wgmma") == total - few_channels
+        assert variants.count("mma") == few_channels
+        assert all((co <= 8) == (v == "mma") for (*_, co, _), v in zip(chains, variants))

@@ -9,6 +9,7 @@ weights, bf16 towers, float32 RAFT) and runs one warm-up restore. Then it
 times a warm restore without the profiler (per-stage wall seconds), and
 profiles a third with ``torch.profiler``: the summed kernel time against
 that run's wall time, the attention kernels' share and launches, the
+share of the fused GroupNorm+SiLU+conv kernels (conv and statistics), the
 number of elementwise launches, and the top kernels by device time. The
 last line is one JSON object with those numbers. ``--fused`` sets
 ``MGLD_FUSED_GN_CONV=1``, so every GroupNorm -> SiLU -> conv3x3 chain runs
@@ -33,6 +34,15 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATTENTION_KERNELS = ("attention_kernel", "attention_wgmma_kernel")
+# the fused GroupNorm+SiLU+conv chain: its conv kernels and its statistics kernels
+CONV_KERNELS = ("conv_wgmma_kernel", "conv_mma_kernel", "conv_fma_kernel")
+STATS_KERNELS = ("gn_stats_kernel", "channel_sums_kernel")
+
+
+def _total(events, names):
+    """(summed device seconds, launches) of the kernels whose name holds one of ``names``."""
+    hits = [e for e in events if any(name in e.key for name in names)]
+    return sum(e.self_device_time_total for e in hits) / 1e6, sum(e.count for e in hits)
 
 
 def profile_one(args) -> int:
@@ -79,16 +89,18 @@ def profile_one(args) -> int:
     averages = prof.key_averages()
     events = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
     device_s = sum(e.self_device_time_total for e in events) / 1e6
-    attn = [e for e in events if any(name in e.key for name in ATTENTION_KERNELS)]
-    attn_s = sum(e.self_device_time_total for e in attn) / 1e6
+    attn_s, attn_n = _total(events, ATTENTION_KERNELS)
+    conv_s, conv_n = _total(events, CONV_KERNELS)
+    stats_s, stats_n = _total(events, STATS_KERNELS)
     elementwise = sum(e.count for e in events if "elementwise_kernel" in e.key)
     print("profiled run (s): " + ", ".join(f"{k} {v:.3f}" for k, v in prof_stages.items())
           + f"; wall {prof_wall:.3f}")
     print(f"kernels {device_s:.3f} s of {prof_wall:.3f} s profiled wall "
           f"({100 * device_s / prof_wall:.1f}% busy, kernel times summed); attention "
-          f"{attn_s:.3f} s = {100 * attn_s / device_s:.1f}% over {sum(e.count for e in attn)} "
-          f"launches; {sum(e.count for e in events)} kernel launches, {elementwise} of them "
-          f"elementwise")
+          f"{attn_s:.3f} s = {100 * attn_s / device_s:.1f}% over {attn_n} launches; fused "
+          f"GroupNorm+SiLU+conv: conv {conv_s:.3f} s = {100 * conv_s / device_s:.1f}% over "
+          f"{conv_n} launches, statistics (with the default GroupNorm's channel sums) {stats_s:.3f} s over {stats_n}; "
+          f"{sum(e.count for e in events)} kernel launches, {elementwise} of them elementwise")
     print(averages.table(sort_by="self_device_time_total", row_limit=args.top,
                          max_name_column_width=70))
     print(json.dumps({
@@ -96,7 +108,8 @@ def profile_one(args) -> int:
         "sampler_ms_per_step": step_ms, "wall_s": wall, "stage_s": stages,
         "profiled_wall_s": prof_wall, "kernel_s": device_s, "attention_s": attn_s,
         "attention_share": attn_s / device_s,
-        "attention_launches": sum(e.count for e in attn),
+        "attention_launches": attn_n, "conv_s": conv_s, "conv_launches": conv_n,
+        "stats_s": stats_s, "stats_launches": stats_n,
         "kernel_launches": sum(e.count for e in events), "elementwise_launches": elementwise}))
     return 0
 
@@ -119,11 +132,12 @@ def compare(args) -> int:
             print("\n".join(out.stdout.strip().splitlines()[:-1]), flush=True)
     print(rows[0][1]["card"])
     print("tree   fused  sampler ms/step  wall s  kernel s  attention s (share, launches)  "
-          "kernel launches  elementwise launches")
+          "fused conv s (launches)  kernel launches  elementwise launches")
     for name, r in rows:
         print(f"{name:6} {str(r['fused']):5}  {r['sampler_ms_per_step']:15.2f}  "
               f"{r['wall_s']:6.3f}  {r['kernel_s']:8.3f}  {r['attention_s']:.3f} "
               f"({100 * r['attention_share']:.1f}%, {r['attention_launches']})  "
+              f"{r['conv_s']:.3f} ({r['conv_launches']})  "
               f"{r['kernel_launches']}  {r['elementwise_launches']}")
     print(json.dumps({"runs": [{"name": name, **r} for name, r in rows]}))
     return 0
