@@ -13,6 +13,10 @@ Phase 2  hold each kernel (the seven that replace a TPU kernel, and the
          the work. The kernels that take under 0.1 ms are also replayed from
          a CUDA graph, which gives their time on the device without the
          host's launch path (``device_ms``).
+         The fused GroupNorm also: every split of a slab among 1, 2, 4 or 8
+         blocks, a slab too long for shared memory, slabs off the 16-byte
+         boundary, and a constant input. The RAFT lookup also: one launch a
+         call, ragged level maps and centres far outside them.
          Attention also: ragged N, large logits, the [B,N,H,D] strided entry
          bit for bit against the folded call, and which of its two kernels
          (tensor-core or FMA) each type and head dim takes.
@@ -64,7 +68,7 @@ KERNELS = {
                     "mgldvsr_tpu/ops/pallas/corr_lookup.py:94"),
     "channel_sums": ("triton", "mgldvsr_tpu_torch/ops/kernels/groupnorm.py",
                      "mgldvsr_tpu/ops/pallas/groupnorm.py:55"),
-    "fused_group_norm": ("triton", "mgldvsr_tpu_torch/ops/kernels/groupnorm.py",
+    "fused_group_norm": ("cuda", "mgldvsr_tpu_torch/csrc/groupnorm.cu",
                          "mgldvsr_tpu/ops/pallas/groupnorm.py:139"),
     "gn_silu_conv3x3": ("cuda", "mgldvsr_tpu_torch/csrc/gn_silu_conv.cu",
                         "mgldvsr_tpu/ops/pallas/gn_silu_conv.py:154"),
@@ -155,6 +159,21 @@ def graph_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host microseconds one ``fn()`` takes to return (checks, allocation and
+    the launch's enqueue), the device's work not waited for."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * elapsed / iters
 
 
 def max_err(a, b) -> float:
@@ -284,6 +303,104 @@ def attention_checks(dev, gen) -> None:
               counts(0, 0))
 
 
+def group_norm_case(shape, dtype, dev, gen):
+    import torch
+
+    x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+    return (x, torch.randn(shape[1], device=dev, generator=gen),
+            torch.randn(shape[1], device=dev, generator=gen))
+
+
+def group_norm_limit(want) -> float:
+    """2 ulps at max |y| in bf16 (a folded scale or shift that rounds to the
+    neighbouring value), 1e-5 in float32 (sums in another order)."""
+    import torch
+
+    return 1e-5 + (bf16_ulps(2, want) if want.dtype == torch.bfloat16 else 0.0)
+
+
+def group_norm_checks(dev, gen) -> None:
+    """The fused GroupNorm off the timed shapes: each split of a slab among
+    the blocks of a cluster, staged in shared memory and walked twice, slabs
+    off the 16-byte boundary, channels that end inside a vector, a constant."""
+    import torch
+
+    from mgldvsr_tpu_torch.ops import kernels
+    from mgldvsr_tpu_torch.ops.kernels import groupnorm as gn_mod
+
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def check(what, got, want, tol):
+        err = max_err(got, want)
+        log(f"[phase2] fused_group_norm {what}: max_abs_err {err:.3e} (limit {tol:.3e})")
+        if not err <= tol or not torch.isfinite(got).all():
+            raise AssertionError(f"fused_group_norm {what}: {err:.3e} > {tol:.3e}")
+
+    for shp, dtype, plan, what in (
+            ((5, 1280, 8, 8), bf16, (1, 5120), "one block a slab"),
+            ((5, 1280, 16, 16), bf16, (2, 10240), "a cluster of 2"),
+            ((5, 640, 32, 32), bf16, (4, 10240), "a cluster of 4"),
+            ((2, 960, 64, 64), bf16, (8, 30720), "a cluster of 8"),
+            ((1, 64, 300, 300), bf16, (8, 45008), "staged shares, the last one shorter"),
+            ((1, 1280, 5, 64, 64), f32, (8, 0), "shares of 400 KB, walked twice"),
+            ((3, 64, 7, 9), bf16, (1, 256), "slabs of 252 bytes, bases off 16, odd channels"),
+            ((1, 96, 37, 37), bf16, (1, 8224), "a ragged end under one vector"),
+            ((2, 32, 3, 1), bf16, (1, 16), "channels shorter than a vector")):
+        x, w, b = group_norm_case(shp, dtype, dev, gen)
+        slabs, cg = shp[0] * 32, shp[1] // 32
+        got_plan = gn_mod.fused_gn_plan(slabs, x[0].numel() // 32, x.element_size(), cg)
+        if got_plan != plan:
+            raise AssertionError(f"fused_group_norm {list(shp)}: plan {got_plan}, expected {plan}")
+        kernels.reset_launch_counts()
+        got = gn_mod.fused_group_norm(x, w, b, 32, 1e-5)
+        if {k: v for k, v in kernels.launch_counts().items() if v} != {"fused_group_norm": 1}:
+            raise AssertionError("fused_group_norm: a call is not one launch")
+        want = gn_mod.fused_group_norm_plain(x, w, b, 32, 1e-5)
+        check(f"{list(shp)} {'bf16' if dtype == bf16 else 'f32'} (split, staged bytes) = {plan}: "
+              f"{what}", got, want, group_norm_limit(want))
+        del x, got, want
+    # a contiguous view one element into its buffer: every slab base off 16 bytes
+    flat = (torch.randn(2 * 64 * 16 * 16 + 1, device=dev, generator=gen) * 2 + 0.5).to(bf16)
+    x = flat[1:].view(2, 64, 16, 16)
+    w, b = (torch.randn(64, device=dev, generator=gen) for _ in range(2))
+    if x.data_ptr() % 16 == 0:
+        raise AssertionError("fused_group_norm: the misaligned view is not what it should be")
+    want = gn_mod.fused_group_norm_plain(x, w, b, 32, 1e-5)
+    check("[2,64,16,16] bf16, a view 2 bytes off 16", gn_mod.fused_group_norm(x, w, b, 32, 1e-5),
+          want, group_norm_limit(want))
+    # x = 2 everywhere: exact sums, variance 0, a = w / sqrt(eps), and y is
+    # the bias up to the rounding of two numbers of the size of 2 a
+    x = torch.full((2, 64, 16, 16), 2.0, device=dev, dtype=bf16)
+    got = gn_mod.fused_group_norm(x, w, b, 32, 1e-5)
+    size = 2 * 1e-5 ** -0.5 * float(w.abs().max())
+    check("[2,64,16,16] bf16, a constant (variance clipped at 0; 2 ulps of max |2 a|)", got,
+          gn_mod.fused_group_norm_plain(x, w, b, 32, 1e-5), 2 * 2 ** -8 * size)
+
+
+def lookup_checks(dev, gen) -> None:
+    """The RAFT lookup off the timed shape: ragged and empty level maps,
+    centres outside the maps and thousands of pixels away, another radius."""
+    import torch
+
+    from mgldvsr_tpu_torch.ops import kernels
+    from mgldvsr_tpu_torch.ops.kernels import corr_lookup as corr_mod
+
+    pyr = [torch.randn(2, 256, hl, wl, device=dev, generator=gen)
+           for hl, wl in ((16, 16), (8, 8), (5, 3), (1, 7), (0, 0))]
+    coords = torch.rand(2, 16, 16, 2, device=dev, generator=gen) * 30 - 8
+    coords[0, 0, :3] = torch.tensor([[-3e4, 5.0], [5.0, 4e4], [1e9, -1e9]], device=dev)
+    for radius in (4, 2):
+        kernels.reset_launch_counts()
+        got = corr_mod.lookup_corr(pyr, coords, radius)
+        if kernels.launch_counts()["corr_lookup"] != 1:
+            raise AssertionError("corr_lookup: a call is not one launch")
+        err = max_err(got, corr_mod.lookup_corr_plain(pyr, coords, radius))
+        log(f"[phase2] corr_lookup 5 levels [2,256,16x16, 8x8, 5x3, 1x7, 0x0], radius {radius}, "
+            f"centres up to 1e9 px away: max_abs_err {err:.3e} (limit 1e-5)")
+        if not err <= 1e-5 or got[0, 0, :3].any():
+            raise AssertionError(f"corr_lookup: ragged levels, radius {radius}: {err:.3e}")
+
+
 def phase2(card: str):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
@@ -388,13 +505,20 @@ def phase2(card: str):
                             indexing="ij")
     coords = (torch.stack([gx, gy], -1)[None]
               + torch.randn(8, 64, 64, 2, device=dev, generator=gen) * 4).contiguous()
+    kernels.reset_launch_counts()
     got = corr_mod.lookup_corr(pyr, coords, 4)
+    if kernels.launch_counts()["corr_lookup"] != 1:
+        raise AssertionError("corr_lookup: a call is not one launch")
     cells = sum(min(100, p.shape[-1] * p.shape[-2]) for p in pyr)
     record("corr_lookup", max_err(got, corr_mod.lookup_corr_plain(pyr, coords, 4)),
            1e-4, cuda_ms(lambda: corr_mod.lookup_corr(pyr, coords, 4)),
            cuda_ms(lambda: corr_mod.lookup_corr_plain(pyr, coords, 4), iters=5),
            "pyramid [8,4096,64^2..8^2] f32, coords [8,64,64,2]",
-           *bound(8 * 4096 * cells * 4 + nbytes(coords, got), 8.0 * got.numel(), "f32"))
+           *bound(8 * 4096 * cells * 4 + nbytes(coords, got), 8.0 * got.numel(), "f32"),
+           device_ms=graph_ms(lambda: corr_mod.lookup_corr(pyr, coords, 4)))
+    log(f"[phase2]   the host's share of a call: "
+        f"{host_us(lambda: corr_mod.lookup_corr(pyr, coords, 4)):.1f} us to return")
+    lookup_checks(dev, gen)
     del f1, f2, pyr, got
 
     # GroupNorm sums: the VAE's 512^2 level, 5 frames x 128 channels, bf16;
@@ -414,29 +538,30 @@ def phase2(card: str):
            device_ms=graph_ms(lambda: gn_mod.channel_sums(xb)))
     del xb, s, p
 
-    # fused GroupNorm: the UNet's levels, the 960-channel skip concat whose
-    # slab exceeds shared memory, a 5-D temporal input, and float32. The
-    # folded scale and shift may round to the neighbouring bf16, so the limit
-    # is 2 ulps at max |y|; float32 1e-5 (sums in another order).
+    # fused GroupNorm: the UNet's levels, the 960-channel skip concat (the
+    # longest slab, 240 KB: a cluster of 8), a 5-D temporal input, and float32.
+    # The folded scale and shift may round to the neighbouring bf16, so the
+    # limit is 2 ulps at max |y|; float32 1e-5 (sums in another order).
     bf16, f32 = torch.bfloat16, torch.float32
     for shp, dtype, eps in (((5, 320, 64, 64), bf16, 1e-5), ((5, 960, 64, 64), bf16, 1e-5),
                             ((5, 1280, 8, 8), bf16, 1e-6), ((1, 1280, 5, 8, 8), bf16, 1e-5),
                             ((5, 32, 64, 64), f32, 1e-5), ((5, 32, 64, 64), f32, 1e-6)):
-        x = (torch.randn(shp, device=dev, generator=gen) * 2 + 0.5).to(dtype)
-        w = torch.randn(shp[1], device=dev, generator=gen)
-        b = torch.randn(shp[1], device=dev, generator=gen)
+        x, w, b = group_norm_case(shp, dtype, dev, gen)
         got = gn_mod.fused_group_norm(x, w, b, 32, eps)
         want = gn_mod.fused_group_norm_plain(x, w, b, 32, eps)
-        tol = 1e-5 + (2 * 2 ** -8 * float(want.float().abs().max()) if dtype == bf16 else 0.0)
         wd, bd = w.to(dtype), b.to(dtype)
-        record("fused_group_norm", max_err(got, want), tol,
+        record("fused_group_norm", max_err(got, want), group_norm_limit(want),
                cuda_ms(lambda: gn_mod.fused_group_norm(x, w, b, 32, eps)),
                cuda_ms(lambda: gn_mod.fused_group_norm_plain(x, w, b, 32, eps)),
                f"{list(shp)} {'bf16' if dtype == bf16 else 'f32'} eps {eps:g}",
                *bound(nbytes(x, got, w, b), 8.0 * x.numel(), "f32"),
                cuda_ms(lambda: F.group_norm(x, 32, wd, bd, eps)),
                graph_ms(lambda: gn_mod.fused_group_norm(x, w, b, 32, eps)))
+        log(f"[phase2]   the host's share of a call: "
+            f"{host_us(lambda: gn_mod.fused_group_norm(x, w, b, 32, eps)):.1f} us to return, "
+            f"F.group_norm {host_us(lambda: F.group_norm(x, 32, wd, bd, eps)):.1f} us")
         del x, got, want
+    group_norm_checks(dev, gen)
 
     # the fused chain's statistics: the folded (scale, shift) of GroupNorm in
     # one launch, a cluster of blocks per (sample, group) slab; fp32 sums in
@@ -670,6 +795,9 @@ def phase3(seed: int, card: str, fused: bool) -> float:
             raise AssertionError(f"phase 3: kernel {name} was never launched")
     if not fused and any(counts[name] for name in FUSED_ONLY):
         raise AssertionError(f"phase 3: {FUSED_ONLY} launched with the switch off")
+    if counts["corr_lookup"] != cfg.raft.iters:
+        raise AssertionError(f"phase 3: {counts['corr_lookup']} lookup launches for "
+                             f"{cfg.raft.iters} RAFT iterations of one batched call")
     return err
 
 
@@ -754,6 +882,10 @@ def full_restore(pipe, frames, seed: int, steps: int, card: str, fused: bool):
         raise AssertionError(f"{phase}: {counts['attention']} attention launches, "
                              f"{counts['attention_wgmma']} on the tensor-core kernel, "
                              f"expected {14 * steps}")
+    # RAFT runs once on the 8 frame pairs; each of its iterations is one lookup launch
+    if counts["corr_lookup"] != pipe.cfg.raft.iters:
+        raise AssertionError(f"{phase}: {counts['corr_lookup']} lookup launches, expected "
+                             f"{pipe.cfg.raft.iters}")
     if fused:
         # 73 chains a step (45 in the UNet, 28 in the struct-cond encoder) and
         # 58 in the VAE, each two launches; all on the tensor-core kernel but

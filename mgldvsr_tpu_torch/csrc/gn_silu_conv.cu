@@ -65,22 +65,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gn_common.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;  // 8 warps
 constexpr int CK = 32;        // input channels per shared-memory stage
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) {
-  return __float2half(v);
-}
 
 // Stage the halo patch of channels [c0, c0 + CK) around the tile at (y0, x0):
 // As[(py * (TW+2) + px) * CKP + c] = SiLU(x * scale + shift) rounded to T,
@@ -387,9 +377,6 @@ constexpr int NWG = 2;           // warpgroups of a block, 64 pixels each
 constexpr int WTHREADS = 128 * NWG;
 constexpr int SM_COUNT = 132;    // of an H100: only the splits of work among clusters look at it
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 // 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
@@ -433,27 +420,6 @@ template <int N> __device__ __forceinline__ void hold(float (&r)[N]) {
 template <int N> __device__ __forceinline__ void hold(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-// thread block clusters: this block's rank, a barrier over the cluster's
-// threads, the address of a peer's shared memory, a load from it
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ float ld_cluster(uint32_t addr) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
-  return v;
 }
 // four 8x8 b16 matrices; lane l gives the row address of row l % 8 of matrix l / 8
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {

@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _LP = ctypes.POINTER(ctypes.c_longlong)
 # C entry points: name -> argument types. Every function returns the
 # cudaError_t of its launch (0 = success).
@@ -41,8 +42,8 @@ SIGNATURES = {
     "mgld_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     # q, k, v, o, batch, heads, n, strides[12], scale, stream
     "mgld_attention_wgmma_bf16": (_P, _P, _P, _P, _I, _I, _I, _LP, _F, _P),
-    # corr, coords, out, b, hw, hl, wl, level, n_levels, radius, stream
-    "mgld_corr_lookup_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # levels[n_levels][3] (address, hl, wl), coords, out, b, hw, n_levels, radius, stream
+    "mgld_corr_lookup_f32": (_LP, _P, _P, _I, _I, _I, _I, _P),
     # x, scale, shift, weight, bias, out, n, c, h, w, co, stream
     "mgld_gn_silu_conv_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mgld_gn_silu_conv_f16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -53,6 +54,11 @@ SIGNATURES = {
     "mgld_gn_scale_shift_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "mgld_gn_scale_shift_f16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "mgld_gn_scale_shift_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # x, GroupNorm weight, GroupNorm bias, y, samples * groups, channels a group, spatial
+    # elements a channel, groups, eps, blocks a slab, shared-memory bytes of a share, stream
+    "mgld_group_norm_bf16": (_P, _P, _P, _P, _L, _I, _L, _I, _F, _I, _I, _P),
+    "mgld_group_norm_f16": (_P, _P, _P, _P, _L, _I, _L, _I, _F, _I, _I, _P),
+    "mgld_group_norm_f32": (_P, _P, _P, _P, _L, _I, _L, _I, _F, _I, _I, _P),
 }
 
 

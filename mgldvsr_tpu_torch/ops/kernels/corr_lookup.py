@@ -5,20 +5,29 @@ Replaces ``mgldvsr_tpu/ops/pallas/corr_lookup.py``: the kernel
 ``lookup_corr_pallas`` wraps around it. It is bound by device-memory
 traffic (the [B,H,W,324] output and scattered window reads); the TPU
 kernel padded every level and selected patches with one-hot matmuls,
-while the CUDA kernel (``csrc/corr_lookup.cu``) reads its four bilinear
-taps straight from the unpadded level map, so no padded pyramid is built.
+while the CUDA kernel (``csrc/corr_lookup.cu``) reads the windows straight
+from the unpadded level maps, so no padded pyramid is built. All levels go
+in one launch: a warp per (query, level) stages that level's (2r+2)^2
+integer window in shared memory, every cell read once, blends its (2r+1)^2
+samples from it and writes them as one contiguous run; the runs of a query,
+and of a block, lie one behind the other.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-(once per pyramid level) or raises.
+(once per call) or raises.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
 from mgldvsr_tpu_torch.ops.kernels import _build
+
+
+MAX_LEVELS = 8            # the kernel takes the levels' addresses and sizes by value
+MAX_WINDOW_CELLS = 1536   # (2r+2)^2: the eight windows of a block in 48 KB of shared memory
 
 
 def lookup_corr_plain(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
@@ -68,22 +77,25 @@ def lookup_corr(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
         raise ValueError(f"lookup_corr: coords must be contiguous float32 [B,H,W,2], "
                          f"got {tuple(coords.shape)} {coords.dtype}")
     n_levels = len(pyramid)
-    cells = (2 * radius + 1) ** 2
+    side = 2 * radius + 2
+    if not 1 <= n_levels <= MAX_LEVELS or radius < 0 or side * side > MAX_WINDOW_CELLS:
+        raise ValueError(f"lookup_corr: 1 to {MAX_LEVELS} levels, windows of up to "
+                         f"{MAX_WINDOW_CELLS} cells, got {n_levels} levels, radius {radius}")
+    levels = []
     for corr in pyramid:
         if (corr.dtype != torch.float32 or corr.ndim != 4 or corr.shape[:2] != (b, h * w)
                 or not corr.is_contiguous() or corr.device != coords.device):
             raise ValueError(f"lookup_corr: each level must be contiguous float32 "
                              f"[{b},{h * w},Hl,Wl] on {coords.device}, got "
                              f"{tuple(corr.shape)} {corr.dtype} {corr.device}")
-    out = torch.empty(b, h, w, n_levels * cells, dtype=torch.float32, device=coords.device)
-    lib = _build.library()
-    stream = _build.stream_ptr(coords.device)
-    for lvl, corr in enumerate(pyramid):
-        err = lib.mgld_corr_lookup_f32(
-            corr.data_ptr(), coords.data_ptr(), out.data_ptr(), b, h * w,
-            corr.shape[2], corr.shape[3], lvl, n_levels, radius, stream)
-        _build.check(err, "mgld_corr_lookup_f32")
-        lookup_corr.launches += 1
+        levels += (corr.data_ptr(), corr.shape[2], corr.shape[3])
+    out = torch.empty(b, h, w, n_levels * (2 * radius + 1) ** 2, dtype=torch.float32,
+                      device=coords.device)
+    err = _build.library().mgld_corr_lookup_f32(
+        (ctypes.c_longlong * len(levels))(*levels), coords.data_ptr(), out.data_ptr(), b, h * w,
+        n_levels, radius, _build.stream_ptr(coords.device))
+    _build.check(err, "mgld_corr_lookup_f32")
+    lookup_corr.launches += 1
     return out
 
 

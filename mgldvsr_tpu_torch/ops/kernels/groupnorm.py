@@ -1,5 +1,5 @@
-"""GroupNorm kernels, each beside its plain version: in Triton the one-pass
-channel sums and the fully fused GroupNorm; in CUDA C++ the folded scale and
+"""GroupNorm kernels, each beside its plain version: the one-pass channel sums
+in Triton; in CUDA C++ the fully fused GroupNorm, and the folded scale and
 shift that the fused GroupNorm+SiLU+conv kernel takes.
 
 ``channel_sums`` replaces ``mgldvsr_tpu/ops/pallas/groupnorm.py``
@@ -9,19 +9,26 @@ bandwidth: one read of a bf16 [N, C, H, W] activation (the VAE's 128^2 to
 fp32 and writes both sums, so the activation is read once and no fp32 copy
 of it is ever materialised; the group fold and scale-shift stay in PyTorch
 on [N, C] data. Its gradient is the JAX package's formula in plain tensor
-code (the JAX backward is plain ``jnp`` too).
+code (the JAX backward is plain ``jnp`` too). It is the one Triton kernel of
+the port, and ``triton`` is imported only inside its launching function, so
+this module imports where Triton is absent.
 
 ``fused_group_norm`` replaces ``fused_group_norm`` of the same JAX file
 (kernel ``_fused_gn_kernel``). It is bound by device-memory bandwidth too:
 the least it can move is one read and one write of the activation. The TPU
 kernel held one NHWC sample in fast memory and folded channels into groups
 with one-hot matmuls, because its compiler cannot split the lane dimension.
-In NCHW one (sample, group) is one contiguous slab of C/G * S elements, so
-here one program owns one slab: it reduces it in fp32, then walks it again
-writing ``y = x * a_c + b_c``. The largest slab on the restore path (30
-channels x 64^2 bf16 = 240 KB) exceeds a block's shared memory, so the
-second walk re-reads global memory and is served by the L2 cache, which
-holds the whole tensor; nothing but x and y touches device memory.
+In NCHW one (sample, group) is one contiguous slab of C/G * S elements. The
+kernel (``csrc/groupnorm.cu`` ``group_norm_kernel``) gives a slab to a thread
+block cluster of 1, 2, 4 or 8 blocks: each block loads its share into shared
+memory and sums it in fp32 on the way, the partial sums meet through the
+cluster's shared-memory window, and every block writes ``y = x * a_c + b_c``
+for its share from shared memory, so x is read once from device memory and
+nowhere else. ``fused_gn_plan`` chooses the split (shares of 32 KB and less,
+the card's SMs several blocks each, a small slab one block) and whether the
+share is staged: one too long for shared memory is walked a second time from
+global memory by the same kernel. One ``ctypes`` launch, under half the host
+time of the Triton launch it replaced; a default restore makes 5,921 of them.
 
 ``gn_scale_shift`` is the statistics half of the fused
 GroupNorm+SiLU+conv chain (``mgldvsr_tpu/ops/pallas/gn_silu_conv.py``
@@ -29,13 +36,11 @@ GroupNorm+SiLU+conv chain (``mgldvsr_tpu/ops/pallas/gn_silu_conv.py``
 ``scale[N, C]`` and ``shift[N, C]`` with ``GroupNorm(x) = x * scale + shift``.
 It is bound by one read of x and is one launch of a CUDA C++ kernel
 (``csrc/gn_silu_conv.cu`` ``gn_stats_kernel``, beside the conv kernel it
-feeds): a cluster of 1 to 8 blocks per (sample, group) slab. It is launched
-through ``ctypes`` like the other CUDA kernels, which costs the host a
-quarter of what a Triton launch does; a sampler step makes 73 of them.
+feeds): a cluster of 1 to 8 blocks per (sample, group) slab; a sampler step
+of the fused configuration makes 73 of them.
 
-``triton`` is imported only inside the launching functions, so this module
-imports where Triton is absent. A CPU tensor takes the plain version; a
-CUDA tensor launches the kernel or raises.
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -231,56 +236,49 @@ def group_norm_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
     return (y * weight.float().reshape(shape) + bias.float().reshape(shape)).to(x.dtype)
 
 
-@functools.cache
-def _fused_gn_kernel():
-    import triton
-    import triton.language as tl
+SM_COUNT = 132                  # of an H100; only the split of slabs among blocks looks at it
+GN_SHARE_TARGET = 32 * 1024     # bytes of a share at which several blocks fit an SM
+GN_MIN_SHARE = 8 * 1024         # no split leaves a block less than this to read
+GN_STAGE_LIMIT = 100 * 1024     # the longest share kept in shared memory: two blocks to an SM
+GN_MAX_GROUP_CHANNELS = 4096    # a and b of one group wait in shared memory
 
-    @triton.jit
-    def fused_gn_kernel(x_ptr, w_ptr, b_ptr, y_ptr, slab, s, cg, groups, eps,
-                        BLOCK: tl.constexpr):
-        """One program per (sample, group): ``slab = cg * s`` contiguous
-        elements starting at ``pid * slab``; ``s`` spatial elements per
-        channel."""
-        pid = tl.program_id(0)
-        g = pid % groups
-        base = pid.to(tl.int64) * slab
-        acc1 = tl.zeros([BLOCK], dtype=tl.float32)
-        acc2 = tl.zeros([BLOCK], dtype=tl.float32)
-        for start in range(0, slab, BLOCK):
-            offs = start + tl.arange(0, BLOCK)
-            v = tl.load(x_ptr + base + offs, mask=offs < slab, other=0.0).to(tl.float32)
-            acc1 += v
-            acc2 += v * v
-        mean = tl.sum(acc1, axis=0) / slab
-        var = tl.maximum(tl.sum(acc2, axis=0) / slab - mean * mean, 0.0)
-        inv = 1.0 / tl.sqrt(var + eps)
-        out_ty = y_ptr.dtype.element_ty
-        for start in range(0, slab, BLOCK):
-            offs = start + tl.arange(0, BLOCK)
-            mask = offs < slab
-            ch = g * cg + offs // s
-            a = inv * tl.load(w_ptr + ch, mask=mask, other=0.0)
-            b = tl.load(b_ptr + ch, mask=mask, other=0.0) - mean * a
-            # as the plain version: a and b rounded to x's dtype, the product
-            # rounded, then the sum rounded (no fused multiply-add across them)
-            a = a.to(out_ty).to(tl.float32)
-            b = b.to(out_ty).to(tl.float32)
-            v = tl.load(x_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-            t = (v * a).to(out_ty).to(tl.float32)
-            tl.store(y_ptr + base + offs, (t + b).to(out_ty), mask=mask)
+_GROUP_NORM_ENTRY = {torch.bfloat16: "mgld_group_norm_bf16",
+                     torch.float16: "mgld_group_norm_f16",
+                     torch.float32: "mgld_group_norm_f32"}
 
-    return fused_gn_kernel
+
+def fused_gn_plan(slabs: int, slab: int, itemsize: int, cg: int) -> tuple[int, int]:
+    """How the fused GroupNorm kernel is launched on ``slabs`` (sample, group)
+    slabs of ``slab`` elements of ``itemsize`` bytes, ``cg`` channels a group:
+    ``(split, stage_bytes)``. ``split`` blocks, a cluster, share one slab: it
+    doubles, up to 8, while a share is above 32 KB or the card's SMs have
+    under four blocks each, as long as a block keeps 8 KB to read.
+    ``stage_bytes`` is the shared memory that holds one block's share (whole
+    16-byte vectors), or 0 where the share is too long to stage and the
+    kernel walks it twice."""
+    nbytes = slab * itemsize
+    split = 1
+    while (split < 8 and nbytes >= 2 * split * GN_MIN_SHARE
+           and (nbytes > split * GN_SHARE_TARGET or slabs * split < 4 * SM_COUNT)):
+        split *= 2
+    vec = 16 // itemsize
+    share = -(-(-(-slab // split)) // vec) * vec
+    stage_bytes = share * itemsize
+    return split, stage_bytes if stage_bytes + 8 * cg <= GN_STAGE_LIMIT else 0
 
 
 def _launch_fused_gn(x, weight, bias, groups: int, eps: float) -> torch.Tensor:
-    n, c = x.shape[:2]
-    s = x[0, 0].numel()
+    """The launch without the checks (``fused_group_norm`` made them)."""
+    n, c = x.shape[0], x.shape[1]
     cg = c // groups
+    s = x.numel() // (n * c)
+    split, stage_bytes = fused_gn_plan(n * groups, cg * s, x.element_size(), cg)
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _fused_gn_kernel()[(n * groups,)](x, weight, bias, y, cg * s, s, cg, groups, float(eps),
-                                          BLOCK=2048, num_warps=8)
+    name = _GROUP_NORM_ENTRY[x.dtype]
+    err = getattr(_build.library(), name)(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), n * groups, cg, s,
+        groups, eps, split, stage_bytes, _build.stream_ptr(x.device))
+    _build.check(err, name)
     fused_group_norm.launches += 1
     return y
 
@@ -316,25 +314,22 @@ def _recompute_grads(fn, saved, g, needs):
 def fused_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                      groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm of a contiguous [N, C, *spatial] tensor in one kernel:
-    fp32 statistics per (sample, group), ``y = x * a + b`` in x's dtype;
-    float32 ``weight`` and ``bias`` of [C]. Output dtype = input dtype."""
+    fp32 statistics per (sample, group), ``y = x * a + b`` in x's dtype.
+    Contiguous float32 ``weight`` and ``bias`` of [C]: the kernel reads them
+    as they are. Output dtype = input dtype."""
     if x.device.type == "cpu":
         return fused_group_norm_plain(x, weight, bias, groups, eps)
-    if x.ndim < 3 or not x.is_contiguous() or x.device.type != "cuda":
-        raise ValueError(f"fused_group_norm: need a contiguous CUDA [N,C,*spatial] tensor, got "
-                         f"{tuple(x.shape)} (contiguous={x.is_contiguous()}) on {x.device}")
+    if x.ndim < 3 or not x.is_contiguous() or x.device.type != "cuda" or x.numel() == 0:
+        raise ValueError(f"fused_group_norm: need a contiguous non-empty CUDA [N,C,*spatial] "
+                         f"tensor, got {tuple(x.shape)} (contiguous={x.is_contiguous()}) on "
+                         f"{x.device}")
     if x.dtype not in _FLOATS:
         raise TypeError(f"fused_group_norm: floating input only, got {x.dtype}")
-    c = x.shape[1]
-    if c % groups or weight.shape != (c,) or bias.shape != (c,):
-        raise ValueError(f"fused_group_norm: {c} channels, {groups} groups, weight "
-                         f"{tuple(weight.shape)}, bias {tuple(bias.shape)}")
-    if weight.device != x.device or bias.device != x.device:
-        raise ValueError("fused_group_norm: weight and bias must be on x's device")
-    if x[0].numel() // groups >= 2 ** 31:
-        raise ValueError("fused_group_norm: one (sample, group) slab exceeds 2^31 elements")
-    weight = weight.float().contiguous()
-    bias = bias.float().contiguous()
+    check_group_affine("fused_group_norm", x, weight, bias, groups)
+    n, c = x.shape[0], x.shape[1]
+    if x.numel() // (n * groups) >= 2 ** 31 or c // groups > GN_MAX_GROUP_CHANNELS:
+        raise ValueError(f"fused_group_norm: one (sample, group) slab exceeds 2^31 elements or "
+                         f"{GN_MAX_GROUP_CHANNELS} channels: {tuple(x.shape)}, {groups} groups")
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
                                     or bias.requires_grad):
         return _FusedGroupNorm.apply(x, weight, bias, groups, eps)

@@ -7,6 +7,9 @@ machine without JAX it runs with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import subprocess
+import sys
+
 import pytest
 import torch
 
@@ -30,6 +33,7 @@ from mgldvsr_tpu_torch.ops.kernels.gn_silu_conv import gn_silu_conv3x3, gn_silu_
 from mgldvsr_tpu_torch.ops.kernels.groupnorm import (
     channel_sums,
     channel_sums_plain,
+    fused_gn_plan,
     fused_group_norm,
     fused_group_norm_plain,
     gn_scale_shift,
@@ -152,13 +156,36 @@ def test_attention_strided_entry_on_card(dev, n):
     assert torch.equal(got, attention_bnhd(q.clone(), k.clone(), v.clone()))
 
 
-def test_corr_lookup_kernel_matches_plain(dev):
+@pytest.mark.parametrize("radius", [4, 2, 0])
+def test_corr_lookup_kernel_matches_plain(dev, radius):
+    """All levels in one launch: square, ragged (5 x 3, 1 x 7) and empty
+    level maps, centres up to 8 px outside the map and some thousands of
+    pixels away (the clamped base: all zeros). fp32, 1e-5: the same four
+    products summed in the same order."""
     gen = _gen(dev)
-    pyr = [torch.randn(2, 256, 16 >> lvl, 16 >> lvl, device=dev, generator=gen)
-           for lvl in range(4)] + [torch.randn(2, 256, 0, 0, device=dev)]
+    sizes = [(16, 16), (8, 8), (5, 3), (1, 7), (0, 0)]
+    pyr = [torch.randn(2, 256, hl, wl, device=dev, generator=gen) for hl, wl in sizes]
     coords = torch.rand(2, 16, 16, 2, device=dev, generator=gen) * 30 - 8
-    torch.testing.assert_close(lookup_corr(pyr, coords, 4), lookup_corr_plain(pyr, coords, 4),
-                               atol=1e-5, rtol=0)
+    coords[0, 0, :4] = torch.tensor([[-3e4, 5.0], [5.0, 4e4], [1e9, -1e9], [-17.5, 33.25]],
+                                    device=dev)
+    kernels.reset_launch_counts()
+    got = lookup_corr(pyr, coords, radius)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {"corr_lookup": 1}
+    want = lookup_corr_plain(pyr, coords, radius)
+    assert got.shape == (2, 16, 16, 5 * (2 * radius + 1) ** 2)
+    assert not got[0, 0, :3].any()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def test_corr_lookup_raises_on_what_it_does_not_take(dev):
+    coords = torch.zeros(1, 4, 4, 2, device=dev)
+    level = torch.zeros(1, 16, 4, 4, device=dev)
+    with pytest.raises(ValueError):
+        lookup_corr([level] * 9, coords, 4)   # more levels than the kernel's struct holds
+    with pytest.raises(ValueError):
+        lookup_corr([level] * 4, coords, 19)  # windows beyond a block's shared memory
+    with pytest.raises(ValueError):
+        lookup_corr([level.double()], coords, 4)
 
 
 def test_channel_sums_kernel_matches_plain(dev):
@@ -183,28 +210,105 @@ def test_channel_sums_gradient_on_card(dev):
     torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("shape,dtype,eps", [
-    ((5, 320, 64, 64), torch.bfloat16, 1e-5),
-    ((2, 960, 64, 64), torch.bfloat16, 1e-5),
-    ((5, 1280, 8, 8), torch.bfloat16, 1e-6),
-    ((1, 1280, 5, 8, 8), torch.bfloat16, 1e-5),
-    ((3, 64, 7, 9), torch.float16, 1e-5),
-    ((5, 32, 64, 64), torch.float32, 1e-5),
-    ((2, 64, 13, 11), torch.float32, 1e-6),
+_ULP = {torch.float32: 0.0, torch.bfloat16: 2 ** -8, torch.float16: 2 ** -11}
+
+
+@pytest.mark.parametrize("shape,dtype,eps,plan", [
+    ((5, 320, 64, 64), torch.bfloat16, 1e-5, (4, 20480)),
+    ((2, 960, 64, 64), torch.bfloat16, 1e-5, (8, 30720)),
+    ((5, 1280, 16, 16), torch.bfloat16, 1e-5, (2, 10240)),
+    ((5, 1280, 8, 8), torch.bfloat16, 1e-6, (1, 5120)),
+    ((1, 1280, 5, 8, 8), torch.bfloat16, 1e-5, (2, 12800)),
+    ((3, 64, 7, 9), torch.float16, 1e-5, (1, 256)),       # slabs of 252 bytes: bases off 16
+    ((2, 64, 33, 31), torch.bfloat16, 1e-5, (1, 4096)),   # vectors that straddle two channels
+    ((1, 96, 37, 37), torch.bfloat16, 1e-6, (1, 8224)),   # a ragged end under one vector
+    ((2, 32, 3, 1), torch.bfloat16, 1e-5, (1, 16)),       # channels shorter than a vector
+    ((5, 32, 64, 64), torch.float32, 1e-5, (2, 8192)),
+    ((2, 64, 13, 11), torch.float32, 1e-6, (1, 1152)),
+    ((1, 1280, 5, 64, 64), torch.float32, 1e-5, (8, 0)),  # shares of 400 KB: walked twice
+    ((1, 64, 300, 300), torch.bfloat16, 1e-5, (8, 45008)),  # staged shares with ragged ends
+    ((1, 32, 640, 640), torch.bfloat16, 1e-5, (8, 0)),      # 100 KB shares: not staged
 ])
-def test_fused_group_norm_kernel_matches_plain(dev, shape, dtype, eps):
-    """fp32: 1e-5 (sums in another order). bf16/fp16: the folded scale and
-    shift can round to the neighbouring value, so 2 ulps at max |y|."""
+def test_fused_group_norm_kernel_matches_plain(dev, shape, dtype, eps, plan):
+    """Every split (1, 2, 4, 8 blocks a slab), staged and walked twice,
+    aligned and not. fp32: 1e-5 (sums in another order). bf16/fp16: the
+    folded scale and shift can round to the neighbouring value, so 2 ulps at
+    max |y|."""
+    n, c = shape[:2]
     gen = _gen(dev, sum(shape))
     x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).to(dtype)
-    w = torch.randn(shape[1], device=dev, generator=gen)
-    b = torch.randn(shape[1], device=dev, generator=gen)
+    assert fused_gn_plan(n * 32, x[0].numel() // 32, x.element_size(), c // 32) == plan
+    w = torch.randn(c, device=dev, generator=gen)
+    b = torch.randn(c, device=dev, generator=gen)
+    kernels.reset_launch_counts()
     got = fused_group_norm(x, w, b, 32, eps)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {"fused_group_norm": 1}
     want = fused_group_norm_plain(x, w, b, 32, eps)
     assert got.dtype == dtype and got.shape == x.shape
-    ulp = {torch.float32: 0.0, torch.bfloat16: 2 ** -8, torch.float16: 2 ** -11}[dtype]
-    tol = 1e-5 + 2 * ulp * float(want.float().abs().max())
+    tol = 1e-5 + 2 * _ULP[dtype] * float(want.float().abs().max())
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_group_norm_on_a_view_off_the_16_byte_boundary(dev, dtype):
+    """x is a contiguous view that starts one element into its buffer, so
+    every slab's base is off a 16-byte boundary while y's is on one: the
+    scalar loops, which sum in another order than the vector loops do on an
+    aligned copy. fp32 1e-5; bf16 2 ulps at max |y|, as against the plain
+    version."""
+    gen = _gen(dev, 3)
+    flat = (torch.randn(2 * 64 * 16 * 16 + 1, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+    x = flat[1:].view(2, 64, 16, 16)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    w, b = (torch.randn(64, device=dev, generator=gen) for _ in range(2))
+    got = fused_group_norm(x, w, b, 32, 1e-5).float()
+    for want in (fused_group_norm(x.clone(), w, b, 32, 1e-5).float(),
+                 fused_group_norm_plain(x, w, b, 32, 1e-5).float()):
+        tol = 1e-5 + 2 * _ULP[dtype] * float(want.abs().max())
+        torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_group_norm_of_a_constant_clips_the_variance(dev, dtype):
+    """x = 2 everywhere: the sums are exact, the variance is exactly 0, so
+    a = w / sqrt(eps) (632 |w|) and y = 2 a + (bias - 2 a), which is the bias
+    up to the rounding of two numbers of the size of 2 a: 2 ulps of max |2 a|
+    in bf16; in fp32 1e-6 of it (``rsqrtf`` against ``torch.rsqrt``: a few
+    ulps)."""
+    gen = _gen(dev, 4)
+    x = torch.full((2, 64, 16, 16), 2.0, device=dev, dtype=dtype)
+    w, b = (torch.randn(64, device=dev, generator=gen) for _ in range(2))
+    got = fused_group_norm(x, w, b, 32, 1e-5)
+    want = fused_group_norm_plain(x, w, b, 32, 1e-5)
+    assert torch.isfinite(got).all()
+    size = 2 * 1e-5 ** -0.5 * float(w.abs().max())
+    tol = size * (2 * 2 ** -8 if dtype == torch.bfloat16 else 1e-6)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(got.float(), b[None, :, None, None].expand(x.shape), atol=2 * tol,
+                               rtol=0)
+
+
+def test_fused_group_norm_is_one_ctypes_launch_without_triton():
+    """In a fresh process: one call is one launch, and it does not bring
+    Triton in (``channel_sums`` is the one kernel that does)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels run only on the card")
+    code = (
+        "import sys, torch\n"
+        "from mgldvsr_tpu_torch.ops import kernels\n"
+        "from mgldvsr_tpu_torch.ops.kernels.groupnorm import channel_sums, fused_group_norm\n"
+        "before = 'triton' in sys.modules\n"
+        "x = torch.randn(5, 320, 64, 64, device='cuda').bfloat16()\n"
+        "w, b = torch.ones(320, device='cuda'), torch.zeros(320, device='cuda')\n"
+        "y = fused_group_norm(x, w, b)\n"
+        "torch.cuda.synchronize()\n"
+        "assert kernels.launch_counts()['fused_group_norm'] == 1\n"
+        "assert ('triton' in sys.modules) == before, 'fused_group_norm imported triton'\n"
+        "channel_sums(x)\n"
+        "assert 'triton' in sys.modules\n"
+        "print('ok', before)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0 and out.stdout.startswith("ok"), out.stdout + out.stderr
 
 
 @pytest.mark.parametrize("n,c,h,w,co,dtype", [
@@ -393,6 +497,12 @@ def test_new_kernels_raise_on_non_contiguous_input(dev):
         gn_silu_conv3x3(x.contiguous(), gw, gb, wt.to(torch.bfloat16), bias)
     with pytest.raises(ValueError):  # GroupNorm's affine is float32: no copy is made for it
         gn_silu_conv3x3(x.contiguous(), gw.double(), gb.double(), wt, bias)
+    with pytest.raises(ValueError):
+        fused_group_norm(x.contiguous(), gw.bfloat16(), gb.bfloat16())
+    with pytest.raises(ValueError):
+        fused_group_norm(x.contiguous(), gw, gb.cpu())
+    with pytest.raises(ValueError):
+        fused_group_norm(x.contiguous()[:, :, :0], gw, gb)
     assert kernels.launch_counts() == before
 
 

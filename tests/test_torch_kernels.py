@@ -550,3 +550,243 @@ def test_relaid_weight_is_a_permute_made_once(dtype):
     assert key in conv_mod._DERIVED
     del conv, relaid, doubled, ones
     assert key not in conv_mod._DERIVED
+
+
+def _clustered_group_norm(x, weight, bias, groups, eps, split, aligned=True):
+    """The fused GroupNorm kernel's arithmetic in plain tensor code: each
+    (sample, group) slab split among ``split`` blocks into shares rounded up
+    to whole 16-byte vectors (the last ones shorter or empty); per share the
+    fp32 sums of its whole vectors and, apart, of the ragged end under one
+    vector (of everything where the slab's base is off 16 bytes); the shares'
+    sums added in rank order; ``var = max(E[x^2] - E[x]^2, 0)``; a and b
+    rounded to x's dtype; the product rounded, then the sum; the channel of
+    an element is its offset in the slab over the channel's length."""
+    n, c = x.shape[:2]
+    cg = c // groups
+    s = x[0, 0].numel()
+    slab = cg * s
+    vec = 16 // x.element_size()
+    share = -(-(-(-slab // split)) // vec) * vec
+    xs = x.reshape(n * groups, slab)
+    out = torch.empty_like(xs)
+    for pid in range(n * groups):
+        total = torch.zeros(2)
+        for rank in range(split):
+            begin, end = min(rank * share, slab), min((rank + 1) * share, slab)
+            whole = (end - begin) // vec * vec if aligned else 0
+            part = torch.zeros(2)
+            for seg in (xs[pid, begin:begin + whole].float(), xs[pid, begin + whole:end].float()):
+                part = part + torch.stack([seg.sum(), (seg * seg).sum()])
+            total = total + part
+        mean = total[0] / slab
+        var = (total[1] / slab - mean * mean).clamp_min(0.0)
+        inv = torch.rsqrt(var + eps)
+        g = pid % groups
+        a = inv * weight[g * cg:(g + 1) * cg]
+        b = bias[g * cg:(g + 1) * cg] - mean * a
+        ch = torch.arange(slab) // s
+        out[pid] = xs[pid] * a.to(x.dtype)[ch] + b.to(x.dtype)[ch]
+    return out.reshape(x.shape)
+
+
+def _group_norm_limit(want, dtype):
+    """float32: 1e-5 (sums in another order). bfloat16: 2 ulps of max |y| (a
+    folded scale or shift that rounds to the neighbouring value)."""
+    return 1e-5 if dtype == torch.float32 else 2 * 2 ** -8 * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_clustered_group_norm_arithmetic_matches_plain(split, dtype):
+    """Slabs of 3 channels x 35 = 105 elements: shares with ragged ends, empty
+    last shares at a split of 8, channels that end inside a vector; aligned and
+    off the 16-byte boundary; a constant sample (variance clipped at 0, where
+    y is the bias up to the rounding of a and b). Limits as stated in
+    ``_group_norm_limit``."""
+    rs = np.random.RandomState(split)
+    x = torch.from_numpy((rs.randn(3, 96, 5, 7) * 2 + 0.5).astype(np.float32)).to(dtype)
+    x[2] = 2.0
+    w, b = (torch.from_numpy(rs.randn(96).astype(np.float32)) for _ in range(2))
+    want = fused_group_norm_plain(x, w, b, 32, 1e-5)
+    for aligned in (True, False):
+        got = _clustered_group_norm(x, w, b, 32, 1e-5, split, aligned)
+        assert got.dtype == dtype and torch.isfinite(got.float()).all()
+        tol = _group_norm_limit(want[:2], dtype)
+        np.testing.assert_allclose(got[:2].float().numpy(), want[:2].float().numpy(), atol=tol,
+                                   rtol=0)
+        # the constant sample: a = w / sqrt(eps), limits at the size of 2 a
+        size = 2 * 1e-5 ** -0.5 * float(w.abs().max())
+        tol = size * (1e-6 if dtype == torch.float32 else 2 * 2 ** -8)
+        np.testing.assert_allclose(got[2].float().numpy(), want[2].float().numpy(), atol=tol,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("split", [2, 8])
+def test_clustered_group_norm_arithmetic_matches_pallas(split, dtype):
+    """The same against the Pallas kernel in interpret mode, on the inputs and
+    with the limits of ``test_fused_group_norm_plain_matches_pallas``."""
+    from mgldvsr_tpu.ops.pallas.groupnorm import fused_group_norm as jax_gn
+
+    rs = np.random.RandomState(5)
+    x = jnp.asarray(rs.randn(2, 6, 5, 64) * 2 + 0.5, dtype)
+    scale, bias = rs.randn(64).astype(np.float32), rs.randn(64).astype(np.float32)
+    want = np.asarray(jax_gn(x, jnp.asarray(scale), jnp.asarray(bias), 32, 1e-5, interpret=True),
+                      np.float32)
+    xt = _nchw(x).to(getattr(torch, dtype))
+    got = _clustered_group_norm(xt, torch.from_numpy(scale), torch.from_numpy(bias), 32, 1e-5,
+                                split)
+    tol = 1e-5 if dtype == "float32" else 2 * 2 ** -8 * np.abs(want).max()
+    np.testing.assert_allclose(_nhwc(got), want, atol=tol, rtol=0)
+
+
+def _full_width_group_norms(monkeypatch):
+    """{tower: [(shape, groups), ...]}: every GroupNorm input of the full-width
+    towers (5 frames, 512px, bfloat16) that goes to the fused GroupNorm kernel
+    on the card, in call order, listed from the towers on the meta device."""
+    import mgldvsr_tpu_torch.models.unet as unet_mod
+    import mgldvsr_tpu_torch.models.vae as vae_mod
+    import mgldvsr_tpu_torch.ops.attention as attend_mod
+    from mgldvsr_tpu_torch.models import layers
+
+    seen, towers = [], {}
+
+    def record(x, weight, bias, groups, eps, dtype):
+        assert weight.dtype == bias.dtype == torch.float32  # what the kernel reads as it is
+        if not (x.ndim == 4 and x.shape[2] * x.shape[3] >= 16384):  # else the channel sums
+            seen.append((tuple(x.shape), groups))
+        return torch.empty_like(x, dtype=dtype)
+
+    def taken():
+        shapes = list(seen)
+        del seen[:]
+        return shapes
+
+    monkeypatch.setenv("MGLD_FUSED_GN_CONV", "0")
+    monkeypatch.setattr(layers, "group_norm_lean", record)
+    monkeypatch.setattr(attend_mod, "attention_bnhd", lambda q, k, v: torch.empty_like(q))
+    dtype, frames = torch.bfloat16, 5
+    with torch.device("meta"), torch.no_grad():
+        lat, t = torch.empty(frames, 4, 64, 64), torch.empty(frames, dtype=torch.long)
+        enc = layers.cast_weights(unet_mod.StructCondEncoder(
+            unet_mod.StructCondConfig(num_frames=frames, dtype=dtype)), dtype)
+        cond = enc(lat, t)
+        towers["structcond"] = taken()
+        unet = layers.cast_weights(unet_mod.InflatedUNetDualCond(
+            unet_mod.UNetConfig(num_frames=frames, dtype=dtype)), dtype)
+        unet(lat, t, torch.empty(1, 77, 1024), cond)
+        towers["unet"] = taken()
+        vae = layers.cast_weights(vae_mod.VideoAutoencoderKLResi(
+            vae_mod.VAEConfig(num_frames=frames, enable_fusion=True, dtype=dtype)), dtype)
+        _, enc_fea = vae.encode(torch.empty(frames, 3, 512, 512))
+        vae.decode(lat, enc_fea)
+        towers["vae"] = taken()
+    return towers
+
+
+def test_fused_group_norm_plan_of_full_width_towers(monkeypatch):
+    """The launcher's choice for every GroupNorm of a default restore at full
+    width: 35 a step in the struct-cond encoder, 83 in the UNet, 21 a restore
+    in the VAE (its larger levels take the channel sums). Every share is
+    staged in shared memory and is at most 32 KB, so several blocks fit an
+    SM; all four splits occur; a slab of 8 KB or less takes one block; the
+    longest slab (960 channels at 64^2: 240 KB) takes a cluster of 8."""
+    towers = _full_width_group_norms(monkeypatch)
+    assert {k: len(v) for k, v in towers.items()} == {"structcond": 35, "unet": 83, "vae": 21}
+    splits = set()
+    for shape, groups in (entry for tower in towers.values() for entry in tower):
+        cg = shape[1] // groups
+        slab = cg * int(np.prod(shape[2:]))
+        split, stage_bytes = gn_mod.fused_gn_plan(shape[0] * groups, slab, 2, cg)
+        splits.add(split)
+        assert -(-slab // split) * 2 <= stage_bytes <= 32 * 1024, (shape, split, stage_bytes)
+        assert stage_bytes % 16 == 0 and stage_bytes + 8 * cg <= gn_mod.GN_STAGE_LIMIT
+        assert (split == 1) == (slab * 2 < 16 * 1024 or shape[0] * groups >= 4 * gn_mod.SM_COUNT)
+        if shape == (5, 960, 64, 64):
+            assert (split, stage_bytes) == (8, 30720)
+    assert splits == {1, 2, 4, 8}
+
+
+@pytest.mark.parametrize("shape,itemsize,plan", [
+    ((1, 1280, 5, 64, 64), 4, (8, 0)),       # float32 temporal slab of 3.2 MB: walked twice
+    ((1, 32, 640, 640), 2, (8, 0)),          # 100 KB shares with a and b beside: not staged
+    ((1, 64, 300, 300), 2, (8, 45008)),      # shares rounded up to whole vectors
+    ((64, 1280, 8, 8), 2, (1, 5120)),        # many small slabs: one block each
+    ((2, 32, 3, 1), 2, (1, 16)),             # a slab under one vector still gets one
+])
+def test_fused_group_norm_plan_off_the_towers(shape, itemsize, plan):
+    """The branch where a share exceeds what is staged, and the small ends."""
+    cg = shape[1] // 32
+    assert gn_mod.fused_gn_plan(shape[0] * 32, cg * int(np.prod(shape[2:])), itemsize, cg) == plan
+
+
+def _staged_lookup(pyramid, coords, radius):
+    """The one-launch lookup kernel's arithmetic in plain tensor code: per
+    query and level the base ``floor(c / 2^level)`` clamped to
+    [-r-2, size+r+1] before the cast, a staged (2r+2)^2 integer window read
+    from the unpadded map with zeros outside, the (2r+1)^2 samples blended
+    from it with the unclamped fractions, cell ``xi * win + yi``, the levels
+    one after another in a query's output."""
+    b, h, w, _ = coords.shape
+    n, r = h * w, radius
+    side, win = 2 * r + 2, 2 * r + 1
+    offs = torch.arange(side)
+    out = torch.empty(b, n, len(pyramid), win * win)
+    for lvl, corr in enumerate(pyramid):
+        hl, wl = corr.shape[2:]
+        c = coords.reshape(b, n, 2) * (1.0 / (1 << lvl))
+        fl = torch.floor(c)
+        tx, ty = (c - fl)[..., 0, None, None], (c - fl)[..., 1, None, None]
+        x0 = fl[..., 0].clamp(-r - 2, wl + r + 1).to(torch.int64) - r
+        y0 = fl[..., 1].clamp(-r - 2, hl + r + 1).to(torch.int64) - r
+        ys = (y0[..., None] + offs)[..., :, None].expand(b, n, side, side)
+        xs = (x0[..., None] + offs)[..., None, :].expand(b, n, side, side)
+        inside = (xs >= 0) & (xs < wl) & (ys >= 0) & (ys < hl)
+        flat = corr.reshape(b, n, hl * wl)
+        index = (ys.clamp(0, max(hl - 1, 0)) * wl + xs.clamp(0, max(wl - 1, 0))).reshape(b, n, -1)
+        if hl * wl:
+            window = torch.gather(flat, 2, index).reshape(b, n, side, side) * inside
+        else:
+            window = torch.zeros(b, n, side, side)
+        # p = window + yi * side + xi: rows are y, columns x
+        val = ((1 - ty) * (1 - tx) * window[..., :win, :win] + (1 - ty) * tx * window[..., :win, 1:]
+               + ty * (1 - tx) * window[..., 1:, :win] + ty * tx * window[..., 1:, 1:])
+        out[:, :, lvl] = val.transpose(-1, -2).reshape(b, n, win * win)  # cell = xi * win + yi
+    return out.reshape(b, h, w, -1)
+
+
+@pytest.mark.parametrize("radius", [2, 4])
+def test_staged_lookup_arithmetic_matches_plain(radius):
+    """Ragged and empty level maps, centres outside the maps and far away
+    (the clamped base). float32, 1e-6: the same four products in the same
+    order."""
+    rs = np.random.RandomState(radius)
+    pyr = [torch.from_numpy(rs.randn(2, 36, hl, wl).astype(np.float32))
+           for hl, wl in ((6, 6), (3, 3), (5, 2), (1, 4), (0, 0))]
+    coords = torch.from_numpy((rs.rand(2, 6, 6, 2) * 20 - 6).astype(np.float32))
+    coords[0, 0, :3] = torch.tensor([[-3e4, 2.0], [2.0, 4e4], [1e9, -1e9]])
+    got = _staged_lookup(pyr, coords, radius)
+    want = lookup_corr_plain(pyr, coords, radius)
+    assert got.shape == want.shape == (2, 6, 6, 5 * (2 * radius + 1) ** 2)
+    assert not got[0, 0, :3].any()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("radius", [2, 4])
+def test_staged_lookup_arithmetic_matches_pallas(radius):
+    """The same against ``lookup_corr_pallas`` in interpret mode on the inputs
+    of ``test_corr_lookup_plain_matches_pallas``, float32, 1e-5."""
+    from mgldvsr_tpu.flow.raft import build_corr_pyramid
+    from mgldvsr_tpu.ops.pallas.corr_lookup import lookup_corr_pallas, pad_pyramid
+
+    rs = np.random.RandomState(radius)
+    b, h, w, c = 2, 8, 8, 16
+    f1 = jnp.asarray(rs.randn(b, h, w, c), jnp.float32)
+    f2 = jnp.asarray(rs.randn(b, h, w, c), jnp.float32)
+    pyr = build_corr_pyramid(f1, f2, num_levels=3)
+    coords = (rs.rand(b, h, w, 2) * 20 - 6).astype(np.float32)
+    want = lookup_corr_pallas(pad_pyramid(pyr, radius), jnp.asarray(coords), radius,
+                              q_block=16, interpret=True)
+    got = _staged_lookup([torch.from_numpy(np.array(p)) for p in pyr], torch.from_numpy(coords),
+                         radius)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)

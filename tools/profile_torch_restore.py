@@ -10,7 +10,8 @@ times a warm restore without the profiler (per-stage wall seconds), and
 profiles a third with ``torch.profiler``: the summed kernel time against
 that run's wall time, the attention kernels' share and launches, the
 share of the fused GroupNorm+SiLU+conv kernels (conv and statistics), the
-number of elementwise launches, and the top kernels by device time. The
+fused GroupNorm kernel's seconds and launches, the number of elementwise
+launches, and the top kernels by device time. The
 last line is one JSON object with those numbers. ``--fused`` sets
 ``MGLD_FUSED_GN_CONV=1``, so every GroupNorm -> SiLU -> conv3x3 chain runs
 as the one fused kernel. ``--root DIR`` profiles the package and
@@ -37,6 +38,8 @@ ATTENTION_KERNELS = ("attention_kernel", "attention_wgmma_kernel")
 # the fused GroupNorm+SiLU+conv chain: its conv kernels and its statistics kernels
 CONV_KERNELS = ("conv_wgmma_kernel", "conv_mma_kernel", "conv_fma_kernel")
 STATS_KERNELS = ("gn_stats_kernel", "channel_sums_kernel")
+# the fused GroupNorm: the CUDA C++ kernel, and the Triton one of trees before it
+GROUP_NORM_KERNELS = ("group_norm_kernel", "fused_gn_kernel")
 
 
 def _total(events, names):
@@ -92,6 +95,7 @@ def profile_one(args) -> int:
     attn_s, attn_n = _total(events, ATTENTION_KERNELS)
     conv_s, conv_n = _total(events, CONV_KERNELS)
     stats_s, stats_n = _total(events, STATS_KERNELS)
+    gn_s, gn_n = _total(events, GROUP_NORM_KERNELS)
     elementwise = sum(e.count for e in events if "elementwise_kernel" in e.key)
     print("profiled run (s): " + ", ".join(f"{k} {v:.3f}" for k, v in prof_stages.items())
           + f"; wall {prof_wall:.3f}")
@@ -99,7 +103,8 @@ def profile_one(args) -> int:
           f"({100 * device_s / prof_wall:.1f}% busy, kernel times summed); attention "
           f"{attn_s:.3f} s = {100 * attn_s / device_s:.1f}% over {attn_n} launches; fused "
           f"GroupNorm+SiLU+conv: conv {conv_s:.3f} s = {100 * conv_s / device_s:.1f}% over "
-          f"{conv_n} launches, statistics (with the default GroupNorm's channel sums) {stats_s:.3f} s over {stats_n}; "
+          f"{conv_n} launches, statistics (with the default GroupNorm's channel sums) "
+          f"{stats_s:.3f} s over {stats_n}; fused GroupNorm {gn_s:.3f} s over {gn_n} launches; "
           f"{sum(e.count for e in events)} kernel launches, {elementwise} of them elementwise")
     print(averages.table(sort_by="self_device_time_total", row_limit=args.top,
                          max_name_column_width=70))
@@ -110,6 +115,7 @@ def profile_one(args) -> int:
         "attention_share": attn_s / device_s,
         "attention_launches": attn_n, "conv_s": conv_s, "conv_launches": conv_n,
         "stats_s": stats_s, "stats_launches": stats_n,
+        "group_norm_s": gn_s, "group_norm_launches": gn_n,
         "kernel_launches": sum(e.count for e in events), "elementwise_launches": elementwise}))
     return 0
 
@@ -132,12 +138,14 @@ def compare(args) -> int:
             print("\n".join(out.stdout.strip().splitlines()[:-1]), flush=True)
     print(rows[0][1]["card"])
     print("tree   fused  sampler ms/step  wall s  kernel s  attention s (share, launches)  "
-          "fused conv s (launches)  kernel launches  elementwise launches")
+          "fused conv s (launches)  fused GroupNorm s (launches)  kernel launches  "
+          "elementwise launches")
     for name, r in rows:
         print(f"{name:6} {str(r['fused']):5}  {r['sampler_ms_per_step']:15.2f}  "
               f"{r['wall_s']:6.3f}  {r['kernel_s']:8.3f}  {r['attention_s']:.3f} "
               f"({100 * r['attention_share']:.1f}%, {r['attention_launches']})  "
               f"{r['conv_s']:.3f} ({r['conv_launches']})  "
+              f"{r['group_norm_s']:.4f} ({r['group_norm_launches']})  "
               f"{r['kernel_launches']}  {r['elementwise_launches']}")
     print(json.dumps({"runs": [{"name": name, **r} for name, r in rows]}))
     return 0
