@@ -5,14 +5,20 @@
 
 Phase 0  refuse to run without CUDA; print the card's name and power limit.
 Phase 1  build the CUDA kernels from csrc/ (nvcc, sm_90a) and load them.
-Phase 2  hold each kernel (the seven that replace a TPU kernel, and the
-         statistics kernel of the fused chain) against its plain PyTorch
-         version on the card at the main path's shapes; time both with CUDA
-         events, time the one PyTorch library call that computes the same
-         function where there is one, and compute the card's lower bound for
-         the work. The kernels that take under 0.1 ms are also replayed from
-         a CUDA graph, which gives their time on the device without the
-         host's launch path (``device_ms``).
+Phase 2  hold each kernel (the seven that replace a TPU kernel, the
+         statistics kernel of the fused chain, and the guidance pair that
+         replaces the two warp kernels on the restore path) against its plain
+         PyTorch version on the card at the main path's shapes; time both
+         with CUDA events, time the one PyTorch library call that computes
+         the same function where there is one, and compute the card's lower
+         bound for the work. The kernels that take under 0.1 ms are also
+         replayed from a CUDA graph, which gives their time on the device
+         without the host's launch path (``device_ms``).
+         The guidance pair also: both loss modes, two windows at t = 3 and
+         t = 2, 3 channels, masks all 0 and all 1, taps all outside; its
+         launches a step from a profiler trace against the autograd step it
+         replaced (the warp kernels, a memset and the loss's elementwise
+         launches).
          The fused GroupNorm also: every split of a slab among 1, 2, 4 or 8
          blocks, a slab too long for shared memory, slabs off the 16-byte
          boundary, and a constant input. The RAFT lookup also: one launch a
@@ -31,9 +37,11 @@ Phase 4  the default configuration at full width: 5 frames x4 to 512x512, 50
          guided steps, bf16 UNet / struct-cond / VAE / CLIP and float32 RAFT
          with seeded random weights, through
          ``MGLDVSRPipeline.restore_segment``; every kernel but the fused
-         GroupNorm+SiLU+conv's two must have been launched by that run, and every
-         gated attention call (14 per step) must have taken the tensor-core
-         kernel.
+         GroupNorm+SiLU+conv's two and the standalone warp's two must have
+         been launched by that run, the guidance pair once each a step, and
+         every gated attention call (14 per step) must have taken the
+         tensor-core kernel. The guidance gradient on the clip's real flows
+         and masks must be non-zero and equal its plain version.
 Phase 5  the fused configuration (MGLD_FUSED_GN_CONV=1) at the same width,
          clip, seed and weights: every kernel but the channel sums (whose
          GroupNorms all head a fused chain) must have been launched,
@@ -62,6 +70,11 @@ KERNELS = {
                      "mgldvsr_tpu/ops/pallas/flow_warp.py:103"),
     "warp_dx": ("cuda", "mgldvsr_tpu_torch/csrc/flow_warp.cu",
                 "mgldvsr_tpu/ops/pallas/flow_warp.py:203"),
+    # on the restore path both warp kernels, and the loss around them, are these two
+    "guidance_residual": ("cuda", "mgldvsr_tpu_torch/csrc/guidance.cu",
+                          "mgldvsr_tpu/ops/pallas/flow_warp.py:103"),
+    "guidance_scatter": ("cuda", "mgldvsr_tpu_torch/csrc/guidance.cu",
+                         "mgldvsr_tpu/ops/pallas/flow_warp.py:203"),
     "attention": ("cuda", "mgldvsr_tpu_torch/csrc/attention.cu",
                   "mgldvsr_tpu/ops/pallas/attention.py:76"),
     "corr_lookup": ("cuda", "mgldvsr_tpu_torch/csrc/corr_lookup.cu",
@@ -80,6 +93,8 @@ FUSED_ONLY = ("gn_silu_conv3x3", "gn_scale_shift")  # launched by the fused conf
 # launched by the default configuration alone: its GroupNorms of 128^2 pixels
 # and more all head a chain, which the fused configuration gives to the two above
 DEFAULT_ONLY = ("channel_sums",)
+# held in phase 2 alone: the restore's guidance step runs the guidance pair
+STANDALONE = ("warp_forward", "warp_dx")
 
 # NVIDIA H100 SXM data sheet, dense: device memory bytes/s, tensor-core
 # flop/s for bf16 and fp16, fp32 flop/s outside the tensor cores
@@ -180,6 +195,25 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def device_activity(fn, calls: int = 10) -> tuple[float, float]:
+    """(device activities a warm ``fn()``: kernels, memsets and copies; their
+    summed device ms a call), from a ``torch.profiler`` CUDA trace of
+    ``calls`` calls. The trace can miss the window's first activity, so one
+    call alone may read one launch short."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in events) / calls,
+            sum(e.self_device_time_total for e in events) / 1000 / calls)
+
+
 def bf16_ulps(count: int, want) -> float:
     """``count`` bfloat16 ulps at max |want|: a limit that follows the data."""
     return count * 2 ** -8 * float(want.float().abs().max())
@@ -223,6 +257,152 @@ def calm_raft(pipe) -> None:
 
     with torch.no_grad():
         pipe.raft.update_block.flow_head.conv2.weight.mul_(1e-2)
+
+
+def guidance_inputs(b: int, t: int, c: int, case: str, dev, gen, h: int = 64, w: int = 64):
+    """latents [b*t,h,w,c] ~ N(0,1) as NHWC views of NCHW memory, the layout
+    the sampler holds them in (``packed``: contiguous NHWC), flows (forward,
+    backward) [b,t-1,h,w,2] of about 2 px (or w + 2.5 everywhere: every tap
+    outside), occlusions [b,t-1,h,w,1] at 30% (or none, or all)."""
+    import torch
+
+    if case == "packed":
+        lat = torch.randn(b * t, h, w, c, device=dev, generator=gen)
+    else:
+        lat = torch.randn(b * t, c, h, w, device=dev, generator=gen).permute(0, 2, 3, 1)
+    if case == "taps outside":
+        flows = tuple(torch.full((b, t - 1, h, w, 2), w + 2.5, device=dev) for _ in range(2))
+    else:
+        flows = tuple(torch.randn(b, t - 1, h, w, 2, device=dev, generator=gen) * 2
+                      for _ in range(2))
+    share = {"all occluded": 1.0, "none occluded": 0.0}.get(case, 0.3)
+    occs = tuple((torch.rand(b, t - 1, h, w, 1, device=dev, generator=gen) < share).float()
+                 for _ in range(2))
+    return lat, flows, occs
+
+
+def small_residuals(lat, flows, occs, t: int, mode: str, eps: float = 1e-6) -> int:
+    """Unmasked elements of the loss's terms whose residual |m prev - m lat|
+    is under ``eps``: where a prev summed in another order could flip sgn."""
+    from mgldvsr_tpu_torch.ops.kernels import guidance as guide_mod
+    from mgldvsr_tpu_torch.ops.kernels.flow_warp import warp_plain
+
+    lat5 = lat.reshape(lat.shape[0] // t, t, *lat.shape[1:])
+    n = 0
+    for tm in guide_mod.guidance_terms(t, mode):
+        m = 1.0 - occs[tm.kind][:, tm.occ]
+        prev = 0.0 if tm.src < 0 else warp_plain(lat5[:, tm.src], flows[1 - tm.kind][:, tm.flow])
+        r = m * prev - m * lat5[:, tm.frame]
+        n += int(((r.abs() < eps) & (m != 0)).sum())
+    return n
+
+
+def guidance_phase2(dev, gen, card: str, record) -> dict:
+    """The guidance pair against its plain versions in every case, then timed
+    at the restore's shape beside the autograd step it replaced."""
+    import torch
+
+    from mgldvsr_tpu_torch.ops import kernels
+    from mgldvsr_tpu_torch.ops.kernels import guidance as guide_mod
+
+    worst = 0.0  # the direct part's and the cotangent's error over the cases
+    for b, t, c, case in ((1, 5, 4, "random"), (1, 5, 4, "packed"), (2, 3, 4, "random"),
+                          (2, 2, 4, "random"), (1, 5, 3, "random"), (1, 5, 3, "packed"),
+                          (1, 5, 4, "none occluded"), (1, 5, 4, "all occluded"),
+                          (1, 5, 4, "taps outside")):
+        for mode in ("reference", "aligned"):
+            lat, flows, occs = guidance_inputs(b, t, c, case, dev, gen)
+            kernels.reset_launch_counts()
+            grad, cot = guide_mod.guidance_residual(lat, flows, occs, t, mode)
+            direct, want_cot = guide_mod.guidance_residual_plain(lat, flows, occs, t, mode)
+            err_a = max(max_err(grad, direct), max_err(cot, want_cot) if cot.numel() else 0.0)
+            got = guide_mod.guidance_scatter(grad, cot, flows, t, mode)
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            want = guide_mod.guidance_grad_plain(lat, flows, occs, t, mode)
+            err, tol = max_err(got, want), 1e-6 * float(want.abs().max())
+            log(f"[phase2] guidance pair b={b} t={t} [64,64,{c}] {mode}, {case}: direct part and "
+                f"cotangent max_abs_err {err_a:.3e} (limit 0: bit for bit), gradient "
+                f"{err:.3e} (limit {tol:.3e}), residuals under 1e-6 "
+                f"{small_residuals(lat, flows, occs, t, mode)}, launches {counts}")
+            slots = guide_mod.warp_slots(t, mode)
+            if not (err_a == 0.0 and err <= tol and torch.isfinite(got).all()):
+                raise AssertionError(f"guidance pair b={b} t={t} c={c} {mode} {case}: "
+                                     f"{err_a:.3e} > 0 or {err:.3e} > {tol:.3e}")
+            if counts != {"guidance_residual": 1, **({"guidance_scatter": 1} if slots else {})}:
+                raise AssertionError(f"guidance pair: launches {counts}, slots {slots}")
+            if bool(want.any()) != (case != "all occluded"):
+                raise AssertionError(f"guidance pair {case}: the gradient is zero or not zero")
+            worst = max(worst, err_a)
+
+    # timed at the restore's call: one window of 5 frames, reference mode
+    lat, flows, occs = guidance_inputs(1, 5, 4, "random", dev, gen)
+    grad, cot = guide_mod.guidance_residual(lat, flows, occs, 5)
+    want = guide_mod.guidance_grad_plain(lat, flows, occs, 5)
+    shape = "b=1, t=5, [64,64,4] f32 (NCHW memory, as the sampler holds it), reference"
+    n_bytes = nbytes(lat, *flows, *occs)
+    record("guidance_residual", worst, 0.0,
+           cuda_ms(lambda: guide_mod.guidance_residual(lat, flows, occs, 5)),
+           cuda_ms(lambda: guide_mod.guidance_residual_plain(lat, flows, occs, 5)),
+           shape + " (error: the worst of the 18 cases)",
+           *bound(n_bytes + nbytes(grad, cot), 40.0 * lat.numel() * 2, "f32"),
+           device_ms=graph_ms(lambda: guide_mod.guidance_residual(lat, flows, occs, 5)))
+    scratch = grad.clone()
+    got = guide_mod.guidance_scatter(grad.clone(), cot, flows, 5)
+    record("guidance_scatter", max_err(got, want), 1e-6 * float(want.abs().max()),
+           cuda_ms(lambda: guide_mod.guidance_scatter(scratch, cot, flows, 5)),
+           cuda_ms(lambda: guide_mod.guidance_scatter_plain(scratch, cot, flows, 5)),
+           shape + " (the pair's gradient vs guidance_grad_plain)",
+           *bound(nbytes(*flows, cot, grad, grad), 16.0 * cot.numel(), "f32"),
+           device_ms=graph_ms(lambda: guide_mod.guidance_scatter(scratch, cot, flows, 5)))
+
+    def pair():
+        return guide_mod.guidance_grad(lat, flows, occs, 5)
+
+    def autograd_step():
+        """What the sampler ran per step before the pair: the loss through
+        kernels 1 and 2, then torch.autograd.grad."""
+        with torch.enable_grad():
+            leaf = lat.detach().requires_grad_(True)
+            loss = guide_mod.temporal_warp_loss(leaf, flows, occs, 5)
+            return torch.autograd.grad(loss, leaf)[0]
+
+    kernels.reset_launch_counts()
+    old = autograd_step()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    err_old, tol = max_err(old, pair()), 1e-6 * float(want.abs().max())
+    if counts != {"warp_forward": 1, "warp_dx": 1} or not err_old <= tol:
+        raise AssertionError(f"guidance: the autograd step launched {counts}, differs by "
+                             f"{err_old:.3e} (limit {tol:.3e})")
+    n_old, dev_old = device_activity(autograd_step)
+    n_new, dev_new = device_activity(pair)
+    packed = lat.contiguous()  # the float4 kernels, for comparison
+
+    def packed_pair():
+        return guide_mod.guidance_grad(packed, flows, occs, 5)
+    if round(n_new) != 2:
+        raise AssertionError(f"guidance: the pair made {n_new} device launches a call, "
+                             f"expected 2")
+    out = {
+        "shape": shape, "ms": cuda_ms(pair), "device_ms": graph_ms(pair),
+        "host_us": host_us(pair), "launches": n_new, "device_activity_ms": dev_new,
+        "autograd_step_ms": cuda_ms(autograd_step), "autograd_step_launches": n_old,
+        "autograd_step_device_activity_ms": dev_old,
+        "plain_ms": cuda_ms(lambda: guide_mod.guidance_grad_plain(lat, flows, occs, 5)),
+        "bound_ms": bound(n_bytes + nbytes(lat), 40.0 * lat.numel() * 2, "f32")[0],
+        "max_abs_err_vs_autograd_step": err_old,
+        "packed_ms": cuda_ms(packed_pair), "packed_device_ms": graph_ms(packed_pair),
+        # the host's time a call in both layouts, in turns
+        "host_us_turns": [host_us(fn) for fn in (pair, packed_pair, pair, packed_pair)]}
+    log(f"[phase2] guidance gradient, {shape}: the pair {out['ms']:.4f} ms a call in a host "
+        f"loop (on the device {out['device_ms']:.4f} ms, {out['host_us']:.1f} us to return), "
+        f"{n_new:g} device launches a call ({dev_new:.4f} ms of device time); the autograd "
+        f"step it replaced {out['autograd_step_ms']:.4f} ms, {n_old:g} device launches "
+        f"({dev_old:.4f} ms); plain version {out['plain_ms']:.4f} ms; bound "
+        f"{out['bound_ms']:.4f} ms (bytes); pair vs autograd step max_abs_err {err_old:.3e}; "
+        f"the pair on packed NHWC latents (float4) {out['packed_ms']:.4f} ms, on the device "
+        f"{out['packed_device_ms']:.4f} ms; host us to return, NCHW memory / packed in turns "
+        f"{', '.join(f'{us:.1f}' for us in out['host_us_turns'])}  [{card}]")
+    return out
 
 
 def attention_checks(dev, gen) -> None:
@@ -435,16 +615,35 @@ def phase2(card: str):
             "device_ms": device_ms})
         first["max_abs_err"] = max(first["max_abs_err"], err)
 
-    # guidance warp: 2(t-2) = 6 latents of one 5-frame window at 64x64x4;
-    # 4 taps of 2 flops and ~12 flops of weights per output element
+    # the standalone warp: 2(t-2) = 6 latents of one 5-frame window at
+    # 64x64x4; 4 taps of 2 flops and ~12 flops of weights per output element.
+    # The library call: F.grid_sample (bilinear, zeros, align_corners=True) of
+    # the NCHW latents at the normalised p + flow, and its input gradient.
     x = torch.randn(6, 64, 64, 4, device=dev, generator=gen)
     flow = torch.randn(6, 64, 64, 2, device=dev, generator=gen) * 3
     g = torch.randn(6, 64, 64, 4, device=dev, generator=gen)
     shape = "x[6,64,64,4] f32"
     warp_bound = bound(nbytes(x, flow, x), 20 * x.numel(), "f32")
+    gy, gx = torch.meshgrid(torch.arange(64.0, device=dev), torch.arange(64.0, device=dev),
+                            indexing="ij")
+    grid = torch.stack([(gx + flow[..., 0]) * (2 / 63) - 1, (gy + flow[..., 1]) * (2 / 63) - 1],
+                       -1)
+    xn, gn = (z.permute(0, 3, 1, 2).contiguous() for z in (x, g))
+
+    def sample():
+        return F.grid_sample(xn, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+    def sample_dx():
+        return torch.ops.aten.grid_sampler_2d_backward(gn, xn, grid, 0, 0, True, [True, False])
+
+    log(f"[phase2]   F.grid_sample vs the plain warp: max_abs_err "
+        f"{max_err(sample().permute(0, 2, 3, 1), warp_mod.warp_plain(x, flow)):.3e}; its "
+        f"backward vs the plain dx "
+        f"{max_err(sample_dx()[0].permute(0, 2, 3, 1), warp_mod.warp_dx_plain(g, flow)):.3e} "
+        f"(another rounding of p + flow)")
     record("warp_forward", max_err(warp_mod.warp_forward(x, flow), warp_mod.warp_plain(x, flow)),
            1e-5, cuda_ms(lambda: warp_mod.warp_forward(x, flow)),
-           cuda_ms(lambda: warp_mod.warp_plain(x, flow)), shape, *warp_bound,
+           cuda_ms(lambda: warp_mod.warp_plain(x, flow)), shape, *warp_bound, cuda_ms(sample),
            device_ms=graph_ms(lambda: warp_mod.warp_forward(x, flow)))
     xr = x.clone().requires_grad_(True)
     warp_mod.warp_plain(xr, flow).backward(g)
@@ -452,7 +651,10 @@ def phase2(card: str):
     err = max(max_err(dx, warp_mod.warp_dx_plain(g, flow)), max_err(dx, xr.grad))
     record("warp_dx", err, 1e-5, cuda_ms(lambda: warp_mod.warp_dx(g, flow)),
            cuda_ms(lambda: warp_mod.warp_dx_plain(g, flow)), shape + " (vs plain and autograd)",
-           *warp_bound, device_ms=graph_ms(lambda: warp_mod.warp_dx(g, flow)))
+           *warp_bound, cuda_ms(sample_dx), device_ms=graph_ms(lambda: warp_mod.warp_dx(g, flow)))
+    del grid, xn, gn
+    pair = guidance_phase2(dev, gen, card, record)
+    results["guidance_residual"]["pair"] = results["guidance_scatter"]["pair"] = pair
 
     # attention: UNet self-attention at 64^2 (5 frames x 5 heads) and 32^2
     # (5 x 10), struct-cond at 64^2 (5 x 4), head dim 64, bf16: the
@@ -510,12 +712,31 @@ def phase2(card: str):
     if kernels.launch_counts()["corr_lookup"] != 1:
         raise AssertionError("corr_lookup: a call is not one launch")
     cells = sum(min(100, p.shape[-1] * p.shape[-2]) for p in pyr)
+    # the library call: RAFT's own CorrBlock lookup, F.grid_sample of the
+    # (2r+1)^2 window grid around each query at each level
+    side = torch.arange(-4.0, 5.0, device=dev)
+    delta = torch.stack(torch.meshgrid(side, side, indexing="ij"), -1)  # RAFT's (dy, dx) order
+    maps, grids = [], []
+    for lvl, p in enumerate(pyr):
+        hl, wl = p.shape[-2:]
+        at = coords.reshape(-1, 1, 1, 2) / 2 ** lvl + delta
+        maps.append(p.reshape(-1, 1, hl, wl))
+        grids.append(torch.stack([at[..., 0] * (2 / (wl - 1)) - 1, at[..., 1] * (2 / (hl - 1)) - 1],
+                                 -1))
+
+    def corr_block():
+        return [F.grid_sample(m, gr, align_corners=True) for m, gr in zip(maps, grids)]
+
+    lib_out = torch.cat([o.reshape(8, 4096, 81) for o in corr_block()], -1)
+    log(f"[phase2]   RAFT's CorrBlock (F.grid_sample a level) vs the plain lookup: max_abs_err "
+        f"{max_err(lib_out, corr_mod.lookup_corr_plain(pyr, coords, 4).reshape(8, 4096, -1)):.3e}")
     record("corr_lookup", max_err(got, corr_mod.lookup_corr_plain(pyr, coords, 4)),
            1e-4, cuda_ms(lambda: corr_mod.lookup_corr(pyr, coords, 4)),
            cuda_ms(lambda: corr_mod.lookup_corr_plain(pyr, coords, 4), iters=5),
            "pyramid [8,4096,64^2..8^2] f32, coords [8,64,64,2]",
            *bound(8 * 4096 * cells * 4 + nbytes(coords, got), 8.0 * got.numel(), "f32"),
-           device_ms=graph_ms(lambda: corr_mod.lookup_corr(pyr, coords, 4)))
+           cuda_ms(corr_block), graph_ms(lambda: corr_mod.lookup_corr(pyr, coords, 4)))
+    del maps, grids, lib_out
     log(f"[phase2]   the host's share of a call: "
         f"{host_us(lambda: corr_mod.lookup_corr(pyr, coords, 4)):.1f} us to return")
     lookup_checks(dev, gen)
@@ -535,7 +756,8 @@ def phase2(card: str):
            cuda_ms(lambda: gn_mod.channel_sums(xb)),
            cuda_ms(lambda: gn_mod.channel_sums_plain(xb)), "[5,128,512,512] bf16",
            *bound(nbytes(xb, *s), 3.0 * xb.numel(), "f32"),
-           device_ms=graph_ms(lambda: gn_mod.channel_sums(xb)))
+           cuda_ms(lambda: torch.var_mean(xb, dim=(2, 3))),
+           graph_ms(lambda: gn_mod.channel_sums(xb)))
     del xb, s, p
 
     # fused GroupNorm: the UNet's levels, the 960-channel skip concat (the
@@ -578,11 +800,12 @@ def phase2(card: str):
         got, want = stats(), gn_mod.gn_scale_shift_plain(x, w, b, 32, eps)
         err = max(max_err(a, p) / float(p.abs().max()) for a, p in zip(got, want))
         iters = 5 if shp[2] >= 512 else 20
+        groups = x.view(shp[0], 32, -1)
         record("gn_scale_shift", err, 1e-5, cuda_ms(stats, iters),
                cuda_ms(lambda: gn_mod.gn_scale_shift_plain(x, w, b, 32, eps), iters),
                f"{list(shp)} bf16 eps {eps:g} (error relative to max |scale|, |shift|)",
                *bound(nbytes(x, w, b, *got), 3.0 * x.numel(), "f32"),
-               device_ms=graph_ms(stats, iters))
+               cuda_ms(lambda: torch.var_mean(groups, dim=2), iters), graph_ms(stats, iters))
         del x, got, want
 
     # fused GroupNorm+SiLU+conv3x3: UNet res-block chains, the skip concat,
@@ -789,10 +1012,15 @@ def phase3(seed: int, card: str, fused: bool) -> float:
         raise AssertionError(f"phase 3 output {tuple(got.shape)} is not finite [5,256,256,3]")
     if not err <= 1e-3:
         raise AssertionError(f"phase 3: card and CPU disagree ({err:.3e})")
-    must = ["warp_forward", "warp_dx", "attention", "corr_lookup", "fused_group_norm"]
+    must = ["guidance_residual", "guidance_scatter", "attention", "corr_lookup",
+            "fused_group_norm"]
     for name in must + list(FUSED_ONLY) * fused:
         if counts[name] == 0:
             raise AssertionError(f"phase 3: kernel {name} was never launched")
+    guided = (counts["guidance_residual"], counts["guidance_scatter"])
+    if guided != (cfg.ddpm_steps,) * 2 or any(counts[name] for name in STANDALONE):
+        raise AssertionError(f"phase 3: guidance pair launches {guided} in {cfg.ddpm_steps} "
+                             f"steps, standalone warp {[counts[n] for n in STANDALONE]}")
     if not fused and any(counts[name] for name in FUSED_ONLY):
         raise AssertionError(f"phase 3: {FUSED_ONLY} launched with the switch off")
     if counts["corr_lookup"] != cfg.raft.iters:
@@ -875,8 +1103,13 @@ def full_restore(pipe, frames, seed: int, steps: int, card: str, fused: bool):
     if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
         raise AssertionError(f"{phase} output is not finite in [0, 1]")
     for name in KERNELS:
-        if (counts[name] == 0) != (name in (DEFAULT_ONLY if fused else FUSED_ONLY)):
+        idle = (DEFAULT_ONLY if fused else FUSED_ONLY) + STANDALONE
+        if (counts[name] == 0) != (name in idle):
             raise AssertionError(f"{phase}: kernel {name} was launched {counts[name]} times")
+    # the guidance gradient: launch A and launch B once a step, nothing else
+    if not counts["guidance_residual"] == counts["guidance_scatter"] == steps:
+        raise AssertionError(f"{phase}: guidance launches {counts['guidance_residual']}, "
+                             f"{counts['guidance_scatter']}, expected {steps} each")
     # 14 gated attention calls per step, all bf16 at head dim 64
     if not counts["attention_wgmma"] == counts["attention"] == 14 * steps:
         raise AssertionError(f"{phase}: {counts['attention']} attention launches, "
@@ -900,23 +1133,31 @@ def full_restore(pipe, frames, seed: int, steps: int, card: str, fused: bool):
 
 
 def guidance_check(pipe, frames, seed: int) -> None:
-    """The guidance gradient on this clip's flows must be non-zero."""
+    """The guidance gradient on this clip's flows and masks must be non-zero
+    and equal its plain version (autograd of the loss through the plain
+    warp) within 1e-6 of its largest value, in both modes."""
     import torch
 
-    from mgldvsr_tpu_torch.core.diffusion import temporal_warp_loss
+    from mgldvsr_tpu_torch.ops.kernels.guidance import guidance_grad, guidance_grad_plain
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    (ff, fb), masks = pipe.compute_flows(frames)
-    lat = torch.randn(5, 64, 64, 4, device="cuda", generator=gen).requires_grad_(True)
-    (grad,) = torch.autograd.grad(temporal_warp_loss(lat, (ff, fb), masks, 5), lat)
-    gnorm = float(grad.norm())
+    flows, masks = pipe.compute_flows(frames)
+    lat = torch.randn(5, 64, 64, 4, device="cuda", generator=gen)
     occluded = float(masks[0].mean())
     if not occluded < 1.0:
         raise AssertionError("phase 4: every pixel is occluded; guidance does nothing")
-    log(f"[phase4] flow |mean| {float(ff.abs().mean()):.4f} px at 1/8 res, occluded share "
-        f"{occluded:.3f}, guidance grad norm {gnorm:.4e}")
-    if not gnorm > 0:
-        raise AssertionError("phase 4: the guidance gradient is zero")
+    for mode in ("reference", "aligned"):
+        grad = guidance_grad(lat, flows, masks, 5, mode)
+        want = guidance_grad_plain(lat, flows, masks, 5, mode)
+        err, tol = max_err(grad, want), 1e-6 * float(want.abs().max())
+        log(f"[phase4] {mode}: flow |mean| {float(flows[0].abs().mean()):.4f} px at 1/8 res, "
+            f"occluded share {occluded:.3f}, guidance grad norm {float(grad.norm()):.4e}, vs "
+            f"the plain version max_abs_err {err:.3e} (limit {tol:.3e})")
+        if not float(grad.norm()) > 0:
+            raise AssertionError("phase 4: the guidance gradient is zero")
+        if not err <= tol:
+            raise AssertionError(f"phase 4: the guidance gradient differs from its plain "
+                                 f"version ({err:.3e} > {tol:.3e})")
 
 
 def main() -> int:

@@ -1,9 +1,12 @@
 """Motion-guided respaced DDPM sampling.
 
 Counterpart of ``mgldvsr_tpu/core/diffusion.py``. The JAX ``lax.scan`` over
-timesteps is a Python loop here. The guidance step differentiates the
-flow-warp temporal loss with respect to the latents alone, through
-``torch.autograd.grad``; the denoiser itself runs without gradients.
+timesteps is a Python loop here. The guidance step needs the gradient of
+the flow-warp temporal loss (``temporal_warp_loss``, which lives beside its
+kernels in ``ops/kernels/guidance.py``) with respect to the latents alone:
+``guidance_grad`` computes it as a plain function, two kernel launches on
+the card and autograd through the plain warp on the CPU. The denoiser runs
+without gradients.
 
 Latents are NHWC ``[(b t), h, w, c]`` and flows ``[b, t-1, h, w, 2]``, as in
 the JAX package. ``mode="reference"`` keeps the reference loop's quirks
@@ -14,7 +17,7 @@ each window of a batched call gets the correction a lone window would.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -24,66 +27,8 @@ from mgldvsr_tpu_torch.core.schedules import (
     q_posterior,
     q_sample,
 )
-from mgldvsr_tpu_torch.ops.kernels.flow_warp import flow_warp_guided
-
-
-def temporal_warp_loss(
-    latents: torch.Tensor,
-    flows: Tuple[torch.Tensor, torch.Tensor],
-    occs: Tuple[torch.Tensor, torch.Tensor],
-    num_frames: int,
-    mode: str = "reference",
-) -> torch.Tensor:
-    """Bidirectional occlusion-masked flow-warp L1 over a clip's latents.
-
-    latents [(b t), h, w, c]; flows = (forward, backward) each
-    [b, t-1, h, w, 2]; occs = (fwd, bwd) each [b, t-1, h, w, 1], 1 =
-    occluded. Returns the scalar sum of per-pair mean-L1 terms."""
-    flow_fwd, flow_bwd = flows
-    fwd_occs, bwd_occs = occs
-    t = num_frames
-    b = latents.shape[0] // t
-    lat = latents.reshape(b, t, *latents.shape[1:])
-
-    def l1(a, y):
-        return torch.mean(torch.abs(a - y))
-
-    loss = torch.zeros((), dtype=torch.float32, device=latents.device)
-    if mode == "reference":
-        # all 2(t-2) warps in one call: wb[j] = warp(l_j, fb[j]) and
-        # wf[j] = warp(l_j, ff[j-1]) for j in 1..t-2
-        wb, wf = {}, {}
-        if t > 2:
-            js = list(range(1, t - 1))
-            src = torch.cat([lat[:, j] for j in js] + [lat[:, j] for j in js], dim=0)
-            flo = torch.cat([flow_bwd[:, j] for j in js]
-                            + [flow_fwd[:, j - 1] for j in js], dim=0)
-            warped = flow_warp_guided(src, flo)
-            nb = b * len(js)
-            wb = {j: warped[i * b:(i + 1) * b] for i, j in enumerate(js)}
-            wf = {j: warped[nb + i * b:nb + (i + 1) * b] for i, j in enumerate(js)}
-        zeros = torch.zeros_like(lat[:, 0])
-        for k in range(t - 2, -1, -1):
-            m = 1.0 - fwd_occs[:, k]
-            loss = loss + l1(m * wb.get(k + 1, zeros), m * lat[:, k])
-        for k in range(1, t):
-            n = 1.0 - bwd_occs[:, k - 1]
-            loss = loss + l1(n * wf.get(k - 1, zeros), n * lat[:, k])
-    elif mode == "aligned":
-        src = torch.cat([lat[:, k + 1] for k in range(t - 1)]
-                        + [lat[:, k] for k in range(t - 1)], dim=0)
-        flo = torch.cat([flow_bwd[:, k] for k in range(t - 1)]
-                        + [flow_fwd[:, k] for k in range(t - 1)], dim=0)
-        warped = flow_warp_guided(src, flo)
-        nb = b * (t - 1)
-        for k in range(t - 1):
-            m = 1.0 - fwd_occs[:, k]
-            loss = loss + l1(m * warped[k * b:(k + 1) * b], m * lat[:, k])
-            n = 1.0 - bwd_occs[:, k]
-            loss = loss + l1(n * warped[nb + k * b:nb + (k + 1) * b], n * lat[:, k + 1])
-    else:
-        raise ValueError(f"unknown temporal loss mode {mode!r}")
-    return loss
+# temporal_warp_loss is re-exported: this module is the JAX one's counterpart
+from mgldvsr_tpu_torch.ops.kernels.guidance import guidance_grad, temporal_warp_loss  # noqa: F401
 
 
 def adaptive_instance_normalization(content: torch.Tensor, style: torch.Tensor,
@@ -141,13 +86,10 @@ def p_sample(sched: DiffusionSchedule, denoise_fn: Callable, x: torch.Tensor, i:
     nonzero = float(i > 0)
     latents = mean + nonzero * torch.exp(0.5 * log_var) * noise
     if flows is not None:
-        with torch.enable_grad():
-            lat = latents.detach().requires_grad_(True)
-            loss = temporal_warp_loss(lat, flows, masks, cfg.num_frames, cfg.guidance_mode)
-            (grad,) = torch.autograd.grad(loss, lat)
+        grad = guidance_grad(latents, flows, masks, cfg.num_frames, cfg.guidance_mode)
         n_windows = latents.shape[0] // cfg.num_frames
         latents = latents - cfg.guidance_scale * log_var * (n_windows * grad)
-    return latents.detach()
+    return latents
 
 
 def sample_video(sched: DiffusionSchedule, denoise_fn: Callable, x_T: torch.Tensor,

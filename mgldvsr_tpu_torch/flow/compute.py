@@ -7,7 +7,7 @@ one batched flownet call.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -28,10 +28,16 @@ def compute_clip_flows(flownet: Callable[[torch.Tensor, torch.Tensor], torch.Ten
     return flows_forward, flows_backward
 
 
-def chunked_pairs(fn: Callable, chunk: int) -> Callable:
+def chunked_pairs(fn: Callable, chunk: Optional[int]) -> Callable:
     """Run a per-pair batched net over groups of ``chunk`` pairs, bounding
     peak activation memory (the correlation volumes). Pairs are independent
-    through the net, so the output equals the one-shot batch."""
+    through the net, so the output equals the one-shot batch. ``chunk`` 0 or
+    None is one call over every pair, as in the JAX package; a negative
+    ``chunk`` raises ``ValueError``."""
+    if not chunk:
+        return fn
+    if chunk < 0:
+        raise ValueError(f"flow chunk must be a count of pairs >= 0 or None, got {chunk}")
 
     def wrapped(a, b):
         if a.shape[0] <= chunk:

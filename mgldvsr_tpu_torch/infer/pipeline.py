@@ -60,7 +60,7 @@ class PipelineConfig:
     # reference's fixed-script protocol)
     flow_scale: float = 1.0
     # RAFT frame pairs per call (bounds the correlation volumes' memory);
-    # None = all pairs in one call
+    # None or 0 = all pairs in one call
     flow_chunk_pairs: Optional[int] = 8
     # decode this many num_frames windows at a time; None = all at once
     decode_chunk_windows: Optional[int] = None
@@ -175,12 +175,11 @@ class MGLDVSRPipeline:
         n, h, w, c = small.shape
         if n % nf:
             raise ValueError(f"{n} frames is not a multiple of num_frames={nf}")
-        raft_fn = self.raft
-        if self.cfg.flow_chunk_pairs is not None:
-            raft_fn = chunked_pairs(raft_fn, self.cfg.flow_chunk_pairs)
+        raft_fn = chunked_pairs(self.raft, self.cfg.flow_chunk_pairs)
         ff, fb = compute_clip_flows(raft_fn, small.reshape(n // nf, nf, h, w, c))
-        ff = flows_to_latent_res(ff, 0.125 / fs)
-        fb = flows_to_latent_res(fb, 0.125 / fs)
+        # contiguous, as the guidance kernels take them (a copy at most, once a segment)
+        ff = flows_to_latent_res(ff, 0.125 / fs).contiguous()
+        fb = flows_to_latent_res(fb, 0.125 / fs).contiguous()
         return (ff, fb), compute_occlusion_masks(ff, fb)
 
     def denoise_fn(self, struct_latent: torch.Tensor, context: torch.Tensor):

@@ -32,6 +32,11 @@ from mgldvsr_tpu_torch.models.temporal import SpatialTemporalConv, TemporalAtten
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
+    """The UNet's widths and compute dtype. On the card ``dtype`` is
+    bfloat16 or float32: fp16 is not supported on the card, because the
+    attention wrapper has no fp16 kernel and raises on it; use bf16 or fp32.
+    On the CPU every dtype runs through the plain versions."""
+
     in_channels: int = 4
     out_channels: int = 4
     model_channels: int = 320

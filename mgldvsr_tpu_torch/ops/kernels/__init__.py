@@ -13,11 +13,14 @@ from mgldvsr_tpu_torch.ops.kernels import (
     flow_warp,
     gn_silu_conv,
     groupnorm,
+    guidance,
 )
 
 WRAPPERS = {
     "warp_forward": flow_warp.warp_forward,
     "warp_dx": flow_warp.warp_dx,
+    "guidance_residual": guidance.guidance_residual,
+    "guidance_scatter": guidance.guidance_scatter,
     "attention": attention.attention,
     "corr_lookup": corr_lookup.lookup_corr,
     "channel_sums": groupnorm.channel_sums,

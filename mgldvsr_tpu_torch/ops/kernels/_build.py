@@ -30,6 +30,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _LP = ctypes.POINTER(ctypes.c_longlong)
+_IP = ctypes.POINTER(ctypes.c_int)
 # C entry points: name -> argument types. Every function returns the
 # cudaError_t of its launch (0 = success).
 SIGNATURES = {
@@ -37,6 +38,14 @@ SIGNATURES = {
     "mgld_warp_fwd_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     # g, flow, dx, n, h, w, c, stream
     "mgld_warp_dx_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # latents, flow_fwd, flow_bwd, occ_fwd, occ_bwd, grad, cotangent scratch,
+    # term table (host ints), latents' and grad's strides[4], b, t, h, w, c, slots, 1/N, stream
+    "mgld_guidance_residual_f32": (_P, _P, _P, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _F, _P),
+    # flow_fwd, flow_bwd, cotangent scratch, grad, term table, grad's strides[4], b, t, h, w,
+    # c, slots, stream
+    "mgld_guidance_scatter_f32": (_P, _P, _P, _P, _IP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _P),
     # q, k, v, o, bh, n, d, scale, stream
     "mgld_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     "mgld_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _P),

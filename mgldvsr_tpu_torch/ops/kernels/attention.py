@@ -23,8 +23,11 @@ tensor launches one of them or raises:
 * ``"fma"``: float32 (the parity mode, no TF32) and bfloat16 at head dims
   8, 16, 32 and 128, on the fp32 FMA units over contiguous [BH, N, D].
 
-Forward only: the restore path runs the towers without gradients. A CPU
-tensor takes the plain version.
+A CPU tensor takes the plain version. Where autograd needs a gradient, both
+entries go through an autograd Function whose forward is the same call and
+whose backward replays the plain version under autograd, as the JAX
+``resident_attention``'s ``custom_vjp`` replays its ``_reference``. float16
+is not supported on the card: the wrapper raises on it (use bf16 or fp32).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import ctypes
 import torch
 
 from mgldvsr_tpu_torch.ops.kernels import _build
+from mgldvsr_tpu_torch.ops.kernels.groupnorm import recompute_grads
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
 
@@ -95,8 +99,11 @@ def _check(q, k, v, ndim: int, layout: str) -> None:
     if not (q.shape == k.shape == v.shape) or q.ndim != ndim:
         raise ValueError(f"attention: q, k, v must share one {layout} shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype == torch.float16:
+        raise TypeError("attention: fp16 is not supported on the card; use bf16 or fp32")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"attention: float32 or bfloat16 only, got {q.dtype}")
+        raise TypeError(f"attention: float32 or bfloat16 only, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if not (q.device == k.device == v.device) or q.device.type != "cuda":
         raise ValueError("attention: q, k, v must be on one CUDA device")
     if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
@@ -130,11 +137,50 @@ def _launch_wgmma(q, k, v, out) -> None:
     attention.strided_launches += all(a is z for a, z in zip((q, k, v), views))
 
 
+def _needs_grad(q, k, v) -> bool:
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+
+
+class _Attention(torch.autograd.Function):
+    """Forward: the kernel (the plain version for a CPU tensor). Backward:
+    autograd of :func:`attention_plain` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _attention(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_grads(attention_plain, ctx.saved_tensors, g, ctx.needs_input_grad)
+
+
+class _AttentionBNHD(torch.autograd.Function):
+    """The same for the [B, N, H, D] entry and :func:`attention_bnhd_plain`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _attention_bnhd(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_grads(attention_bnhd_plain, ctx.saved_tensors, g,
+                               ctx.needs_input_grad)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v for contiguous [BH, N, D] float32 or
     bfloat16 tensors; output in the input dtype. bfloat16 at head dim 64
     takes the tensor-core kernel (as the case B = 1 of its [B, N, H, D]
-    entry), everything else the FMA kernel."""
+    entry), everything else the FMA kernel. Differentiable: the backward
+    replays the plain version."""
+    if _needs_grad(q, k, v):
+        return _Attention.apply(q, k, v)
+    return _attention(q, k, v)
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     _check(q, k, v, 3, "[BH,N,D]")
@@ -161,13 +207,20 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
     The tensor-core variant reads each operand through its strides where
     :func:`route` allows, copies it otherwise, and writes a
     contiguous [B, N, H, D]; the FMA variant folds all three into contiguous
-    [BH, N, D] copies and returns a permuted view."""
+    [BH, N, D] copies and returns a permuted view. Differentiable: the
+    backward replays the plain version."""
+    if _needs_grad(q, k, v):
+        return _AttentionBNHD.apply(q, k, v)
+    return _attention_bnhd(q, k, v)
+
+
+def _attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_bnhd_plain(q, k, v)
     _check(q, k, v, 4, "[B,N,H,D]")
     b, n, h, d = q.shape
     if kernel_variant(q.dtype, d) == "fma":
-        out = attention(*(_fold(z).contiguous() for z in (q, k, v)))
+        out = _attention(*(_fold(z).contiguous() for z in (q, k, v)))
         return out.reshape(b, h, n, d).permute(0, 2, 1, 3)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     _launch_wgmma(q, k, v, out)

@@ -13,7 +13,8 @@ samples from it and writes them as one contiguous run; the runs of a query,
 and of a block, lie one behind the other.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-(once per call) or raises.
+(once per call) or raises. The kernel has no gradient: on the card the
+wrapper raises when autograd would need one (RAFT runs without gradients).
 """
 from __future__ import annotations
 
@@ -72,6 +73,9 @@ def lookup_corr(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
     """Window lookup with the same contract as :func:`lookup_corr_plain`."""
     if coords.device.type == "cpu":
         return lookup_corr_plain(pyramid, coords, radius)
+    if torch.is_grad_enabled() and (coords.requires_grad or any(p.requires_grad for p in pyramid)):
+        raise RuntimeError("lookup_corr: the CUDA kernel has no gradient; call it under "
+                           "torch.no_grad() or on tensors that do not require grad")
     b, h, w, two = coords.shape
     if two != 2 or coords.dtype != torch.float32 or not coords.is_contiguous():
         raise ValueError(f"lookup_corr: coords must be contiguous float32 [B,H,W,2], "

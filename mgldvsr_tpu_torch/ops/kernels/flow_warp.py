@@ -3,14 +3,19 @@ versions.
 
 Replaces ``mgldvsr_tpu/ops/pallas/flow_warp.py``: ``pallas_flow_warp``
 (forward) and ``_pallas_warp_dx`` (the gradient), wrapped together as
-``flow_warp_guided``. What bounds them on the H100 and how the design
-answers it is set out in ``csrc/flow_warp.cu``: the call is tiny and
-latency-bound, so the forward is a direct 4-tap gather and the gradient a
-4-tap fp32 ``atomicAdd`` scatter (its summation order varies between runs).
+``flow_warp_guided``, for a warp called on its own. The restore's guidance
+step does not come here: ``ops/kernels/guidance.py`` computes the whole
+gradient of the warp loss, these taps included, in two launches of its own.
+Both share the tap arithmetic of ``csrc/warp_taps.cuh``. The call is tiny
+and latency-bound (``csrc/flow_warp.cu``), so the forward is a direct 4-tap
+gather, one thread a pixel, and the gradient a 4-tap fp32 ``atomicAdd``
+scatter (its summation order varies between runs).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. The flow's gradient is zero by contract, as in the JAX package:
-guidance differentiates with respect to the latents only.
+raises. ``warp_forward`` has no gradient of its own: on the card it raises
+when autograd would need one (use ``flow_warp_guided``). The flow's gradient
+is zero by contract, as in the JAX package: guidance differentiates with
+respect to the latents only.
 """
 from __future__ import annotations
 
@@ -52,12 +57,17 @@ def _check(name: str, a: torch.Tensor, flow: torch.Tensor) -> None:
         raise ValueError(f"{name}: both tensors must be on one CUDA device")
     if not (a.is_contiguous() and flow.is_contiguous()):
         raise ValueError(f"{name}: tensors must be contiguous")
+    if a.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: {a.numel()} elements; the kernel takes under 2^31")
 
 
 def warp_forward(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """out(p) = x(p + flow(p)), zeros outside. x [N,H,W,C], flow [N,H,W,2]."""
     if x.device.type == "cpu":
         return warp_plain(x, flow)
+    if torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad):
+        raise RuntimeError("warp_forward: the CUDA kernel has no gradient; use "
+                           "flow_warp_guided for a warp that autograd differentiates")
     _check("warp_forward", x, flow)
     out = torch.empty_like(x)
     n, h, w, c = x.shape

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from mgldvsr_tpu_torch.ops.kernels import _build
 from mgldvsr_tpu_torch.ops.kernels.groupnorm import (
     _launch_scale_shift,
-    _recompute_grads,
+    recompute_grads,
     check_group_affine,
 )
 
@@ -166,7 +166,7 @@ class _GNSiLUConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (*_recompute_grads(
+        return (*recompute_grads(
             lambda *a: gn_silu_conv3x3_plain(*a, groups=ctx.groups, eps=ctx.eps),
             ctx.saved_tensors, g, ctx.needs_input_grad[:5]), None, None)
 

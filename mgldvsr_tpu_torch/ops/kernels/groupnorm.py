@@ -295,12 +295,12 @@ class _FusedGroupNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (*_recompute_grads(
+        return (*recompute_grads(
             lambda *a: group_norm_reference(*a, ctx.groups, ctx.eps), ctx.saved_tensors, g,
             ctx.needs_input_grad[:3]), None, None)
 
 
-def _recompute_grads(fn, saved, g, needs):
+def recompute_grads(fn, saved, g, needs):
     """Gradients of ``fn(*saved)`` against the cotangent ``g`` for the inputs
     flagged in ``needs`` (None for the others)."""
     with torch.enable_grad():

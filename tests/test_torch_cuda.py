@@ -29,6 +29,7 @@ from mgldvsr_tpu_torch.ops.kernels.flow_warp import (
 )
 from mgldvsr_tpu_torch.ops.kernels import _build
 from mgldvsr_tpu_torch.ops.kernels import gn_silu_conv as conv_mod
+from mgldvsr_tpu_torch.ops.kernels import guidance as guide_mod
 from mgldvsr_tpu_torch.ops.kernels.gn_silu_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
 from mgldvsr_tpu_torch.ops.kernels.groupnorm import (
     channel_sums,
@@ -534,3 +535,110 @@ def test_tiny_restore_fused_configuration_matches_cpu(dev):
 
     chip_smoke.phase3(0, "test", fused=True)
     assert kernels.launch_counts()["gn_silu_conv3x3"] > 0
+
+
+# the guidance pair at the restore's shape (1 window of 5 frames, 64x64x4
+# latents, held as NHWC views of NCHW memory as the sampler holds them), the
+# same packed NHWC (the float4 kernels), two windows at t = 3 and t = 2, 3
+# channels, masks all 0 and all 1, and flows that push every tap outside
+GUIDANCE_CASES = [(1, 5, 4, "random"), (1, 5, 4, "packed"), (2, 3, 4, "random"),
+                  (2, 2, 4, "random"), (1, 5, 3, "random"), (1, 5, 3, "packed"),
+                  (1, 5, 4, "none occluded"), (1, 5, 4, "all occluded"), (1, 5, 4, "taps outside")]
+
+
+def _guidance_case(dev, b, t, c, case, h=64, w=64, seed=0):
+    import chip_smoke
+
+    return chip_smoke.guidance_inputs(b, t, c, case, dev, _gen(dev, seed), h, w)
+
+
+@pytest.mark.parametrize("mode", ["reference", "aligned"])
+@pytest.mark.parametrize("b,t,c,case", GUIDANCE_CASES)
+def test_guidance_pair_matches_plain(dev, mode, b, t, c, case):
+    """Launch A equals its plain version bit for bit (the same tap and loss
+    arithmetic, no contraction); A then B equals ``guidance_grad_plain``
+    within 1e-6 of max |want| (B's atomics add in a varying order); one
+    launch each, none of B where the loss has no warps; the gradient has the
+    latents' strides."""
+    lat, flows, occs = _guidance_case(dev, b, t, c, case)
+    kernels.reset_launch_counts()
+    grad, cot = guide_mod.guidance_residual(lat, flows, occs, t, mode)
+    assert grad.stride() == lat.stride()
+    want_direct, want_cot = guide_mod.guidance_residual_plain(lat, flows, occs, t, mode)
+    assert torch.equal(grad, want_direct) and torch.equal(cot, want_cot)
+    got = guide_mod.guidance_scatter(grad, cot, flows, t, mode)
+    want = guide_mod.guidance_grad_plain(lat, flows, occs, t, mode)
+    torch.testing.assert_close(got, want, atol=1e-6 * float(want.abs().max()), rtol=0)
+    slots = guide_mod.warp_slots(t, mode)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
+        "guidance_residual": 1, **({"guidance_scatter": 1} if slots else {})}
+    torch.testing.assert_close(guide_mod.guidance_grad(lat, flows, occs, t, mode), want,
+                               atol=1e-6 * float(want.abs().max()), rtol=0)
+    assert bool(want.any()) == (case != "all occluded")
+
+
+def test_guidance_raises_on_what_it_does_not_take(dev):
+    """No fallback: float32 only, one device, contiguous, shapes as
+    documented, t dividing the frames, a known mode; nothing is launched."""
+    lat, flows, occs = _guidance_case(dev, 1, 5, 4, "random", h=8, w=8)
+    before = kernels.launch_counts()
+    with pytest.raises(TypeError):
+        guide_mod.guidance_grad(lat.double(), flows, occs, 5)
+    with pytest.raises(ValueError):
+        guide_mod.guidance_grad(lat, (flows[0].cpu(), flows[1]), occs, 5)
+    with pytest.raises(ValueError):  # not dense: the gradient could not share its strides
+        guide_mod.guidance_grad(torch.randn(5, 8, 8, 8, device=dev)[..., :4], flows, occs, 5)
+    with pytest.raises(ValueError):
+        guide_mod.guidance_grad(lat, (flows[0].transpose(2, 3), flows[1]), occs, 5)
+    with pytest.raises(ValueError):
+        guide_mod.guidance_grad(lat, flows, (occs[0][..., 0], occs[1]), 5)
+    with pytest.raises(ValueError):
+        guide_mod.guidance_grad(lat, flows, occs, 3)
+    with pytest.raises(ValueError):
+        guide_mod.guidance_grad(lat, flows, occs, 5, "sideways")
+    grad, cot = guide_mod.guidance_residual(lat, flows, occs, 5)
+    with pytest.raises(ValueError):
+        guide_mod.guidance_scatter(grad, cot[:, :3], flows, 5)
+    assert kernels.launch_counts() == {**before, "guidance_residual": before["guidance_residual"] + 1}
+
+
+def test_kernels_without_a_gradient_raise_when_asked_for_one(dev):
+    """``warp_forward`` and ``lookup_corr`` have no backward: a CUDA call that
+    autograd would differentiate raises instead of returning a tensor with no
+    graph. Without grad mode they run; ``flow_warp_guided`` differentiates."""
+    x = torch.randn(2, 8, 8, 4, device=dev, requires_grad=True)
+    flow = torch.zeros(2, 8, 8, 2, device=dev)
+    with pytest.raises(RuntimeError, match="warp_forward"):
+        warp_forward(x, flow)
+    with torch.no_grad():
+        assert torch.equal(warp_forward(x, flow), x)
+    flow_warp_guided(x, flow).sum().backward()
+    assert torch.equal(x.grad, torch.ones_like(x))
+    level = torch.randn(1, 16, 4, 4, device=dev, requires_grad=True)
+    coords = torch.rand(1, 4, 4, 2, device=dev) * 4
+    with pytest.raises(RuntimeError, match="lookup_corr"):
+        lookup_corr([level], coords, 2)
+    with pytest.raises(RuntimeError, match="lookup_corr"):
+        lookup_corr([level.detach()], coords.requires_grad_(True), 2)
+    with torch.no_grad():
+        lookup_corr([level], coords, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_gradient_on_card(dev, dtype):
+    """Forward the kernel, backward autograd of the plain version: the
+    input gradients are those of the plain version, whose backward the
+    Function replays on the same inputs (1e-5 of the largest, for a replay
+    that may pick other library kernels). fp16 raises with a message that
+    names what to use."""
+    gen = _gen(dev, 3)
+    q, k, v, g = (torch.randn(2, 256, 64, device=dev, generator=gen).to(dtype) for _ in range(4))
+    grads = []
+    for fn in (attention, attention_plain):
+        leaves = [z.clone().requires_grad_(True) for z in (q, k, v)]
+        (fn(*leaves).float() * g.float()).sum().backward()
+        grads.append([z.grad for z in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5 * float(b.float().abs().max()), rtol=0)
+    with pytest.raises(TypeError, match="fp16 is not supported on the card; use bf16 or fp32"):
+        attention(q.half(), k.half(), v.half())

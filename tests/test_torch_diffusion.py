@@ -41,6 +41,9 @@ def _t(tree):
 @pytest.mark.parametrize("mode", ["reference", "aligned"])
 @pytest.mark.parametrize("t", [5, 3, 2])
 def test_temporal_warp_loss_and_grad_match(mode, t):
+    """Two windows. The loss, its autograd gradient, and ``guidance_grad``
+    (what the sampler calls; its plain version on the CPU) against
+    ``jax.value_and_grad`` of the JAX loss."""
     lat, flows, occs = _inputs(t=t)
     want, want_g = jax.value_and_grad(
         lambda l: jd.temporal_warp_loss(l, _j(flows), _j(occs), t, mode))(jnp.asarray(lat))
@@ -49,6 +52,20 @@ def test_temporal_warp_loss_and_grad_match(mode, t):
     (got_g,) = torch.autograd.grad(got, lt)
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-5, atol=1e-6)
+    guided = td.guidance_grad(torch.from_numpy(lat), _t(flows), _t(occs), t, mode)
+    np.testing.assert_allclose(guided.numpy(), np.asarray(want_g), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode,t", [("reference", 5), ("aligned", 5), ("reference", 1)])
+def test_guidance_grad_of_one_window_matches_jax(mode, t):
+    """One window, as the restore runs it; a single frame has no terms and
+    a zero gradient (the JAX loss is then a constant)."""
+    lat, flows, occs = _inputs(seed=12, b=1, t=t)
+    want = jax.grad(lambda l: jd.temporal_warp_loss(l, _j(flows), _j(occs), t, mode))(
+        jnp.asarray(lat))
+    got = td.guidance_grad(torch.from_numpy(lat), _t(flows), _t(occs), t, mode)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    assert bool(got.any()) == (t > 1)
 
 
 def test_adain_matches():

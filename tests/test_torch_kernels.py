@@ -27,6 +27,7 @@ from mgldvsr_tpu_torch.ops.kernels.flow_warp import (
 )
 from mgldvsr_tpu_torch.ops.kernels import gn_silu_conv as conv_mod
 from mgldvsr_tpu_torch.ops.kernels import groupnorm as gn_mod
+from mgldvsr_tpu_torch.ops.kernels import guidance as guide_mod
 from mgldvsr_tpu_torch.ops.kernels.gn_silu_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
 from mgldvsr_tpu_torch.ops.kernels.groupnorm import (
     channel_sums,
@@ -380,6 +381,14 @@ def test_wrappers_take_the_plain_path_on_cpu():
     wt, bias = torch.randn(6, 8, 3, 3).to(torch.bfloat16), torch.rand(6)
     assert torch.equal(gn_silu_conv3x3(xb, w8, b8, wt, bias, 4),
                        gn_silu_conv3x3_plain(xb, w8, b8, wt, bias, 4))
+    lat, flows, occs = _guidance_inputs(1, 5, 6, 6, 4, seed=3)
+    grad, cot = guide_mod.guidance_residual(lat, flows, occs, 5)
+    want_grad, want_cot = guide_mod.guidance_residual_plain(lat, flows, occs, 5)
+    assert torch.equal(grad, want_grad) and torch.equal(cot, want_cot)
+    assert torch.equal(guide_mod.guidance_scatter(grad, cot, flows, 5),
+                       guide_mod.guidance_scatter_plain(want_grad, want_cot, flows, 5))
+    assert torch.equal(guide_mod.guidance_grad(lat, flows, occs, 5),
+                       guide_mod.guidance_grad_plain(lat, flows, occs, 5))
     counts = kernels.launch_counts()
     assert set(kernels.WRAPPERS) <= set(counts) and not any(counts.values())
 
@@ -790,3 +799,150 @@ def test_staged_lookup_arithmetic_matches_pallas(radius):
     got = _staged_lookup([torch.from_numpy(np.array(p)) for p in pyr], torch.from_numpy(coords),
                          radius)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("entry", ["attention", "attention_bnhd"])
+def test_attention_gradient_matches_resident_attention_vjp(entry):
+    """The attention Function's input gradients (forward the wrapper's call,
+    backward autograd of the plain version) against ``jax.grad`` of
+    ``resident_attention`` in interpret mode, whose VJP replays the JAX
+    ``_reference``. [2,64,16] float32, 1e-5: fp32 softmax on both sides."""
+    from mgldvsr_tpu.ops.pallas.attention import resident_attention
+
+    rs = np.random.RandomState(11)
+    q, k, v, g = (rs.randn(2, 64, 16).astype(np.float32) for _ in range(4))
+    want = jax.grad(lambda *a: jnp.sum(resident_attention(*a, 128, True) * g),
+                    argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    if entry == "attention":
+        out = attention(*leaves)
+        assert "_Attention" in type(out.grad_fn).__name__
+        (out * torch.from_numpy(g)).sum().backward()
+    else:  # the same heads as [B=1, N, H=2, D]
+        out = attention_bnhd(*(z.transpose(0, 1)[None] for z in leaves))
+        assert "_AttentionBNHD" in type(out.grad_fn).__name__
+        (out[0].transpose(0, 1) * torch.from_numpy(g)).sum().backward()
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
+
+
+def _guidance_inputs(b, t, h, w, c, seed=0, occluded=0.3, flow_px=1.5):
+    """latents [b*t,h,w,c], flows (forward, backward) [b,t-1,h,w,2] of about
+    ``flow_px`` pixels, occlusions [b,t-1,h,w,1] with that share set."""
+    rs = np.random.RandomState(seed)
+    lat = torch.from_numpy(rs.randn(b * t, h, w, c).astype(np.float32))
+    flows = tuple(torch.from_numpy((rs.randn(b, t - 1, h, w, 2) * flow_px).astype(np.float32))
+                  for _ in range(2))
+    occs = tuple(torch.from_numpy((rs.rand(b, t - 1, h, w, 1) < occluded).astype(np.float32))
+                 for _ in range(2))
+    return lat, flows, occs
+
+
+# (frame, kind, occ, src, flow, slot), written out from the loss's two loops:
+# kind 0 is the backward term (fwd_occs, flow_bwd), kind 1 the forward one
+_TERMS = {
+    ("reference", 2): [(0, 0, 0, -1, -1, -1), (1, 1, 0, -1, -1, -1)],
+    ("reference", 3): [(0, 0, 0, 1, 1, 0), (1, 0, 1, -1, -1, -1), (1, 1, 0, -1, -1, -1),
+                       (2, 1, 1, 1, 0, 1)],
+    ("reference", 4): [(0, 0, 0, 1, 1, 0), (1, 0, 1, 2, 2, 1), (1, 1, 0, -1, -1, -1),
+                       (2, 0, 2, -1, -1, -1), (2, 1, 1, 1, 0, 2), (3, 1, 2, 2, 1, 3)],
+    ("reference", 5): [(0, 0, 0, 1, 1, 0), (1, 0, 1, 2, 2, 1), (1, 1, 0, -1, -1, -1),
+                       (2, 0, 2, 3, 3, 2), (2, 1, 1, 1, 0, 3), (3, 0, 3, -1, -1, -1),
+                       (3, 1, 2, 2, 1, 4), (4, 1, 3, 3, 2, 5)],
+    ("aligned", 2): [(0, 0, 0, 1, 0, 0), (1, 1, 0, 0, 0, 1)],
+    ("aligned", 3): [(0, 0, 0, 1, 0, 0), (1, 0, 1, 2, 1, 1), (1, 1, 0, 0, 0, 2),
+                     (2, 1, 1, 1, 1, 3)],
+    ("aligned", 4): [(0, 0, 0, 1, 0, 0), (1, 0, 1, 2, 1, 1), (1, 1, 0, 0, 0, 2),
+                     (2, 0, 2, 3, 2, 3), (2, 1, 1, 1, 1, 4), (3, 1, 2, 2, 2, 5)],
+    ("aligned", 5): [(0, 0, 0, 1, 0, 0), (1, 0, 1, 2, 1, 1), (1, 1, 0, 0, 0, 2),
+                     (2, 0, 2, 3, 2, 3), (2, 1, 1, 1, 1, 4), (3, 0, 3, 4, 3, 5),
+                     (3, 1, 2, 2, 2, 6), (4, 1, 3, 3, 3, 7)],
+}
+
+
+@pytest.mark.parametrize("mode,t", sorted(_TERMS))
+def test_guidance_term_table_matches_the_loss(mode, t):
+    """The term table against one written out by hand from the loss, and its
+    packed form (what the kernels read) against the table."""
+    terms = guide_mod.guidance_terms(t, mode)
+    assert [tuple(term) for term in terms] == _TERMS[mode, t]
+    assert guide_mod.warp_slots(t, mode) == 2 * (t - 2 if mode == "reference" else t - 1)
+    frames, flat = guide_mod.MAX_FRAMES, list(guide_mod._kernel_table(t, mode))
+    assert len(flat) == frames * 8 + 2 * frames * 3
+    per_term = np.array(flat[:frames * 8]).reshape(frames, 2, 4)
+    per_slot = np.array(flat[frames * 8:]).reshape(2 * frames, 3)
+    for k in range(frames):
+        for kind in range(2):
+            hit = [x for x in terms if (x.frame, x.kind) == (k, kind)]
+            want = [hit[0].occ, hit[0].src, hit[0].flow, hit[0].slot] if hit else [-1] * 4
+            assert per_term[k, kind].tolist() == want
+    for x in terms:
+        if x.slot >= 0:
+            assert per_slot[x.slot].tolist() == [x.src, x.kind, x.flow]
+
+
+def _emulate_guidance_kernels(lat, flows, occs, t, mode):
+    """Launches A and B as ``csrc/guidance.cu`` runs them, driven by the
+    packed table the kernels read: A walks each frame's two table entries,
+    gathers the warped neighbour, stores the direct part -(1/N sgn(r)) m and
+    writes the cotangent of each warp to its slot; B adds the 4-tap transpose
+    of every slot into its source frame. Returns (gradient, direct part,
+    cotangent)."""
+    frames, flat = guide_mod.MAX_FRAMES, list(guide_mod._kernel_table(t, mode))
+    per_term = np.array(flat[:frames * 8]).reshape(frames, 2, 4)
+    per_slot = np.array(flat[frames * 8:]).reshape(2 * frames, 3)
+    slots = guide_mod.warp_slots(t, mode)
+    bt, h, w, c = lat.shape
+    b = bt // t
+    lat5 = lat.reshape(b, t, h, w, c)
+    inv_n = guide_mod._inv_n(b * h * w * c)
+    grad = torch.full_like(lat5, float("nan"))
+    cot = torch.full((b, slots, h, w, c), float("nan"))
+    occ_of = {0: occs[0], 1: occs[1]}    # the backward term's mask is fwd_occs
+    flow_of = {0: flows[1], 1: flows[0]}  # and its warp the backward flow
+    for k in range(t):  # launch A
+        direct = torch.zeros(b, h, w, c)
+        for kind in range(2):
+            occ, src, flow, slot = per_term[k, kind].tolist()
+            if occ < 0:
+                continue
+            m = 1.0 - occ_of[kind][:, occ]
+            prev = (warp_plain(lat5[:, src], flow_of[kind][:, flow]) if src >= 0
+                    else torch.zeros(b, h, w, c))
+            ct = inv_n * torch.sgn(m * prev - m * lat5[:, k]) * m
+            direct = direct - ct
+            if src >= 0:
+                cot[:, slot] = ct
+        grad[:, k] = direct
+    direct_part = grad.clone()
+    for slot in range(slots):  # launch B
+        src, kind, flow = per_slot[slot].tolist()
+        grad[:, src] += warp_dx_plain(cot[:, slot], flow_of[kind][:, flow])
+    return grad.reshape(lat.shape), direct_part.reshape(lat.shape), cot
+
+
+@pytest.mark.parametrize("mode", ["reference", "aligned"])
+@pytest.mark.parametrize("b,t,c,case", [(1, 5, 4, "random"), (2, 3, 4, "random"),
+                                        (2, 2, 4, "random"), (1, 5, 3, "random"),
+                                        (1, 5, 4, "all occluded"), (1, 5, 4, "none occluded"),
+                                        (1, 4, 4, "flows outside"), (1, 1, 4, "one frame")])
+def test_guidance_kernel_emulation_matches_plain(mode, b, t, c, case):
+    """The two launches emulated from the packed table against
+    ``guidance_grad_plain`` (autograd of the loss), float32, 1e-6 of max |want|
+    (the transposed taps are summed in another order); the emulated direct
+    part and cotangent equal the launches' plain versions bit for bit."""
+    occluded = {"all occluded": 1.0, "none occluded": 0.0}.get(case, 0.3)
+    lat, flows, occs = _guidance_inputs(b, t, 6, 7, c, seed=b * 10 + t + c, occluded=occluded,
+                                        flow_px=40.0 if case == "flows outside" else 1.5)
+    got, direct, cot = _emulate_guidance_kernels(lat, flows, occs, t, mode)
+    want = guide_mod.guidance_grad_plain(lat, flows, occs, t, mode)
+    tol = 1e-6 * float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol, rtol=0)
+    plain_direct, plain_cot = guide_mod.guidance_residual_plain(lat, flows, occs, t, mode)
+    assert torch.equal(direct, plain_direct) and torch.equal(cot, plain_cot)
+    assert torch.equal(guide_mod.guidance_scatter_plain(plain_direct, plain_cot, flows, t, mode),
+                       got)
+    if case == "all occluded" or t == 1:
+        assert not want.any()
+    else:
+        assert want.abs().max() > 0

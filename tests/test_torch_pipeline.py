@@ -12,6 +12,8 @@ guided steps and a decode on each side, summing in other orders; 2e-4 on
 the [0,1] output is a few times the largest difference observed. Stage
 outputs (latents, flows) are held to 1e-4.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -92,6 +94,34 @@ def test_stages_match_jax(pipes):
     for cw in (None, 1):
         got = pipe.decode(lat, fea, 0.5, chunk_windows=cw)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=0)
+
+
+def test_flow_chunk_pairs_zero_or_none_is_one_call(pipes, monkeypatch):
+    """``flow_chunk_pairs`` 0 and None run RAFT once over all 8 pairs (both
+    directions of 4), 2 in four calls of 2, with the same flows and masks,
+    contiguous as the guidance kernels take them (float32, 1e-6: the convs
+    see other batch sizes); a negative count raises."""
+    _, _, pipe = pipes
+    frames = torch.from_numpy(_frames(4))
+    batches = []
+    hook = pipe.raft.register_forward_pre_hook(lambda mod, args: batches.append(args[0].shape[0]))
+    try:
+        out = {}
+        for chunk in (0, None, 2, -1):
+            monkeypatch.setattr(pipe, "cfg", dataclasses.replace(pipe.cfg, flow_chunk_pairs=chunk))
+            batches.clear()
+            if chunk == -1:
+                with pytest.raises(ValueError, match="flow chunk"):
+                    pipe.compute_flows(frames)
+                continue
+            out[chunk] = pipe.compute_flows(frames)
+            assert batches == ([2] * 4 if chunk else [8])
+    finally:
+        hook.remove()
+    for chunk in (None, 2):
+        for got, want in zip((*out[chunk][0], *out[chunk][1]), (*out[0][0], *out[0][1])):
+            assert got.is_contiguous() and want.is_contiguous()
+            torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
 
 
 def test_restore_segment_sampling_needs_a_generator(pipes):

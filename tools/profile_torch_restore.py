@@ -40,6 +40,9 @@ CONV_KERNELS = ("conv_wgmma_kernel", "conv_mma_kernel", "conv_fma_kernel")
 STATS_KERNELS = ("gn_stats_kernel", "channel_sums_kernel")
 # the fused GroupNorm: the CUDA C++ kernel, and the Triton one of trees before it
 GROUP_NORM_KERNELS = ("group_norm_kernel", "fused_gn_kernel")
+# the guidance gradient: the guidance pair, and the warp kernels of trees before it
+GUIDANCE_KERNELS = ("guidance_residual_kernel", "guidance_scatter_kernel", "warp_fwd_kernel",
+                    "warp_dx_kernel")
 
 
 def _total(events, names):
@@ -96,6 +99,7 @@ def profile_one(args) -> int:
     conv_s, conv_n = _total(events, CONV_KERNELS)
     stats_s, stats_n = _total(events, STATS_KERNELS)
     gn_s, gn_n = _total(events, GROUP_NORM_KERNELS)
+    guide_s, guide_n = _total(events, GUIDANCE_KERNELS)
     elementwise = sum(e.count for e in events if "elementwise_kernel" in e.key)
     print("profiled run (s): " + ", ".join(f"{k} {v:.3f}" for k, v in prof_stages.items())
           + f"; wall {prof_wall:.3f}")
@@ -105,6 +109,7 @@ def profile_one(args) -> int:
           f"GroupNorm+SiLU+conv: conv {conv_s:.3f} s = {100 * conv_s / device_s:.1f}% over "
           f"{conv_n} launches, statistics (with the default GroupNorm's channel sums) "
           f"{stats_s:.3f} s over {stats_n}; fused GroupNorm {gn_s:.3f} s over {gn_n} launches; "
+          f"guidance {guide_s:.4f} s over {guide_n} launches; "
           f"{sum(e.count for e in events)} kernel launches, {elementwise} of them elementwise")
     print(averages.table(sort_by="self_device_time_total", row_limit=args.top,
                          max_name_column_width=70))
@@ -116,6 +121,7 @@ def profile_one(args) -> int:
         "attention_launches": attn_n, "conv_s": conv_s, "conv_launches": conv_n,
         "stats_s": stats_s, "stats_launches": stats_n,
         "group_norm_s": gn_s, "group_norm_launches": gn_n,
+        "guidance_s": guide_s, "guidance_launches": guide_n,
         "kernel_launches": sum(e.count for e in events), "elementwise_launches": elementwise}))
     return 0
 
@@ -138,14 +144,15 @@ def compare(args) -> int:
             print("\n".join(out.stdout.strip().splitlines()[:-1]), flush=True)
     print(rows[0][1]["card"])
     print("tree   fused  sampler ms/step  wall s  kernel s  attention s (share, launches)  "
-          "fused conv s (launches)  fused GroupNorm s (launches)  kernel launches  "
-          "elementwise launches")
+          "fused conv s (launches)  fused GroupNorm s (launches)  guidance s (launches)  "
+          "kernel launches  elementwise launches")
     for name, r in rows:
         print(f"{name:6} {str(r['fused']):5}  {r['sampler_ms_per_step']:15.2f}  "
               f"{r['wall_s']:6.3f}  {r['kernel_s']:8.3f}  {r['attention_s']:.3f} "
               f"({100 * r['attention_share']:.1f}%, {r['attention_launches']})  "
               f"{r['conv_s']:.3f} ({r['conv_launches']})  "
               f"{r['group_norm_s']:.4f} ({r['group_norm_launches']})  "
+              f"{r['guidance_s']:.4f} ({r['guidance_launches']})  "
               f"{r['kernel_launches']}  {r['elementwise_launches']}")
     print(json.dumps({"runs": [{"name": name, **r} for name, r in rows]}))
     return 0
