@@ -297,6 +297,26 @@ def small_residuals(lat, flows, occs, t: int, mode: str, eps: float = 1e-6) -> i
     return n
 
 
+def guidance_bytes(b: int, t: int, h: int, w: int, c: int, mode: str) -> dict:
+    """Bytes float32 launches A and B and the whole gradient must move, from
+    the term table: the latent frames the terms read, the mask slices they
+    read, the flow slices their warps read, the gradient written; A also
+    writes the cotangent scratch, which B reads, and B reads and writes the
+    gradient of the warps' source frames alone."""
+    from mgldvsr_tpu_torch.ops.kernels import guidance as guide_mod
+
+    terms = guide_mod.guidance_terms(t, mode)
+    warps = [tm for tm in terms if tm.slot >= 0]
+    frame, pixels = 4 * b * h * w * c, b * h * w
+    frames_read = len({tm.frame for tm in terms} | {tm.src for tm in warps})
+    masks = 4 * pixels * len({(tm.kind, tm.occ) for tm in terms})
+    flows = 8 * pixels * len({(tm.kind, tm.flow) for tm in warps})
+    cot = frame * len(warps)
+    pair = frame * frames_read + masks + flows + frame * t
+    return {"A": pair + cot, "B": cot + flows + 2 * frame * len({tm.src for tm in warps}),
+            "pair": pair}
+
+
 def guidance_phase2(dev, gen, card: str, record) -> dict:
     """The guidance pair against its plain versions in every case, then timed
     at the restore's shape beside the autograd step it replaced."""
@@ -339,12 +359,12 @@ def guidance_phase2(dev, gen, card: str, record) -> dict:
     grad, cot = guide_mod.guidance_residual(lat, flows, occs, 5)
     want = guide_mod.guidance_grad_plain(lat, flows, occs, 5)
     shape = "b=1, t=5, [64,64,4] f32 (NCHW memory, as the sampler holds it), reference"
-    n_bytes = nbytes(lat, *flows, *occs)
+    moved = guidance_bytes(1, 5, 64, 64, 4, "reference")
     record("guidance_residual", worst, 0.0,
            cuda_ms(lambda: guide_mod.guidance_residual(lat, flows, occs, 5)),
            cuda_ms(lambda: guide_mod.guidance_residual_plain(lat, flows, occs, 5)),
            shape + " (error: the worst of the 18 cases)",
-           *bound(n_bytes + nbytes(grad, cot), 40.0 * lat.numel() * 2, "f32"),
+           *bound(moved["A"], 40.0 * lat.numel() * 2, "f32"),
            device_ms=graph_ms(lambda: guide_mod.guidance_residual(lat, flows, occs, 5)))
     scratch = grad.clone()
     got = guide_mod.guidance_scatter(grad.clone(), cot, flows, 5)
@@ -352,7 +372,7 @@ def guidance_phase2(dev, gen, card: str, record) -> dict:
            cuda_ms(lambda: guide_mod.guidance_scatter(scratch, cot, flows, 5)),
            cuda_ms(lambda: guide_mod.guidance_scatter_plain(scratch, cot, flows, 5)),
            shape + " (the pair's gradient vs guidance_grad_plain)",
-           *bound(nbytes(*flows, cot, grad, grad), 16.0 * cot.numel(), "f32"),
+           *bound(moved["B"], 16.0 * cot.numel(), "f32"),
            device_ms=graph_ms(lambda: guide_mod.guidance_scatter(scratch, cot, flows, 5)))
 
     def pair():
@@ -375,10 +395,6 @@ def guidance_phase2(dev, gen, card: str, record) -> dict:
                              f"{err_old:.3e} (limit {tol:.3e})")
     n_old, dev_old = device_activity(autograd_step)
     n_new, dev_new = device_activity(pair)
-    packed = lat.contiguous()  # the float4 kernels, for comparison
-
-    def packed_pair():
-        return guide_mod.guidance_grad(packed, flows, occs, 5)
     if round(n_new) != 2:
         raise AssertionError(f"guidance: the pair made {n_new} device launches a call, "
                              f"expected 2")
@@ -388,20 +404,15 @@ def guidance_phase2(dev, gen, card: str, record) -> dict:
         "autograd_step_ms": cuda_ms(autograd_step), "autograd_step_launches": n_old,
         "autograd_step_device_activity_ms": dev_old,
         "plain_ms": cuda_ms(lambda: guide_mod.guidance_grad_plain(lat, flows, occs, 5)),
-        "bound_ms": bound(n_bytes + nbytes(lat), 40.0 * lat.numel() * 2, "f32")[0],
-        "max_abs_err_vs_autograd_step": err_old,
-        "packed_ms": cuda_ms(packed_pair), "packed_device_ms": graph_ms(packed_pair),
-        # the host's time a call in both layouts, in turns
-        "host_us_turns": [host_us(fn) for fn in (pair, packed_pair, pair, packed_pair)]}
+        "bound_ms": bound(moved["pair"], 40.0 * lat.numel() * 2, "f32")[0],
+        "max_abs_err_vs_autograd_step": err_old}
     log(f"[phase2] guidance gradient, {shape}: the pair {out['ms']:.4f} ms a call in a host "
         f"loop (on the device {out['device_ms']:.4f} ms, {out['host_us']:.1f} us to return), "
         f"{n_new:g} device launches a call ({dev_new:.4f} ms of device time); the autograd "
         f"step it replaced {out['autograd_step_ms']:.4f} ms, {n_old:g} device launches "
         f"({dev_old:.4f} ms); plain version {out['plain_ms']:.4f} ms; bound "
-        f"{out['bound_ms']:.4f} ms (bytes); pair vs autograd step max_abs_err {err_old:.3e}; "
-        f"the pair on packed NHWC latents (float4) {out['packed_ms']:.4f} ms, on the device "
-        f"{out['packed_device_ms']:.4f} ms; host us to return, NCHW memory / packed in turns "
-        f"{', '.join(f'{us:.1f}' for us in out['host_us_turns'])}  [{card}]")
+        f"{out['bound_ms']:.4f} ms (bytes: {moved['pair']} B; launch A {moved['A']} B, B "
+        f"{moved['B']} B); pair vs autograd step max_abs_err {err_old:.3e}  [{card}]")
     return out
 
 

@@ -22,19 +22,21 @@
 //     writes each warp's cotangent m sgn(r) / N to the scratch.
 //   guidance_scatter_kernel (launch B): a thread per (window, warp, pixel)
 //     recomputes the taps and adds the cotangent's 4 weighted taps into the
-//     source frame with float4 atomics; stream order puts it after A, so
-//     the gradient already holds the direct part.
+//     source frame with float atomics; stream order puts it after A, so the
+//     gradient already holds the direct part.
 //
 // Bound on the H100: bytes, under 1 MB for the restore's call (5 frames of
 // 64x64x4, their flows and masks, the gradient and the scratch), ~0.3 us
 // at 3.35 TB/s: each launch sits at a launch's floor. What the pair
 // removes is the host's work: the loss's ~170 small elementwise launches, a
-// memset and autograd's graph a step. A thread per pixel (the flow, masks
-// and tap weights read and computed once for all channels); the latents and
-// the gradient through their strides (the sampler's latents are NHWC views
-// of NCHW memory: a pixel's channels a plane apart, neighbouring threads on
-// neighbouring addresses), float4 access and one float4 atomic a tap where
-// the channels are packed in fours; 32-bit index arithmetic.
+// memset and autograd's graph a step. A thread per pixel: the flow, masks
+// and tap weights read and computed once for all channels. Laid out for
+// the latents the sampler holds, NHWC views of NCHW memory: a pixel's
+// channels a plane apart, so the thread walks the channels one plane at a
+// time and neighbouring threads touch neighbouring addresses. The latents,
+// the gradient and the scratch's slots share that layout, passed as
+// strides (packed NHWC works too, one float at a time). 32-bit index
+// arithmetic: the wrapper raises before an offset could reach 2^31.
 #include <string.h>
 
 #include "warp_taps.cuh"
@@ -59,7 +61,6 @@ __device__ __forceinline__ float sgn(float r) {
   return (float)((r > 0.f) - (r < 0.f));
 }
 
-template <int V>
 __global__ void guidance_residual_kernel(
     const float* __restrict__ lat, const float* __restrict__ flow_fwd,
     const float* __restrict__ flow_bwd, const float* __restrict__ occ_fwd,
@@ -72,6 +73,7 @@ __global__ void guidance_residual_kernel(
   const int frame = i / hw, pix = i - frame * hw;
   const int win = frame / t, k = frame - win * t;
   const int y = pix / w, x = pix - y * w;
+  const int at = offset(l, y, x, 0);  // this pixel in a frame of lat, grad and cot
   // each term's mask, source frame and taps, read once for all channels
   bool has[2], warped[2];
   float m[2];
@@ -94,32 +96,26 @@ __global__ void guidance_residual_kernel(
     // the backward term warps by the backward flow, the forward term by the forward one
     taps[j] = taps_at((j == 0 ? flow_bwd : flow_fwd) + 2 * (fpair * hw + pix), y, x, h, w);
     src[j] = lat + (win * t + e[1]) * l.frame;
-    out[j] = cot + ((win * slots + e[3]) * hw + pix) * c;
+    out[j] = cot + (win * slots + e[3]) * l.frame + at;
   }
-  const int at = frame * l.frame + offset(l, y, x, 0);  // this pixel in lat and grad
-  for (int ch = 0; ch < c; ch += V) {
-    const Vec<V> v = vload<V>(lat + at + ch * l.chan);
-    Vec<V> direct = vzero<V>();
+  for (int ch = 0; ch < c; ++ch) {
+    const float v = lat[frame * l.frame + at + ch * l.chan];
+    float direct = 0.f;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       if (!has[j]) continue;
-      const Vec<V> prev = warped[j] ? gather<V>(src[j], taps[j], h, w, l, ch) : vzero<V>();
-      Vec<V> ct;
-#pragma unroll
-      for (int q = 0; q < V; ++q) {
-        // the plain loss's r = m prev - m lat, its sgn, and autograd's
-        // (1/N sgn) m; the direct part is its negation
-        const float r = __fsub_rn(__fmul_rn(m[j], prev.v[q]), __fmul_rn(m[j], v.v[q]));
-        ct.v[q] = __fmul_rn(__fmul_rn(inv_n, sgn(r)), m[j]);
-        direct.v[q] = __fsub_rn(direct.v[q], ct.v[q]);
-      }
-      if (warped[j]) vstore<V>(out[j] + ch, ct);
+      const float prev = warped[j] ? gather<1>(src[j], taps[j], h, w, l, ch).v[0] : 0.f;
+      // the plain loss's r = m prev - m lat, its sgn, and autograd's
+      // (1/N sgn) m; the direct part is its negation
+      const float r = __fsub_rn(__fmul_rn(m[j], prev), __fmul_rn(m[j], v));
+      const float ct = __fmul_rn(__fmul_rn(inv_n, sgn(r)), m[j]);
+      direct = __fsub_rn(direct, ct);
+      if (warped[j]) out[j][ch * l.chan] = ct;
     }
-    vstore<V>(grad + at + ch * l.chan, direct);
+    grad[frame * l.frame + at + ch * l.chan] = direct;
   }
 }
 
-template <int V>
 __global__ void guidance_scatter_kernel(const float* __restrict__ flow_fwd,
                                         const float* __restrict__ flow_bwd,
                                         const float* __restrict__ cot, float* __restrict__ grad,
@@ -135,14 +131,12 @@ __global__ void guidance_scatter_kernel(const float* __restrict__ flow_fwd,
   const int fpair = win * (t - 1) + e[2];
   const Taps taps = taps_at((e[1] == 0 ? flow_bwd : flow_fwd) + 2 * (fpair * hw + pix), y, x,
                             h, w);
+  const float* g = cot + row * l.frame + offset(l, y, x, 0);
   float* dst = grad + (win * t + e[0]) * l.frame;
-  for (int ch = 0; ch < c; ch += V) {
-    const Vec<V> g = vload<V>(cot + i * c + ch);
-    bool any = false;
-#pragma unroll
-    for (int q = 0; q < V; ++q) any |= g.v[q] != 0.f;
+  for (int ch = 0; ch < c; ++ch) {
+    const Vec<1> gc{{g[ch * l.chan]}};
     // an occluded or zero-residual pixel adds nothing: skip its atomics
-    if (any) scatter<V>(dst, taps, h, w, l, ch, g);
+    if (gc.v[0] != 0.f) scatter<1>(dst, taps, h, w, l, ch, gc);
   }
 }
 
@@ -156,7 +150,8 @@ bool load_table(const int* host, GuidanceTable* tab) {
 
 // table: kMaxFrames * 2 * 4 + 2 * kMaxFrames * 3 ints on the host, as
 // GuidanceTable lays them out (ops/kernels/guidance.py _kernel_table);
-// lat and grad share one layout, element strides (frame, row, col, chan)
+// lat, grad and the scratch's slots share one layout, element strides
+// (frame, row, col, chan)
 extern "C" int mgld_guidance_residual_f32(const void* lat, const void* flow_fwd,
                                           const void* flow_bwd, const void* occ_fwd,
                                           const void* occ_bwd, void* grad, void* cot,
@@ -170,20 +165,13 @@ extern "C" int mgld_guidance_residual_f32(const void* lat, const void* flow_fwd,
   if (threads_total == 0 || c == 0) return 0;
   auto s = (cudaStream_t)stream;
   const Layout l{s_frame, s_row, s_col, s_chan};
-  const int blocks = blocks_for(threads_total, kThreads);
-  if (vec4_ok(l, c, lat) && vec4_ok(l, c, grad) && vec4_ok(packed_layout(h, w, c), c, cot)) {
-    guidance_residual_kernel<4><<<blocks, kThreads, 0, s>>>(
-        (const float*)lat, (const float*)flow_fwd, (const float*)flow_bwd, (const float*)occ_fwd,
-        (const float*)occ_bwd, (float*)grad, (float*)cot, tab, l, b, t, h, w, c, slots, inv_n);
-  } else {
-    guidance_residual_kernel<1><<<blocks, kThreads, 0, s>>>(
-        (const float*)lat, (const float*)flow_fwd, (const float*)flow_bwd, (const float*)occ_fwd,
-        (const float*)occ_bwd, (float*)grad, (float*)cot, tab, l, b, t, h, w, c, slots, inv_n);
-  }
+  guidance_residual_kernel<<<blocks_for(threads_total, kThreads), kThreads, 0, s>>>(
+      (const float*)lat, (const float*)flow_fwd, (const float*)flow_bwd, (const float*)occ_fwd,
+      (const float*)occ_bwd, (float*)grad, (float*)cot, tab, l, b, t, h, w, c, slots, inv_n);
   return (int)cudaGetLastError();
 }
 
-// grad's layout in element strides (frame, row, col, chan); cot is packed
+// the layout of grad and of cot's slots in element strides (frame, row, col, chan)
 extern "C" int mgld_guidance_scatter_f32(const void* flow_fwd, const void* flow_bwd,
                                          const void* cot, void* grad, const int* table,
                                          int s_frame, int s_row, int s_col, int s_chan, int b,
@@ -195,15 +183,8 @@ extern "C" int mgld_guidance_scatter_f32(const void* flow_fwd, const void* flow_
   if (threads_total == 0 || c == 0) return 0;
   auto s = (cudaStream_t)stream;
   const Layout l{s_frame, s_row, s_col, s_chan};
-  const int blocks = blocks_for(threads_total, kThreads);
-  if (vec4_ok(l, c, grad) && vec4_ok(packed_layout(h, w, c), c, cot)) {
-    guidance_scatter_kernel<4><<<blocks, kThreads, 0, s>>>(
-        (const float*)flow_fwd, (const float*)flow_bwd, (const float*)cot, (float*)grad, tab, l,
-        b, t, h, w, c, slots);
-  } else {
-    guidance_scatter_kernel<1><<<blocks, kThreads, 0, s>>>(
-        (const float*)flow_fwd, (const float*)flow_bwd, (const float*)cot, (float*)grad, tab, l,
-        b, t, h, w, c, slots);
-  }
+  guidance_scatter_kernel<<<blocks_for(threads_total, kThreads), kThreads, 0, s>>>(
+      (const float*)flow_fwd, (const float*)flow_bwd, (const float*)cot, (float*)grad, tab, l, b,
+      t, h, w, c, slots);
   return (int)cudaGetLastError();
 }

@@ -10,12 +10,13 @@
 //
 // Images are [N, H, W, C] stacks addressed through element strides
 // (Layout): packed NHWC, or the planar layout of an NHWC view of NCHW
-// memory, in which the restore's sampler holds its latents. A pixel's
-// channels are read and written as float4 (V = 4: 16 bytes, one access)
-// where they are packed, 4 at a time, at 16-byte aligned addresses; else one
-// float at a time (V = 1; in the planar layout neighbouring threads still
-// touch neighbouring addresses). Index arithmetic is 32-bit: the wrappers
-// raise where an offset would reach 2^31.
+// memory, in which the restore's sampler holds its latents. The standalone
+// warp (packed NHWC only) reads and writes a pixel's channels as float4
+// (V = 4: 16 bytes, one access) where they come 4 at a time at 16-byte
+// aligned addresses; the guidance pair, laid out for the planar layout,
+// one float at a time (V = 1: neighbouring threads on neighbouring
+// addresses). Index arithmetic is 32-bit: the wrappers raise where an
+// offset would reach 2^31.
 #pragma once
 
 #include <cuda_runtime.h>

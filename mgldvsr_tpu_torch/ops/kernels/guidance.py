@@ -234,9 +234,10 @@ def guidance_grad_plain(latents: torch.Tensor, flows: Pair, occs: Pair, num_fram
 
 
 def _check(name: str, tensors, shapes) -> None:
-    """float32 on the first one's CUDA device; each with a shape given is
-    contiguous and of that shape. (``get_device`` and ``is_cuda``: a
-    ``.device`` costs a microsecond of host time a read.)"""
+    """float32 on the first one's CUDA device, none asking autograd for a
+    gradient; each with a shape given is contiguous and of that shape.
+    (``get_device`` and ``is_cuda``: a ``.device`` costs a microsecond of
+    host time a read.)"""
     index = tensors[0].get_device()
     for z, shape in zip(tensors, shapes):
         if z.dtype is not torch.float32:
@@ -247,41 +248,64 @@ def _check(name: str, tensors, shapes) -> None:
         if shape is not None and (z.shape != shape or not z.is_contiguous()):
             raise ValueError(f"{name}: expected a contiguous tensor of shape {shape}, got "
                              f"{tuple(z.shape)} with strides {z.stride()}")
+        if z.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(f"{name}: the CUDA kernels compute a gradient but have none "
+                               f"of their own; call it on tensors that do not require grad")
 
 
 def _frames_geometry(name: str, frames: torch.Tensor, num_frames: int, mode: str):
-    """(b, h, w, c) of [b*t, h, w, c] latents or gradient, which the kernels
-    read and write through their strides: dense (checked where it is used),
-    so that offsets stay under its element count, in 32 bits."""
+    """(b, h, w, c) of [b*t, h, w, c] latents or gradient. Every tensor the
+    kernels index, the cotangent scratch and the flows included, must stay
+    under 2^31 elements: the kernels' offsets are 32-bit."""
     guidance_terms(num_frames, mode)  # checks the mode
     if frames.ndim != 4 or not 1 <= num_frames <= MAX_FRAMES or frames.shape[0] % num_frames:
         raise ValueError(f"{name}: need [b*t, h, w, c] with 1 <= t = {num_frames} <= "
                          f"{MAX_FRAMES} dividing the first dimension, got {tuple(frames.shape)}")
-    if frames.numel() >= 2 ** 31:
-        raise ValueError(f"{name}: {frames.numel()} elements; the kernels index in 32 bits")
-    return _window(frames, num_frames)
+    b, h, w, c = _window(frames, num_frames)
+    pixels = b * h * w
+    largest = max(frames.numel(), pixels * warp_slots(num_frames, mode) * c,
+                  pixels * (num_frames - 1) * 2)
+    if largest >= 2 ** 31:
+        raise ValueError(f"{name}: a tensor of {largest} elements (latents, cotangent scratch "
+                         f"or flows); the kernels index in 32 bits")
+    return b, h, w, c
 
 
-def _dense(name: str, frames: torch.Tensor, like: torch.Tensor) -> None:
-    """``like`` came from ``torch.empty_like(frames)``: the same strides mean
-    ``frames`` is dense (a permutation of a contiguous tensor)."""
-    if like.stride() != frames.stride():
-        raise ValueError(f"{name}: need a dense tensor (a permutation of a contiguous one), "
-                         f"got strides {frames.stride()}")
+def _layout(name: str, frames: torch.Tensor) -> None:
+    """The kernels read the latents and write the gradient and the scratch
+    through one set of strides: dense (a permutation of a contiguous tensor)
+    with frames outermost."""
+    _, h, w, c = frames.shape
+    step = 1
+    dense = frames.stride(0) == h * w * c
+    for size, stride in sorted(zip(frames.shape[1:], frames.stride()[1:]), key=lambda p: p[1]):
+        dense &= size == 1 or stride == step
+        step *= size
+    if not dense:
+        raise ValueError(f"{name}: need a dense tensor with frames outermost (a permutation "
+                         f"of a contiguous one), got strides {frames.stride()}")
+
+
+def _scratch_strides(frames: torch.Tensor, slots: int):
+    """The cotangent scratch's strides: [b, slots, h, w, c], each slot laid
+    out as a frame of the latents (planar where they are)."""
+    frame, row, col, chan = frames.stride()
+    return slots * frame, frame, row, col, chan
 
 
 def _check_inputs(name, latents, flows, occs, num_frames, mode):
     b, h, w, c = _frames_geometry(name, latents, num_frames, mode)
     pair = (b, num_frames - 1, h, w)
     _check(name, (latents, *flows, *occs), (None, (*pair, 2), (*pair, 2), (*pair, 1), (*pair, 1)))
+    _layout(name, latents)
     return b, h, w, c
 
 
 def _launch_residual(latents, flows, occs, num_frames, mode, stream, b, h, w, c):
     slots = warp_slots(num_frames, mode)
     grad = torch.empty_like(latents)
-    _dense("guidance_residual", latents, grad)
-    cot = latents.new_empty((b, slots, h, w, c))
+    cot = torch.empty_strided((b, slots, h, w, c), _scratch_strides(latents, slots),
+                              dtype=latents.dtype, device=latents.device)
     err = _build.library().mgld_guidance_residual_f32(
         latents.data_ptr(), flows[0].data_ptr(), flows[1].data_ptr(), occs[0].data_ptr(),
         occs[1].data_ptr(), grad.data_ptr(), cot.data_ptr(), _kernel_table(num_frames, mode),
@@ -306,9 +330,10 @@ def _launch_scatter(grad, cot, flows, num_frames, mode, stream, b, h, w, c):
 def guidance_residual(latents: torch.Tensor, flows: Pair, occs: Pair, num_frames: int,
                       mode: str = "reference") -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch A: (gradient holding each frame's direct part, in the latents'
-    layout; cotangent scratch [b, slots, h, w, c]) for latents [b*t, h, w, c]
-    (any dense layout), contiguous flows (forward, backward) [b, t-1, h, w, 2]
-    and occlusions (fwd, bwd) [b, t-1, h, w, 1]."""
+    layout; cotangent scratch [b, slots, h, w, c], each slot in that layout
+    too) for latents [b*t, h, w, c] (dense, frames outermost), contiguous
+    flows (forward, backward) [b, t-1, h, w, 2] and occlusions (fwd, bwd)
+    [b, t-1, h, w, 1]."""
     if latents.is_cpu:
         return guidance_residual_plain(latents, flows, occs, num_frames, mode)
     geometry = _check_inputs("guidance_residual", latents, flows, occs, num_frames, mode)
@@ -319,15 +344,21 @@ def guidance_residual(latents: torch.Tensor, flows: Pair, occs: Pair, num_frames
 def guidance_scatter(grad: torch.Tensor, cot: torch.Tensor, flows: Pair, num_frames: int,
                      mode: str = "reference") -> torch.Tensor:
     """Launch B: adds the transpose of every warp of the cotangent scratch
-    into ``grad`` [b*t, h, w, c] in place, and returns it. No launch where the
-    loss has no warps (``reference`` mode at t <= 2)."""
+    (laid out as :func:`guidance_residual` returns it) into ``grad`` [b*t, h,
+    w, c] in place, and returns it. No launch where the loss has no warps
+    (``reference`` mode at t <= 2)."""
     if grad.is_cpu:
         return guidance_scatter_plain(grad, cot, flows, num_frames, mode)
     b, h, w, c = _frames_geometry("guidance_scatter", grad, num_frames, mode)
     pair = (b, num_frames - 1, h, w, 2)
-    _check("guidance_scatter", (grad, cot, *flows),
-           (None, (b, warp_slots(num_frames, mode), h, w, c), pair, pair))
-    _dense("guidance_scatter", grad, torch.empty_like(grad))
+    _check("guidance_scatter", (grad, cot, *flows), (None, None, pair, pair))
+    _layout("guidance_scatter", grad)
+    slots = warp_slots(num_frames, mode)
+    strides = _scratch_strides(grad, slots)
+    if cot.shape != (b, slots, h, w, c) or cot.stride() != strides:
+        raise ValueError(f"guidance_scatter: need the scratch of shape {(b, slots, h, w, c)} "
+                         f"and strides {strides}, as guidance_residual makes it; got "
+                         f"{tuple(cot.shape)} with strides {cot.stride()}")
     return _launch_scatter(grad, cot, flows, num_frames, mode, _build.stream_ptr(grad.device),
                            b, h, w, c)
 

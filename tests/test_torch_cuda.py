@@ -539,11 +539,16 @@ def test_tiny_restore_fused_configuration_matches_cpu(dev):
 
 # the guidance pair at the restore's shape (1 window of 5 frames, 64x64x4
 # latents, held as NHWC views of NCHW memory as the sampler holds them), the
-# same packed NHWC (the float4 kernels), two windows at t = 3 and t = 2, 3
-# channels, masks all 0 and all 1, and flows that push every tap outside
+# same packed NHWC, two windows at t = 3 and t = 2, 3 channels, masks all 0
+# and all 1, and flows that push every tap outside
 GUIDANCE_CASES = [(1, 5, 4, "random"), (1, 5, 4, "packed"), (2, 3, 4, "random"),
                   (2, 2, 4, "random"), (1, 5, 3, "random"), (1, 5, 3, "packed"),
                   (1, 5, 4, "none occluded"), (1, 5, 4, "all occluded"), (1, 5, 4, "taps outside")]
+# latents [b*t, h, w, c] of which one tensor the kernels index reaches 2^31
+# elements: the cotangent scratch (t = 32 aligned: 62 warps), the flows
+# (c = 1) or the latents themselves
+GUIDANCE_TOO_LARGE = [((32, 3000, 3000, 4), 32, "aligned"), ((32, 5900, 5900, 1), 32, "reference"),
+                      ((1, 46341, 46341, 1), 1, "reference")]
 
 
 def _guidance_case(dev, b, t, c, case, h=64, w=64, seed=0):
@@ -558,12 +563,12 @@ def test_guidance_pair_matches_plain(dev, mode, b, t, c, case):
     """Launch A equals its plain version bit for bit (the same tap and loss
     arithmetic, no contraction); A then B equals ``guidance_grad_plain``
     within 1e-6 of max |want| (B's atomics add in a varying order); one
-    launch each, none of B where the loss has no warps; the gradient has the
-    latents' strides."""
+    launch each, none of B where the loss has no warps; the gradient, and each
+    slot of the cotangent scratch, has the latents' strides."""
     lat, flows, occs = _guidance_case(dev, b, t, c, case)
     kernels.reset_launch_counts()
     grad, cot = guide_mod.guidance_residual(lat, flows, occs, t, mode)
-    assert grad.stride() == lat.stride()
+    assert grad.stride() == lat.stride() and cot.stride()[1:] == lat.stride()
     want_direct, want_cot = guide_mod.guidance_residual_plain(lat, flows, occs, t, mode)
     assert torch.equal(grad, want_direct) and torch.equal(cot, want_cot)
     got = guide_mod.guidance_scatter(grad, cot, flows, t, mode)
@@ -579,15 +584,27 @@ def test_guidance_pair_matches_plain(dev, mode, b, t, c, case):
 
 def test_guidance_raises_on_what_it_does_not_take(dev):
     """No fallback: float32 only, one device, contiguous, shapes as
-    documented, t dividing the frames, a known mode; nothing is launched."""
+    documented, t dividing the frames, a known mode, no tensor past 32-bit
+    offsets (the cotangent scratch and the flows included), no gradient asked
+    of the kernels; nothing is launched."""
     lat, flows, occs = _guidance_case(dev, 1, 5, 4, "random", h=8, w=8)
     before = kernels.launch_counts()
+    with pytest.raises(RuntimeError, match="guidance_grad"):
+        guide_mod.guidance_grad(lat.clone().requires_grad_(True), flows, occs, 5)
+    for shape, t, mode in GUIDANCE_TOO_LARGE:  # shapes only: nothing is allocated
+        big = [torch.empty(shape, device="meta")]
+        b, h, w = shape[0] // t, shape[1], shape[2]
+        big += [torch.empty(b, t - 1, h, w, k, device="meta") for k in (2, 2, 1, 1)]
+        with pytest.raises(ValueError, match="32 bits"):
+            guide_mod.guidance_grad(big[0], big[1:3], big[3:], t, mode)
     with pytest.raises(TypeError):
         guide_mod.guidance_grad(lat.double(), flows, occs, 5)
     with pytest.raises(ValueError):
         guide_mod.guidance_grad(lat, (flows[0].cpu(), flows[1]), occs, 5)
     with pytest.raises(ValueError):  # not dense: the gradient could not share its strides
         guide_mod.guidance_grad(torch.randn(5, 8, 8, 8, device=dev)[..., :4], flows, occs, 5)
+    with pytest.raises(ValueError):  # frames not outermost
+        guide_mod.guidance_grad(lat.transpose(0, 1).contiguous().transpose(0, 1), flows, occs, 5)
     with pytest.raises(ValueError):
         guide_mod.guidance_grad(lat, (flows[0].transpose(2, 3), flows[1]), occs, 5)
     with pytest.raises(ValueError):
@@ -599,6 +616,8 @@ def test_guidance_raises_on_what_it_does_not_take(dev):
     grad, cot = guide_mod.guidance_residual(lat, flows, occs, 5)
     with pytest.raises(ValueError):
         guide_mod.guidance_scatter(grad, cot[:, :3], flows, 5)
+    with pytest.raises(ValueError):  # the scratch in another layout than the gradient's
+        guide_mod.guidance_scatter(grad, cot.contiguous(), flows, 5)
     assert kernels.launch_counts() == {**before, "guidance_residual": before["guidance_residual"] + 1}
 
 

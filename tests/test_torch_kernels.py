@@ -946,3 +946,31 @@ def test_guidance_kernel_emulation_matches_plain(mode, b, t, c, case):
         assert not want.any()
     else:
         assert want.abs().max() > 0
+
+
+@pytest.mark.parametrize("shape,t,mode", [((32, 3000, 3000, 4), 32, "aligned"),
+                                          ((32, 5900, 5900, 1), 32, "reference"),
+                                          ((1, 46341, 46341, 1), 1, "reference")])
+def test_guidance_refuses_tensors_past_32_bit_offsets(shape, t, mode):
+    """Latents whose cotangent scratch (t = 32 aligned: 62 warps), flows
+    (c = 1) or selves reach 2^31 elements are refused before any launch:
+    the kernels' offsets are 32-bit. Shapes only (meta tensors)."""
+    lat = torch.empty(shape, device="meta")
+    b, h, w = shape[0] // t, shape[1], shape[2]
+    flows = tuple(torch.empty(b, t - 1, h, w, 2, device="meta") for _ in range(2))
+    occs = tuple(torch.empty(b, t - 1, h, w, 1, device="meta") for _ in range(2))
+    with pytest.raises(ValueError, match="32 bits"):
+        guide_mod.guidance_grad(lat, flows, occs, t, mode)
+
+
+def test_guidance_layout_is_dense_with_frames_outermost():
+    """The kernels take latents packed NHWC or as NHWC views of NCHW memory,
+    and lay each slot of the cotangent scratch out as a frame of them; a
+    sliced tensor or one with frames inside is refused."""
+    planar = torch.empty(5, 4, 6, 7).permute(0, 2, 3, 1)
+    for ok in (planar, torch.empty(5, 6, 7, 4)):
+        guide_mod._layout("guidance_grad", ok)
+    for bad in (torch.empty(5, 6, 7, 8)[..., :4], torch.empty(6, 5, 7, 4).transpose(0, 1)):
+        with pytest.raises(ValueError, match="frames outermost"):
+            guide_mod._layout("guidance_grad", bad)
+    assert guide_mod._scratch_strides(planar, 6) == (6 * 168, 168, 7, 1, 42)
