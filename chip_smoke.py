@@ -32,7 +32,10 @@ Phase 2  hold each kernel (the seven that replace a TPU kernel, the
 Phase 3  tiny config at 256x256, float32, 2 steps, deterministic: the same
          weights on the card (kernels) and on the CPU (plain versions) must
          give the same frames, once in the default configuration and once
-         with MGLD_FUSED_GN_CONV=1.
+         with MGLD_FUSED_GN_CONV=1. In both configurations also the tile
+         protocol (``restore_video``) on a 13x11 clip (two 64px patches of
+         nine 4-latent canvas tiles, one and two patches a group) and the
+         latent protocol (``restore_with_latents``: frames and latents).
 Phase 4  the default configuration at full width: 5 frames x4 to 512x512, 50
          guided steps, bf16 UNet / struct-cond / VAE / CLIP and float32 RAFT
          with seeded random weights, through
@@ -41,12 +44,36 @@ Phase 4  the default configuration at full width: 5 frames x4 to 512x512, 50
          been launched by that run, the guidance pair once each a step, and
          every gated attention call (14 per step) must have taken the
          tensor-core kernel. The guidance gradient on the clip's real flows
-         and masks must be non-zero and equal its plain version.
+         and masks must be non-zero and equal its plain version. Then the
+         latent protocol (``restore_with_latents``) on the same clip and
+         weights: frames and latents at their shapes, every kernel of the
+         default configuration launched.
 Phase 5  the fused configuration (MGLD_FUSED_GN_CONV=1) at the same width,
          clip, seed and weights: every kernel but the channel sums (whose
          GroupNorms all head a fused chain) must have been launched,
          every chain as two launches (statistics, conv), and every bf16 chain
          with more than 8 output channels on the tensor-core kernel.
+
+Phase 6  the tile protocol at full width (phase 4's weights) on a 5-frame
+         180x320 clip restored to 720x1280: the device memory one more patch
+         adds to a group (two steps, one and two patches a group, at both
+         patch geometries); (a) the auto geometry (512/448 px, six patches)
+         at --steps steps with the patch batch the envelope allows; (b) the
+         reference geometry (960/750 px: two 736x960 patches of six canvas
+         tiles) at 5 steps. Each must give finite frames in [0, 1], launch
+         kernels 1-6, the guidance pair once a step a patch group, and
+         nothing of the fused configuration. The bytes a patch adds must not
+         exceed the pipeline's PATCH_BYTES_PER_PIXEL. (c) the largest group
+         of 736x960 patches the envelope allows, in one group on a clip wide
+         enough to fill it (past 2^32 elements in the VAE from 5 patches), at
+         2 steps: its frames must match one patch a group within bf16's
+         rounding.
+Phase 7  the inference CLI on the card: a clip of 7 PNG frames of 32x48 (two
+         windows, the last padded) through ``--preset tiny`` in fixed (two
+         windows a call), tile and latent mode; every frame and latent must
+         be written and read back at its shape. Then ``--preset full`` in
+         fixed mode on five 128x128 frames (512x512 out, 3 steps): the
+         frames written, every kernel of the default configuration launched.
 
 Prints one JSON line describing the kernels before the last line, and the
 result line ``{"ok": true, "device": {...}}`` last. Any failure raises and
@@ -231,18 +258,19 @@ def attention_inputs(bh: int, n: int, d: int, dtype, dev, gen):
     return q.to(dtype), k.to(dtype), (v + 1).to(dtype)
 
 
-def lq_clip(seed: int, size: int, frames: int = 5) -> np.ndarray:
-    """[T, size, size, 3] in [0,1]: a smooth seeded pattern moving 2 px
-    right and 1 px down per frame, so that flows are non-zero."""
+def lq_clip(seed: int, size: int, frames: int = 5, width: int | None = None) -> np.ndarray:
+    """[T, size, width (default size), 3] in [0,1]: a smooth seeded pattern
+    moving 2 px right and 1 px down per frame, so that flows are non-zero."""
     rs = np.random.RandomState(seed)
-    big = size + 4 * frames
-    yy, xx = np.mgrid[0:big, 0:big].astype(np.float32) / big
+    width = size if width is None else width
+    big_h, big_w = size + 4 * frames, width + 4 * frames
+    yy, xx = np.mgrid[0:big_h, 0:big_w].astype(np.float32) / max(big_h, big_w)
     pattern = np.stack([
         0.5 + 0.5 * np.sin(2 * np.pi * (rs.uniform(1, 4) * xx + rs.uniform(1, 4) * yy
                                         + rs.uniform(0, 1)))
         for _ in range(3)], axis=-1)
-    pattern += 0.05 * rs.rand(big, big, 3).astype(np.float32)
-    clip = [pattern[f:f + size, 2 * f:2 * f + size] for f in range(frames)]
+    pattern += 0.05 * rs.rand(big_h, big_w, 3).astype(np.float32)
+    clip = [pattern[f:f + size, 2 * f:2 * f + width] for f in range(frames)]
     return np.clip(np.stack(clip), 0.0, 1.0).astype(np.float32)
 
 
@@ -998,17 +1026,11 @@ def phase3(seed: int, card: str, fused: bool) -> float:
     fused configuration."""
     import torch
 
-    from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline, upscale_frames
-    from mgldvsr_tpu_torch.io.init_weights import init_pipeline_weights
+    from mgldvsr_tpu_torch.infer.pipeline import upscale_frames
     from mgldvsr_tpu_torch.ops import kernels
 
-    cfg = tiny_config()
-    cpu = MGLDVSRPipeline(cfg, "cpu")
-    init_pipeline_weights(cpu, seed)
-    calm_raft(cpu)
-    gpu = MGLDVSRPipeline(cfg)
-    for name, tower in gpu.towers().items():
-        tower.load_state_dict(cpu.towers()[name].state_dict(), strict=True)
+    cpu, gpu = tiny_pipelines(seed)
+    cfg = cpu.cfg
     frames = upscale_frames(torch.from_numpy(lq_clip(seed + 1, 64)), 4)
     with fused_switch(fused):
         want = cpu.restore_segment(frames, deterministic=True)
@@ -1038,6 +1060,73 @@ def phase3(seed: int, card: str, fused: bool) -> float:
         raise AssertionError(f"phase 3: {counts['corr_lookup']} lookup launches for "
                              f"{cfg.raft.iters} RAFT iterations of one batched call")
     return err
+
+
+def tiny_pipelines(seed: int):
+    """The tiny config on the CPU and on the card with the same seeded
+    weights, RAFT calmed."""
+    from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline
+    from mgldvsr_tpu_torch.io.init_weights import init_pipeline_weights
+
+    cfg = tiny_config()
+    cpu = MGLDVSRPipeline(cfg, "cpu")
+    init_pipeline_weights(cpu, seed)
+    calm_raft(cpu)
+    gpu = MGLDVSRPipeline(cfg)
+    for name, tower in gpu.towers().items():
+        tower.load_state_dict(cpu.towers()[name].state_dict(), strict=True)
+    return cpu, gpu
+
+
+def phase3_tile(seed: int, card: str, fused: bool) -> float:
+    """The tiny tile and latent protocols on the card against the CPU."""
+    import torch
+
+    from mgldvsr_tpu_torch.infer.pipeline import upscale_frames
+    from mgldvsr_tpu_torch.ops import kernels
+
+    cpu, gpu = tiny_pipelines(seed)
+    steps = cpu.cfg.ddpm_steps
+    worst = 0.0
+    awkward = torch.from_numpy(lq_clip(seed + 3, 16)[:, :13, :11].copy())
+    kw = dict(pch_size=64, pch_stride=48, min_side=64, tile=4, tile_overlap=2, deterministic=True)
+    with fused_switch(fused):
+        for patch_batch in (1, 2):
+            want = cpu.restore_video(awkward, patch_batch=patch_batch, **kw)
+            kernels.reset_launch_counts()
+            got = gpu.restore_video(awkward.cuda(), patch_batch=patch_batch, **kw)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            err = max_err(got.cpu(), want)
+            groups = 2 // patch_batch
+            log(f"[phase3] tile protocol 13x11 -> 66x44, two 64px patches of nine 4-latent "
+                f"tiles, {patch_batch} a group, fused conv {'on' if fused else 'off'}: card vs "
+                f"CPU max_abs_err {err:.3e} (limit 1e-3), guidance launches "
+                f"{counts['guidance_residual']} / {counts['guidance_scatter']} for {groups} "
+                f"groups of {steps} steps  [{card}]")
+            if got.shape != (5, 66, 44, 3) or not torch.isfinite(got).all() or not err <= 1e-3:
+                raise AssertionError(f"phase 3 tile protocol: {tuple(got.shape)}, {err:.3e}")
+            if not counts["guidance_residual"] == counts["guidance_scatter"] == steps * groups:
+                raise AssertionError(f"phase 3 tile protocol: guidance launches {counts}")
+            worst = max(worst, err)
+        frames = upscale_frames(torch.from_numpy(lq_clip(seed + 4, 16)), 4)
+        want, want_lat = cpu.restore_with_latents(frames, deterministic=True)
+        kernels.reset_launch_counts()
+        got, lat = gpu.restore_with_latents(frames.cuda(), deterministic=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    err, err_lat = max_err(got.cpu(), want), max_err(lat.cpu(), want_lat)
+    lat_tol = 1e-3 * max(1.0, float(want_lat.abs().max()))
+    log(f"[phase3] latent protocol 64x64, fused conv {'on' if fused else 'off'}: card vs CPU "
+        f"frames max_abs_err {err:.3e} (limit 1e-3), latents {err_lat:.3e} (limit 1e-3 of max "
+        f"|latent| {float(want_lat.abs().max()):.2f}), guidance launches "
+        f"{counts['guidance_residual']}  [{card}]")
+    if got.shape != (5, 64, 64, 3) or lat.shape != (5, 8, 8, 4):
+        raise AssertionError(f"phase 3 latent protocol: shapes {tuple(got.shape)}, "
+                             f"{tuple(lat.shape)}")
+    if not (err <= 1e-3 and err_lat <= lat_tol and counts["guidance_residual"] == steps):
+        raise AssertionError(f"phase 3 latent protocol: {err:.3e}, {err_lat:.3e}, {counts}")
+    return max(worst, err)
 
 
 def full_config(steps: int):
@@ -1171,10 +1260,263 @@ def guidance_check(pipe, frames, seed: int) -> None:
                                  f"version ({err:.3e} > {tol:.3e})")
 
 
+def full_latent_restore(pipe, frames, seed: int, steps: int, card: str) -> dict:
+    """The latent protocol (``restore_with_latents``) at full width on phase
+    4's pipeline and clip: frames [5,512,512,3] in [0, 1], latents
+    [5,64,64,4], finite; every kernel of the default configuration launched,
+    the guidance pair once a step."""
+    import torch
+
+    from mgldvsr_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, lat = pipe.restore_with_latents(frames, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    log(f"[phase4] latent protocol, 512x512, 5 frames, {steps} steps: total {wall:.3f} s, "
+        f"frames {tuple(out.shape)}, latents {tuple(lat.shape)} |max| "
+        f"{float(lat.abs().max()):.3f}; launches { {k: n for k, n in counts.items() if n} }  "
+        f"[{card}]")
+    if out.shape != (5, 512, 512, 3) or lat.shape != (5, 64, 64, 4):
+        raise AssertionError(f"phase 4 latent: shapes {tuple(out.shape)}, {tuple(lat.shape)}")
+    if not (torch.isfinite(out).all() and torch.isfinite(lat).all()
+            and out.min() >= 0 and out.max() <= 1):
+        raise AssertionError("phase 4 latent: frames not finite in [0, 1] or latents not finite")
+    for name in KERNELS:
+        if (counts[name] == 0) != (name in FUSED_ONLY + STANDALONE):
+            raise AssertionError(f"phase 4 latent: kernel {name} was launched {counts[name]} "
+                                 f"times")
+    if not counts["guidance_residual"] == counts["guidance_scatter"] == steps:
+        raise AssertionError(f"phase 4 latent: guidance launches {counts['guidance_residual']}, "
+                             f"{counts['guidance_scatter']}, expected {steps} each")
+    return counts
+
+
+GEOMETRIES = {  # phase 6: (pch_size, pch_stride, patch pixels, patches at 720x1280)
+    "auto": (0, 0, (512, 512), 6),
+    "reference": (960, 750, (736, 960), 2),
+}
+
+
+@contextlib.contextmanager
+def sampler_steps(pipe, steps: int):
+    """Run the enclosed restores with ``steps`` respaced steps."""
+    from mgldvsr_tpu_torch.core.schedules import respace_schedule
+
+    before = pipe.sched
+    pipe.sched = respace_schedule(pipe.base_sched, steps)
+    try:
+        yield
+    finally:
+        pipe.sched = before
+
+
+def tile_restore(pipe, lq, seed: int, geometry: str, patch_batch):
+    """One ``restore_video``: (frames, launch counts, stage seconds, wall
+    seconds, peak device bytes above what was allocated before it)."""
+    import torch
+
+    from mgldvsr_tpu_torch.ops import kernels
+
+    size, stride = GEOMETRIES[geometry][:2]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    stages: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe.restore_video(lq, gen, pch_size=size, pch_stride=stride,
+                             patch_batch=patch_batch, stage_seconds=stages)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, kernels.launch_counts(), stages, wall,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def phase6(pipe, seed: int, steps: int, card: str) -> dict:
+    """The tile protocol at full width on a 180x320 clip restored to
+    720x1280: the bytes a patch adds to a group, then both geometries."""
+    import math
+
+    import torch
+
+    from mgldvsr_tpu_torch.infer import pipeline as pipeline_mod
+
+    lq = torch.from_numpy(lq_clip(seed + 5, 180, width=320)).cuda()
+    per_px = {}
+    with sampler_steps(pipe, 2):
+        for geometry, (_, _, (ph, pw), _) in GEOMETRIES.items():
+            peaks = [tile_restore(pipe, lq, seed, geometry, k)[4] for k in (1, 2)]
+            per_px[geometry] = (peaks[1] - peaks[0]) / (ph * pw)
+            log(f"[phase6] {geometry} geometry, {ph}x{pw} patches, 2 steps: peak above the "
+                f"weights {peaks[0] / 2**30:.3f} GiB at one patch a group, "
+                f"{peaks[1] / 2**30:.3f} GiB at two: a patch adds {peaks[1] - peaks[0]} B = "
+                f"{per_px[geometry]:.0f} B a pixel  [{card}]")
+    log(f"[phase6] PATCH_BYTES_PER_PIXEL in the pipeline {pipeline_mod.PATCH_BYTES_PER_PIXEL}, "
+        f"the larger measured here {max(per_px.values()):.0f}  [{card}]")
+    if not max(per_px.values()) <= pipeline_mod.PATCH_BYTES_PER_PIXEL:
+        raise AssertionError(f"phase 6: a patch takes {max(per_px.values()):.0f} B a pixel, more "
+                             f"than PATCH_BYTES_PER_PIXEL = {pipeline_mod.PATCH_BYTES_PER_PIXEL}")
+
+    results = {}
+    must = ("guidance_residual", "guidance_scatter", "attention", "corr_lookup", "channel_sums",
+            "fused_group_norm")
+    for geometry, n_steps in (("auto", steps), ("reference", 5)):
+        _, _, (ph, pw), n_patches = GEOMETRIES[geometry]
+        allowed = pipe.patch_batch_envelope(ph, pw)
+        k = min(allowed, n_patches)
+        groups = math.ceil(n_patches / k)
+        with sampler_steps(pipe, n_steps):
+            out, counts, stages, wall, peak = tile_restore(pipe, lq, seed, geometry, None)
+        stage_txt = ", ".join(f"{name} {sec:.3f} s" for name, sec in stages.items())
+        log(f"[phase6] ({'a' if geometry == 'auto' else 'b'}) {geometry} geometry: 180x320 -> "
+            f"720x1280, {n_patches} patches of {ph}x{pw}, {k} a group ({groups} groups; the "
+            f"envelope allows {allowed}), "
+            f"{n_steps} steps: {stage_txt}; total {wall:.3f} s, {5 / wall:.4f} frames/s, peak "
+            f"above the weights {peak / 2**30:.2f} GiB  [{card}]")
+        log(f"[phase6] ({'a' if geometry == 'auto' else 'b'}) launches "
+            f"{ {name: n for name, n in counts.items() if n} }  [{card}]")
+        if out.shape != (5, 720, 1280, 3):
+            raise AssertionError(f"phase 6 {geometry}: output shape {tuple(out.shape)}")
+        if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+            raise AssertionError(f"phase 6 {geometry}: output is not finite in [0, 1]")
+        for name in must:
+            if counts[name] == 0:
+                raise AssertionError(f"phase 6 {geometry}: kernel {name} was never launched")
+        for name in FUSED_ONLY + STANDALONE:
+            if counts[name]:
+                raise AssertionError(f"phase 6 {geometry}: {name} launched {counts[name]} times")
+        if not counts["guidance_residual"] == counts["guidance_scatter"] == n_steps * groups:
+            raise AssertionError(f"phase 6 {geometry}: guidance launches "
+                                 f"{counts['guidance_residual']}, {counts['guidance_scatter']}, "
+                                 f"expected {n_steps} steps x {groups} groups")
+        results[geometry] = {"counts": counts, "stages": stages, "wall_s": wall,
+                             "frames_per_s": 5 / wall, "peak_bytes": peak, "patch_batch": k,
+                             "steps": n_steps}
+    results["bytes_per_pixel"] = per_px
+    results["envelope"] = envelope_group(pipe, seed, card)
+    return results
+
+
+def envelope_group(pipe, seed: int, card: str) -> dict:
+    """(c) The largest group the envelope allows at 736x960 patches, on a
+    clip of 184 LQ rows (736 working rows) just wide enough that the 960/750
+    grid holds that many patches, at two steps. The VAE's widest activation
+    (256 channels at the patch's size) then holds K·5·256·736·960 elements,
+    past 2^32 from K = 5. The frames must match those of one patch a group up
+    to bf16's rounding: an index that wrapped would hand the group's later
+    patches another patch's data."""
+    import torch
+
+    from mgldvsr_tpu_torch.infer.canvas import ImageSpliter
+
+    k = pipe.patch_batch_envelope(736, 960)
+    lq_w = 240
+    while len(ImageSpliter((5, 736, 4 * lq_w + (-4 * lq_w) % 32, 3), 960, 750).positions) < k:
+        lq_w += 8
+    lq = torch.from_numpy(lq_clip(seed + 6, 184, width=lq_w)).cuda()
+    elements = k * 5 * 256 * 736 * 960
+    with sampler_steps(pipe, 2):
+        out, counts, stages, wall, peak = tile_restore(pipe, lq, seed, "reference", k)
+        one, _, _, wall_one, _ = tile_restore(pipe, lq, seed, "reference", 1)
+    diff = (out - one).abs()
+    err_max, err_mean = float(diff.max()), float(diff.mean())
+    log(f"[phase6] (c) the envelope's group: 184x{lq_w} -> 736x{4 * lq_w}, {k} patches of "
+        f"736x960 in one group ({elements} elements in the VAE's widest activation, "
+        f"{elements / 2**32:.2f} x 2^32), 2 steps: total {wall:.3f} s (one patch a group "
+        f"{wall_one:.3f} s), peak above the weights {peak / 2**30:.2f} GiB; vs one patch a "
+        f"group max_abs_err {err_max:.3e} (limit 0.25), mean {err_mean:.3e} (limit 5e-3)  "
+        f"[{card}]")
+    if out.shape != (5, 736, 4 * lq_w, 3) or not torch.isfinite(out).all():
+        raise AssertionError(f"phase 6 (c): output {tuple(out.shape)} is not finite")
+    if out.min() < 0 or out.max() > 1 or not (err_max <= 0.25 and err_mean <= 5e-3):
+        raise AssertionError(f"phase 6 (c): {k} patches a group disagree with one a group "
+                             f"(max {err_max:.3e}, mean {err_mean:.3e})")
+    for name in ("attention", "corr_lookup", "channel_sums", "fused_group_norm"):
+        if counts[name] == 0:
+            raise AssertionError(f"phase 6 (c): kernel {name} was never launched")
+    if not counts["guidance_residual"] == counts["guidance_scatter"] == 2:
+        raise AssertionError(f"phase 6 (c): guidance launches {counts['guidance_residual']}, "
+                             f"{counts['guidance_scatter']}, expected 2 steps x 1 group")
+    return {"patch_batch": k, "elements": elements, "wall_s": wall, "peak_bytes": peak,
+            "max_abs_err": err_max, "mean_abs_err": err_mean}
+
+
+def phase7(card: str) -> None:
+    """The inference CLI on the card in its three modes at tiny widths, then
+    once at full width."""
+    import tempfile
+
+    import torch
+
+    from mgldvsr_tpu_torch.cli import infer as cli
+    from mgldvsr_tpu_torch.io.frames import codec, read_frame, write_frame
+    from mgldvsr_tpu_torch.ops import kernels
+
+    clip = (lq_clip(11, 32, frames=7, width=48) * 255).round().astype(np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        lq = os.path.join(tmp, "lq")
+        os.makedirs(os.path.join(lq, "clip0"))
+        for i, frame in enumerate(clip):
+            write_frame(os.path.join(lq, "clip0", f"{i:08d}.png"), frame)
+        for mode, extra in (("fixed", ["--window-batch", "2"]), ("tile", []), ("latent", [])):
+            out = os.path.join(tmp, mode)
+            t0 = time.perf_counter()
+            cli.main(["--seqs-path", lq, "--out-path", out, "--preset", "tiny", "--mode", mode,
+                      "--ddpm-steps", "2", "--seed", "1", *extra])
+            wall = time.perf_counter() - t0
+            names = sorted(os.listdir(os.path.join(out, "clip0")))
+            pngs = [n for n in names if n.endswith(".png")]
+            npys = [n for n in names if n.endswith(".npy")]
+            shapes = {read_frame(os.path.join(out, "clip0", n)).shape for n in pngs}
+            lat_shapes = {np.load(os.path.join(out, "clip0", n)).shape for n in npys}
+            log(f"[phase7] {mode} {' '.join(extra)}: {len(pngs)} frames written, read back as "
+                f"{sorted(shapes)} through {codec()}; {len(npys)} latents {sorted(lat_shapes)}; "
+                f"{wall:.2f} s  [{card}]")
+            if pngs != [f"{i:08d}.png" for i in range(7)] or shapes != {(128, 192, 3)}:
+                raise AssertionError(f"phase 7 {mode}: frames {pngs}, shapes {shapes}")
+            want_npys = [f"{i:08d}.npy" for i in range(7)] if mode == "latent" else []
+            if npys != want_npys or lat_shapes - {(16, 24, 4)}:
+                raise AssertionError(f"phase 7 {mode}: latents {npys}, shapes {lat_shapes}")
+
+        # --preset full: the shipped widths, bf16, seeded weights; fixed mode
+        # on five 128x128 frames restored to 512x512, three steps
+        full_clip = (lq_clip(12, 128) * 255).round().astype(np.uint8)
+        os.makedirs(os.path.join(tmp, "lq_full", "clip0"))
+        for i, frame in enumerate(full_clip):
+            write_frame(os.path.join(tmp, "lq_full", "clip0", f"{i:08d}.png"), frame)
+        out = os.path.join(tmp, "full")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        cli.main(["--seqs-path", os.path.join(tmp, "lq_full"), "--out-path", out, "--preset",
+                  "full", "--mode", "fixed", "--ddpm-steps", "3", "--seed", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        pngs = sorted(os.listdir(os.path.join(out, "clip0")))
+        shapes = {read_frame(os.path.join(out, "clip0", n)).shape for n in pngs}
+        log(f"[phase7] --preset full fixed, 128x128 -> 512x512, 3 steps: {len(pngs)} frames "
+            f"written, read back as {sorted(shapes)}; {wall:.2f} s with the weights' set-up; "
+            f"launches { {k: n for k, n in counts.items() if n} }  [{card}]")
+        if pngs != [f"{i:08d}.png" for i in range(5)] or shapes != {(512, 512, 3)}:
+            raise AssertionError(f"phase 7 full: frames {pngs}, shapes {shapes}")
+        for name in KERNELS:
+            if (counts[name] == 0) != (name in FUSED_ONLY + STANDALONE):
+                raise AssertionError(f"phase 7 full: kernel {name} was launched {counts[name]} "
+                                     f"times")
+        if not (counts["guidance_residual"] == counts["guidance_scatter"] == 3
+                and counts["attention_wgmma"] == counts["attention"] == 14 * 3):
+            raise AssertionError(f"phase 7 full: launches {counts}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
-                    help="respaced DDPM steps of phases 4 and 5")
+                    help="respaced DDPM steps of phases 4, 5 and 6 (a)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1197,20 +1539,28 @@ def main() -> int:
     log(f"[phase1] built {so.name} in {secs:.2f} s (nvcc, sm_90a)")
 
     results = phase2(card)
-    phase3(args.seed, card, fused=False)
-    phase3(args.seed, card, fused=True)
+    for fused in (False, True):
+        phase3(args.seed, card, fused=fused)
+        phase3_tile(args.seed, card, fused=fused)
     pipe, frames = full_pipeline(args.seed, args.steps)
     out4, counts4 = full_restore(pipe, frames, args.seed, args.steps, card, fused=False)
     guidance_check(pipe, frames, args.seed)
+    counts_latent = full_latent_restore(pipe, frames, args.seed, args.steps, card)
     out5, counts5 = full_restore(pipe, frames, args.seed, args.steps, card, fused=True)
     log(f"[phase5] mean |fused - default| over the frames {float((out5 - out4).abs().mean()):.4e} "
         f"(bf16 rounds at other places in the two configurations; no limit)")
+    del out4, out5
+    tile = phase6(pipe, args.seed, args.steps, card)
+    phase7(card)
 
     # launches: the count on the path that runs the kernel (the fused
     # configuration for the fused conv, the default one for the others)
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
                 "launches": (counts5 if name in FUSED_ONLY else counts4)[name],
                 "launches_default": counts4[name], "launches_fused": counts5[name],
+                "launches_latent": counts_latent[name],
+                "launches_tile": tile["auto"]["counts"][name],
+                "launches_tile_reference": tile["reference"]["counts"][name],
                 **results[name]}
                for name, (route, src, rep) in KERNELS.items()]
     for entry in kernels:

@@ -57,6 +57,11 @@ class SamplerConfig:
     guidance_scale: float = -10.0
     guidance_mode: str = "reference"
     temperature: float = 1.0
+    # Draw the per-step noise for ONE num_frames window and repeat it over
+    # the window batch: K patches stacked on the window axis then each get
+    # the draw a solo call would get from the generator in the same state
+    # (the tiled restore re-seeds every patch alike)
+    noise_window_tile: bool = False
 
 
 def p_mean_variance(sched: DiffusionSchedule, denoise_fn: Callable, x: torch.Tensor, i: int):
@@ -71,6 +76,14 @@ def _randn(shape, like: torch.Tensor, generator: Optional[torch.Generator]):
     return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
 
 
+def window_tiled_randn(like: torch.Tensor, num_frames: int,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One [num_frames, ...] draw repeated over the windows of ``like``
+    ([(b t), ...])."""
+    base = _randn((num_frames, *like.shape[1:]), like, generator)
+    return base.repeat(like.shape[0] // num_frames, *([1] * (like.ndim - 1)))
+
+
 def p_sample(sched: DiffusionSchedule, denoise_fn: Callable, x: torch.Tensor, i: int,
              generator: Optional[torch.Generator], cfg: SamplerConfig,
              flows=None, masks=None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -80,6 +93,8 @@ def p_sample(sched: DiffusionSchedule, denoise_fn: Callable, x: torch.Tensor, i:
     if noise is None:
         if cfg.temperature == 0:
             noise = torch.zeros_like(x)  # the draw would be scaled to zero
+        elif cfg.noise_window_tile:
+            noise = window_tiled_randn(x, cfg.num_frames, generator)
         else:
             noise = _randn(tuple(x.shape), x, generator)
     noise = noise * cfg.temperature

@@ -1,23 +1,33 @@
-"""The fixed-size MGLD-VSR restore of one segment.
+"""The MGLD-VSR restores: fixed-size segments, tiled frames of any size,
+and the latent-dumping variant.
 
-Counterpart of ``mgldvsr_tpu/infer/pipeline.py`` (``restore_segment`` and
-the stages it runs): VAE-encode the (pre-upscaled) LQ frames keeping their
-multi-scale features, embed the empty prompt, compute RAFT flows and
-occlusion masks at 1/8 resolution, noise the LQ latent to t=999, run the
-50-step motion-guided sampler, decode with the temporal decoder fusing the
-LQ features, and colour-fix. Frames, latents and flows are NHWC at this
-boundary; the towers inside are NCHW ``nn.Module``s that hold their
-weights.
+Counterpart of ``mgldvsr_tpu/infer/pipeline.py``. ``restore_segment``
+VAE-encodes the (pre-upscaled) LQ frames keeping their multi-scale
+features, embeds the empty prompt, computes RAFT flows and occlusion masks
+at 1/8 resolution, noises the LQ latent to t=999, runs the 50-step
+motion-guided sampler, decodes with the temporal decoder fusing the LQ
+features, and colour-fixes. ``restore_video`` runs the reference's
+``oldcanvas_tile`` protocol around ``restore_segment_canvas`` (the same
+stages with the eps prediction stitched from latent tiles);
+``restore_with_latents`` is the ``w_latent`` script's protocol. Frames,
+latents and flows are NHWC at this boundary; the towers inside are NCHW
+``nn.Module``s that hold their weights.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
-from mgldvsr_tpu_torch.core.diffusion import SamplerConfig, initial_latents, sample_video
+from mgldvsr_tpu_torch.core.diffusion import (
+    SamplerConfig,
+    initial_latents,
+    sample_video,
+    window_tiled_randn,
+)
 from mgldvsr_tpu_torch.core.schedules import DiffusionSchedule, respace_schedule
 from mgldvsr_tpu_torch.flow.compute import (
     chunked_pairs,
@@ -26,6 +36,7 @@ from mgldvsr_tpu_torch.flow.compute import (
     flows_to_latent_res,
 )
 from mgldvsr_tpu_torch.flow.raft import RAFT, RAFTConfig
+from mgldvsr_tpu_torch.infer.canvas import ImageSpliter, make_tiled_denoise_fn
 from mgldvsr_tpu_torch.infer.colorfix import apply_colorfix
 from mgldvsr_tpu_torch.models.cliptext import (
     CLIPTextConfig,
@@ -70,6 +81,16 @@ class PipelineConfig:
         default_factory=lambda: VAEConfig(num_frames=5, enable_fusion=True))
     clip: CLIPTextConfig = CLIPTextConfig()
     raft: RAFTConfig = RAFTConfig()
+
+
+# Device bytes one more tile-mode patch of 5 frames adds to a patch group,
+# per pixel of the patch, with 2-byte (bf16) towers at the shipped widths and
+# float32 RAFT: the peak of chip_smoke.py's phase-6 tile restore at two
+# patches a group less its peak at one, over the patch's pixels. Measured
+# 11,911 at 512x512 and 11,914 at 736x960 on an NVIDIA H100 80GB HBM3 at
+# 700.00 W; rounded up to 12 KiB so the allocator's noise stays under it
+# (phase 6 fails if it measures more).
+PATCH_BYTES_PER_PIXEL = 12288
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -127,13 +148,21 @@ class MGLDVSRPipeline:
 
     @torch.no_grad()
     def encode(self, frames_pm1: torch.Tensor, generator: Optional[torch.Generator] = None,
-               sample_posterior: bool = True):
+               sample_posterior: bool = True, noise_window_tile: bool = False):
         """frames [N,H,W,3] in [-1,1] -> (scaled latent [N,h,w,4], LQ
         features: a list of NCHW maps). ``sample_posterior=False`` takes the
-        posterior mode."""
+        posterior mode. ``noise_window_tile`` draws the posterior noise for
+        one ``num_frames`` window and repeats it over the window batch: the
+        draw each window would get from a solo call with the generator in
+        the same state."""
         moments, enc_fea = self.vae.encode(_nchw(frames_pm1))
         g = DiagonalGaussian(_nhwc(moments))
-        z = g.sample(generator) if sample_posterior else g.mode()
+        if not sample_posterior:
+            z = g.mode()
+        elif noise_window_tile:
+            z = g.mean + g.std * window_tiled_randn(g.mean, self.cfg.num_frames, generator)
+        else:
+            z = g.sample(generator)
         return self.cfg.scale_factor * z, enc_fea
 
     @torch.no_grad()
@@ -151,7 +180,8 @@ class MGLDVSRPipeline:
             group = n
         outs = []
         for s in range(0, n, group):
-            z = _nchw(latents[s:s + group] / self.cfg.scale_factor)
+            # contiguous NCHW: the canvas sampler's latents are packed NHWC
+            z = _nchw(latents[s:s + group] / self.cfg.scale_factor).contiguous()
             outs.append(self.vae.decode(z, [f[s:s + group] for f in enc_fea], w))
         return _nhwc(torch.cat(outs, dim=0))
 
@@ -185,16 +215,66 @@ class MGLDVSRPipeline:
     def denoise_fn(self, struct_latent: torch.Tensor, context: torch.Tensor):
         """(x [N,h,w,4], t_orig [N]) -> eps [N,h,w,4] float32: struct-cond
         features of the LQ latent at t, then the UNet."""
-        s_in = _nchw(struct_latent)
 
-        @torch.no_grad()
         def fn(x, t_orig):
-            s_cond = self.structcond(s_in, t_orig)
-            return _nhwc(self.unet(_nchw(x), t_orig, context, s_cond))
+            return self._unet_nhwc(x, t_orig, context, self._structcond_nhwc(struct_latent, t_orig))
 
         return fn
 
+    @torch.no_grad()
+    def _structcond_nhwc(self, s: torch.Tensor, t_orig: torch.Tensor):
+        return self.structcond(_nchw(s).contiguous(), t_orig)
+
+    @torch.no_grad()
+    def _unet_nhwc(self, x: torch.Tensor, t_orig: torch.Tensor, context: torch.Tensor, s_cond):
+        # the towers take contiguous NCHW: the fixed sampler's latents are
+        # NHWC views of it already, the canvas's tiles are packed NHWC
+        return _nhwc(self.unet(_nchw(x).contiguous(), t_orig, context, s_cond))
+
     # -- full restore --------------------------------------------------------
+
+    def _restore(self, frames_01: torch.Tensor, generator: Optional[torch.Generator], *,
+                 deterministic: bool, dec_w: Optional[float], guidance_scale: float,
+                 flows: Optional[Callable[[], tuple]], denoise: Optional[Callable] = None,
+                 window_noise: bool = False, clip01: bool = True,
+                 stage_seconds: Optional[Dict[str, float]] = None):
+        """The stages every restore runs, in order: encode, the empty
+        prompt, flows, x_T, the guided sampler, decode, colour fix. ``flows``
+        gives the (flows, masks) pair, or is None for no guidance;
+        ``denoise(lq_latent, context)`` builds the eps function (default
+        :meth:`denoise_fn`). Returns (frames, final latents [N,h,w,4])."""
+        cfg = self.cfg
+        if generator is None and not deterministic:
+            raise ValueError("a restore needs a torch.Generator unless deterministic")
+        clock = _StageClock(self.device, stage_seconds)
+        frames_pm1 = frames_01 * 2.0 - 1.0
+        init_latent, enc_fea = self.encode(frames_pm1, generator,
+                                           sample_posterior=not deterministic,
+                                           noise_window_tile=window_noise)
+        clock.lap("encode")
+        context = self.embed_empty_prompt(frames_01.shape[0])
+        clock.lap("clip")
+        fl, masks = flows() if flows is not None else (None, None)
+        clock.lap("flows")
+        if deterministic:
+            xt_noise = torch.zeros_like(init_latent)
+        elif window_noise:
+            xt_noise = window_tiled_randn(init_latent, cfg.num_frames, generator)
+        else:
+            xt_noise = None
+        x_T = initial_latents(self.base_sched, init_latent, generator, noise=xt_noise)
+        scfg = SamplerConfig(num_frames=cfg.num_frames, guidance_scale=guidance_scale,
+                             guidance_mode=cfg.guidance_mode,
+                             temperature=0.0 if deterministic else 1.0,
+                             noise_window_tile=window_noise)
+        out = sample_video(self.sched, (denoise or self.denoise_fn)(init_latent, context), x_T,
+                           generator, scfg, fl, masks)
+        clock.lap("sampler")
+        decoded = self.decode(out.latents, enc_fea, dec_w).float()
+        fixed = apply_colorfix(decoded, frames_pm1, cfg.colorfix)
+        result = torch.clamp((fixed + 1.0) / 2.0, 0.0, 1.0) if clip01 else fixed
+        clock.lap("decode")
+        return result, out.latents
 
     def restore_segment(self, frames_01: torch.Tensor,
                         generator: Optional[torch.Generator] = None,
@@ -208,31 +288,218 @@ class MGLDVSRPipeline:
         temperature 0) and needs no generator. ``stage_seconds``, when
         given, is filled with each stage's wall seconds, the device
         synchronised at each stage boundary."""
+        return self._restore(
+            frames_01, generator, deterministic=deterministic, dec_w=dec_w,
+            guidance_scale=self.cfg.guidance_scale,
+            flows=(lambda: self.compute_flows(frames_01)) if use_guidance else None,
+            stage_seconds=stage_seconds)[0]
+
+    def restore_segment_canvas(self, frames_01: torch.Tensor,
+                               generator: Optional[torch.Generator] = None, tile: int = 64,
+                               tile_overlap: int = 32, batch_tiles: int = 4,
+                               dec_w: Optional[float] = None, use_guidance: bool = True,
+                               return_latents: bool = False, flows_masks=None,
+                               deterministic: bool = False, clip01: bool = True,
+                               window_noise: bool = False):
+        """A segment of any size (a multiple of 32) with latent canvas
+        tiling: each step's eps is the gaussian-stitched combination of the
+        UNet on ``tile``-latent tiles, one trajectory for the whole canvas.
+
+        ``flows_masks``: precomputed ``(flows, masks)`` at this segment's
+        latent resolution (the tiled protocol computes them once on the
+        whole frame); otherwise they are computed here. ``deterministic``
+        zeroes every draw, as in ``restore_segment``. ``clip01=False``
+        returns the colour-fixed frames in [-1,1] unclamped (the tiled
+        protocol averages patches before it clamps). ``window_noise``: every
+        draw (posterior, x_T, per step) is made for one ``num_frames``
+        window and repeated over the window batch, so K patches stacked on
+        the frames axis each get the draws a solo call would get.
+        ``return_latents`` also returns the final latents."""
+        flows = None
+        if use_guidance:
+            flows = ((lambda: flows_masks) if flows_masks is not None
+                     else (lambda: self.compute_flows(frames_01)))
+
+        def denoise(lq_latent, context):
+            return make_tiled_denoise_fn(self._structcond_nhwc, self._unet_nhwc, lq_latent,
+                                         context, tile, tile_overlap, batch_tiles)
+
+        result, latents = self._restore(
+            frames_01, generator, deterministic=deterministic, dec_w=dec_w,
+            guidance_scale=self.cfg.guidance_scale, flows=flows, denoise=denoise,
+            window_noise=window_noise, clip01=clip01)
+        return (result, latents) if return_latents else result
+
+    def restore_with_latents(self, frames_01: torch.Tensor,
+                             generator: Optional[torch.Generator] = None,
+                             dec_w: Optional[float] = None, deterministic: bool = False):
+        """The ``w_latent`` script's protocol; returns (frames in [0,1],
+        final latents [N,h,w,4]) so the latents can be kept as stage-2
+        training data. As that script does: flows at the full working
+        resolution, the occlusion masks of the swapped consistency check,
+        and the sampler with flows at guidance scale -1.0 (a weak
+        correction, not none). ``deterministic`` zeroes every draw."""
+
+        def flows():
+            fl, masks = self.compute_flows(frames_01, flow_scale=1.0)
+            return fl, (masks[1], masks[0])
+
+        return self._restore(frames_01, generator, deterministic=deterministic, dec_w=dec_w,
+                             guidance_scale=-1.0, flows=flows)
+
+    def restore_video(self, lq_frames_01: torch.Tensor,
+                      generator: Optional[torch.Generator] = None, pch_size: int = 960,
+                      pch_stride: int = 750, min_side: int = 512, dec_w: Optional[float] = None,
+                      use_guidance: bool = True, flow_scale: float = 0.25,
+                      deterministic: bool = False, tile: int = 64, tile_overlap: int = 32,
+                      batch_tiles: int = 4, patch_batch: Optional[int] = None,
+                      stage_seconds: Optional[Dict[str, float]] = None) -> torch.Tensor:
+        """The reference's ``oldcanvas_tile`` protocol on one window of LQ
+        frames [T,h,w,3] in [0,1]; returns the SR frames in [0,1] on the
+        pipeline's device.
+
+        One bicubic pre-upscale by max(min_side / min(h, w), sf) with
+        int-truncated sizes; a reflect pad to a multiple of 32; flows once
+        on the whole padded frame at ``flow_scale`` (bicubic downsize) with
+        the tile script's swapped mask pair; overlapping pixel patches
+        (``pch_size``/``pch_stride``) whose flows and masks are cut by an
+        /8 spliter zipped by order; each patch restored by
+        ``restore_segment_canvas``; the overlap-average in [-1,1], then the
+        clamp; and, where the pre-upscale overshot sf, a bicubic downscale
+        of the padded frame followed by the reference's pad crop (a no-op
+        at that size).
+
+        ``pch_size <= 0`` takes one canvas tile a patch (8·tile px) and a
+        stride of 7/8 of it in latent units (also when an explicit stride
+        would leave no overlap). Every patch gets the same draws: the
+        generator's state is saved here and restored before every group of
+        ``patch_batch`` patches, which ride the window axis of one call (the
+        last group padded by repeating its last patch), so any
+        ``patch_batch`` gives the same frames up to the towers' rounding
+        (bf16 kernels may sum in another order at another batch). ``patch_batch=None`` takes
+        :meth:`patch_batch_envelope`. ``stage_seconds``, when given, gets
+        the seconds of ``upscale``, ``flows``, ``patches`` and ``gather``."""
         cfg = self.cfg
+        t = cfg.num_frames
         if generator is None and not deterministic:
-            raise ValueError("restore_segment needs a torch.Generator unless deterministic")
+            raise ValueError("restore_video needs a torch.Generator unless deterministic")
+        if lq_frames_01.shape[0] != t:
+            raise ValueError(f"restore_video takes one window of {t} frames, got "
+                             f"{tuple(lq_frames_01.shape)}")
         clock = _StageClock(self.device, stage_seconds)
-        frames_pm1 = frames_01 * 2.0 - 1.0
-        init_latent, enc_fea = self.encode(frames_pm1, generator,
-                                           sample_posterior=not deterministic)
-        clock.lap("encode")
-        context = self.embed_empty_prompt(frames_01.shape[0])
-        clock.lap("clip")
-        flows, masks = self.compute_flows(frames_01) if use_guidance else (None, None)
+        size_auto = pch_size <= 0
+        if size_auto:
+            pch_size = 8 * tile
+        if pch_stride <= 0 or (size_auto and pch_stride >= pch_size):
+            # in latent units, so the /8 flow spliter walks the same grid
+            pch_stride = 8 * max((pch_size * 7) // 64, 1)
+        _, h0, w0, _ = lq_frames_01.shape
+        upsample_scale = max(min_side / min(h0, w0), float(cfg.sf))
+        work_h, work_w = int(h0 * upsample_scale), int(w0 * upsample_scale)
+        frames = torch.clamp(resize2d(lq_frames_01, (work_h, work_w), method="bicubic"), 0.0, 1.0)
+        frames = reflect_pad(frames, (-work_h) % 32, (-work_w) % 32)
+        clock.lap("upscale")
+
+        spliter = ImageSpliter(tuple(frames.shape), pch_size, pch_stride)
+        patches = [patch for patch, _ in spliter.split(frames)]
+        flow_patches: list = [None] * len(patches)
+        if use_guidance:
+            (ff, fb), (of, ob) = self.compute_flows(frames, flow_scale=flow_scale,
+                                                    flow_method="bicubic")
+            # the tile script checks consistency with the flows swapped
+            # against the fixed script, which swaps the resulting masks
+            of, ob = ob, of
+            fsplit = ImageSpliter((ff.shape[1], ff.shape[2], ff.shape[3], 2), pch_size // 8,
+                                  pch_stride // 8)
+            # zipped by order: extra /8 positions go unused, fewer would
+            # pair patches with the wrong flows
+            if len(fsplit.positions) < len(spliter.positions):
+                raise ValueError(f"flow spliter produced {len(fsplit.positions)} patches for "
+                                 f"{len(spliter.positions)} pixel patches")
+            ph, pw = fsplit.pch_size_h, fsplit.pch_size_w
+            for i, (oy, ox) in enumerate(fsplit.positions[:len(patches)]):
+                flow_patches[i] = tuple(tuple(a[:, :, oy:oy + ph, ox:ox + pw] for a in pair)
+                                      for pair in ((ff, fb), (of, ob)))
         clock.lap("flows")
-        x_T = initial_latents(self.base_sched, init_latent, generator,
-                              noise=torch.zeros_like(init_latent) if deterministic else None)
-        scfg = SamplerConfig(num_frames=cfg.num_frames, guidance_scale=cfg.guidance_scale,
-                             guidance_mode=cfg.guidance_mode,
-                             temperature=0.0 if deterministic else 1.0)
-        out = sample_video(self.sched, self.denoise_fn(init_latent, context), x_T,
-                           generator, scfg, flows, masks)
-        clock.lap("sampler")
-        decoded = self.decode(out.latents, enc_fea, dec_w).float()
-        fixed = apply_colorfix(decoded, frames_pm1, cfg.colorfix)
-        result = torch.clamp((fixed + 1.0) / 2.0, 0.0, 1.0)
-        clock.lap("decode")
-        return result
+
+        if patch_batch is None:
+            patch_batch = self.patch_batch_envelope(*patches[0].shape[1:3])
+        kb = max(1, min(patch_batch, len(patches)))
+        state = generator.get_state() if generator is not None else None
+        outs = []
+        for g0 in range(0, len(patches), kb):
+            idx = list(range(g0, min(g0 + kb, len(patches))))
+            group = idx + [idx[-1]] * (kb - len(idx))
+            # one concatenation a group: contiguous frames, flows and masks
+            stacked = torch.cat([patches[i] for i in group], 0)
+            fm = None
+            if use_guidance:
+                fm = tuple(tuple(torch.cat([flow_patches[i][p][d] for i in group], 0)
+                                 for d in range(2)) for p in range(2))
+            if state is not None:
+                generator.set_state(state)
+            o = self.restore_segment_canvas(
+                stacked, generator, tile=tile, tile_overlap=tile_overlap,
+                batch_tiles=batch_tiles, dec_w=dec_w, use_guidance=use_guidance,
+                flows_masks=fm, deterministic=deterministic, clip01=False, window_noise=True)
+            outs.extend(o[j * t:(j + 1) * t] for j in range(len(idx)))
+        clock.lap("patches")
+
+        full = torch.clamp((spliter.gather(outs) + 1.0) / 2.0, 0.0, 1.0)
+        if upsample_scale > cfg.sf:
+            # the reference downscales the padded frame, then crops the pad
+            # at working size: a no-op that keeps a scaled pad remnant
+            out_h = int(frames.shape[1] * cfg.sf / upsample_scale)
+            out_w = int(frames.shape[2] * cfg.sf / upsample_scale)
+            full = torch.clamp(resize2d(full, (out_h, out_w), method="bicubic"), 0.0, 1.0)
+        full = full[:, :work_h, :work_w]
+        clock.lap("gather")
+        return full
+
+    def patch_batch_envelope(self, ph: int, pw: int) -> int:
+        """Patches of ph x pw pixels a tile-mode group may hold: 0.8 of the
+        device memory free to this process (what cudaMemGetInfo reports free
+        and what the caching allocator holds unused) over the bytes a patch
+        takes, ``PATCH_BYTES_PER_PIXEL · ph · pw``; at least 1.
+
+        The constant was measured with 2-byte towers at the shipped widths
+        and 5 frames. Wider tower dtypes scale it by their size (an upper
+        bound: RAFT and the latents are float32 either way); other widths or
+        frame counts were never measured and take 1, as does the CPU."""
+        if self.device.type != "cuda" or not _measured_widths(self.cfg):
+            return 1
+        cfg = self.cfg
+        itemsize = max(torch.finfo(d).bits // 8
+                       for d in (cfg.unet.dtype, cfg.structcond.dtype, cfg.vae.dtype))
+        per_patch = PATCH_BYTES_PER_PIXEL * max(itemsize, 2) // 2 * ph * pw
+        free, _ = torch.cuda.mem_get_info(self.device)
+        free += torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
+        return max(1, int(0.8 * free) // per_patch)
+
+
+def _measured_widths(cfg: PipelineConfig) -> bool:
+    """Whether the towers a tile-mode patch runs through have the widths and
+    frame count ``PATCH_BYTES_PER_PIXEL`` was measured at (dtypes aside)."""
+    ref = PipelineConfig()
+
+    def widths(tower):
+        return dataclasses.replace(tower, dtype=torch.float32)
+
+    return cfg.num_frames == ref.num_frames and all(
+        widths(getattr(cfg, n)) == widths(getattr(ref, n)) for n in ("unet", "structcond", "vae"))
+
+
+def reflect_pad(frames: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
+    """Pad [T,H,W,C] at the bottom and right by reflection without the edge
+    (``numpy.pad(mode="reflect")``, which reflects again where the pad
+    exceeds the side)."""
+    if pad_h:
+        rows = np.pad(np.arange(frames.shape[1]), (0, pad_h), mode="reflect")
+        frames = frames[:, torch.from_numpy(rows).to(frames.device)]
+    if pad_w:
+        cols = np.pad(np.arange(frames.shape[2]), (0, pad_w), mode="reflect")
+        frames = frames[:, :, torch.from_numpy(cols).to(frames.device)]
+    return frames
 
 
 class _StageClock:
