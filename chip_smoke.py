@@ -75,6 +75,35 @@ Phase 7  the inference CLI on the card: a clip of 7 PNG frames of 32x48 (two
          fixed mode on five 128x128 frames (512x512 out, 3 steps): the
          frames written, every kernel of the default configuration launched.
 
+Phase 8  stage-1 training. (a) one tiny fp32 micro-step at 256x256 with
+         injected draws, on the card and on the CPU, in both configurations:
+         the loss, every trainable's gradient (by norm, beside a witness: the
+         CPU against itself with the clips moved by 1e-5, which moves the
+         gradients behind SPADE's ReLU by about 1e-2) and the parameters
+         after the update. (b) the shipped widths through the
+         training CLI's loop: bf16 towers, float32 masters, seeded weights
+         jittered by 0.02 N(0,1), two seeded 8-frame 544x544 PNG clips through
+         the two-stage recipe (GT 512, LQ 128, 5 frames), 8 micro-steps at
+         grad_accum 4: finite losses, trainables changed at micro-steps 4 and
+         8 only, frozen towers bit for bit, EMA apart from the trainables,
+         attention (all on the tensor-core kernel), the channel sums and the
+         fused GroupNorm launched in every micro-step; then a fresh pipeline
+         resumes the step-4 checkpoint and replays steps 5-8, which must
+         equal the straight run bit for bit. (c) (b) for 4 micro-steps in the
+         fused configuration (the chain's two kernels in every micro-step).
+         torch.profiler traces of the CLI loop's micro-steps 2-9: device
+         time, the idle share, and the share in the backwards that replay a
+         kernel's plain version; micro-steps on clips loaded in advance
+         with and without the data path's threads working beside them; one
+         clip of the host data path timed alone. (d) ``cli.train --stage 1
+         --tiny --max-steps 4`` on the card, then ``cli.infer`` restores a
+         clip with the parameters it exported. Prints the loop's clips/s
+         over steps 2-8 (data waits and checkpoint saves included), micro-step
+         seconds, data-path seconds, peak memory and launches a micro-step
+         (``launches_train``, ``launches_train_fused`` in the kernels line).
+         ``--only-train`` builds the kernels and runs this phase alone,
+         without the result line.
+
 Prints one JSON line describing the kernels before the last line, and the
 result line ``{"ok": true, "device": {...}}`` last. Any failure raises and
 exits non-zero without the result line.
@@ -1512,12 +1541,482 @@ def phase7(card: str) -> None:
                 and counts["attention_wgmma"] == counts["attention"] == 14 * 3):
             raise AssertionError(f"phase 7 full: launches {counts}")
 
+# -- phase 8: stage-1 training ------------------------------------------------
+
+# launched in every training micro-step: attention (UNet and struct-cond),
+# the VAE encodes' channel sums (default configuration) and the fused
+# GroupNorm; the fused configuration adds the chain's two kernels in place
+# of the channel sums
+TRAIN_EVERY_STEP = ("attention", "channel_sums", "fused_group_norm")
+TRAIN_EVERY_STEP_FUSED = ("attention", "fused_group_norm") + FUSED_ONLY
+# autograd nodes whose backward replays a kernel's plain version
+PLAIN_BACKWARDS = ("_AttentionBackward", "_AttentionBNHDBackward", "_GNSiLUConvBackward",
+                   "_ChannelSumsBackward", "_FusedGroupNormBackward")
+TRAIN_LR = 5e-5
+# phase 8 (a)'s gradient limits, card against CPU, as fractions of the norm
+# (a leaf's plus 1e-3 of the largest leaf's, or the whole gradient's): about
+# 3x the readings on an H100 (worst leaf 3.7e-3, a SPADE mlp_shared weight;
+# the whole 9.2e-4), where the witness moves the same leaves by ~1e-2
+TINY_GRAD_LEAF = 1e-2
+TINY_GRAD_WHOLE = 3e-3
+
+
+def jittered(pipe, seed: int):
+    """Seeded weights plus 0.02 N(0, 1) on the UNet and struct-cond: seeded
+    weights leave the temporal blend scalars and biases at zero, so some
+    trainables would get no gradient and the checks below would pass
+    vacuously."""
+    from mgldvsr_tpu_torch.io.init_weights import init_pipeline_weights, jitter_weights
+
+    init_pipeline_weights(pipe, seed)
+    jitter_weights(pipe, 0.02, seed)
+    return pipe
+
+
+def phase8_tiny(seed: int, card: str, fused: bool) -> dict:
+    """(a) one tiny fp32 micro-step on the card and on the CPU with the same
+    weights and injected draws: the loss, every trainable's gradient and the
+    parameters after the update it applies (grad_accum 1)."""
+    import torch
+
+    from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline
+    from mgldvsr_tpu_torch.ops import kernels
+    from mgldvsr_tpu_torch.train.trainer import Stage1Config, Stage1Trainer
+
+    cfg = tiny_config()
+    cpu = jittered(MGLDVSRPipeline(cfg, "cpu"), seed)
+    gpu = MGLDVSRPipeline(cfg)
+    for name, tower in gpu.towers().items():
+        tower.load_state_dict(cpu.towers()[name].state_dict(), strict=True)
+    size = 256  # 32x32 latents: the attention gate opens (N >= 1024)
+    lq = torch.from_numpy(lq_clip(seed + 20, size))
+    gt = torch.from_numpy(lq_clip(seed + 21, size))
+    trainers = [Stage1Trainer(p, Stage1Config(grad_accum=1, learning_rate=TRAIN_LR))
+                for p in (cpu, gpu)]
+    states = [t.init_state() for t in trainers]
+    draws = trainers[0].draws(5, size // 8, size // 8, torch.Generator().manual_seed(seed))
+    draws_gpu = type(draws)(*(d.cuda() for d in draws))
+    # The witness: the CPU against itself with both clips moved by 1e-5
+    # relative, about how far the card's forward activations stand from the
+    # CPU's. Gradients behind SPADE's ReLU change sides there; it shows how
+    # far such a move carries each leaf, the scale of the limits below.
+    rs = np.random.RandomState(seed + 22)
+    moved = [x * (1 + 1e-5 * torch.from_numpy(rs.randn(*x.shape).astype(np.float32)))
+             for x in (lq, gt)]
+    with fused_switch(fused):
+        loss_c, _, g_c = trainers[0].loss_and_grads(lq, gt, draws)
+        _, _, g_w = trainers[0].loss_and_grads(*moved, draws)
+        kernels.reset_launch_counts()
+        loss_g, _, g_g = trainers[1].loss_and_grads(lq.cuda(), gt.cuda(), draws_gpu)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        trainers[0].train_step(states[0], lq, gt, draws=draws)
+        trainers[1].train_step(states[1], lq.cuda(), gt.cuda(), draws=draws_gpu)
+    norms = {k: float(g.norm()) for k, g in g_c.items()}
+    big = max(norms.values())
+
+    def spread(other):
+        """Each leaf's |other - cpu| over its norm + 1e-3 of the largest
+        leaf norm (a leaf whose exact gradient is zero holds rounding only),
+        and the whole gradient's over its norm."""
+        d = {k: float((other[k].cpu() - g).norm()) for k, g in g_c.items()}
+        whole = (sum(v * v for v in d.values()) / sum(n * n for n in norms.values())) ** 0.5
+        return {k: d[k] / (norms[k] + 1e-3 * big) for k in d}, whole
+
+    card_leaf, grad_global = spread(g_g)
+    wit_leaf, wit_global = spread(g_w)
+    worst = max(card_leaf, key=card_leaf.get)
+    worst_wit = max(wit_leaf, key=wit_leaf.get)
+    grad_worst = card_leaf[worst]
+    p_err = max(max_err(states[1].trainable[k].cpu(), v) for k, v in states[0].trainable.items())
+    total = sum(v.numel() for v in states[0].trainable.values())
+    p_off = sum(int(((states[1].trainable[k].cpu() - v).abs() > 1e-6).sum())
+                for k, v in states[0].trainable.items()) / total
+    loss_rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    log(f"[phase8] (a) tiny fp32 micro-step {size}x{size}, fused conv {'on' if fused else 'off'}: "
+        f"card vs CPU loss {float(loss_g):.6f} / {float(loss_c):.6f} (rel {loss_rel:.2e}, limit "
+        f"1e-4); gradients of {len(g_c)} leaves, card vs CPU: the whole {grad_global:.3e} of its "
+        f"norm (limit {TINY_GRAD_WHOLE:.0e}), worst leaf {worst} {grad_worst:.3e} (limit "
+        f"{TINY_GRAD_LEAF:.0e}; the witness there {wit_leaf[worst]:.3e}); witness, CPU vs CPU "
+        f"with the clips moved by 1e-5: the whole {wit_global:.3e}, worst leaf {worst_wit} "
+        f"{wit_leaf[worst_wit]:.3e} (the card there {card_leaf[worst_wit]:.3e}); parameters "
+        f"after the update max |d| {p_err:.3e} (limit 2 lr = {2 * TRAIN_LR:.0e}: Adam's first "
+        f"step moves each element by lr times the sign of its gradient, and a near-zero "
+        f"gradient's sign is rounding), {100 * p_off:.3f}% of {total} elements off by more than "
+        f"1e-6 (limit 1%); launches { {k: n for k, n in counts.items() if n} }  [{card}]")
+    must = ("attention", "fused_group_norm") + (FUSED_ONLY if fused else ())
+    if not (loss_rel <= 1e-4 and grad_worst <= TINY_GRAD_LEAF and grad_global <= TINY_GRAD_WHOLE
+            and p_err <= 2 * TRAIN_LR + 1e-6 and p_off <= 0.01):
+        raise AssertionError("phase 8 (a): card and CPU disagree")
+    for name in must:
+        if counts[name] == 0:
+            raise AssertionError(f"phase 8 (a): kernel {name} was never launched")
+    return {"loss_rel": loss_rel, "grad_global": grad_global, "grad_worst_leaf": grad_worst,
+            "witness_global": wit_global, "witness_worst_leaf": wit_leaf[worst_wit],
+            "param_err": p_err}
+
+
+def train_clips(root: str, seed: int, clips: int = 2, frames: int = 8, size: int = 544) -> None:
+    """``clips`` folders of ``frames`` seeded size x size PNG frames, written
+    through the numpy PNG codec (the card's machine may lack PIL)."""
+    from mgldvsr_tpu_torch.io.frames import encode_png
+
+    for c in range(clips):
+        os.makedirs(os.path.join(root, f"{100 + c:03d}"))
+        clip = lq_clip(seed + 30 + c, size, frames=frames)
+        for i, frame in enumerate(clip):
+            with open(os.path.join(root, f"{100 + c:03d}", f"{i:08d}.png"), "wb") as f:
+                f.write(encode_png((frame * 255).round().astype(np.uint8)))
+
+
+def full_train_pipeline(seed: int):
+    from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline
+
+    return jittered(MGLDVSRPipeline(full_config(2)), seed)
+
+
+def train_args(data_root: str, logdir: str, steps: int, *extra):
+    from mgldvsr_tpu_torch.cli import train as cli
+
+    return cli.parse_args(["--stage", "1", "--data-root", data_root, "--logdir", logdir,
+                           "--max-steps", str(steps), "--grad-accum", "4", "--ckpt-every", "4",
+                           "--log-every", "1", "--image-every", "1000000", "--no-tb",
+                           "--lr", str(TRAIN_LR), *extra])
+
+
+def train_full(seed: int, card: str, data_root: str, logdir: str, steps: int, fused: bool):
+    """(b)/(c) the shipped widths through the command line's loop: bf16
+    towers, float32 masters, seeded and jittered weights, the two-stage
+    recipe (GT 512, LQ 128, 5 frames), grad_accum 4. Checks every
+    micro-step; returns (final state's copies, per-step records)."""
+    import torch
+
+    from mgldvsr_tpu_torch.cli import train as cli
+    from mgldvsr_tpu_torch.ops import kernels
+    from mgldvsr_tpu_torch.train.trainer import partition_params
+
+    phase = "(c)" if fused else "(b)"
+    pipe = full_train_pipeline(seed)
+    train, frozen = partition_params(pipe)
+    before = {k: p.detach().clone() for k, p in train.items()}
+    frozen_before = {k: p.detach().clone() for k, p in frozen.items()}
+    records = []
+
+    def on_step(step, state, metrics):
+        t_in = time.perf_counter()  # the loop's own work for this step is done
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        changed = any(not torch.equal(state.trainable[k], before[k]) for k in before)
+        if changed:
+            for k in before:
+                before[k].copy_(state.trainable[k])
+        records.append({"step": step, "loss": metrics["loss"], "s": metrics["step_s"],
+                        "wait_s": metrics["data_wait_s"], "changed": changed,
+                        "counts": counts, "t_in": t_in, "t_out": time.perf_counter()})
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with fused_switch(fused):
+        state = cli.stage1(train_args(data_root, logdir, steps), pipe=pipe, on_step=on_step)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    accum = 4
+    every = TRAIN_EVERY_STEP_FUSED if fused else TRAIN_EVERY_STEP
+    for r in records:
+        if not np.isfinite(r["loss"]):
+            raise AssertionError(f"phase 8 {phase}: loss {r['loss']} at step {r['step']}")
+        if r["changed"] != (r["step"] % accum == 0):
+            raise AssertionError(f"phase 8 {phase}: trainables changed={r['changed']} at "
+                                 f"micro-step {r['step']} (grad_accum {accum})")
+        for name in every:
+            if r["counts"][name] == 0:
+                raise AssertionError(f"phase 8 {phase}: kernel {name} not launched in "
+                                     f"micro-step {r['step']}")
+        if r["counts"]["attention_wgmma"] != r["counts"]["attention"]:
+            raise AssertionError(f"phase 8 {phase}: attention {r['counts']['attention']} "
+                                 f"launches, {r['counts']['attention_wgmma']} on wgmma")
+        if not fused and any(r["counts"][name] for name in FUSED_ONLY):
+            raise AssertionError(f"phase 8 {phase}: {FUSED_ONLY} launched with the switch off")
+    for k, p in frozen.items():
+        if not torch.equal(p, frozen_before[k].to(p.dtype)):
+            raise AssertionError(f"phase 8 {phase}: frozen {k} changed")
+    if all(torch.equal(state.ema[k], v) for k, v in state.trainable.items()):
+        raise AssertionError(f"phase 8 {phase}: EMA equals the trainables")
+    times = [r["s"] for r in records[1:]]
+    waits = [r["wait_s"] for r in records[1:]]
+    # the loop's wall over steps 2..N: from the end of step 1 to the end of
+    # step N, less the time this script's checks took between the steps
+    # (data waits, checkpoint saves and logging stay in)
+    spans = [b["t_in"] - a["t_out"] for a, b in zip(records, records[1:])]
+    window = sum(spans)
+    clips_s = len(times) / window
+    # what the loop does besides the wait and the step: logging, saves
+    other = [span - r["s"] - r["wait_s"] for span, r in zip(spans, records[1:])]
+    per_step = {name: records[-1]["counts"][name] for name in KERNELS}
+    n_train = sum(v.numel() for v in state.trainable.values())
+    log(f"[phase8] {phase} full width, fused conv {'on' if fused else 'off'}, {steps} "
+        f"micro-steps at grad_accum {accum}: losses {[round(r['loss'], 4) for r in records]}; "
+        f"updates at {[r['step'] for r in records if r['changed']]}; the loop's wall over steps "
+        f"2-{steps} {window:.4f} s = {clips_s:.4f} clips/s (checkpoint saves at steps "
+        f"{[r['step'] for r in records[1:] if r['step'] % 4 == 0]} included); micro-step s "
+        f"(step_s) {[round(t, 4) for t in times]}, median {np.median(times):.4f}; data wait "
+        f"before each step s {[round(w, 4) for w in waits]}, sum {sum(waits):.4f}; the rest "
+        f"of each step's span (logging, checkpoint saves) s {[round(o, 4) for o in other]}; "
+        f"peak device "
+        f"memory {peak / 2**30:.2f} GiB; {n_train / 1e6:.1f}M trainables; launches a micro-step "
+        f"{ {k: n for k, n in per_step.items() if n} }  [{card}]")
+    final = {part: {k: v.detach().clone() for k, v in getattr(state, part).items()}
+             for part in ("trainable", "ema")}
+    final.update({part: {k: v.clone() for k, v in state.opt_state[part].items()}
+                  for part in ("mu", "nu", "acc")})
+    del state, pipe, train, frozen, before, frozen_before
+    torch.cuda.empty_cache()
+    return final, {"median_s": float(np.median(times)), "min_s": float(min(times)),
+                   "max_s": float(max(times)), "window_s": window, "clips_per_s": clips_s,
+                   "wait_s": sum(waits), "other_s": other, "peak_bytes": peak, "launches": per_step}
+
+
+def train_resume(seed: int, card: str, data_root: str, logdir: str, straight: dict) -> None:
+    """(b) continued: a fresh pipeline from the same seed resumes the step-4
+    checkpoint and replays steps 5-8; the result against the straight run."""
+    import shutil
+
+    import torch
+
+    from mgldvsr_tpu_torch.cli import train as cli
+
+    resumed_dir = logdir + "_resumed"
+    os.makedirs(os.path.join(resumed_dir, "ckpt"))
+    shutil.copytree(os.path.join(logdir, "ckpt", "4"), os.path.join(resumed_dir, "ckpt", "4"))
+    pipe = full_train_pipeline(seed)
+    state = cli.stage1(train_args(data_root, resumed_dir, 8, "--resume"), pipe=pipe)
+    worst, identical, total = {}, 0, 0
+    for part in ("trainable", "ema", "mu", "nu", "acc"):
+        got = getattr(state, part) if part in ("trainable", "ema") else state.opt_state[part]
+        for k, want in straight[part].items():
+            total += 1
+            identical += torch.equal(got[k], want)
+            worst[part] = max(worst.get(part, 0.0), max_err(got[k], want))
+    log(f"[phase8] (b) resume at step 4, replay 5-8 against the straight run: {identical} of "
+        f"{total} tensors bit for bit (limit: all of them: masters, EMA, both Adam moments and "
+        f"the accumulator); max |d| { {k: f'{v:.3e}' for k, v in worst.items()} }  [{card}]")
+    if (step := state.step) != 8:
+        raise AssertionError(f"phase 8 (b): resumed run ended at step {step}")
+    if identical != total:
+        raise AssertionError(f"phase 8 (b): the resumed run differs in {total - identical} of "
+                             f"{total} tensors: {worst}")
+    del state, pipe
+    torch.cuda.empty_cache()
+
+
+def train_profile(seed: int, card: str, data_root: str, logdir: str) -> dict:
+    """Where a full-width micro-step's time goes (default configuration).
+    torch.profiler traces of the CLI loop's own micro-steps, data workers
+    running, no checkpoint save: device time a micro-step and the device's
+    idle share of the traced wall (a trace of kernels only; the profiler
+    still adds host time to every launch, so the share is an upper bound),
+    and the share of the device time in the backwards that replay a
+    kernel's plain version. Then, on the same pipeline and clips loaded in advance,
+    micro-steps alone, with the data path working beside them in worker
+    processes (the CLI's) and in threads of this process, and alone again:
+    what each costs the launching thread. And the data path's host seconds
+    a clip on one thread."""
+    import itertools
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mgldvsr_tpu_torch.cli import train as cli
+    from mgldvsr_tpu_torch.data.datasets import RealVSRRecurrentDataset, prefetch_iterator
+    from mgldvsr_tpu_torch.infer.pipeline import upscale_frames
+    from mgldvsr_tpu_torch.train.trainer import Stage1Config, Stage1Trainer
+
+    pipe = full_train_pipeline(seed)
+    # two traces of the loop, four micro-steps each (one update in four, as
+    # at grad_accum 4): kernels only over steps 2-5, for the idle share (the
+    # least overhead a launch), and kernels with host ops over steps 6-9, to
+    # put the kernels under their autograd nodes
+    traces = {1: ("idle", profile(activities=[ProfilerActivity.CUDA])),
+              5: ("nodes", profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))}
+    marks = {}
+
+    def on_step(step, state, metrics):
+        # the window runs from a started trace to the last step's end; the
+        # profiler's own start and stop stay outside it
+        if step in (1, 5, 9):
+            torch.cuda.synchronize()
+            if step - 4 in traces:
+                name, prof = traces[step - 4]
+                marks[name] = (time.perf_counter() - marks[name]) * 1000 / 4
+                prof.stop()
+            if step in traces:
+                name, prof = traces[step]
+                prof.start()
+                marks[name] = time.perf_counter()
+
+    cli.stage1(train_args(data_root, logdir, 9, "--ckpt-every", "1000000"), pipe=pipe,
+               on_step=on_step)
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def device_ms(prof):
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == cuda) / 1000 / 4
+
+    wall, device = marks["idle"], device_ms(traces[1][1])
+    nodes = traces[5][1]
+    by_node: dict = {}
+    for e in nodes.events():
+        if e.name.startswith("autograd::engine::evaluate_function:"):
+            node = e.name.split(":")[-1].strip()
+            if node in PLAIN_BACKWARDS:
+                by_node[node] = by_node.get(node, 0.0) + e.device_time_total / 1000 / 4
+    plain, device_nodes = sum(by_node.values()), device_ms(nodes)
+    if device <= 0 or device_nodes <= 0:
+        raise AssertionError("phase 8: the profiler saw no device time")
+
+    deg1, deg2 = cli.default_degradation_cfg()
+    ds = RealVSRRecurrentDataset(data_root, gt_size=512, degradation_1=deg1,
+                                 degradation_2=deg2, seed=seed)
+    t0 = time.perf_counter()
+    items = [ds[i % len(ds)] for i in range(4)]
+    host_s = (time.perf_counter() - t0) / len(items)
+    trainer = Stage1Trainer(pipe, Stage1Config(grad_accum=4, learning_rate=TRAIN_LR))
+    state = trainer.init_state()
+    clips = [(upscale_frames(torch.from_numpy(it["lqs"]).cuda(), 4),
+              torch.from_numpy(it["gts"]).cuda()) for it in items]
+
+    def steps(n):
+        """``n`` micro-steps timed as the loop's ``step_s`` (to the metrics
+        on the host)."""
+        nonlocal state
+        out = []
+        for i in range(n):
+            lq, gt = clips[i % len(clips)]
+            t = time.perf_counter()
+            state, metrics = trainer.train_step(
+                state, lq, gt, torch.Generator(device="cuda").manual_seed(seed + i))
+            metrics = {k: float(v) for k, v in metrics.items()}
+            out.append(time.perf_counter() - t)
+        return out
+
+    def beside(work):
+        """Micro-steps while ``work(stop)`` runs in a background thread."""
+        stop = threading.Event()
+        worker = threading.Thread(target=work, args=(stop,))
+        worker.start()
+        time.sleep(2.0)  # the data path at work
+        out = steps(4)
+        stop.set()
+        worker.join()
+        return out
+
+    def in_processes(stop):
+        """The CLI's data path: prefetch_iterator's worker processes."""
+        for _ in prefetch_iterator(ds, itertools.cycle(range(len(ds)))):
+            if stop.is_set():
+                break
+
+    def in_threads(stop):
+        """The same degradations in four threads of this process."""
+        def loop(k):
+            while not stop.is_set():
+                ds[k % len(ds)]
+
+        pool = [threading.Thread(target=loop, args=(k,)) for k in range(4)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join()
+
+    steps(1)  # warm
+    alone = steps(4)
+    with_procs = beside(in_processes)
+    with_threads = beside(in_threads)
+    alone += steps(4)
+    med = {"alone": float(np.median(alone)), "processes": float(np.median(with_procs)),
+           "threads": float(np.median(with_threads))}
+    log(f"[phase8] the CLI loop under torch.profiler, data workers running: micro-steps 2-5 "
+        f"traced for kernels only, {wall:.2f} ms of wall a micro-step, {device:.2f} ms of device "
+        f"time, idle share {1 - device / wall:.4f}; micro-steps 6-9 traced with host ops too "
+        f"({marks['nodes']:.2f} ms of wall a micro-step), {device_nodes:.2f} ms of device time, "
+        f"of it the plain backwards {plain:.2f} ms = {100 * plain / device_nodes:.1f}% "
+        f"({ {k: round(v, 2) for k, v in by_node.items()} }). Micro-steps on clips loaded in "
+        f"advance, s: alone {[round(t, 4) for t in alone]} (median {med['alone']:.4f}); with "
+        f"the data path working beside them in prefetch_iterator's four worker processes "
+        f"{[round(t, 4) for t in with_procs]} (median {med['processes']:.4f}), in four "
+        f"threads of this process {[round(t, 4) for t in with_threads]} (median "
+        f"{med['threads']:.4f}). Host data path {host_s:.3f} s a clip (one thread, GT 512 "
+        f"from 544x544 PNGs, two stages)  [{card}]")
+    del state, trainer, pipe, clips
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall, "device_ms": device, "idle_share": 1 - device / wall,
+            "plain_backward_ms": plain, "plain_backward_share": plain / device_nodes,
+            "by_node_ms": by_node, "step_s": med, "host_s_per_clip": host_s}
+
+
+def train_cli_tiny(card: str, tmp: str) -> None:
+    """(d) ``--stage 1 --tiny --max-steps 4`` on the card, then the inference
+    command line restores a clip with the parameters it exported."""
+    from mgldvsr_tpu_torch.cli import infer as infer_cli
+    from mgldvsr_tpu_torch.cli import train as cli
+    from mgldvsr_tpu_torch.io.frames import read_frame
+
+    root = os.path.join(tmp, "tiny_gt")
+    train_clips(root, 40, clips=2, frames=6, size=48)
+    logdir = os.path.join(tmp, "tiny_run")
+    t0 = time.perf_counter()
+    cli.main(["--stage", "1", "--data-root", root, "--tiny", "--max-steps", "4",
+              "--grad-accum", "2", "--ckpt-every", "2", "--log-every", "1", "--logdir", logdir])
+    wall = time.perf_counter() - t0
+    records = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
+    export = os.path.join(logdir, "export")
+    out = os.path.join(tmp, "tiny_out")
+    infer_cli.main(["--seqs-path", root, "--out-path", out, "--preset", "tiny", "--ddpm-steps",
+                    "2", "--torch-ckpt", os.path.join(export, "mgld_ema.pt"), "--raft-ckpt",
+                    os.path.join(export, "raft.pt"), "--num-shards", "2"])
+    frames = sorted(os.listdir(os.path.join(out, "100")))
+    shapes = {read_frame(os.path.join(out, "100", n)).shape for n in frames}
+    log(f"[phase8] (d) training CLI --tiny on the card: steps {[r['step'] for r in records]}, "
+        f"losses {[round(r['loss'], 4) for r in records]}, {wall:.2f} s; checkpoints "
+        f"{sorted(os.listdir(os.path.join(logdir, 'ckpt')))}; the inference CLI restored "
+        f"{len(frames)} frames {sorted(shapes)} with the exported parameters  [{card}]")
+    if [r["step"] for r in records] != [1, 2, 3, 4] or not all(
+            np.isfinite(r["loss"]) for r in records):
+        raise AssertionError(f"phase 8 (d): metrics {records}")
+    if frames != [f"{i:08d}.png" for i in range(6)] or shapes != {(192, 192, 3)}:
+        raise AssertionError(f"phase 8 (d): restored {frames} {shapes}")
+
+
+def phase8(seed: int, card: str) -> dict:
+    import shutil
+    import tempfile
+
+    out = {"tiny": {f: phase8_tiny(seed, card, f) for f in (False, True)}}
+    with tempfile.TemporaryDirectory() as tmp:
+        data_root = os.path.join(tmp, "gt")
+        train_clips(data_root, seed)
+        straight, out["default"] = train_full(seed, card, data_root, os.path.join(tmp, "b"), 8,
+                                              fused=False)
+        train_resume(seed, card, data_root, os.path.join(tmp, "b"), straight)
+        del straight
+        shutil.rmtree(os.path.join(tmp, "b"))
+        shutil.rmtree(os.path.join(tmp, "b_resumed"))
+        _, out["fused"] = train_full(seed, card, data_root, os.path.join(tmp, "c"), 4,
+                                     fused=True)
+        out["profile"] = train_profile(seed, card, data_root, os.path.join(tmp, "p"))
+        train_cli_tiny(card, tmp)
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
                     help="respaced DDPM steps of phases 4, 5 and 6 (a)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only-train", action="store_true",
+                    help="build the kernels and run phase 8 alone (no result line)")
     args = ap.parse_args()
 
     import torch
@@ -1537,6 +2036,9 @@ def main() -> int:
     so, secs = _build.build()
     _build.library()
     log(f"[phase1] built {so.name} in {secs:.2f} s (nvcc, sm_90a)")
+    if args.only_train:
+        log(json.dumps(phase8(args.seed, card), default=str))
+        return 0
 
     results = phase2(card)
     for fused in (False, True):
@@ -1551,7 +2053,9 @@ def main() -> int:
         f"(bf16 rounds at other places in the two configurations; no limit)")
     del out4, out5
     tile = phase6(pipe, args.seed, args.steps, card)
+    del pipe, frames
     phase7(card)
+    train = phase8(args.seed, card)
 
     # launches: the count on the path that runs the kernel (the fused
     # configuration for the fused conv, the default one for the others)
@@ -1561,6 +2065,8 @@ def main() -> int:
                 "launches_latent": counts_latent[name],
                 "launches_tile": tile["auto"]["counts"][name],
                 "launches_tile_reference": tile["reference"]["counts"][name],
+                "launches_train": train["default"]["launches"][name],
+                "launches_train_fused": train["fused"]["launches"][name],
                 **results[name]}
                for name, (route, src, rep) in KERNELS.items()]
     for entry in kernels:

@@ -34,6 +34,29 @@ def segment_seed(seed: int, clip: str, name: str) -> int:
     return ((seed & 0xFFFFFFFF) << 32) | zlib.crc32(f"{clip}/{name}".encode())
 
 
+def tiny_pipeline_config(dtype, num_frames: int = 5, **knobs):
+    """Smoke widths: the same graph as the shipped one, about ten times
+    narrower (the inference and training command lines' tiny preset)."""
+    from mgldvsr_tpu_torch.flow.raft import RAFTConfig
+    from mgldvsr_tpu_torch.infer.pipeline import PipelineConfig
+    from mgldvsr_tpu_torch.models.cliptext import CLIPTextConfig
+    from mgldvsr_tpu_torch.models.unet import StructCondConfig, UNetConfig
+    from mgldvsr_tpu_torch.models.vae import VAEConfig
+
+    return PipelineConfig(
+        **knobs, num_frames=num_frames,
+        unet=UNetConfig(model_channels=32, num_head_channels=16, context_dim=32,
+                        semb_channels=32, channel_mult=(1, 2), attention_resolutions=(1, 2),
+                        num_frames=num_frames, dtype=dtype),
+        structcond=StructCondConfig(model_channels=32, out_channels=32, channel_mult=(1, 1),
+                                    attention_resolutions=(1, 2), num_frames=num_frames,
+                                    dtype=dtype),
+        vae=VAEConfig(ch=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1, num_frames=num_frames,
+                      enable_fusion=True, num_fuse_block=1, dtype=dtype),
+        clip=CLIPTextConfig(width=32, heads=2, layers=2, dtype=dtype),
+        raft=RAFTConfig(iters=2))
+
+
 def build_pipeline(args):
     import torch
 
@@ -47,18 +70,7 @@ def build_pipeline(args):
     knobs = dict(ddpm_steps=args.ddpm_steps, guidance_scale=args.guidance, dec_w=args.dec_w,
                  colorfix=args.colorfix)
     if args.preset == "tiny":
-        # smoke widths: the same graph, about ten times narrower
-        cfg = PipelineConfig(
-            **knobs,
-            unet=UNetConfig(model_channels=32, num_head_channels=16, context_dim=32,
-                            semb_channels=32, channel_mult=(1, 2), attention_resolutions=(1, 2),
-                            dtype=dt),
-            structcond=StructCondConfig(model_channels=32, out_channels=32, channel_mult=(1, 1),
-                                        attention_resolutions=(1, 2), dtype=dt),
-            vae=VAEConfig(ch=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1, num_frames=5,
-                          enable_fusion=True, num_fuse_block=1, dtype=dt),
-            clip=CLIPTextConfig(width=32, heads=2, layers=2, dtype=dt),
-            raft=RAFTConfig(iters=2))
+        cfg = tiny_pipeline_config(dt, **knobs)
     elif args.model_cfg:
         from mgldvsr_tpu_torch.utils.config import pipeline_config_from_dict
 

@@ -1,0 +1,354 @@
+"""Training command line of the PyTorch port, the counterpart of
+``mgldvsr_tpu/cli/train.py`` (the reference's Lightning ``main.py``):
+
+  python -m mgldvsr_tpu_torch.cli.train --stage 1 --data-root REDS_GT \\
+      [--config cfg.yaml ...] [--set key.path=value ...] [--logdir runs/exp] \\
+      [--max-steps N] [--resume] [--tiny] [--torch-ckpt ckpt] [--device cuda|cpu]
+
+Stage 1 finetunes the denoiser's SPADE and temporal-conv weights and the
+struct-cond encoder on clips degraded on the fly (the shipped two-stage
+RealBasicVSR recipe, or the config's ``data:`` section). The YAML sections
+``train:`` (flag defaults), ``data:`` (dataset keywords and the two
+degradation stages) and ``model:`` (the pipeline's widths and dtypes) read
+as in the JAX command line. A step is one micro-step: one clip, one
+gradient, an optimiser update every ``--grad-accum`` steps.
+
+Writes ``metrics.jsonl``, TensorBoard events under ``tb/``, image grids
+under ``images/``, checkpoints under ``ckpt/`` (every ``--ckpt-every``
+steps, on SIGUSR1, and on Ctrl-C) and, at the end, the EMA parameters as an
+MGLD-VSR checkpoint (``export/mgld_ema.pt``, plus ``export/raft.pt``) that
+``mgldvsr_tpu_torch.cli.infer --torch-ckpt ... --raft-ckpt ...`` loads.
+``--resume`` continues from the latest checkpoint: the optimiser, EMA,
+accumulator and step, the data stream at the next clip, and the draws (each
+step's generator is seeded from ``--seed`` and the step).
+
+Not offered (each a queued ROADMAP item): ``--stage 2`` (item 10);
+``--mesh``, ``--multihost``, ``--tensor-parallel``, ``--zero1`` (item 11,
+multi-GPU); ``--params`` (an orbax directory: the card's machine has neither
+JAX nor orbax; give ``--torch-ckpt``); ``--split-step`` (a TPU compile
+workaround, not ported).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+
+from mgldvsr_tpu_torch.cli.infer import tiny_pipeline_config
+
+REFUSED = {
+    "--params": "reads an orbax directory, which needs JAX; give --torch-ckpt (ROADMAP item 11)",
+    "--mesh": "multi-GPU training is ROADMAP item 11",
+    "--multihost": "multi-GPU training is ROADMAP item 11",
+    "--tensor-parallel": "multi-GPU training is ROADMAP item 11",
+    "--zero1": "multi-GPU training is ROADMAP item 11",
+    "--split-step": "a TPU compile workaround for stage 2, not ported (ROADMAP section 1)",
+    "--lq-root": "stage-2 data; stage 2 is ROADMAP item 10",
+    "--latent-root": "stage-2 data; stage 2 is ROADMAP item 10",
+    "--platform": "the port picks its device with --device",
+}
+
+
+def default_degradation_cfg():
+    """The shipped stage-1 degradation recipe (the JAX command line's)."""
+    blur = dict(
+        kernel_size=[7, 9, 11, 13, 15, 17, 19, 21],
+        kernel_list=["iso", "aniso", "generalized_iso", "generalized_aniso",
+                     "plateau_iso", "plateau_aniso", "sinc"],
+        kernel_prob=[0.405, 0.225, 0.108, 0.027, 0.108, 0.027, 0.1],
+        sigma_x=[0.2, 3], sigma_y=[0.2, 3],
+        rotate_angle=[-3.1416, 3.1416],
+        beta_gaussian=[0.5, 4], beta_plateau=[1, 2],
+        sigma_x_step=0.02, sigma_y_step=0.02, rotate_angle_step=0.31416,
+        beta_gaussian_step=0.05, beta_plateau_step=0.1, omega_step=0.0628,
+    )
+    mpeg = dict(params=dict(codec=["libx264", "h264", "mpeg4"],
+                            codec_prob=[0.3333, 0.3333, 0.3334], bitrate=[1e4, 1e5]))
+    deg1 = dict(
+        random_blur=dict(params=blur),
+        random_resize=dict(params=dict(
+            resize_mode_prob=[0.2, 0.7, 0.1], resize_scale=[0.15, 1.5],
+            resize_opt=["bilinear", "area", "bicubic"],
+            resize_prob=[0.3333, 0.3333, 0.3334], resize_step=0.015,
+            is_size_even=True)),
+        random_noise=dict(params=dict(
+            noise_type=["gaussian", "poisson"], noise_prob=[0.5, 0.5],
+            gaussian_sigma=[1, 30], gaussian_gray_noise_prob=0.4,
+            poisson_scale=[0.05, 3], poisson_gray_noise_prob=0.4,
+            gaussian_sigma_step=0.1, poisson_scale_step=0.005)),
+        random_jpeg=dict(params=dict(quality=[30, 95], quality_step=3)),
+        random_mpeg=mpeg,
+    )
+    blur2 = dict(blur, prob=0.8, sigma_x=[0.2, 1.5], sigma_y=[0.2, 1.5])
+    deg2 = dict(
+        random_blur=dict(params=blur2),
+        random_resize=dict(params=dict(
+            resize_mode_prob=[0.3, 0.4, 0.3], resize_scale=[0.3, 1.2],
+            resize_opt=["bilinear", "area", "bicubic"],
+            resize_prob=[0.3333, 0.3333, 0.3334], resize_step=0.03,
+            is_size_even=True)),
+        random_noise=dict(params=dict(
+            noise_type=["gaussian", "poisson"], noise_prob=[0.5, 0.5],
+            gaussian_sigma=[1, 25], gaussian_gray_noise_prob=0.4,
+            poisson_scale=[0.05, 2.5], poisson_gray_noise_prob=0.4,
+            gaussian_sigma_step=0.1, poisson_scale_step=0.005)),
+        random_jpeg=dict(params=dict(quality=[30, 95], quality_step=3)),
+        random_mpeg=mpeg,
+        resize_final=dict(params=dict(
+            target_size=[128, 128], resize_opt=["bilinear", "area", "bicubic"],
+            resize_prob=[0.3333, 0.3333, 0.3334])),
+        blur_final=dict(params=dict(
+            prob=0.8, kernel_size=[7, 9, 11, 13, 15, 17, 19, 21],
+            kernel_list=["sinc"], kernel_prob=[1.0],
+            omega=[1.0472, 3.1416], omega_step=0.0628)),
+    )
+    return deg1, deg2
+
+
+def parse_args(argv=None):
+    # config files and KEY.PATH=VALUE overrides: their train: values become
+    # argparse defaults, explicit flags win
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--config", action="append", default=[],
+                     help="YAML config(s), merged left to right (see configs/)")
+    pre.add_argument("--set", dest="overrides", action="append", default=[],
+                     metavar="KEY.PATH=VALUE", help="dotlist config overrides")
+    pre_args, _ = pre.parse_known_args(argv)
+    cfg = {}
+    if pre_args.config or pre_args.overrides:
+        from mgldvsr_tpu_torch.utils.config import load_config
+
+        cfg = load_config(pre_args.config, pre_args.overrides)
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0], parents=[pre])
+    ap.add_argument("--stage", type=int, choices=[1, 2], default=1)
+    ap.add_argument("--data-root", required=True)
+    ap.add_argument("--logdir", default="runs/default")
+    ap.add_argument("--max-steps", type=int, default=800_000)
+    ap.add_argument("--gt-size", type=int, default=512)
+    ap.add_argument("--num-frames", type=int, default=5)
+    ap.add_argument("--lr", type=float, default=5e-5)
+    ap.add_argument("--grad-accum", type=int, default=4)
+    ap.add_argument("--frozen-dtype", default=None, choices=[None, "bfloat16"],
+                    help="accepted for the JAX command line's configs: the port always holds "
+                         "the frozen towers in their compute dtype, which is what this flag "
+                         "does there (bit-identical compute)")
+    ap.add_argument("--mu-dtype", default=None, choices=[None, "bfloat16"],
+                    help="Adam first-moment dtype (bfloat16 halves its bytes; the variance "
+                         "stays float32)")
+    ap.add_argument("--ckpt-every", type=int, default=3000)
+    ap.add_argument("--log-every", type=int, default=100)
+    ap.add_argument("--image-every", type=int, default=750)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--seed", type=int, default=23)
+    ap.add_argument("--tiny", action="store_true", help="tiny model widths (smoke runs)")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--torch-ckpt", help="initial MGLD-VSR torch checkpoint")
+    ap.add_argument("--vqgan-ckpt", help="video VAE torch checkpoint (no key prefix)")
+    ap.add_argument("--raft-ckpt", help="raft-things torch checkpoint")
+    ap.add_argument("--no-tb", action="store_true", help="no TensorBoard event files")
+    ap.add_argument("--sample-rows", action="store_true",
+                    help="log sampler rows (reconstruction / samples / denoise_row) at every "
+                         "image-log step")
+    for flag in REFUSED:
+        ap.add_argument(flag, dest="refused_" + flag[2:].replace("-", "_"), nargs="?",
+                        const=True, default=None, help=argparse.SUPPRESS)
+    if cfg.get("train"):
+        known = {a.dest for a in ap._actions}
+        unknown = set(cfg["train"]) - known
+        if unknown:
+            raise KeyError(f"config train: unknown keys {sorted(unknown)}")
+        ap.set_defaults(**cfg["train"])
+    args = ap.parse_args(argv)
+    for flag in REFUSED:
+        if getattr(args, "refused_" + flag[2:].replace("-", "_")) is not None:
+            ap.error(f"{flag} is not offered by the port: {REFUSED[flag]}")
+    if args.stage != 1:
+        ap.error("--stage 2 is not ported yet (ROADMAP item 10)")
+    args.cfg = cfg
+    return args
+
+
+def tower_dtype(device: str):
+    """The towers' compute dtype where the config names none: bfloat16 on
+    the card, float32 on the CPU."""
+    import torch
+
+    return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+
+
+def build_pipeline(args):
+    """The pipeline with float32 weights: ``--torch-ckpt`` (with
+    ``--vqgan-ckpt`` / ``--raft-ckpt``) or seeded ones. The trainer casts
+    the towers to their compute dtypes."""
+    from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline, PipelineConfig
+    from mgldvsr_tpu_torch.utils.config import pipeline_config_from_dict
+
+    dt = tower_dtype(args.device)
+    model_cfg = args.cfg.get("model") or {}
+    if args.tiny:
+        cfg = tiny_pipeline_config(dt, num_frames=args.num_frames)
+    else:
+        cfg = pipeline_config_from_dict(model_cfg) if model_cfg else PipelineConfig()
+        # a tower's dtype from the config wins; otherwise the device's
+        for name in ("unet", "structcond", "vae", "clip"):
+            if "dtype" not in (model_cfg.get(name) or {}):
+                cfg = dataclasses.replace(
+                    cfg, **{name: dataclasses.replace(getattr(cfg, name), dtype=dt)})
+        cfg = dataclasses.replace(cfg, num_frames=args.num_frames)
+    pipe = MGLDVSRPipeline(cfg, device=args.device)
+    if args.torch_ckpt:
+        from mgldvsr_tpu_torch.io.torch_ckpt import load_pipeline_checkpoints
+
+        load_pipeline_checkpoints(pipe, args.torch_ckpt, args.vqgan_ckpt, args.raft_ckpt)
+    else:
+        from mgldvsr_tpu_torch.io.init_weights import init_pipeline_weights
+
+        print("no --torch-ckpt: seeded random weights (the temporal convs get no gradient "
+              "while their blend scalars are zero)", flush=True)
+        init_pipeline_weights(pipe, args.seed)
+    return pipe
+
+
+def stage1(args, pipe=None, on_step=None):
+    """The stage-1 loop; returns the final training state. ``pipe`` (built
+    with float32 weights) replaces :func:`build_pipeline`; ``on_step(step,
+    state, metrics)`` runs after every micro-step."""
+    import torch
+
+    from mgldvsr_tpu_torch.data.datasets import (
+        RealVSRRecurrentDataset,
+        ShardedSampler,
+        prefetch_iterator,
+    )
+    from mgldvsr_tpu_torch.infer.pipeline import upscale_frames
+    from mgldvsr_tpu_torch.io.checkpoint import (
+        CheckpointManager,
+        install_signal_save,
+        save_params,
+    )
+    from mgldvsr_tpu_torch.io.torch_ckpt import mgld_state_dict
+    from mgldvsr_tpu_torch.train.trainer import Stage1Config, Stage1Trainer, with_ema
+    from mgldvsr_tpu_torch.utils.logging import ImageLogger, MessageLogger, env_info
+
+    print(env_info(), flush=True)
+    os.makedirs(args.logdir, exist_ok=True)
+    tb = None
+    if not args.no_tb:
+        from mgldvsr_tpu_torch.utils.tb import TBEventWriter
+
+        tb = TBEventWriter(os.path.join(args.logdir, "tb"))
+    msg = MessageLogger(args.max_steps, os.path.join(args.logdir, "metrics.jsonl"),
+                        args.log_every, tb=tb)
+    imglog = ImageLogger(args.logdir, args.image_every, tb=tb)
+    ckpt = CheckpointManager(os.path.join(args.logdir, "ckpt"),
+                             save_interval_steps=args.ckpt_every)
+
+    if pipe is None:
+        pipe = build_pipeline(args)
+    dev = pipe.device
+    gt_size = 32 if args.tiny else args.gt_size
+
+    deg1, deg2 = default_degradation_cfg()
+    data_cfg = dict(args.cfg.get("data", {}))
+    deg1 = data_cfg.pop("degradation_1", deg1)
+    deg2 = data_cfg.pop("degradation_2", deg2)
+    if args.tiny:
+        # one stage and a fixed LQ size, as the JAX command line's --tiny
+        deg1 = dict(deg1, resize_final=dict(params=dict(
+            target_size=[gt_size // 4, gt_size // 4], resize_opt=["bicubic"],
+            resize_prob=[1.0])))
+        deg1.pop("random_mpeg", None)
+        deg2 = None
+    ds = RealVSRRecurrentDataset(args.data_root, num_frame=args.num_frames, gt_size=gt_size,
+                                 degradation_1=deg1, degradation_2=deg2, seed=args.seed,
+                                 **data_cfg)
+    trainer = Stage1Trainer(pipe, Stage1Config(learning_rate=args.lr,
+                                               grad_accum=args.grad_accum,
+                                               adam_mu_dtype=args.mu_dtype,
+                                               frozen_dtype=args.frozen_dtype))
+    state = trainer.init_state()
+    if args.resume and ckpt.latest_step() is not None:
+        state = ckpt.restore(template=state)
+        trainer.load_towers(state)
+        print(f"resumed at step {state.step}", flush=True)
+
+    in_step = [False]
+    install_signal_save(lambda: None if in_step[0] else (state.step, state), ckpt)
+
+    sampler = ShardedSampler(len(ds), seed=args.seed)
+    per_epoch = len(sampler.epoch(0))
+    if per_epoch == 0:
+        raise ValueError(f"no training clips under {args.data_root}")
+    step = state.step
+
+    def stream(start):
+        """Clip indices epoch after epoch from step ``start`` on (a resume
+        continues the data stream), so the prefetch runs ahead across epoch
+        boundaries."""
+        epoch, skip = divmod(start, per_epoch)
+        while True:
+            yield from sampler.epoch(epoch)[skip:]
+            epoch, skip = epoch + 1, 0
+
+    items = prefetch_iterator(ds, stream(step))
+    try:
+        waited = time.perf_counter()
+        while step < args.max_steps:
+            item = next(items)
+            t0 = time.perf_counter()
+            lq = upscale_frames(torch.from_numpy(item["lqs"]).to(dev), pipe.cfg.sf)
+            gt = torch.from_numpy(item["gts"]).to(dev)
+            gen = torch.Generator(device=dev).manual_seed(args.seed * 1_000_003 + step)
+            in_step[0] = True
+            state, metrics = trainer.train_step(state, lq, gt, gen)
+            in_step[0] = False
+            step = state.step
+            metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
+            # seconds of the micro-step (upload to metrics) and of the wait
+            # for its clip from the data path before it
+            metrics["step_s"] = time.perf_counter() - t0
+            metrics["data_wait_s"] = t0 - waited
+            if step % args.log_every == 0 and dev.type == "cuda":
+                metrics["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            msg(step, metrics, lr=args.lr)
+            ckpt.save(step, state, metrics=metrics, force=ckpt.signal_pending)
+            ckpt.signal_pending = False
+            if imglog.should_log(step):
+                rows = {"lq": lq.float().cpu().numpy(), "gt": gt.float().cpu().numpy()}
+                if args.sample_rows:
+                    sgen = torch.Generator(device=dev).manual_seed(args.seed + step)
+                    rows.update({k: v.float().cpu().numpy()
+                                 for k, v in pipe.log_images(lq, sgen).items()})
+                imglog.log_images(step, rows)
+            if on_step is not None:
+                on_step(step, state, metrics)
+            waited = time.perf_counter()
+    except KeyboardInterrupt:
+        ckpt.save(step, state, force=True)
+        print("interrupted: checkpoint saved", flush=True)
+    finally:
+        items.close()  # drops the clips prefetched beyond the last step
+        if tb is not None:
+            tb.close()
+    ckpt.wait()
+    export = os.path.join(args.logdir, "export")
+    os.makedirs(export, exist_ok=True)
+    save_params(os.path.join(export, "mgld_ema.pt"), {"state_dict": mgld_state_dict(
+        with_ema(state))})
+    save_params(os.path.join(export, "raft.pt"),
+                {k: v.float() for k, v in pipe.raft.state_dict().items()})
+    print(f"exported the EMA parameters to {export}", flush=True)
+    return state
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    t0 = time.time()
+    stage1(args)
+    print(f"done in {time.time() - t0:.1f} s", flush=True)
+
+
+if __name__ == "__main__":
+    main()

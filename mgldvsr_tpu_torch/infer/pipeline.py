@@ -25,6 +25,7 @@ import torch
 from mgldvsr_tpu_torch.core.diffusion import (
     SamplerConfig,
     initial_latents,
+    p_sample,
     sample_video,
     window_tiled_randn,
 )
@@ -148,16 +149,20 @@ class MGLDVSRPipeline:
 
     @torch.no_grad()
     def encode(self, frames_pm1: torch.Tensor, generator: Optional[torch.Generator] = None,
-               sample_posterior: bool = True, noise_window_tile: bool = False):
+               sample_posterior: bool = True, noise_window_tile: bool = False,
+               noise: Optional[torch.Tensor] = None):
         """frames [N,H,W,3] in [-1,1] -> (scaled latent [N,h,w,4], LQ
         features: a list of NCHW maps). ``sample_posterior=False`` takes the
         posterior mode. ``noise_window_tile`` draws the posterior noise for
         one ``num_frames`` window and repeats it over the window batch: the
         draw each window would get from a solo call with the generator in
-        the same state."""
+        the same state. ``noise`` ([N,h,w,4]) is the posterior draw itself
+        (the trainer injects it)."""
         moments, enc_fea = self.vae.encode(_nchw(frames_pm1))
         g = DiagonalGaussian(_nhwc(moments))
-        if not sample_posterior:
+        if noise is not None:
+            z = g.mean + g.std * noise
+        elif not sample_posterior:
             z = g.mode()
         elif noise_window_tile:
             z = g.mean + g.std * window_tiled_randn(g.mean, self.cfg.num_frames, generator)
@@ -230,6 +235,38 @@ class MGLDVSRPipeline:
         # the towers take contiguous NCHW: the fixed sampler's latents are
         # NHWC views of it already, the canvas's tiles are packed NHWC
         return _nhwc(self.unet(_nchw(x).contiguous(), t_orig, context, s_cond))
+
+    @torch.no_grad()
+    def log_images(self, frames_01: torch.Tensor, generator: torch.Generator, n_row: int = 4,
+                   dec_w: Optional[float] = None) -> Dict[str, torch.Tensor]:
+        """The reference's training-log rows (ddpm.py:4765-4876): ``inputs``
+        (the LQ clip), ``reconstruction`` (the VAE round trip with the LQ
+        features), ``samples`` (the guided restore) and ``denoise_row``
+        (frame 0 of ``n_row`` evenly spaced intermediate latents of the
+        reverse process, decoded). All [N, H, W, 3] in [0, 1]."""
+        cfg = self.cfg
+        frames_pm1 = frames_01 * 2.0 - 1.0
+        init_latent, enc_fea = self.encode(frames_pm1, generator)
+        context = self.embed_empty_prompt(frames_01.shape[0])
+        flows, masks = self.compute_flows(frames_01)
+        x = initial_latents(self.base_sched, init_latent, generator)
+        scfg = SamplerConfig(num_frames=cfg.num_frames, guidance_scale=cfg.guidance_scale,
+                             guidance_mode=cfg.guidance_mode)
+        denoise = self.denoise_fn(init_latent, context)
+        inter = []
+        for i in range(self.sched.num_timesteps - 1, -1, -1):
+            x = p_sample(self.sched, denoise, x, i, generator, scfg, flows, masks)
+            inter.append(x)
+        recon = self.decode(init_latent, enc_fea, dec_w)
+        samples = self.decode(x, enc_fea, dec_w)
+        idxs = np.linspace(0, len(inter) - 1, n_row).astype(int)
+        row = torch.stack([self.decode(inter[i], enc_fea, dec_w)[0] for i in idxs])
+
+        def to01(v):
+            return torch.clamp((v.float() + 1.0) / 2.0, 0.0, 1.0)
+
+        return {"inputs": frames_01, "reconstruction": to01(recon), "samples": to01(samples),
+                "denoise_row": to01(row)}
 
     # -- full restore --------------------------------------------------------
 

@@ -375,3 +375,91 @@ def pipeline_state_dicts(params: Tree, cfg) -> Dict[str, Dict[str, torch.Tensor]
         "clip": clip_state_dict(params["clip"], cfg.clip),
         "raft": raft_state_dict(params["raft"], cfg.raft),
     }
+
+
+# -- training state ------------------------------------------------------------
+
+
+def _merge_trees(base: Tree, over: Tree) -> Dict[str, Any]:
+    """Deep merge of nested dicts, ``over`` winning."""
+    out = dict(base)
+    for k, v in over.items():
+        if isinstance(v, Mapping) and isinstance(out.get(k), Mapping):
+            out[k] = _merge_trees(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def _find(obj, fields):
+    """The first node of a tree of NamedTuples/tuples/lists with all of
+    ``fields`` as attributes."""
+    if all(hasattr(obj, f) for f in fields):
+        return obj
+    if isinstance(obj, (tuple, list)):
+        for item in obj:
+            found = _find(item, fields)
+            if found is not None:
+                return found
+    return None
+
+
+def _trainable_tensors(partial: Tree, frozen: Tree, cfg) -> Dict[str, torch.Tensor]:
+    """A JAX tree over the trainable leaves only (params, a moment, an
+    accumulator) -> port ``tower.name`` tensors: the tree is completed with
+    the frozen leaves, converted per tower, and cut back to the trainables."""
+    from mgldvsr_tpu_torch.train.trainer import TRAIN_TOWERS, is_trainable
+
+    converters = {"unet": lambda t: unet_state_dict(t, cfg.unet),
+                  "structcond": lambda t: structcond_state_dict(t, cfg.structcond)}
+    out = {}
+    for tower in TRAIN_TOWERS:
+        full = _merge_trees(_params(frozen[tower]) if tower in frozen else {},
+                            _params(partial[tower]))
+        for name, v in converters[tower](full).items():
+            if is_trainable(f"{tower}.{name}"):
+                out[f"{tower}.{name}"] = v
+    return out
+
+
+def train_state_from_jax(jax_state, trainer):
+    """A JAX ``TrainState`` (numpy leaves, e.g. after ``jax.device_get``) ->
+    the port's :class:`~mgldvsr_tpu_torch.train.trainer.TrainState` for
+    ``trainer``: the merged parameters loaded into its pipeline's towers,
+    float32 masters, EMA, Adam moments (the first in the trainer's mu dtype),
+    the gradient accumulator and counts, and the step. Tests start both
+    sides from one state, mid-accumulation included."""
+    from mgldvsr_tpu_torch.train.trainer import TrainState, partition_params
+
+    pipe = trainer.pipe
+    dev = pipe.device
+    frozen_np = jax_state.frozen
+    merged = _merge_trees(frozen_np, jax_state.trainable)
+    for tower, sd in pipeline_state_dicts(merged, pipe.cfg).items():
+        pipe.towers()[tower].load_state_dict(sd, strict=True)
+
+    def onto(tensors, dtype=torch.float32):
+        return {k: v.to(device=dev, dtype=dtype) for k, v in tensors.items()}
+
+    trainable = onto(_trainable_tensors(jax_state.trainable, frozen_np, pipe.cfg))
+    ocfg = trainer.opt_cfg
+    adam = _find(jax_state.opt_state, ("count", "mu", "nu"))
+    multi = _find(jax_state.opt_state, ("mini_step", "gradient_step", "acc_grads"))
+    opt = {
+        "count": int(np.asarray(adam.count)),
+        "mini_step": int(np.asarray(multi.mini_step)) if multi is not None else 0,
+        "gradient_step": (int(np.asarray(multi.gradient_step)) if multi is not None
+                          else int(np.asarray(adam.count))),
+        "mu": onto(_trainable_tensors(adam.mu, frozen_np, pipe.cfg),
+                   ocfg.mu_dtype or torch.float32),
+        "nu": onto(_trainable_tensors(adam.nu, frozen_np, pipe.cfg)),
+        "acc": (onto(_trainable_tensors(multi.acc_grads, frozen_np, pipe.cfg))
+                if ocfg.grad_accum > 1 else None),
+    }
+    ema = (onto(_trainable_tensors(jax_state.ema, frozen_np, pipe.cfg))
+           if jax_state.ema is not None and trainer.cfg.use_ema else None)
+    _, frozen = partition_params(pipe)
+    state = TrainState(trainable=trainable, frozen=frozen, opt_state=opt, ema=ema,
+                       step=int(np.asarray(jax_state.step)))
+    trainer.load_towers(state)
+    return state

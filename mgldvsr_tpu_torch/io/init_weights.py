@@ -46,3 +46,15 @@ def init_pipeline_weights(pipe, seed: int) -> None:
     gen = torch.Generator(device=pipe.device).manual_seed(seed)
     for tower in pipe.towers().values():
         init_module_weights(tower, gen)
+
+
+@torch.no_grad()
+def jitter_weights(pipe, scale: float, seed: int) -> None:
+    """Add ``scale`` x N(0, 1) to every UNet and struct-cond parameter (the
+    JAX trainer tests' jitter). Seeded weights leave the temporal blend
+    scalars and every bias at zero, so the temporal convs would get no
+    gradient; a checkpoint's weights never are."""
+    gen = torch.Generator(device=pipe.device).manual_seed(seed + 99)
+    for tower in (pipe.unet, pipe.structcond):
+        for p in tower.parameters():
+            p.add_(scale * torch.randn(p.shape, generator=gen, device=p.device, dtype=p.dtype))

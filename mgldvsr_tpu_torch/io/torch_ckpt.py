@@ -131,3 +131,16 @@ def load_pipeline_checkpoints(pipe, torch_ckpt: str, vqgan_ckpt: str | None = No
     if raft_ckpt:
         load_tower(pipe.raft, load_torch_state_dict(raft_ckpt), "", "raft")
     return n_ema
+
+
+def mgld_state_dict(params: Mapping[str, torch.Tensor]) -> StateDict:
+    """Port parameters named ``tower.name`` -> one flat MGLD-VSR state dict
+    (the tower prefixes of :data:`TOWER_PREFIXES`, float32 on the CPU), the
+    layout :func:`load_mgld_checkpoint` reads. RAFT, which an MGLD-VSR
+    checkpoint does not hold, is left out."""
+    out = {}
+    for name, v in params.items():
+        tower, _, rest = name.partition(".")
+        if tower in TOWER_PREFIXES:
+            out[TOWER_PREFIXES[tower] + rest] = v.detach().float().cpu()
+    return out

@@ -14,6 +14,7 @@ from typing import Dict, Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from mgldvsr_tpu_torch.core.schedules import timestep_embedding
 from mgldvsr_tpu_torch.models.attention_blocks import QKVAttentionBlock, SpatialTransformer
@@ -48,6 +49,9 @@ class UNetConfig:
     context_dim: int = 1024
     semb_channels: int = 256
     num_frames: int = 5
+    # rematerialise each res block and transformer in the backward pass
+    # (torch.utils.checkpoint) instead of keeping their activations
+    use_checkpoint: bool = False
     dtype: torch.dtype = torch.float32
 
 
@@ -65,14 +69,25 @@ class DualResBlock(UNetResBlock):
         return self.skip_connection(x) + h
 
 
-def _run(block: nn.ModuleList, h, emb, context, s_cond):
+def _call(layer: nn.Module, remat: bool, *args):
+    """``layer(*args)``, rematerialised in the backward pass when ``remat``
+    and autograd is recording (non-reentrant ``torch.utils.checkpoint``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(layer, *args, use_reentrant=False)
+    return layer(*args)
+
+
+def _run(block: nn.ModuleList, h, emb, context, s_cond, remat: bool = False):
+    """The layers of one block in order; with ``remat`` the res blocks and
+    spatial transformers are rematerialised (the JAX package's
+    ``nn.remat`` set)."""
     for layer in block:
         if isinstance(layer, DualResBlock):
-            h = layer(h, emb, s_cond)
+            h = _call(layer, remat, h, emb, s_cond)
         elif isinstance(layer, UNetResBlock):
-            h = layer(h, emb)
+            h = _call(layer, remat, h, emb)
         elif isinstance(layer, SpatialTransformer):
-            h = layer(h, context)
+            h = _call(layer, remat, h, context)
         else:
             h = layer(h)
     return h
@@ -140,15 +155,16 @@ class InflatedUNetDualCond(nn.Module):
 
     def forward(self, x, timesteps, context, struct_cond: Dict[str, torch.Tensor]):
         emb = self.time_embed(timestep_embedding(timesteps, self.cfg.model_channels))
+        remat = self.cfg.use_checkpoint
         hs = []
         h = x
         for block in self.input_blocks:
-            h = _run(block, h, emb, context, struct_cond)
+            h = _run(block, h, emb, context, struct_cond, remat)
             hs.append(h)
-        h = _run(self.middle_block, h, emb, context, struct_cond)
+        h = _run(self.middle_block, h, emb, context, struct_cond, remat)
         for block in self.output_blocks:
             h = torch.cat([h, hs.pop().to(h.dtype)], dim=1)
-            h = _run(block, h, emb, context, struct_cond)
+            h = _run(block, h, emb, context, struct_cond, remat)
         return norm_silu_conv(self.out[0], self.out[2], h).float()
 
 
@@ -162,6 +178,7 @@ class StructCondConfig:
     channel_mult: Sequence[int] = (1, 1, 2, 2)
     num_heads: int = 4
     num_frames: int = 5
+    use_checkpoint: bool = False  # rematerialise each res block (see UNetConfig)
     dtype: torch.dtype = torch.float32
 
 
@@ -203,17 +220,18 @@ class StructCondEncoder(nn.Module):
 
     def forward(self, x, timesteps) -> Dict[str, torch.Tensor]:
         emb = self.time_embed(timestep_embedding(timesteps, self.cfg.model_channels))
+        remat = self.cfg.use_checkpoint
         feats = []
         h = x
         for idx, block in enumerate(self.input_blocks):
-            h = _run(block, h, emb, None, None)
+            h = _run(block, h, emb, None, None, remat)
             if idx in self._tap_after:
                 feats.append(h)
-        h = _run(self.middle_block, h, emb, None, None)
+        h = _run(self.middle_block, h, emb, None, None, remat)
         feats.append(h)
         results: Dict[str, torch.Tensor] = {}
         for f, proj in zip(feats, self.fea_tran):
-            out = proj(f, emb)
+            out = _call(proj, remat, f, emb)
             results[str(out.shape[-1])] = out
         return results
 

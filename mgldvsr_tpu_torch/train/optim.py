@@ -1,0 +1,136 @@
+"""The stage-1 optimiser as plain functions on tensors.
+
+The JAX trainer's optax chain (``mgldvsr_tpu/train/trainer.py:125-132``),
+operation for operation in float32: ``MultiSteps(grad_accum)`` around
+``clip_by_global_norm(max_grad_norm)`` (when set) and ``adamw``. The
+defaults are optax's, not ``torch.optim.AdamW``'s: weight decay 1e-4, eps
+1e-8 added outside the square root, eps_root 0. ``mu_dtype="bfloat16"``
+keeps the first moment in bf16 (the update reads it before it is stored,
+and decays it by b1 rounded to bf16, as optax does); the second moment
+stays float32. XLA contracts some of these products and sums into fused
+multiply-adds, so the two agree to about one float32 ulp, not bit for bit.
+
+``MultiSteps`` keeps the running mean of the micro-step gradients
+(``acc + (g - acc) / (n + 1)``) and applies the inner update on every
+``grad_accum``-th call; Adam's count, which drives its bias correction,
+advances only then. The state is a dict of tensors keyed like the
+parameters, so it saves with ``torch.save``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+Tensors = Dict[str, torch.Tensor]
+
+# optax.adamw's defaults, which the JAX trainer keeps
+B1 = 0.9
+B2 = 0.999
+EPS = 1e-8
+EPS_ROOT = 0.0
+WEIGHT_DECAY = 1e-4
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    learning_rate: float = 5.0e-5
+    mu_dtype: Optional[torch.dtype] = None
+    max_grad_norm: Optional[float] = None
+    grad_accum: int = 1
+
+
+def init_opt_state(params: Tensors, cfg: AdamWConfig) -> dict:
+    """Zero moments (and accumulator when ``grad_accum > 1``) like
+    ``params``; counts at 0."""
+    def zeros(dtype=None):
+        return {k: torch.zeros_like(p, dtype=dtype or p.dtype) for k, p in params.items()}
+
+    return {"count": 0, "mini_step": 0, "gradient_step": 0, "mu": zeros(cfg.mu_dtype),
+            "nu": zeros(), "acc": zeros() if cfg.grad_accum > 1 else None}
+
+
+def global_norm(tensors: Tensors) -> torch.Tensor:
+    """sqrt of the sum over tensors of their sums of squares (float32)."""
+    total = None
+    for t in tensors.values():
+        s = (t * t).sum()
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads: Tensors, max_norm: float) -> Tensors:
+    """optax ``clip_by_global_norm``: unchanged below ``max_norm``, else
+    each ``(g / norm) * max_norm``."""
+    norm = global_norm(grads)
+    if bool(norm < max_norm):
+        return grads
+    return {k: (g / norm.to(g.dtype)) * max_norm for k, g in grads.items()}
+
+
+def _bias_correction(decay: float, count: int, device) -> torch.Tensor:
+    d = torch.tensor(decay, dtype=torch.float32, device=device)
+    return 1 - d ** torch.tensor(float(count), dtype=torch.float32, device=device)
+
+
+def adamw_updates(grads: Tensors, state: dict, params: Tensors, cfg: AdamWConfig) -> Tensors:
+    """optax ``[clip_by_global_norm] -> adamw`` on ``grads``: returns the
+    updates (to add to ``params``) and advances ``state``'s count and
+    moments in place."""
+    if cfg.max_grad_norm:
+        grads = clip_by_global_norm(grads, cfg.max_grad_norm)
+    count = state["count"] + 1
+    updates = {}
+    for k, g in grads.items():
+        mu_old, nu_old = state["mu"][k], state["nu"][k]
+        # optax: (1 - b1) * g + b1 * mu with b1 in mu's dtype (bf16's 0.8984375
+        # for a bf16 mu) and, as XLA computes it, the product not rounded
+        b1 = torch.tensor(B1, dtype=mu_old.dtype).item()
+        mu = (1 - B1) * g + b1 * mu_old.float()
+        nu = (1 - B2) * (g * g) + B2 * nu_old
+        bc1 = _bias_correction(B1, count, g.device)
+        bc2 = _bias_correction(B2, count, g.device)
+        mu_hat = mu / bc1.to(mu.dtype)
+        nu_hat = nu / bc2.to(nu.dtype)
+        u = mu_hat / (torch.sqrt(nu_hat + EPS_ROOT) + EPS)
+        u = u + WEIGHT_DECAY * params[k]
+        updates[k] = -cfg.learning_rate * u
+        mu_old.copy_(mu)  # cast to mu_dtype on the way in
+        nu_old.copy_(nu)
+    state["count"] = count
+    return updates
+
+
+def step(grads: Tensors, state: dict, params: Tensors, cfg: AdamWConfig) -> bool:
+    """One micro-step of ``MultiSteps(grad_accum)`` around the inner chain:
+    folds ``grads`` into the running mean and, on the ``grad_accum``-th
+    micro-step, applies the inner update to ``params`` in place and zeroes
+    the mean. Returns whether ``params`` changed. Without accumulation every
+    call applies ``grads``."""
+    if cfg.grad_accum <= 1:
+        updates = adamw_updates(grads, state, params, cfg)
+        _apply(params, updates)
+        state["gradient_step"] += 1
+        return True
+    n = state["mini_step"]
+    acc = state["acc"]
+    for k, g in grads.items():
+        a = acc[k]
+        a.copy_(a + (g - a) / float(n + 1))
+    emit = n == cfg.grad_accum - 1
+    if emit:
+        updates = adamw_updates(acc, state, params, cfg)
+        _apply(params, updates)
+        for a in acc.values():
+            a.zero_()
+        state["gradient_step"] += 1
+    state["mini_step"] = (n + 1) % cfg.grad_accum
+    return emit
+
+
+def _apply(params: Tensors, updates: Tensors) -> None:
+    """optax ``apply_updates``: p + u in p's dtype."""
+    for k, u in updates.items():
+        p = params[k]
+        p.copy_((p + u).to(p.dtype))

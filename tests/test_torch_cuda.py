@@ -661,3 +661,87 @@ def test_attention_gradient_on_card(dev, dtype):
         torch.testing.assert_close(a, b, atol=1e-5 * float(b.float().abs().max()), rtol=0)
     with pytest.raises(TypeError, match="fp16 is not supported on the card; use bf16 or fp32"):
         attention(q.half(), k.half(), v.half())
+
+
+def _tiny_bf16_trainer(dev, grad_accum):
+    """The command line's tiny preset in bf16 on the card, seeded, jittered,
+    and its stage-1 trainer."""
+    from mgldvsr_tpu_torch.cli.infer import tiny_pipeline_config
+    from mgldvsr_tpu_torch.io.init_weights import jitter_weights
+    from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline
+    from mgldvsr_tpu_torch.io.init_weights import init_pipeline_weights
+    from mgldvsr_tpu_torch.train.trainer import Stage1Config, Stage1Trainer
+
+    pipe = MGLDVSRPipeline(tiny_pipeline_config(torch.bfloat16), device=dev)
+    init_pipeline_weights(pipe, 0)
+    jitter_weights(pipe, 0.02, 0)
+    return Stage1Trainer(pipe, Stage1Config(grad_accum=grad_accum))
+
+
+def _frames(dev, seed, size=64):
+    return torch.rand(5, size, size, 3, device=dev, generator=_gen(dev, seed))
+
+
+def test_trainer_keeps_fp32_masters_and_compute_copies(dev):
+    """The masters are float32, the towers' trainable convs and linears
+    bf16; an applied update leaves each tower weight equal to its master
+    cast to the tower's dtype, and the frozen towers untouched."""
+    from mgldvsr_tpu_torch.train.trainer import partition_params
+
+    tr = _tiny_bf16_trainer(dev, grad_accum=1)
+    state = tr.init_state()
+    train, frozen = partition_params(tr.pipe)
+    assert all(m.dtype == torch.float32 for m in state.trainable.values())
+    assert {p.dtype for p in train.values()} == {torch.bfloat16, torch.float32}
+    frozen0 = {k: p.clone() for k, p in frozen.items()}
+    masters0 = {k: m.clone() for k, m in state.trainable.items()}
+    state, metrics = tr.train_step(state, _frames(dev, 1), _frames(dev, 2), _gen(dev, 3))
+    assert torch.isfinite(metrics["loss"])
+    moved = sum(not torch.equal(masters0[k], m) for k, m in state.trainable.items())
+    assert moved > 0.9 * len(masters0)
+    for k, p in train.items():
+        assert torch.equal(p, state.trainable[k].to(p.dtype)), k
+    assert all(torch.equal(frozen0[k], p) for k, p in frozen.items())
+
+
+def test_gradient_accumulator_is_fp32_mean(dev):
+    """Three micro-steps at grad_accum 4: the accumulator is float32 and
+    holds the mean of the three float32 gradients (the towers do not change
+    in between), to float32 rounding."""
+    tr = _tiny_bf16_trainer(dev, grad_accum=4)
+    state = tr.init_state()
+    lq, gt = _frames(dev, 1), _frames(dev, 2)
+    grads = []
+    for s in range(3):
+        draws = tr.draws(5, 8, 8, _gen(dev, 10 + s))
+        grads.append(tr.loss_and_grads(lq, gt, draws)[2])
+        state, _ = tr.train_step(state, lq, gt, draws=draws)
+    for k, acc in state.opt_state["acc"].items():
+        assert acc.dtype == torch.float32
+        want = (grads[0][k] + grads[1][k] + grads[2][k]) / 3
+        torch.testing.assert_close(acc, want, rtol=1e-5,
+                                   atol=1e-6 * float(want.abs().max()) + 1e-12)
+
+
+def test_relaid_weight_cache_after_updates(dev):
+    """A trainable bf16 conv weight updated in place (as the trainer loads
+    its masters): the tensor-core conv re-lays it once per update, keeps one
+    entry per weight, and computes with the new weight."""
+    gen = _gen(dev, 5)
+    x = torch.randn(2, 64, 16, 16, device=dev, generator=gen).bfloat16()
+    gw, gb = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    w = (0.05 * torch.randn(64, 64, 3, 3, device=dev, generator=gen)).bfloat16()
+    b = torch.zeros(64, device=dev)
+    entries0, _ = conv_mod.derived_bytes()
+    for update in range(3):
+        made = conv_mod._derived.made
+        out = gn_silu_conv3x3(x, gw, gb, w, b)
+        assert conv_mod._derived.made == made + 1
+        gn_silu_conv3x3(x, gw, gb, w, b)
+        assert conv_mod._derived.made == made + 1  # warm: no new copy
+        assert conv_mod.derived_bytes()[0] == entries0 + 1
+        want = gn_silu_conv3x3_plain(x, gw, gb, w, b)
+        torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                                   atol=3 * 2 ** -8 * float(want.float().abs().max()))
+        with torch.no_grad():
+            w.copy_(w * 1.5 + 0.01)

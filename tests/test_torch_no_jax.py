@@ -23,9 +23,13 @@ from mgldvsr_tpu_torch.ops.kernels import _build
 assert _build.library.cache_info().currsize == 0, "a kernel library was loaded at import"
 assert "triton" not in sys.modules, "triton was imported at import time"
 for m in ("cli.infer", "data.video_folder", "utils.config", "io.frames", "io.torch_ckpt",
-          "infer.canvas"):
+          "infer.canvas", "cli.train", "train.trainer", "train.optim", "io.checkpoint",
+          "data.cv_ops", "data.blur_kernels", "data.degradations", "data.file_client",
+          "data.datasets", "utils.tb", "utils.logging"):
     assert "mgldvsr_tpu_torch." + m in mods, m
 assert "yaml" not in sys.modules, "yaml was imported at import time"
+for m in ("cv2", "av"):
+    assert m not in sys.modules, m + " was imported at import time"
 print(len(mods))
 """
 
