@@ -101,8 +101,44 @@ Phase 8  stage-1 training. (a) one tiny fp32 micro-step at 256x256 with
          over steps 2-8 (data waits and checkpoint saves included), micro-step
          seconds, data-path seconds, peak memory and launches a micro-step
          (``launches_train``, ``launches_train_fused`` in the kernels line).
-         ``--only-train`` builds the kernels and runs this phase alone,
-         without the result line.
+
+Phase 9  stage-2 training (the video VAE decoder's fusion and temporal
+         layers; LPIPS, the PatchGAN discriminator and SpyNet seeded in
+         float32, SpyNet's last convs scaled by 1e-2 so that flows leave
+         pixels unoccluded). The data: two seeded 10-frame 512x512 GT clips,
+         their LQ frames at 128x128, and the latents the inference command
+         line's latent mode writes for them at full width. (b) the shipped
+         ``configs/video_autoencoder_kl_64x64x4_resi.yaml`` (VAE ch 128,
+         bf16, fusion) through the training CLI's loop: 8 micro-steps at
+         grad_accum 4 (the YAML's 8, cut for time): finite losses,
+         temp_loss > 0, trainables and logvar changed at micro-steps 4 and 8
+         only, frozen VAE, LPIPS and SpyNet bit for bit, the warp, channel
+         sums and fused GroupNorm launched in every micro-step; a fresh
+         pipeline resumes the step-4 checkpoint and replays 5-8, which must
+         equal the straight run bit for bit. (c) four
+         micro-steps through ``Stage2Trainer`` with disc_start 0: d_weight
+         finite and non-zero, the discriminator moved, the decoder's
+         conv_out unchanged. (d) (b) for 4 micro-steps in the fused
+         configuration (the chain's two kernels in every micro-step). (e)
+         the decoder's forward and backward at full width in both
+         configurations, the kernels against their plain versions on the
+         card: the reconstruction, the trainables' gradients and conv_out's
+         weight gradient. A kernels-only torch.profiler trace of the loop
+         (device time, idle share) and the device time of its parts traced
+         alone (flows, encode, decoder forward and backward, LPIPS,
+         discriminator); kernel 1 at the swc loss's shape against its plain
+         version, F.grid_sample and its bound. (a) two tiny fp32
+         micro-steps at 64x64 on the card and on the CPU in both
+         configurations: the metrics, the generator's gradients of both
+         micro-steps and Adam's moments card against CPU, the
+         discriminator's against its float64 replay on the card's inputs,
+         and the parameters after the update where it cannot depend on
+         rounding.
+         Prints clips/s with and without the saves, micro-step seconds, peak
+         memory and launches a micro-step (``launches_stage2``,
+         ``launches_stage2_fused`` in the kernels line).
+         ``--only-train`` builds the kernels and runs phases 8 and 9 alone,
+         ``--only-stage2`` phase 9 alone, without the result line.
 
 Prints one JSON line describing the kernels before the last line, and the
 result line ``{"ok": true, "device": {...}}`` last. Any failure raises and
@@ -149,7 +185,8 @@ FUSED_ONLY = ("gn_silu_conv3x3", "gn_scale_shift")  # launched by the fused conf
 # launched by the default configuration alone: its GroupNorms of 128^2 pixels
 # and more all head a chain, which the fused configuration gives to the two above
 DEFAULT_ONLY = ("channel_sums",)
-# held in phase 2 alone: the restore's guidance step runs the guidance pair
+# on no restore path (phases 3-7): the restore's guidance step runs the guidance
+# pair; warp_forward alone runs in stage-2 training's swc loss (phase 9)
 STANDALONE = ("warp_forward", "warp_dx")
 
 # NVIDIA H100 SXM data sheet, dense: device memory bytes/s, tensor-core
@@ -2010,13 +2047,922 @@ def phase8(seed: int, card: str) -> dict:
     return out
 
 
+# -- phase 9: stage-2 training --------------------------------------------------
+
+STAGE2_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                           "video_autoencoder_kl_64x64x4_resi.yaml")
+# launched in every stage-2 micro-step: the swc loss's warp, the channel sums
+# (the decoder's and the LQ encode's 128^2-512^2 GroupNorms, forward and
+# backward) and the fused GroupNorm (the 64^2 levels); the fused configuration
+# gives every GroupNorm->SiLU->conv chain to the chain's two kernels
+STAGE2_EVERY_STEP = ("warp_forward", "channel_sums", "fused_group_norm")
+STAGE2_EVERY_STEP_FUSED = ("warp_forward", "fused_group_norm") + FUSED_ONLY
+STAGE2_METRICS = ("loss_g", "nll_loss", "rec_loss", "temp_loss", "g_loss", "d_weight",
+                  "loss_d", "logits_real", "logits_fake")
+# phase 9 (a)'s limits, about 3x the readings on an H100 (in brackets, the
+# worse of the two configurations). The generator's half, card against CPU:
+# the metrics relative, the GAN means of logits of either sign against the
+# logits' scale [1.05e-5, logits_real]; a gradient leaf's distance over its
+# norm plus 1e-3 of the largest leaf norm, and the whole gradient's over
+# its norm, for micro-step 1's gradient (the accumulator) [1.37e-4 /
+# 8.1e-6], Adam's moments after the update [mu 5.57e-4 / 4.5e-5, nu
+# 2.03e-4 / 5.7e-6] and micro-step 2's gradient taken from the first
+# moment [9.91e-4 / 7.7e-5]. The discriminator's half against its float64
+# replay on the card's own inputs, by the same measures [step 1 9.86e-6 /
+# 5.43e-6, step 2 2.05e-6 / 1.61e-6, mu 7.58e-6 / 3.85e-6, nu 6.51e-6 /
+# 2.12e-6], and its running statistics relative to their largest value
+# [2.76e-7]. (The CPU's float32 is no reference for the discriminator: on
+# these frames a LeakyReLU input lies within float32 rounding of 0, and
+# the CPU's gradient stands 1.68e-3 of the whole from float64; the line
+# prints it.)
+S2_METRIC_REL = 3.5e-5
+S2_LEAF = {"gen": 3e-3, "disc": 3e-5}
+S2_WHOLE = {"gen": 2.5e-4, "disc": 1.7e-5}
+S2_STATS_REL = 1e-6
+# After the update, where the mean gradient is at least 1e-5 (1000 Adam
+# eps) and 10x the leaf's largest gradient error, Adam's step is lr times
+# the gradient's sign to within ~1e-4 lr on either side: there the
+# parameters must agree to 1e-3 lr plus one float32 ulp of the parameter
+# [0.130 of that for the generator, 0.303 for the discriminator];
+# elsewhere a sign may flip and the two stand up to 2 lr apart. At least
+# this share of the elements must be held so [78.32%, 99.23%].
+S2_HELD_SHARE = {"gen": 0.75, "disc": 0.97}
+
+
+def calm_spynet(trainer) -> None:
+    """Scale the last conv of each SpyNet level by 1e-2: random SpyNet
+    weights predict flows that the consistency check marks occluded
+    everywhere, and the swc term would be zero."""
+    import torch
+
+    with torch.no_grad():
+        for level in trainer.spynet.basic_module:
+            level.basic_module[8].weight.mul_(1e-2)
+            level.basic_module[8].bias.mul_(1e-2)
+
+
+def snapshot(state) -> dict:
+    """Copies of a stage-2 state's tensors (they change in place)."""
+    import torch
+
+    def copy(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().clone()
+        if isinstance(tree, dict):
+            return {k: copy(v) for k, v in tree.items()}
+        return tree
+
+    return {"trainable": copy(state.trainable), "logvar": copy(state.logvar),
+            "disc": copy(state.disc), "opt_g": copy(state.opt_g), "opt_d": copy(state.opt_d),
+            "step": state.step}
+
+
+def leaf_spread(got: dict, want: dict):
+    """(each leaf's |got - want| over its norm plus 1e-3 of the largest leaf
+    norm, the whole's |got - want| over its norm)."""
+    norms = {k: float(w.double().norm()) for k, w in want.items()}
+    big = max(norms.values())
+    d = {k: float((got[k].double() - w.double()).norm()) for k, w in want.items()}
+    whole = (sum(v * v for v in d.values()) / sum(n * n for n in norms.values())) ** 0.5
+    return {k: d[k] / (norms[k] + 1e-3 * big) for k in d}, whole
+
+
+def held_after_update(got: dict, want: dict, got_mu: dict, want_mu: dict, b1: float):
+    """Parameters after Adam's first update against a reference, on the
+    elements where the update cannot depend on rounding: the reference's
+    mean gradient (mu / (1 - b1)) at least 1e-5 and 10x the leaf's largest
+    mean-gradient error. Returns (worst |d| there over 1e-3 lr plus one
+    float32 ulp of the reference, the share of elements held)."""
+    import torch
+
+    worst, held, total = 0.0, 0, 0
+    for k, w in want.items():
+        g_w = want_mu[k].double() / (1 - b1)
+        err = float((got_mu[k].double() / (1 - b1) - g_w).abs().max())
+        mask = g_w.abs() >= max(10 * err, 1e-5)
+        w32 = w.float()
+        ulp = (torch.nextafter(w32.abs(), torch.tensor(float("inf"))) - w32.abs()).double()
+        d = (got[k].double() - w.double()).abs() / (1e-3 * TRAIN_LR + ulp)
+        if mask.any():
+            worst = max(worst, float(d[mask].max()))
+        held += int(mask.sum())
+        total += mask.numel()
+    return worst, held / total
+
+
+def disc_replay64(steps: list, opt_cfg) -> dict:
+    """The discriminator's half of each recorded micro-step replayed in
+    float64 on the CPU from that micro-step's own inputs (the GT frames, the
+    reconstruction it was given, the discriminator's tensors before it):
+    the two training passes, the hinge loss (disc_start 0: factor 1), the
+    gradient accumulation and Adam update of train/optim.py. Returns
+    micro-step 1's accumulator, each micro-step's running statistics, and
+    after the last the moments and the parameters."""
+    import torch
+    from torch.func import functional_call
+
+    from mgldvsr_tpu_torch.models.discriminator import NLayerDiscriminator
+    from mgldvsr_tpu_torch.train import optim
+    from mgldvsr_tpu_torch.train.losses import hinge_d_loss
+
+    disc = NLayerDiscriminator().double()
+    names = [k for k, _ in disc.named_parameters()]
+    params = {k: steps[0]["before"][k].double().clone() for k in names}
+    opt = optim.init_opt_state(params, opt_cfg)
+    out = {"stats": []}
+    for s in steps:
+        live = {k: v.double().clone().requires_grad_(k in names) for k, v in s["before"].items()}
+        real = (s["real"] * 2.0 - 1.0).float().permute(0, 3, 1, 2).double()
+        loss = hinge_d_loss(functional_call(disc, live, (real,), {"train": True}),
+                            functional_call(disc, live, (s["recon"].double(),), {"train": True}))
+        grads = dict(zip(names, torch.autograd.grad(loss, [live[k] for k in names])))
+        optim.step(grads, opt, params, opt_cfg)
+        out["stats"].append({k: v.detach() for k, v in live.items() if "running" in k})
+        if "acc" not in out:
+            out["acc"] = {k: v.clone() for k, v in opt["acc"].items()}
+    out.update(mu=opt["mu"], nu=opt["nu"], params=params)
+    return out
+
+
+def phase9_tiny(seed: int, card: str, fused: bool) -> dict:
+    """(a) two tiny fp32 micro-steps (grad_accum 2, disc_start 0) at 64x64
+    from the same weights on the card and on the CPU. The generator's half,
+    card against CPU: the metrics, micro-step 1's gradient (the
+    accumulator), Adam's moments after the update (the mean of both
+    micro-steps' gradients) and micro-step 2's gradient taken from the first
+    moment, and the trainables and logvar after the update. The
+    discriminator's half against its float64 replay on the card's own
+    inputs: the same gradients and moments, its parameters after the update
+    and its running statistics after each micro-step."""
+    import torch
+
+    from mgldvsr_tpu_torch.cli import train as cli
+    from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline
+    from mgldvsr_tpu_torch.io.init_weights import init_pipeline_weights, jitter_weights
+    from mgldvsr_tpu_torch.models.vae import VideoAutoencoderKLResi
+    from mgldvsr_tpu_torch.ops import kernels
+    from mgldvsr_tpu_torch.train.stage2 import Stage2Config, Stage2Trainer
+
+    cfg = tiny_config()
+    src = MGLDVSRPipeline(cfg, "cpu")
+    init_pipeline_weights(src, seed)
+    jitter_weights(src, 0.02, seed)
+    vae_sd = src.vae.state_dict()
+    aux = Stage2Trainer(src.vae, Stage2Config())
+    cli.seed_stage2_aux(aux, seed)
+    calm_spynet(aux)
+    aux_sd = {name: getattr(aux, name).state_dict() for name in ("lpips", "disc", "spynet")}
+    size = 64
+    # other frames and latents in each micro-step
+    items = [(torch.from_numpy(lq_clip(seed + 50 + 3 * i, size)),
+              torch.from_numpy(lq_clip(seed + 51 + 3 * i, size)),
+              torch.from_numpy(np.random.RandomState(seed + 52 + 3 * i).randn(5, 8, 8, 4)
+                               .astype(np.float32))) for i in range(2)]
+
+    def run(device):
+        vae = VideoAutoencoderKLResi(cfg.vae).to(device)
+        vae.load_state_dict(vae_sd)
+        tr = Stage2Trainer(vae, Stage2Config(num_frames=5, grad_accum=2, disc_start=0,
+                                             learning_rate=TRAIN_LR))
+        for name, sd in aux_sd.items():
+            getattr(tr, name).load_state_dict(sd)
+        state = tr.init_state()
+        seen, disc_step = [], tr.disc_step
+
+        def recording(st, gt_01, recon_det):
+            seen.append({"before": {k: v.detach().cpu().clone() for k, v in st.disc.items()},
+                         "real": gt_01.cpu(), "recon": recon_det.detach().cpu().clone()})
+            return disc_step(st, gt_01, recon_det)
+
+        tr.disc_step = recording
+        out = []
+        for lq, gt, lat in items:
+            state, m = tr.train_step(state, lq.to(device), gt.to(device), lat.to(device))
+            snap = to_cpu(snapshot(state))
+            snap.update(seen[-1], metrics={k: float(v) for k, v in m.items()})
+            out.append(snap)
+        return out, tr.opt_cfg
+
+    with fused_switch(fused):
+        cpu, opt_cfg = run("cpu")
+        kernels.reset_launch_counts()
+        gpu, _ = run("cuda")
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    b1 = opt_cfg.b1
+
+    def gen(snaps):
+        """The generator's trainables and logvar as one dict."""
+        return {**snaps["trainable"], "logvar": snaps["logvar"]}
+
+    def second(acc1, mu):
+        """Micro-step 2's gradient: the first moment after the first
+        update is (1 - b1) times the mean of the two."""
+        return {k: 2 * mu[k].double() / (1 - b1) - acc1[k].double() for k in acc1}
+
+    rows = {}
+    g1, g2 = gpu[0]["opt_g"], gpu[1]["opt_g"]
+    c1, c2 = cpu[0]["opt_g"], cpu[1]["opt_g"]
+    rows["gen"] = {"step 1": leaf_spread(g1["acc"], c1["acc"]),
+                   "step 2": leaf_spread(second(g1["acc"], g2["mu"]), second(c1["acc"], c2["mu"])),
+                   "mu": leaf_spread(g2["mu"], c2["mu"]), "nu": leaf_spread(g2["nu"], c2["nu"])}
+    gen_held = held_after_update(gen(gpu[1]), gen(cpu[1]), g2["mu"], c2["mu"], b1)
+    replays = {side: disc_replay64(snaps, opt_cfg) for side, snaps in (("card", gpu),
+                                                                      ("cpu", cpu))}
+    rep = replays["card"]
+    d1, d2 = gpu[0]["opt_d"], gpu[1]["opt_d"]
+    rep_g2 = second(rep["acc"], rep["mu"])
+    rows["disc"] = {"step 1": leaf_spread(d1["acc"], rep["acc"]),
+                    "step 2": leaf_spread(second(d1["acc"], d2["mu"]), rep_g2),
+                    "mu": leaf_spread(d2["mu"], rep["mu"]), "nu": leaf_spread(d2["nu"], rep["nu"])}
+    cpu_disc = leaf_spread(cpu[0]["opt_d"]["acc"], replays["cpu"]["acc"])[1]
+    disc_held = held_after_update({k: gpu[1]["disc"][k] for k in rep["params"]}, rep["params"],
+                                  d2["mu"], rep["mu"], b1)
+    stats_rel = max(max_err(gpu[i]["disc"][k], v) / float(v.abs().max())
+                    for i in range(2) for k, v in rep["stats"][i].items())
+    metric_err = {}
+    for i in range(2):
+        m_c, m_g = cpu[i]["metrics"], gpu[i]["metrics"]
+        scale = abs(m_c["logits_real"]) + abs(m_c["logits_fake"])
+        for name in STAGE2_METRICS:
+            floor = scale if name in ("g_loss", "logits_real", "logits_fake") else abs(m_c[name])
+            rel = abs(m_g[name] - m_c[name]) / max(abs(m_c[name]), floor, 1e-12)
+            metric_err[name] = max(metric_err.get(name, 0.0), rel)
+
+    def row(part):
+        return ", ".join(f"{what} {max(d, key=d.get)} {max(d.values()):.3e} / {whole:.3e}"
+                         for what, (d, whole) in rows[part].items())
+
+    log(f"[phase9] (a) tiny fp32 stage-2 micro-steps {size}x{size}, 5 frames, grad_accum 2, "
+        f"fused conv {'on' if fused else 'off'}: metrics card vs CPU, worst relative "
+        f"{ {k: f'{v:.2e}' for k, v in metric_err.items()} } (limit {S2_METRIC_REL:.1e}); "
+        f"d_weight {gpu[0]['metrics']['d_weight']:.6e} / {cpu[0]['metrics']['d_weight']:.6e}; "
+        f"temp_loss {gpu[0]['metrics']['temp_loss']:.6f}. Worst leaf / whole over their norms "
+        f"(limits): the generator card vs CPU: {row('gen')} ({S2_LEAF['gen']:.1e} / "
+        f"{S2_WHOLE['gen']:.1e}); the discriminator card vs its float64 replay on the card's "
+        f"inputs: {row('disc')} ({S2_LEAF['disc']:.1e} / {S2_WHOLE['disc']:.1e}), the CPU's "
+        f"float32 against its own replay {cpu_disc:.3e} of the whole at step 1 (no limit); "
+        f"running statistics {stats_rel:.3e} relative (limit {S2_STATS_REL:.1e}). After the "
+        f"update, on the elements held, worst |d| over 1e-3 lr + 1 ulp: trainables and logvar "
+        f"{gen_held[0]:.3f} ({100 * gen_held[1]:.2f}% held), the discriminator's parameters "
+        f"against the replay {disc_held[0]:.3f} ({100 * disc_held[1]:.2f}% held) (limits 1, "
+        f"{100 * S2_HELD_SHARE['gen']:.0f}% / {100 * S2_HELD_SHARE['disc']:.0f}% held); "
+        f"launches "
+        f"{ {k: n for k, n in counts.items() if n} }  [{card}]")
+    for part, measures in rows.items():
+        for what, (d, whole) in measures.items():
+            if max(d.values()) > S2_LEAF[part] or whole > S2_WHOLE[part]:
+                k = max(d, key=d.get)
+                raise AssertionError(f"phase 9 (a): {part} {what}: leaf {k} {d[k]:.3e}, the "
+                                     f"whole {whole:.3e} of its norm")
+    if max(metric_err.values()) > S2_METRIC_REL:
+        raise AssertionError(f"phase 9 (a): metrics card vs CPU {metric_err}")
+    if stats_rel > S2_STATS_REL:
+        raise AssertionError(f"phase 9 (a): running statistics {stats_rel:.3e}")
+    for what, (worst, share) in (("gen", gen_held), ("disc", disc_held)):
+        if worst > 1 or share < S2_HELD_SHARE[what]:
+            raise AssertionError(f"phase 9 (a): {what} after the update: {worst:.3f} of the "
+                                 f"limit on {100 * share:.2f}% of the elements")
+    if cpu[0]["metrics"]["temp_loss"] <= 0:
+        raise AssertionError("phase 9 (a): temp_loss is 0 (every pixel occluded)")
+    for name in ("warp_forward", "fused_group_norm") + (FUSED_ONLY if fused else ()):
+        if counts[name] == 0:
+            raise AssertionError(f"phase 9 (a): kernel {name} was never launched")
+    return {"metric_rel": metric_err, "rows": rows, "stats_rel": stats_rel,
+            "held": {"gen": gen_held, "disc": disc_held}}
+
+
+def to_cpu(snap):
+    """``snap`` with every tensor on the CPU."""
+    import torch
+
+    if isinstance(snap, torch.Tensor):
+        return snap.cpu()
+    if isinstance(snap, dict):
+        return {k: to_cpu(v) for k, v in snap.items()}
+    return snap
+
+
+def stage2_data(tmp: str, seed: int) -> dict:
+    """Two seeded 10-frame 512x512 GT clips, their LQ frames at 128x128 (a
+    bicubic downscale), and the latents of the LQ clips written by the
+    inference command line's latent mode at full width (2 steps)."""
+    import torch
+
+    from mgldvsr_tpu_torch.cli import infer as infer_cli
+    from mgldvsr_tpu_torch.io.frames import encode_png
+    from mgldvsr_tpu_torch.ops.resize import resize2d
+
+    roots = {k: os.path.join(tmp, k) for k in ("gt", "lq", "lat")}
+    for c in range(2):
+        clip = lq_clip(seed + 60 + c, 512, frames=10)
+        lq = resize2d(torch.from_numpy(clip), (128, 128), method="bicubic").clamp(0, 1).numpy()
+        for root, frames in (("gt", clip), ("lq", lq)):
+            os.makedirs(os.path.join(roots[root], f"{200 + c:03d}"))
+            for i, frame in enumerate(frames):
+                with open(os.path.join(roots[root], f"{200 + c:03d}", f"{i:08d}.png"), "wb") as f:
+                    f.write(encode_png((frame * 255).round().astype(np.uint8)))
+    t0 = time.perf_counter()
+    infer_cli.main(["--seqs-path", roots["lq"], "--out-path", roots["lat"], "--mode", "latent",
+                    "--ddpm-steps", "2", "--seed", str(seed)])
+    torch.cuda.empty_cache()
+    n = len([f for f in os.listdir(os.path.join(roots["lat"], "200")) if f.endswith(".npy")])
+    log(f"[phase9] latents of 2 LQ clips of 10 frames at 128x128 written by the latent mode at "
+        f"full width (2 steps) in {time.perf_counter() - t0:.2f} s: {n} a clip, shape "
+        f"{np.load(os.path.join(roots['lat'], '200', '00000000.npy')).shape}")
+    if n != 10:
+        raise AssertionError(f"phase 9: the latent mode wrote {n} latents for 10 frames")
+    return roots
+
+
+def stage2_args(roots: dict, logdir: str, steps: int, seed: int, *extra):
+    from mgldvsr_tpu_torch.cli import train as cli
+
+    return cli.parse_args(["--config", STAGE2_YAML, "--seed", str(seed), "--data-root",
+                           roots["gt"], "--lq-root",
+                           roots["lq"], "--latent-root", roots["lat"], "--logdir", logdir,
+                           "--max-steps", str(steps), "--grad-accum", "4", "--ckpt-every", "4",
+                           "--log-every", "1", "--no-tb", "--lr", str(TRAIN_LR), *extra])
+
+
+def stage2_pipeline(args):
+    """The shipped stage-2 widths (the YAML's model: section: bf16 VAE with
+    fusion), float32 weights seeded by ``--seed`` and jittered by 0.02
+    N(0, 1) (seeded temporal blends would leave the temporal convs without
+    gradient)."""
+    from mgldvsr_tpu_torch.cli import train as cli
+    from mgldvsr_tpu_torch.io.init_weights import jitter_weights
+
+    pipe = cli.build_pipeline(args)
+    jitter_weights(pipe, 0.02, args.seed)
+    return pipe
+
+
+def stage2_full(seed: int, card: str, roots: dict, logdir: str, steps: int, fused: bool):
+    """(b)/(d) the shipped stage-2 config through the command line's loop:
+    every micro-step checked; returns (final state's copies, records)."""
+    import torch
+
+    from mgldvsr_tpu_torch.cli import train as cli
+    from mgldvsr_tpu_torch.ops import kernels
+    from mgldvsr_tpu_torch.train.stage2 import partition_vae_params
+
+    phase = "(d)" if fused else "(b)"
+    args = stage2_args(roots, logdir, steps, seed)
+    pipe = stage2_pipeline(args)
+    held, before, records = {}, {}, []
+
+    def on_trainer(trainer):
+        """Before the state is made: the VAE holds its float32 weights,
+        which become the masters, and logvar starts at 0."""
+        calm_spynet(trainer)
+        held["trainer"] = trainer
+        held["aux"] = {name: {k: v.clone() for k, v in getattr(trainer, name).state_dict().items()}
+                       for name in ("lpips", "spynet")}
+        train, frozen = partition_vae_params(trainer.vae)
+        held["frozen"] = {k: p.detach().clone() for k, p in frozen.items()}
+        before.update({k: p.detach().float().clone() for k, p in train.items()})
+        before["logvar"] = torch.zeros((), device=trainer.device)
+
+    def on_step(step, state, metrics):
+        t_in = time.perf_counter()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        now = dict(state.trainable, logvar=state.logvar)
+        changed = [k for k in before if not torch.equal(now[k], before[k])]
+        for k in changed:
+            before[k].copy_(now[k])
+        records.append({"step": step, "m": metrics, "changed": len(changed),
+                        "logvar": "logvar" in changed,
+                        "counts": counts, "t_in": t_in, "t_out": time.perf_counter()})
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with fused_switch(fused):
+        state = cli.stage2(args, pipe=pipe, on_step=on_step, on_trainer=on_trainer)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    trainer = held["trainer"]
+    n_train = len(state.trainable) + 1
+    every = STAGE2_EVERY_STEP_FUSED if fused else STAGE2_EVERY_STEP
+    for r in records:
+        m = r["m"]
+        if not all(np.isfinite(m[k]) for k in STAGE2_METRICS) or m["temp_loss"] <= 0:
+            raise AssertionError(f"phase 9 {phase}: metrics {m} at step {r['step']}")
+        # at an update every trainable moves but one whose gradient is
+        # exactly zero (a bias that the next GroupNorm cancels)
+        update = r["step"] % 4 == 0
+        if (r["changed"] >= 0.95 * n_train and r["logvar"]) != update or (
+                not update and r["changed"]):
+            raise AssertionError(f"phase 9 {phase}: {r['changed']} of {n_train} trainables "
+                                 f"changed at micro-step {r['step']} (grad_accum 4), logvar "
+                                 f"{r['logvar']}")
+        for name in every:
+            if r["counts"][name] == 0:
+                raise AssertionError(f"phase 9 {phase}: kernel {name} not launched in "
+                                     f"micro-step {r['step']}")
+        if not fused and any(r["counts"][name] for name in FUSED_ONLY):
+            raise AssertionError(f"phase 9 {phase}: {FUSED_ONLY} launched with the switch off")
+    _, frozen = partition_vae_params(trainer.vae)
+    for k, p in frozen.items():
+        if not torch.equal(p, held["frozen"][k].to(p.dtype)):
+            raise AssertionError(f"phase 9 {phase}: frozen VAE weight {k} changed")
+    for name, sd in held["aux"].items():
+        for k, v in getattr(trainer, name).state_dict().items():
+            if not torch.equal(v, sd[k]):
+                raise AssertionError(f"phase 9 {phase}: {name} {k} changed")
+    times = [r["m"]["step_s"] for r in records[1:]]
+    spans = [b["t_in"] - a["t_out"] for a, b in zip(records, records[1:])]
+    saves = [s for s, r in zip(spans, records[1:]) if r["step"] % 4 == 0]
+    window = sum(spans)
+    clips_s = len(spans) / window
+    no_save = (len(spans) - len(saves)) / (window - sum(saves)) if len(spans) > len(saves) else None
+    per_step = {name: records[-1]["counts"][name] for name in KERNELS}
+    ms = {k: [round(r["m"][k], 4) for r in records] for k in ("loss_g", "temp_loss", "d_weight")}
+    log(f"[phase9] {phase} the shipped stage-2 config (VAE ch 128, bf16, fusion 2 blocks, 5 "
+        f"frames, GT 512) through the CLI loop, fused conv {'on' if fused else 'off'}, {steps} "
+        f"micro-steps at grad_accum 4: {ms}; trainables changed (of {n_train} with logvar) "
+        f"{[r['changed'] for r in records]}; frozen VAE, LPIPS and SpyNet bit for bit; the "
+        f"loop's wall over steps 2-{steps} {window:.4f} s = {clips_s:.4f} clips/s with the "
+        f"saves at {[r['step'] for r in records[1:] if r['step'] % 4 == 0]} "
+        f"({[round(s, 4) for s in saves]} s), "
+        f"{'n/a' if no_save is None else f'{no_save:.4f}'} clips/s without their spans; "
+        f"micro-step s (step_s) {[round(t, 4) for t in times]}, median {np.median(times):.4f}; "
+        f"data wait s {[round(r['m']['data_wait_s'], 4) for r in records[1:]]}; peak device "
+        f"memory {peak / 2**30:.2f} GiB; launches a micro-step "
+        f"{ {k: n for k, n in per_step.items() if n} }  [{card}]")
+    final = snapshot(state)
+    del state, pipe, trainer, held
+    torch.cuda.empty_cache()
+    return final, {"clips_per_s": clips_s, "clips_per_s_no_save": no_save,
+                   "median_s": float(np.median(times)), "window_s": window, "saves_s": saves,
+                   "peak_bytes": peak, "launches": per_step}
+
+
+def stage2_resume(seed: int, card: str, roots: dict, logdir: str, straight: dict) -> dict:
+    """(b) continued: a fresh pipeline from the same seed resumes the step-4
+    checkpoint and replays 5-8, which must equal the straight run bit for
+    bit (the trainer runs cuDNN's deterministic algorithms)."""
+    import shutil
+
+    import torch
+
+    from mgldvsr_tpu_torch.cli import train as cli
+
+    resumed = logdir + "_resumed"
+    os.makedirs(os.path.join(resumed, "ckpt"))
+    shutil.copytree(os.path.join(logdir, "ckpt", "4"), os.path.join(resumed, "ckpt", "4"))
+    args = stage2_args(roots, resumed, 8, seed, "--resume")
+    state = cli.stage2(args, pipe=stage2_pipeline(args), on_trainer=calm_spynet)
+    got = snapshot(state)
+    worst, identical, total = {}, 0, 0
+
+    def compare(part, a, b):
+        nonlocal identical, total
+        total += 1
+        identical += torch.equal(a, b)
+        worst[part] = max(worst.get(part, 0.0), max_err(a, b))
+
+    compare("logvar", got["logvar"], straight["logvar"])
+    for part in ("trainable", "disc"):
+        for k, v in straight[part].items():
+            compare(part, got[part][k], v)
+    for opt in ("opt_g", "opt_d"):
+        for part in ("mu", "nu", "acc"):
+            for k, v in straight[opt][part].items():
+                compare(f"{opt}.{part}", got[opt][part][k], v)
+    log(f"[phase9] (b) resume at step 4, replay 5-8 against the straight run: {identical} of "
+        f"{total} tensors bit for bit (limit: all of them: trainables, logvar, the "
+        f"discriminator's parameters and statistics, both Adam states and accumulators); max "
+        f"|d| { {k: f'{v:.3e}' for k, v in worst.items()} }  [{card}]")
+    if got["step"] != 8:
+        raise AssertionError(f"phase 9 (b): resumed run ended at step {got['step']}")
+    if identical != total:
+        raise AssertionError(f"phase 9 (b): the resumed run differs in {total - identical} of "
+                             f"{total} tensors: {worst}")
+    del state
+    torch.cuda.empty_cache()
+    return {"identical": identical, "total": total, "worst": worst}
+
+
+def stage2_items(roots: dict, count: int, scale_factor: float):
+    """``count`` windows of the stage-2 data on the card, as the loop feeds
+    them: (lq upscaled x4, gt, latents / scale factor)."""
+    import torch
+
+    from mgldvsr_tpu_torch.data.datasets import REDSAutoencoderDataset
+    from mgldvsr_tpu_torch.infer.pipeline import upscale_frames
+
+    ds = REDSAutoencoderDataset(roots["gt"], roots["lq"], roots["lat"], num_frame=5)
+    out = []
+    for i in range(count):
+        it = ds[i % len(ds)]
+        out.append((upscale_frames(torch.from_numpy(it["lqs"]).cuda(), 4),
+                    torch.from_numpy(it["gts"]).cuda(),
+                    torch.from_numpy(it["lts"]).cuda() / scale_factor))
+    return out
+
+
+def stage2_adversarial(seed: int, card: str, roots: dict) -> dict:
+    """(c) four micro-steps of the shipped config through Stage2Trainer with
+    disc_start 0 (the CLI reaches the GAN branch only at step 501):
+    d_weight finite and non-zero, the discriminator's parameters moved by
+    the update and its statistics by every micro-step, the decoder's last
+    conv (the adaptive weight's reference, frozen) unchanged."""
+    import torch
+
+    from mgldvsr_tpu_torch.cli import train as cli
+    from mgldvsr_tpu_torch.train.stage2 import LAST_LAYER, Stage2Config, Stage2Trainer
+
+    pipe = stage2_pipeline(stage2_args(roots, "unused", 4, seed))
+    trainer = Stage2Trainer(pipe.vae, Stage2Config(learning_rate=TRAIN_LR, grad_accum=4,
+                                                   disc_start=0))
+    cli.seed_stage2_aux(trainer, seed)
+    calm_spynet(trainer)
+    state = trainer.init_state()
+    last = dict(pipe.vae.named_parameters())[LAST_LAYER].detach().clone()
+    disc0 = snapshot(state)["disc"]
+    items = stage2_items(roots, 4, pipe.cfg.scale_factor)
+    out = []
+    for i, (lq, gt, lat) in enumerate(items):
+        stats = {k: v.clone() for k, v in state.disc.items() if "running" in k}
+        state, m = trainer.train_step(state, lq, gt, lat)
+        m = {k: float(v) for k, v in m.items()}
+        moved = all(not torch.equal(v, state.disc[k]) for k, v in stats.items())
+        out.append((m, moved))
+        if not (np.isfinite(m["d_weight"]) and m["d_weight"] > 0 and moved
+                and all(np.isfinite(m[k]) for k in STAGE2_METRICS)):
+            raise AssertionError(f"phase 9 (c): micro-step {i + 1}: {m}, statistics moved "
+                                 f"{moved}")
+    params_moved = sum(not torch.equal(v, state.disc[k]) for k, v in disc0.items()
+                       if "running" not in k)
+    n_params = sum("running" not in k for k in disc0)
+    last_same = torch.equal(dict(pipe.vae.named_parameters())[LAST_LAYER], last)
+    d_weight = [round(m_["d_weight"], 6) for m_, _ in out]
+    loss_d = [round(m_["loss_d"], 4) for m_, _ in out]
+    g_loss = [round(m_["g_loss"], 4) for m_, _ in out]
+    log(f"[phase9] (c) disc_start 0, 4 micro-steps at grad_accum 4, full width: d_weight "
+        f"{d_weight}, loss_d {loss_d}, g_loss {g_loss}; running statistics moved every "
+        f"micro-step; {params_moved} of {n_params} discriminator parameters moved by the "
+        f"update; the decoder's conv_out unchanged: {last_same}  [{card}]")
+    if params_moved != n_params or not last_same:
+        raise AssertionError("phase 9 (c): discriminator not updated or conv_out changed")
+    del state, trainer, pipe, items
+    torch.cuda.empty_cache()
+    return {"d_weight": d_weight}
+
+
+# phase 9 (e)'s limits (readings on an H100 in brackets, default / fused
+# configuration). Kernels against their plain versions on the same inputs,
+# about 3x the readings: the reconstruction's max |d| over its max |value|
+# [7.63e-3 / 7.63e-3, two bf16 ulps]; the whole of the trainables'
+# gradients over its norm [1.32e-3 / 1.64e-3]; conv_out's weight gradient
+# over its norm [5.62e-4 / 7.80e-4]. Both against the plain versions in
+# float32, the kernels' distance over the plain bf16 run's: the
+# reconstruction [0.873 / 0.833], the whole gradient [1.015 / 0.990],
+# conv_out's [1.002 / 1.004], and the kernels' worst leaf over either plain
+# run's worst [1.114 / 0.666]. A leaf is held only so: a temporal blend
+# scalar's gradient is the difference of two large bf16 sums, which bf16
+# rounding alone moves by up to 1.05e-1 of its norm.
+S2_DEC_RECON = 2.3e-2
+S2_DEC_WHOLE = 5e-3
+S2_DEC_LAST = 2.4e-3
+S2_DEC_TO_F32 = 1.5
+
+
+@contextlib.contextmanager
+def plain_group_norms():
+    """Bind the models' GroupNorm and GroupNorm->SiLU->conv calls to the
+    kernels' plain versions, which run on the card as on the CPU, for the
+    enclosed calls; restore the wrappers after."""
+    from mgldvsr_tpu_torch.models import layers
+    from mgldvsr_tpu_torch.ops.kernels import gn_silu_conv as conv_mod
+    from mgldvsr_tpu_torch.ops.kernels import groupnorm as gn_mod
+
+    plain = {"channel_sums": gn_mod.channel_sums_plain,
+             "fused_group_norm": gn_mod.fused_group_norm_plain,
+             "gn_silu_conv3x3": conv_mod.gn_silu_conv3x3_plain}
+    before = {name: getattr(layers, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(layers, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in before.items():
+            setattr(layers, name, fn)
+
+
+def decoder_grads(vae, z, enc, cot, names) -> tuple:
+    """(reconstruction, {name: gradient}, launches, cotangent) of one
+    decoder forward and backward with the cotangent ``cot``, or
+    ``cot(reconstruction)`` when it is a function; gradients in float32."""
+    import torch
+
+    from mgldvsr_tpu_torch.ops import kernels
+
+    params = dict(vae.named_parameters())
+    last = params[names[-1]]
+    kernels.reset_launch_counts()
+    last.requires_grad_(True)
+    try:
+        recon = vae.decode(z, enc, 1.0)
+        if callable(cot):
+            cot = cot(recon.detach())
+        grads = torch.autograd.grad(recon, [params[k] for k in names], cot.to(recon.dtype))
+    finally:
+        last.requires_grad_(False)
+    torch.cuda.synchronize()
+    return (recon.detach().float(), {k: g.float() for k, g in zip(names, grads)},
+            kernels.launch_counts(), cot)
+
+
+def stage2_decoder(seed: int, card: str, roots: dict) -> dict:
+    """(e) the shipped config's decoder forward and backward at full width
+    (bf16, 5 frames of 512x512, from a loaded window's latents and LQ
+    encoder features), in both configurations: the kernels (channel sums and
+    their gradient on the 128^2-512^2 levels, the fused GroupNorm; or the
+    chain's two kernels, conv_out on the mma.sync kernel at 3 output
+    channels) against their plain versions on the card, on the same inputs,
+    weights and a seeded cotangent, and both against the plain versions in
+    float32: the reconstruction, every trainable's gradient and the gradient
+    of conv_out's weight (the adaptive GAN weight's reference)."""
+    import dataclasses
+
+    import torch
+
+    from mgldvsr_tpu_torch.models.vae import VideoAutoencoderKLResi
+    from mgldvsr_tpu_torch.train.stage2 import (
+        LAST_LAYER,
+        Stage2Config,
+        Stage2Trainer,
+        partition_vae_params,
+    )
+
+    pipe = stage2_pipeline(stage2_args(roots, "unused", 1, seed))
+    Stage2Trainer(pipe.vae, Stage2Config()).init_state()  # the bf16 VAE, trainables live
+    vae = pipe.vae
+    lq, gt, lat = stage2_items(roots, 1, pipe.cfg.scale_factor)[0]
+    train, _ = partition_vae_params(vae)
+    names = [*train, LAST_LAYER]
+    z = lat.permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        _, enc = vae.encode((lq * 2 - 1).permute(0, 3, 1, 2).contiguous())
+    gt = (gt * 2 - 1).permute(0, 3, 1, 2)
+    vae32 = VideoAutoencoderKLResi(dataclasses.replace(vae.cfg, dtype=torch.float32)).cuda()
+    vae32.load_state_dict({k: v.float() for k, v in vae.state_dict().items()})
+    for k, p in vae32.named_parameters():
+        p.requires_grad_(k in train)
+    # the cotangent of the pixel term |gt - recon| (summed) at the float32
+    # reconstruction, held fixed for every run
+    with plain_group_norms():
+        r32, g32, _, cot = decoder_grads(vae32, z, [e.float() for e in enc],
+                                         lambda r: torch.sign(r - gt), names)
+    del vae32
+    torch.cuda.empty_cache()
+    runs = {}
+    for fused in (False, True):
+        for plain in (False, True):
+            with fused_switch(fused), (plain_group_norms() if plain else contextlib.nullcontext()):
+                runs[fused, plain] = decoder_grads(vae, z, enc, cot, names)[:3]
+
+    def dist(g, want):
+        """({leaf: |g - want| over its norm + 1e-3 of the largest}, whole,
+        conv_out's weight gradient over its norm)."""
+        leaf, whole = leaf_spread({k: g[k] for k in train}, {k: want[k] for k in train})
+        last = float((g[LAST_LAYER] - want[LAST_LAYER]).norm() / want[LAST_LAYER].norm())
+        return leaf, whole, last
+
+    # the worst leaf of either plain bf16 run against float32
+    plain_worst = max(max(dist(runs[f, True][1], g32)[0].values()) for f in (False, True))
+    out = {}
+    for fused in (False, True):
+        (rk, gk, ck), (rp, gp, cp) = runs[fused, False], runs[fused, True]
+        _, whole, last = dist(gk, gp)
+        recon = max_err(rk, rp) / float(rp.abs().max())
+        k32, p32 = dist(gk, g32), dist(gp, g32)
+        worst = max(k32[0], key=k32[0].get)
+        ratio = {"reconstruction": (max_err(rk, r32) / max(max_err(rp, r32), 1e-30)),
+                 "whole": k32[1] / p32[1], "conv_out": k32[2] / p32[2],
+                 "worst leaf": k32[0][worst] / plain_worst}
+        mma = ck["gn_silu_conv3x3"] - ck["gn_silu_conv3x3_wgmma"]
+        tag = "fused" if fused else "default"
+        out[tag] = {"recon": recon, "whole": whole, "conv_out": last, "to_f32": ratio,
+                    "leaf": (worst, k32[0][worst], plain_worst)}
+        log(f"[phase9] (e) decoder forward + backward at full width (bf16, 5 x 512x512, the "
+            f"pixel loss's cotangent), fused conv {'on' if fused else 'off'}: kernels against "
+            f"their plain versions on the card, reconstruction max |d| {recon:.3e} of its max "
+            f"(limit {S2_DEC_RECON:.1e}), the {len(train)} trainables' gradients whole "
+            f"{whole:.3e} of the norm (limit {S2_DEC_WHOLE:.1e}), conv_out's weight gradient "
+            f"{last:.3e} (limit {S2_DEC_LAST:.1e}). Against the plain versions in float32, "
+            f"kernels over plain bf16: "
+            f"{ {k: f'{v:.3f}' for k, v in ratio.items()} } (limit {S2_DEC_TO_F32:.2f} each; "
+            f"the whole {k32[1]:.3e} / {p32[1]:.3e}, the worst leaf {worst} {k32[0][worst]:.3e} "
+            f"/ either plain run's worst {plain_worst:.3e} of its norm); launches "
+            f"{({n: c for n, c in ck.items() if c})}, of them on the mma.sync conv {mma}; the "
+            f"plain runs' {({n: c for n, c in cp.items() if c})}  [{card}]")
+        if (recon > S2_DEC_RECON or whole > S2_DEC_WHOLE or last > S2_DEC_LAST
+                or max(ratio.values()) > S2_DEC_TO_F32):
+            raise AssertionError(f"phase 9 (e): {tag}: kernels and plain versions disagree "
+                                 f"{out[tag]}")
+        every = ("gn_silu_conv3x3", "gn_scale_shift") if fused else ("channel_sums",
+                                                                    "fused_group_norm")
+        if any(ck[n] == 0 for n in every) or (fused and mma == 0) or any(cp.values()):
+            raise AssertionError(f"phase 9 (e): {tag}: launches {ck}, plain run {cp}")
+    del pipe, vae, enc, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_device_ms(fn, reps: int = 2) -> float:
+    """Device ms a call of ``fn``: the kernels' summed time in a
+    torch.profiler trace of ``reps`` warm calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == cuda) / 1000 / reps
+
+
+def stage2_profile(seed: int, card: str, roots: dict, logdir: str) -> dict:
+    """Where a full-width stage-2 micro-step's time goes (default
+    configuration): a torch.profiler trace of kernels only over the CLI
+    loop's micro-steps 2-5 (no save): device time a micro-step and the
+    device's idle share of the traced wall (an upper bound: the profiler adds
+    host time to each launch). Then on the same trainer and a loaded window,
+    the device time of its parts, each traced alone: SpyNet and the
+    occlusion masks, the LQ encode, the decoder forward and backward, LPIPS
+    forward and backward, the discriminator (the generator's pass and the
+    discriminator's step)."""
+    import torch
+    from torch.func import functional_call
+    from torch.profiler import ProfilerActivity, profile
+
+    from mgldvsr_tpu_torch.cli import train as cli
+    from mgldvsr_tpu_torch.train.stage2 import partition_vae_params
+
+    args = stage2_args(roots, logdir, 5, seed, "--ckpt-every", "1000000")
+    pipe = stage2_pipeline(args)
+    held, marks = {}, {}
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def on_trainer(trainer):
+        calm_spynet(trainer)
+        held["trainer"] = trainer
+
+    def on_step(step, state, metrics):
+        if step in (1, 5):
+            torch.cuda.synchronize()
+            if step == 1:
+                prof.start()
+                marks["t0"] = time.perf_counter()
+            else:
+                marks["wall"] = (time.perf_counter() - marks["t0"]) * 1000 / 4
+                prof.stop()
+        held["state"] = state
+
+    cli.stage2(args, pipe=pipe, on_step=on_step, on_trainer=on_trainer)
+    cuda = torch.autograd.DeviceType.CUDA
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == cuda) / 1000 / 4
+    wall = marks["wall"]
+    if device <= 0:
+        raise AssertionError("phase 9: the profiler saw no device time")
+    tr, state = held["trainer"], held["state"]
+    lq, gt01, lat = stage2_items(roots, 1, pipe.cfg.scale_factor)[0]
+    gt = (gt01 * 2 - 1).permute(0, 3, 1, 2)
+    lqn = (lq * 2 - 1).permute(0, 3, 1, 2).contiguous()
+    z = lat.permute(0, 3, 1, 2).contiguous()
+    train, _ = partition_vae_params(tr.vae)
+    with torch.no_grad():
+        _, enc = tr.vae.encode(lqn)
+        recon = tr.vae.decode(z, enc)
+
+    def encode():
+        with torch.no_grad():
+            tr.vae.encode(lqn)
+
+    def decode_fwd():
+        with torch.no_grad():
+            tr.vae.decode(z, enc)
+
+    def decode_fwd_bwd():
+        out = tr.vae.decode(z, enc)
+        torch.autograd.grad(out, list(train.values()), torch.ones_like(out))
+
+    def lpips():
+        r = recon.detach().float().requires_grad_(True)
+        torch.autograd.grad(tr.lpips(gt, r).sum(), r)
+
+    def disc():
+        r = recon.detach().requires_grad_(True)
+        torch.autograd.grad(functional_call(tr.disc, dict(state.disc), (r,),
+                                            {"train": False}).mean(), r)
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in tr.disc_params(state.disc).items()}
+        bufs = {k: v.clone() for k, v in state.disc.items() if k not in params}
+        lr_ = functional_call(tr.disc, {**params, **bufs}, (gt,), {"train": True})
+        lf_ = functional_call(tr.disc, {**params, **bufs}, (recon,), {"train": True})
+        torch.autograd.grad(lr_.mean() - lf_.mean(), list(params.values()))
+
+    def flows():
+        tr.frozen_flows(gt01)
+
+    parts = {"flows (SpyNet + occlusion)": flows, "LQ encode": encode,
+             "decoder forward": decode_fwd, "decoder forward + backward": decode_fwd_bwd,
+             "LPIPS forward + backward": lpips, "discriminator (both passes)": disc}
+    part_ms = {name: kernel_device_ms(fn) for name, fn in parts.items()}
+    part_ms["decoder backward"] = (part_ms["decoder forward + backward"]
+                                   - part_ms["decoder forward"])
+    log(f"[phase9] the CLI loop under torch.profiler (kernels only, micro-steps 2-5, data "
+        f"workers running, no save): {wall:.2f} ms of wall a micro-step, {device:.2f} ms of "
+        f"device time, idle share {1 - device / wall:.4f}. Device time of the parts, each "
+        f"traced alone on a loaded window: "
+        f"{ {k: f'{v:.2f} ms ({100 * v / device:.1f}%)' for k, v in part_ms.items()} } "
+        f"(shares of the micro-step's device time)  [{card}]")
+    del held, state, tr, pipe, recon, enc
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall, "device_ms": device, "idle_share": 1 - device / wall,
+            "parts_ms": part_ms}
+
+
+def stage2_warp(card: str) -> dict:
+    """Kernel 1 at the swc loss's shape, a GT frame [1,512,512,3] f32 warped
+    by a flow of a few pixels: against its plain version, the library call
+    (F.grid_sample, bilinear, zeros, align_corners=True, on the NCHW frame)
+    and the bound (one read of x and the flow, one write; 4 taps of 2 flops
+    and ~12 flops of weights per output element)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mgldvsr_tpu_torch.ops.kernels.flow_warp import warp_forward, warp_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.rand(1, 512, 512, 3, device="cuda", generator=gen)
+    flow = torch.randn(1, 512, 512, 2, device="cuda", generator=gen) * 3
+    err = max_err(warp_forward(x, flow), warp_plain(x, flow))
+    bound_ms, by = bound(nbytes(x, flow, x), 20 * x.numel(), "f32")
+    gy, gx = torch.meshgrid(torch.arange(512.0, device="cuda"),
+                            torch.arange(512.0, device="cuda"), indexing="ij")
+    grid = torch.stack([(gx + flow[..., 0]) * (2 / 511) - 1, (gy + flow[..., 1]) * (2 / 511) - 1],
+                       -1)
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    out = {"max_abs_err": err, "ms": cuda_ms(lambda: warp_forward(x, flow)),
+           "plain_ms": cuda_ms(lambda: warp_plain(x, flow)), "bound_ms": bound_ms, "bound_by": by,
+           "library_ms": cuda_ms(lambda: F.grid_sample(xn, grid, mode="bilinear",
+                                                       padding_mode="zeros",
+                                                       align_corners=True)),
+           "device_ms": graph_ms(lambda: warp_forward(x, flow))}
+    log(f"[phase9] warp_forward at the swc loss's shape x[1,512,512,3] f32: max_abs_err "
+        f"{err:.3e} (limit 1e-5) against the plain version; {out['ms']:.4f} ms "
+        f"(device {out['device_ms']:.4f}), plain {out['plain_ms']:.4f}, F.grid_sample "
+        f"{out['library_ms']:.4f}, bound {bound_ms:.4f} ms ({by})  [{card}]")
+    if err > 1e-5:
+        raise AssertionError(f"phase 9: warp_forward at [1,512,512,3] disagrees ({err:.3e})")
+    return out
+
+
+def phase9(seed: int, card: str) -> dict:
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = stage2_data(tmp, seed)
+        straight, out["default"] = stage2_full(seed, card, roots, os.path.join(tmp, "b"), 8,
+                                               fused=False)
+        out["resume"] = stage2_resume(seed, card, roots, os.path.join(tmp, "b"), straight)
+        del straight
+        shutil.rmtree(os.path.join(tmp, "b"))
+        shutil.rmtree(os.path.join(tmp, "b_resumed"))
+        out["adversarial"] = stage2_adversarial(seed, card, roots)
+        out["decoder"] = stage2_decoder(seed, card, roots)
+        _, out["fused"] = stage2_full(seed, card, roots, os.path.join(tmp, "d"), 4, fused=True)
+        out["profile"] = stage2_profile(seed, card, roots, os.path.join(tmp, "p"))
+    out["warp"] = stage2_warp(card)
+    out["tiny"] = {f: phase9_tiny(seed, card, f) for f in (False, True)}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[phase9] stage-2 training phase: {out['wall_s']:.1f} s of wall  [{card}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
                     help="respaced DDPM steps of phases 4, 5 and 6 (a)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only-train", action="store_true",
-                    help="build the kernels and run phase 8 alone (no result line)")
+                    help="build the kernels and run phases 8 and 9 alone (no result line)")
+    ap.add_argument("--only-stage2", action="store_true",
+                    help="build the kernels and run phase 9 alone (no result line)")
     args = ap.parse_args()
 
     import torch
@@ -2036,8 +2982,10 @@ def main() -> int:
     so, secs = _build.build()
     _build.library()
     log(f"[phase1] built {so.name} in {secs:.2f} s (nvcc, sm_90a)")
-    if args.only_train:
-        log(json.dumps(phase8(args.seed, card), default=str))
+    if args.only_train or args.only_stage2:
+        if args.only_train:
+            log(json.dumps(phase8(args.seed, card), default=str))
+        log(json.dumps(phase9(args.seed, card), default=str))
         return 0
 
     results = phase2(card)
@@ -2056,6 +3004,7 @@ def main() -> int:
     del pipe, frames
     phase7(card)
     train = phase8(args.seed, card)
+    stage2 = phase9(args.seed, card)
 
     # launches: the count on the path that runs the kernel (the fused
     # configuration for the fused conv, the default one for the others)
@@ -2067,6 +3016,8 @@ def main() -> int:
                 "launches_tile_reference": tile["reference"]["counts"][name],
                 "launches_train": train["default"]["launches"][name],
                 "launches_train_fused": train["fused"]["launches"][name],
+                "launches_stage2": stage2["default"]["launches"][name],
+                "launches_stage2_fused": stage2["fused"]["launches"][name],
                 **results[name]}
                for name, (route, src, rep) in KERNELS.items()]
     for entry in kernels:

@@ -4,6 +4,8 @@
   python -m mgldvsr_tpu_torch.cli.train --stage 1 --data-root REDS_GT \\
       [--config cfg.yaml ...] [--set key.path=value ...] [--logdir runs/exp] \\
       [--max-steps N] [--resume] [--tiny] [--torch-ckpt ckpt] [--device cuda|cpu]
+  python -m mgldvsr_tpu_torch.cli.train --stage 2 --data-root GT --lq-root LQ \\
+      --latent-root LATENTS [--config configs/video_autoencoder_kl_64x64x4_resi.yaml] ...
 
 Stage 1 finetunes the denoiser's SPADE and temporal-conv weights and the
 struct-cond encoder on clips degraded on the fly (the shipped two-stage
@@ -22,11 +24,24 @@ MGLD-VSR checkpoint (``export/mgld_ema.pt``, plus ``export/raft.pt``) that
 accumulator and step, the data stream at the next clip, and the draws (each
 step's generator is seeded from ``--seed`` and the step).
 
-Not offered (each a queued ROADMAP item): ``--stage 2`` (item 10);
-``--mesh``, ``--multihost``, ``--tensor-parallel``, ``--zero1`` (item 11,
-multi-GPU); ``--params`` (an orbax directory: the card's machine has neither
-JAX nor orbax; give ``--torch-ckpt``); ``--split-step`` (a TPU compile
-workaround, not ported).
+Stage 2 finetunes the video VAE decoder's fusion and temporal layers on
+windows of GT frames (``--data-root``), LQ frames (``--lq-root``) and the
+latents the inference CLI's latent mode wrote for them (``--latent-root``),
+with LPIPS, a PatchGAN discriminator and SpyNet in the loss. The trainer
+starts from the pipeline's VAE (``--torch-ckpt`` / ``--vqgan-ckpt``, or
+seeded weights), and decodes the stored latents divided by the diffusion
+scale factor: the JAX command line does neither (it starts from a fresh
+random VAE and decodes the scaled latents). LPIPS, the discriminator and
+SpyNet are seeded from ``--seed``; their modules keep the upstream key
+names (taming's, basicsr's), so their checkpoints load with a plain
+``load_state_dict``. At the end the VAE is exported as ``export/vqgan.pt``, which
+the inference CLI loads with ``--vqgan-ckpt``.
+
+Not offered (each a queued ROADMAP item): ``--mesh``, ``--multihost``,
+``--tensor-parallel``, ``--zero1`` (item 11, multi-GPU); ``--params`` (an
+orbax directory: the card's machine has neither JAX nor orbax; give
+``--torch-ckpt``); ``--split-step`` (a TPU compile workaround for stage 2;
+the port's step is eager).
 """
 from __future__ import annotations
 
@@ -43,9 +58,8 @@ REFUSED = {
     "--multihost": "multi-GPU training is ROADMAP item 11",
     "--tensor-parallel": "multi-GPU training is ROADMAP item 11",
     "--zero1": "multi-GPU training is ROADMAP item 11",
-    "--split-step": "a TPU compile workaround for stage 2, not ported (ROADMAP section 1)",
-    "--lq-root": "stage-2 data; stage 2 is ROADMAP item 10",
-    "--latent-root": "stage-2 data; stage 2 is ROADMAP item 10",
+    "--split-step": "a TPU compile workaround for stage 2; the port's step is eager "
+                    "(ROADMAP section 1)",
     "--platform": "the port picks its device with --device",
 }
 
@@ -123,7 +137,9 @@ def parse_args(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0], parents=[pre])
     ap.add_argument("--stage", type=int, choices=[1, 2], default=1)
-    ap.add_argument("--data-root", required=True)
+    ap.add_argument("--data-root", required=True, help="GT frames root")
+    ap.add_argument("--lq-root", help="stage 2: LQ frames root")
+    ap.add_argument("--latent-root", help="stage 2: root of the latent mode's latents")
     ap.add_argument("--logdir", default="runs/default")
     ap.add_argument("--max-steps", type=int, default=800_000)
     ap.add_argument("--gt-size", type=int, default=512)
@@ -164,8 +180,8 @@ def parse_args(argv=None):
     for flag in REFUSED:
         if getattr(args, "refused_" + flag[2:].replace("-", "_")) is not None:
             ap.error(f"{flag} is not offered by the port: {REFUSED[flag]}")
-    if args.stage != 1:
-        ap.error("--stage 2 is not ported yet (ROADMAP item 10)")
+    if args.stage == 2 and not (args.lq_root and args.latent_root):
+        ap.error("--stage 2 needs --lq-root and --latent-root")
     args.cfg = cfg
     return args
 
@@ -211,26 +227,11 @@ def build_pipeline(args):
     return pipe
 
 
-def stage1(args, pipe=None, on_step=None):
-    """The stage-1 loop; returns the final training state. ``pipe`` (built
-    with float32 weights) replaces :func:`build_pipeline`; ``on_step(step,
-    state, metrics)`` runs after every micro-step."""
-    import torch
-
-    from mgldvsr_tpu_torch.data.datasets import (
-        RealVSRRecurrentDataset,
-        ShardedSampler,
-        prefetch_iterator,
-    )
-    from mgldvsr_tpu_torch.infer.pipeline import upscale_frames
-    from mgldvsr_tpu_torch.io.checkpoint import (
-        CheckpointManager,
-        install_signal_save,
-        save_params,
-    )
-    from mgldvsr_tpu_torch.io.torch_ckpt import mgld_state_dict
-    from mgldvsr_tpu_torch.train.trainer import Stage1Config, Stage1Trainer, with_ema
-    from mgldvsr_tpu_torch.utils.logging import ImageLogger, MessageLogger, env_info
+def _loggers(args):
+    """(TensorBoard writer or None, MessageLogger, CheckpointManager) of a
+    run under ``--logdir``."""
+    from mgldvsr_tpu_torch.io.checkpoint import CheckpointManager
+    from mgldvsr_tpu_torch.utils.logging import MessageLogger, env_info
 
     print(env_info(), flush=True)
     os.makedirs(args.logdir, exist_ok=True)
@@ -241,10 +242,92 @@ def stage1(args, pipe=None, on_step=None):
         tb = TBEventWriter(os.path.join(args.logdir, "tb"))
     msg = MessageLogger(args.max_steps, os.path.join(args.logdir, "metrics.jsonl"),
                         args.log_every, tb=tb)
-    imglog = ImageLogger(args.logdir, args.image_every, tb=tb)
     ckpt = CheckpointManager(os.path.join(args.logdir, "ckpt"),
                              save_interval_steps=args.ckpt_every)
+    return tb, msg, ckpt
 
+
+def _train_loop(args, ds, state, micro_step, loggers, dev, on_step=None):
+    """Micro-steps from ``state.step`` to ``--max-steps`` over ``ds``'s
+    samples, epoch after epoch from the sampler's stream (a resume continues
+    it at the next sample), prefetched in worker processes across epoch
+    boundaries. ``micro_step(state, item)`` returns (state, metrics, after);
+    the metrics are logged and the checkpoint saved, then ``after()`` runs
+    where it is not None, then ``on_step(step, state, metrics)``. SIGUSR1 and
+    Ctrl-C save. Returns the final state."""
+    import torch
+
+    from mgldvsr_tpu_torch.data.datasets import ShardedSampler, prefetch_iterator
+    from mgldvsr_tpu_torch.io.checkpoint import install_signal_save
+
+    tb, msg, ckpt = loggers
+    held = {"state": state, "in_step": False}
+    install_signal_save(lambda: None if held["in_step"] else (held["state"].step, held["state"]),
+                        ckpt)
+    sampler = ShardedSampler(len(ds), seed=args.seed)
+    per_epoch = len(sampler.epoch(0))
+    if per_epoch == 0:
+        raise ValueError(f"no training samples under {args.data_root}")
+    step = state.step
+
+    def stream(start):
+        epoch, skip = divmod(start, per_epoch)
+        while True:
+            yield from sampler.epoch(epoch)[skip:]
+            epoch, skip = epoch + 1, 0
+
+    items = prefetch_iterator(ds, stream(step))
+    try:
+        waited = time.perf_counter()
+        while step < args.max_steps:
+            item = next(items)
+            t0 = time.perf_counter()
+            held["in_step"] = True
+            state, metrics, after = micro_step(state, item)
+            held["state"], held["in_step"] = state, False
+            step = state.step
+            metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
+            # seconds of the micro-step (upload to metrics) and of the wait
+            # for its sample from the data path before it
+            metrics["step_s"] = time.perf_counter() - t0
+            metrics["data_wait_s"] = t0 - waited
+            if step % args.log_every == 0 and dev.type == "cuda":
+                metrics["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            msg(step, metrics, lr=args.lr)
+            ckpt.save(step, state, metrics=metrics, force=ckpt.signal_pending)
+            ckpt.signal_pending = False
+            if after is not None:
+                after()
+            if on_step is not None:
+                on_step(step, state, metrics)
+            waited = time.perf_counter()
+    except KeyboardInterrupt:
+        ckpt.save(step, state, force=True)
+        print("interrupted: checkpoint saved", flush=True)
+    finally:
+        items.close()  # drops the samples prefetched beyond the last step
+        if tb is not None:
+            tb.close()
+    ckpt.wait()
+    return state
+
+
+def stage1(args, pipe=None, on_step=None):
+    """The stage-1 loop; returns the final training state. ``pipe`` (built
+    with float32 weights) replaces :func:`build_pipeline`; ``on_step(step,
+    state, metrics)`` runs after every micro-step."""
+    import torch
+
+    from mgldvsr_tpu_torch.data.datasets import RealVSRRecurrentDataset
+    from mgldvsr_tpu_torch.infer.pipeline import upscale_frames
+    from mgldvsr_tpu_torch.io.checkpoint import save_params
+    from mgldvsr_tpu_torch.io.torch_ckpt import mgld_state_dict
+    from mgldvsr_tpu_torch.train.trainer import Stage1Config, Stage1Trainer, with_ema
+    from mgldvsr_tpu_torch.utils.logging import ImageLogger
+
+    loggers = _loggers(args)
+    imglog = ImageLogger(args.logdir, args.image_every, tb=loggers[0])
+    ckpt = loggers[2]
     if pipe is None:
         pipe = build_pipeline(args)
     dev = pipe.device
@@ -274,65 +357,26 @@ def stage1(args, pipe=None, on_step=None):
         trainer.load_towers(state)
         print(f"resumed at step {state.step}", flush=True)
 
-    in_step = [False]
-    install_signal_save(lambda: None if in_step[0] else (state.step, state), ckpt)
+    def micro_step(state, item):
+        lq = upscale_frames(torch.from_numpy(item["lqs"]).to(dev), pipe.cfg.sf)
+        gt = torch.from_numpy(item["gts"]).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(args.seed * 1_000_003 + state.step)
+        state, metrics = trainer.train_step(state, lq, gt, gen)
+        step = state.step
+        if not imglog.should_log(step):
+            return state, metrics, None
 
-    sampler = ShardedSampler(len(ds), seed=args.seed)
-    per_epoch = len(sampler.epoch(0))
-    if per_epoch == 0:
-        raise ValueError(f"no training clips under {args.data_root}")
-    step = state.step
+        def log_images():
+            rows = {"lq": lq.float().cpu().numpy(), "gt": gt.float().cpu().numpy()}
+            if args.sample_rows:
+                sgen = torch.Generator(device=dev).manual_seed(args.seed + step)
+                rows.update({k: v.float().cpu().numpy()
+                             for k, v in pipe.log_images(lq, sgen).items()})
+            imglog.log_images(step, rows)
 
-    def stream(start):
-        """Clip indices epoch after epoch from step ``start`` on (a resume
-        continues the data stream), so the prefetch runs ahead across epoch
-        boundaries."""
-        epoch, skip = divmod(start, per_epoch)
-        while True:
-            yield from sampler.epoch(epoch)[skip:]
-            epoch, skip = epoch + 1, 0
+        return state, metrics, log_images
 
-    items = prefetch_iterator(ds, stream(step))
-    try:
-        waited = time.perf_counter()
-        while step < args.max_steps:
-            item = next(items)
-            t0 = time.perf_counter()
-            lq = upscale_frames(torch.from_numpy(item["lqs"]).to(dev), pipe.cfg.sf)
-            gt = torch.from_numpy(item["gts"]).to(dev)
-            gen = torch.Generator(device=dev).manual_seed(args.seed * 1_000_003 + step)
-            in_step[0] = True
-            state, metrics = trainer.train_step(state, lq, gt, gen)
-            in_step[0] = False
-            step = state.step
-            metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
-            # seconds of the micro-step (upload to metrics) and of the wait
-            # for its clip from the data path before it
-            metrics["step_s"] = time.perf_counter() - t0
-            metrics["data_wait_s"] = t0 - waited
-            if step % args.log_every == 0 and dev.type == "cuda":
-                metrics["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
-            msg(step, metrics, lr=args.lr)
-            ckpt.save(step, state, metrics=metrics, force=ckpt.signal_pending)
-            ckpt.signal_pending = False
-            if imglog.should_log(step):
-                rows = {"lq": lq.float().cpu().numpy(), "gt": gt.float().cpu().numpy()}
-                if args.sample_rows:
-                    sgen = torch.Generator(device=dev).manual_seed(args.seed + step)
-                    rows.update({k: v.float().cpu().numpy()
-                                 for k, v in pipe.log_images(lq, sgen).items()})
-                imglog.log_images(step, rows)
-            if on_step is not None:
-                on_step(step, state, metrics)
-            waited = time.perf_counter()
-    except KeyboardInterrupt:
-        ckpt.save(step, state, force=True)
-        print("interrupted: checkpoint saved", flush=True)
-    finally:
-        items.close()  # drops the clips prefetched beyond the last step
-        if tb is not None:
-            tb.close()
-    ckpt.wait()
+    state = _train_loop(args, ds, state, micro_step, loggers, dev, on_step)
     export = os.path.join(args.logdir, "export")
     os.makedirs(export, exist_ok=True)
     save_params(os.path.join(export, "mgld_ema.pt"), {"state_dict": mgld_state_dict(
@@ -343,10 +387,70 @@ def stage1(args, pipe=None, on_step=None):
     return state
 
 
+def seed_stage2_aux(trainer, seed: int) -> None:
+    """Seeded LPIPS, discriminator and SpyNet weights, on the trainer's
+    device (one generator, in that order)."""
+    import torch
+
+    from mgldvsr_tpu_torch.io.init_weights import init_module_weights
+
+    gen = torch.Generator(device=trainer.device).manual_seed(seed + 2)
+    for module in (trainer.lpips, trainer.disc, trainer.spynet):
+        init_module_weights(module, gen)
+
+
+def stage2(args, pipe=None, on_step=None, on_trainer=None):
+    """The stage-2 loop; returns the final training state. ``pipe`` (built
+    with float32 weights) replaces :func:`build_pipeline`; ``on_trainer(
+    trainer)`` runs once the loss networks are loaded, before the state is
+    made; ``on_step(step, state, metrics)`` runs after every micro-step."""
+    import torch
+
+    from mgldvsr_tpu_torch.data.datasets import REDSAutoencoderDataset
+    from mgldvsr_tpu_torch.infer.pipeline import upscale_frames
+    from mgldvsr_tpu_torch.io.checkpoint import save_params
+    from mgldvsr_tpu_torch.train.stage2 import Stage2Config, Stage2Trainer
+
+    loggers = _loggers(args)
+    ckpt = loggers[2]
+    ds = REDSAutoencoderDataset(args.data_root, args.lq_root, args.latent_root,
+                                num_frame=args.num_frames)
+    if pipe is None:
+        pipe = build_pipeline(args)
+    dev = pipe.device
+    trainer = Stage2Trainer(pipe.vae, Stage2Config(learning_rate=args.lr,
+                                                   grad_accum=args.grad_accum,
+                                                   num_frames=args.num_frames))
+    seed_stage2_aux(trainer, args.seed)
+    if on_trainer is not None:
+        on_trainer(trainer)
+    state = trainer.init_state()
+    if args.resume and ckpt.latest_step() is not None:
+        state = ckpt.restore(template=state)
+        trainer.load_vae(state)
+        print(f"resumed at step {state.step}", flush=True)
+
+    def micro_step(state, item):
+        lq = upscale_frames(torch.from_numpy(item["lqs"]).to(dev), 4)
+        gt = torch.from_numpy(item["gts"]).to(dev)
+        # the latent mode stores scale_factor * z; the decoder takes z
+        lat = torch.from_numpy(item["lts"]).to(dev) / pipe.cfg.scale_factor
+        return (*trainer.train_step(state, lq, gt, lat), None)
+
+    state = _train_loop(args, ds, state, micro_step, loggers, dev, on_step)
+    export = os.path.join(args.logdir, "export")
+    os.makedirs(export, exist_ok=True)
+    vae = {k: v.detach().float() for k, v in pipe.vae.state_dict().items()}
+    vae.update(state.trainable)
+    save_params(os.path.join(export, "vqgan.pt"), {"state_dict": vae})
+    print(f"exported the VAE to {export}", flush=True)
+    return state
+
+
 def main(argv=None):
     args = parse_args(argv)
     t0 = time.time()
-    stage1(args)
+    (stage1 if args.stage == 1 else stage2)(args)
     print(f"done in {time.time() - t0:.1f} s", flush=True)
 
 

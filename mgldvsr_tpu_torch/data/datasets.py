@@ -1,9 +1,11 @@
-"""Stage-1 training clips: REDS-style GT windows degraded on the fly.
+"""Training clips: REDS-style GT windows degraded on the fly (stage 1), and
+GT / LQ / latent windows read from disk (stage 2).
 
 Counterpart of ``mgldvsr_tpu/data/datasets.py`` (``RealVSRRecurrentDataset``,
-``paired_random_crop``, ``augment``, ``REDS4_CLIPS``, ``ShardedSampler``,
-``prefetch_iterator``) without OpenCV: frames are read through
-:mod:`mgldvsr_tpu_torch.data.cv_ops` (PNG), ``packed_root`` through
+``REDSAutoencoderDataset``, ``paired_random_crop``, ``augment``,
+``REDS4_CLIPS``, ``ShardedSampler``, ``prefetch_iterator``) without
+OpenCV: frames are read through :mod:`mgldvsr_tpu_torch.data.cv_ops` (PNG),
+``packed_root`` through
 :class:`~mgldvsr_tpu_torch.data.file_client.PackedBackend`. Every draw is
 made from the same per-(seed, index) ``RandomState`` in the same order as
 the JAX package's. Samples are float32 [T, H, W, 3] RGB in [0, 1].
@@ -163,6 +165,43 @@ class RealVSRRecurrentDataset:
             "gts": _bgr2rgb(np.stack(results["gts"]).astype(np.float32)),
             "clip": clip,
             "indices": np.asarray(idxs, np.int32),
+        }
+
+
+class REDSAutoencoderDataset:
+    """Stage-2 windows: GT and LQ PNG frames, the diffusion latents the
+    latent mode wrote for them (``<clip>/<frame>.npy``, [h, w, 4], times the
+    diffusion scale factor), in windows of ``num_frame`` frames aligned to
+    multiples of it (every start with ``load_fix_indices_only=False``).
+    Frames are float32 RGB in [0, 1]."""
+
+    def __init__(self, dataroot_gt: str, dataroot_lq: str, dataroot_latent: str,
+                 num_frame: int = 5, load_fix_indices_only: bool = True):
+        self.roots = dict(gt=dataroot_gt, lq=dataroot_lq, latent=dataroot_latent)
+        self.num_frame = num_frame
+        self.windows = []
+        step = num_frame if load_fix_indices_only else 1
+        for clip in sorted(os.listdir(dataroot_gt)):
+            names = sorted(os.path.basename(f)
+                           for f in glob.glob(os.path.join(dataroot_gt, clip, "*.png")))
+            for s in range(0, len(names) - num_frame + 1, step):
+                self.windows.append((clip, names[s:s + num_frame]))
+
+    def __len__(self) -> int:
+        return len(self.windows)
+
+    def _frames(self, root: str, clip: str, names) -> np.ndarray:
+        return _bgr2rgb(np.stack([_imread(os.path.join(root, clip, n)) for n in names]))
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        clip, names = self.windows[index]
+        return {
+            "gts": self._frames(self.roots["gt"], clip, names),
+            "lqs": self._frames(self.roots["lq"], clip, names),
+            "lts": np.stack([np.load(os.path.join(self.roots["latent"], clip,
+                                                  os.path.splitext(n)[0] + ".npy"))
+                             for n in names]).astype(np.float32),
+            "clip": clip,
         }
 
 

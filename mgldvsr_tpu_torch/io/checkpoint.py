@@ -51,11 +51,12 @@ def _onto(saved, like):
 
 
 def state_payload(state) -> Dict[str, Any]:
-    """What a checkpoint holds of a training state: everything but the
-    frozen towers. A state that is no TrainState is saved whole."""
+    """What a checkpoint holds of a training state (a NamedTuple with a
+    ``frozen`` field, stage 1's or stage 2's): every field but the frozen
+    towers. Anything else is saved whole."""
     if hasattr(state, "_fields") and "frozen" in state._fields:
-        return {"kind": "train_state", "step": int(state.step), "trainable": state.trainable,
-                "opt_state": state.opt_state, "ema": state.ema}
+        return {"kind": "train_state",
+                **{f: getattr(state, f) for f in state._fields if f != "frozen"}}
     return {"kind": "object", "value": state}
 
 
@@ -123,8 +124,9 @@ class CheckpointManager:
 
     def restore(self, step: Optional[int] = None, template: Any = None) -> Any:
         """The checkpoint of ``step`` (default: the latest). With a
-        ``template`` TrainState, a TrainState with the template's frozen
-        towers and each saved tensor on the template's device and dtype."""
+        ``template`` training state, a state of its type with the template's
+        frozen towers and each saved tensor on the template's device and
+        dtype."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -135,10 +137,8 @@ class CheckpointManager:
             return payload["value"]
         if template is None:
             return payload
-        return template._replace(
-            trainable=_onto(payload["trainable"], template.trainable),
-            opt_state=_onto(payload["opt_state"], template.opt_state),
-            ema=_onto(payload["ema"], template.ema), step=payload["step"])
+        return template._replace(**{f: _onto(payload[f], getattr(template, f))
+                                    for f in template._fields if f != "frozen"})
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()

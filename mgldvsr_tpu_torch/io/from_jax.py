@@ -3,7 +3,9 @@
 One function per tower, each the exact inverse of the JAX package's
 converter of that tower (``mgldvsr_tpu/io/ckpt_convert.py``):
 ``convert_unet``, ``convert_structcond``, ``convert_autoencoder(video=True,
-fusion=True)``, ``convert_openclip_text`` and ``convert_raft``. The input is
+fusion=True)``, ``convert_openclip_text`` and ``convert_raft``, and of the
+stage-2 loss networks ``convert_lpips``, ``convert_discriminator`` and
+``convert_spynet``. The input is
 the tree as nested dicts of numpy arrays (with or without its top
 ``"params"`` level); the output loads into the port's module with
 ``load_state_dict(strict=True)``.
@@ -364,6 +366,55 @@ def raft_state_dict(tree: Tree, cfg: RAFTConfig = RAFTConfig()) -> Dict[str, tor
     return sd
 
 
+# torchvision VGG16 ``features`` indices of the 13 convs, by stage
+_VGG16_FEATURE_IDX = ((0, 2), (5, 7), (10, 12, 14), (17, 19, 21), (24, 26, 28))
+
+
+def lpips_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_lpips`` (taming's ``net.slice{s}.{idx}`` and
+    ``lin{i}.model.1``)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    for stage, idxs in enumerate(_VGG16_FEATURE_IDX):
+        for j, idx in enumerate(idxs):
+            g.conv(f"net.slice{stage + 1}.{idx}", p["vgg"][f"conv{stage + 1}_{j + 1}"])
+    for i in range(len(_VGG16_FEATURE_IDX)):
+        g.conv(f"lin{i}.model.1", p[f"lin{i}"])
+    return sd
+
+
+def discriminator_state_dict(tree: Tree, n_layers: int = 3) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_discriminator``: ``{"params", "batch_stats"}`` ->
+    taming's ``main.{i}``, the BatchNorms with ``running_mean`` and
+    ``running_var``."""
+    p, stats = tree["params"], tree["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    g.conv("main.0", p["conv0"])
+    for n in range(1, n_layers + 1):
+        idx = 2 + 3 * (n - 1)
+        g.conv(f"main.{idx}", p[f"conv{n}"])
+        g.norm(f"main.{idx + 1}", p[f"bn{n}"])
+        g.raw(f"main.{idx + 1}.running_mean", stats[f"bn{n}"]["mean"])
+        g.raw(f"main.{idx + 1}.running_var", stats[f"bn{n}"]["var"])
+    g.conv(f"main.{2 + 3 * n_layers}", p["conv_out"])
+    return sd
+
+
+def spynet_state_dict(tree: Tree, levels: int = 6) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_spynet`` (basicsr's
+    ``basic_module.{i}.basic_module.{2j}``)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    for i in range(levels):
+        m = g.scope(f"basic_module.{i}.basic_module")
+        for j in range(5):
+            m.conv(str(2 * j), p[f"basic_module{i}"][f"conv{j}"])
+    return sd
+
+
 def pipeline_state_dicts(params: Tree, cfg) -> Dict[str, Dict[str, torch.Tensor]]:
     """The JAX pipeline's ``{"unet", "structcond", "vae", "clip", "raft"}``
     params -> one port state dict per tower (``cfg``: a port
@@ -422,6 +473,26 @@ def _trainable_tensors(partial: Tree, frozen: Tree, cfg) -> Dict[str, torch.Tens
     return out
 
 
+def _opt_state(opt, convert, ocfg, device) -> dict:
+    """An optax ``[MultiSteps(]adam[w])`` state -> ``optim.init_opt_state``'s
+    layout for the port's ``ocfg`` (the first moment in its mu dtype);
+    ``convert`` maps a JAX tree of the parameters to port tensors."""
+    adam = _find(opt, ("count", "mu", "nu"))
+    multi = _find(opt, ("mini_step", "gradient_step", "acc_grads"))
+
+    def onto(tree, dtype=torch.float32):
+        return {k: v.to(device=device, dtype=dtype) for k, v in convert(tree).items()}
+
+    return {
+        "count": int(np.asarray(adam.count)),
+        "mini_step": int(np.asarray(multi.mini_step)) if multi is not None else 0,
+        "gradient_step": (int(np.asarray(multi.gradient_step)) if multi is not None
+                          else int(np.asarray(adam.count))),
+        "mu": onto(adam.mu, ocfg.mu_dtype or torch.float32), "nu": onto(adam.nu),
+        "acc": onto(multi.acc_grads) if ocfg.grad_accum > 1 else None,
+    }
+
+
 def train_state_from_jax(jax_state, trainer):
     """A JAX ``TrainState`` (numpy leaves, e.g. after ``jax.device_get``) ->
     the port's :class:`~mgldvsr_tpu_torch.train.trainer.TrainState` for
@@ -442,24 +513,68 @@ def train_state_from_jax(jax_state, trainer):
         return {k: v.to(device=dev, dtype=dtype) for k, v in tensors.items()}
 
     trainable = onto(_trainable_tensors(jax_state.trainable, frozen_np, pipe.cfg))
-    ocfg = trainer.opt_cfg
-    adam = _find(jax_state.opt_state, ("count", "mu", "nu"))
-    multi = _find(jax_state.opt_state, ("mini_step", "gradient_step", "acc_grads"))
-    opt = {
-        "count": int(np.asarray(adam.count)),
-        "mini_step": int(np.asarray(multi.mini_step)) if multi is not None else 0,
-        "gradient_step": (int(np.asarray(multi.gradient_step)) if multi is not None
-                          else int(np.asarray(adam.count))),
-        "mu": onto(_trainable_tensors(adam.mu, frozen_np, pipe.cfg),
-                   ocfg.mu_dtype or torch.float32),
-        "nu": onto(_trainable_tensors(adam.nu, frozen_np, pipe.cfg)),
-        "acc": (onto(_trainable_tensors(multi.acc_grads, frozen_np, pipe.cfg))
-                if ocfg.grad_accum > 1 else None),
-    }
+    opt = _opt_state(jax_state.opt_state, lambda t: _trainable_tensors(t, frozen_np, pipe.cfg),
+                     trainer.opt_cfg, dev)
     ema = (onto(_trainable_tensors(jax_state.ema, frozen_np, pipe.cfg))
            if jax_state.ema is not None and trainer.cfg.use_ema else None)
     _, frozen = partition_params(pipe)
     state = TrainState(trainable=trainable, frozen=frozen, opt_state=opt, ema=ema,
                        step=int(np.asarray(jax_state.step)))
     trainer.load_towers(state)
+    return state
+
+
+def _vae_trainable_tensors(partial: Tree, frozen: Tree, cfg: VAEConfig) -> Dict[str, torch.Tensor]:
+    """A JAX tree over the stage-2 trainable VAE leaves only (params, a
+    moment, an accumulator) -> port VAE names: completed with the frozen
+    leaves, converted, cut back to the trainables."""
+    from mgldvsr_tpu_torch.models.vae import is_temporal_or_fusion
+
+    full = _merge_trees(_params(frozen), _params(partial))
+    return {k: v for k, v in vae_state_dict(full, cfg).items() if is_temporal_or_fusion(k)}
+
+
+
+
+def stage2_state_from_jax(jax_state, trainer):
+    """A JAX ``Stage2State`` (numpy leaves) -> the port's
+    :class:`~mgldvsr_tpu_torch.train.stage2.Stage2State` for ``trainer``:
+    the VAE's parameters loaded into the trainer's VAE, float32 masters of
+    its trainables and logvar, the discriminator's parameters and running
+    statistics, LPIPS and SpyNet loaded into the trainer's modules, both
+    Adam states with their accumulators and counts, and the step. Tests
+    start both sides from one state."""
+    from mgldvsr_tpu_torch.train.stage2 import Stage2State, partition_vae_params
+
+    vae, dev = trainer.vae, trainer.device
+    cfg = vae.cfg
+    frozen_np = jax_state.gen_frozen
+    vae.load_state_dict(vae_state_dict(_merge_trees(frozen_np, jax_state.gen_trainable), cfg),
+                        strict=True)
+    trainer.lpips.load_state_dict(lpips_state_dict(jax_state.aux["lpips"]), strict=True)
+    trainer.spynet.load_state_dict(spynet_state_dict(jax_state.aux["spynet"]), strict=True)
+
+    def gen_tensors(pair):
+        tree, logvar = pair
+        out = _vae_trainable_tensors(tree, frozen_np, cfg)
+        out["logvar"] = _tensor(logvar).reshape(())
+        return out
+
+    disc_np = jax_state.disc
+
+    def disc_tensors(tree):
+        sd = discriminator_state_dict({"params": tree, "batch_stats": disc_np["batch_stats"]})
+        return {k: v for k, v in sd.items() if "running" not in k}
+
+    gen = {k: v.to(dev) for k, v in gen_tensors((jax_state.gen_trainable,
+                                                  jax_state.logvar)).items()}
+    logvar = gen.pop("logvar")
+    disc = {k: v.to(dev) for k, v in discriminator_state_dict(disc_np).items()}
+    _, frozen = partition_vae_params(vae)
+    state = Stage2State(
+        trainable=gen, frozen=frozen, logvar=logvar, disc=disc,
+        opt_g=_opt_state(jax_state.opt_g, gen_tensors, trainer.opt_cfg, dev),
+        opt_d=_opt_state(jax_state.opt_d, disc_tensors, trainer.opt_cfg, dev),
+        step=int(np.asarray(jax_state.step)))
+    trainer.load_vae(state)
     return state

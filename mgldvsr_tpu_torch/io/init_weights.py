@@ -16,9 +16,11 @@ import torch
 import torch.nn as nn
 
 from mgldvsr_tpu_torch.flow.raft import FrozenBatchNorm
+from mgldvsr_tpu_torch.models.discriminator import FlaxBatchNorm
 from mgldvsr_tpu_torch.models.layers import GroupNorm
+from mgldvsr_tpu_torch.models.vae import is_temporal_or_fusion
 
-_NORMS = (GroupNorm, nn.LayerNorm, FrozenBatchNorm)
+_NORMS = (GroupNorm, nn.LayerNorm, FrozenBatchNorm, FlaxBatchNorm)
 _EMBEDDINGS = ("token_embedding.weight", "positional_embedding")
 
 
@@ -51,10 +53,13 @@ def init_pipeline_weights(pipe, seed: int) -> None:
 @torch.no_grad()
 def jitter_weights(pipe, scale: float, seed: int) -> None:
     """Add ``scale`` x N(0, 1) to every UNet and struct-cond parameter (the
-    JAX trainer tests' jitter). Seeded weights leave the temporal blend
-    scalars and every bias at zero, so the temporal convs would get no
-    gradient; a checkpoint's weights never are."""
+    JAX trainer tests' jitter), then to the VAE decoder's temporal and
+    fusion layers. Seeded weights leave the temporal blend scalars and every
+    bias at zero, so the temporal convs would get no gradient; a
+    checkpoint's weights never are. The UNet's and struct-cond's draws come
+    first, so they do not depend on the VAE's widths."""
     gen = torch.Generator(device=pipe.device).manual_seed(seed + 99)
-    for tower in (pipe.unet, pipe.structcond):
-        for p in tower.parameters():
-            p.add_(scale * torch.randn(p.shape, generator=gen, device=p.device, dtype=p.dtype))
+    params = [p for tower in (pipe.unet, pipe.structcond) for p in tower.parameters()]
+    params += [p for name, p in pipe.vae.named_parameters() if is_temporal_or_fusion(name)]
+    for p in params:
+        p.add_(scale * torch.randn(p.shape, generator=gen, device=p.device, dtype=p.dtype))

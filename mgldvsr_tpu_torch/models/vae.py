@@ -5,6 +5,11 @@ Encoder / VideoDecoder_Mix / VideoAutoencoderKLResi (``down.{i}.block.{j}``,
 ``mid.block_1``, ``up.{i}.temporal_mixing.{j}``, ``fusion_layer_{i}``, ...)
 so the state-dict keys are upstream's. ``ResidualDenseBlock`` is the plain
 concat form; the JAX package's decomposed form is a TPU rewrite of it.
+
+``use_checkpoint`` recomputes each decoder res block and fusion block in the
+backward (non-reentrant ``torch.utils.checkpoint``) instead of keeping its
+activations: the stage-2 memory lever. The JAX package's ``remat_min_res``
+(remat only above a resolution) is a TPU fit lever and is not ported.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from mgldvsr_tpu_torch.models.layers import (
     GroupNorm,
@@ -43,6 +49,7 @@ class VAEConfig:
     num_frames: int = 1          # >1 adds temporal mixing in the decoder
     enable_fusion: bool = False  # LQ-feature fusion taps at up-levels 1, 2
     num_fuse_block: int = 2
+    use_checkpoint: bool = False  # recompute decoder blocks in the backward
     dtype: torch.dtype = torch.float32
 
 
@@ -205,22 +212,29 @@ class Decoder(nn.Module):
         self.norm_out = GroupNorm(block_in, eps=1e-6, dtype=dt)
         self.conv_out = conv3x3(block_in, cfg.out_ch)
 
+    def _run(self, block: nn.Module, *args):
+        """``block(*args)``, recomputed in the backward under
+        ``use_checkpoint`` when a gradient is being recorded."""
+        if self.cfg.use_checkpoint and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(self, z, enc_fea: Optional[Sequence[torch.Tensor]] = None,
                 fusion_w: float = 1.0):
-        h = self.mid.block_1(self.conv_in(z))
+        h = self._run(self.mid.block_1, self.conv_in(z))
         if hasattr(self, "temporal_mixing"):
             h = self.temporal_mixing(h)
-        h = self.mid.block_2(self.mid.attn_1(h))
+        h = self._run(self.mid.block_2, self.mid.attn_1(h))
         for i in reversed(range(len(self.up))):
             level = self.up[i]
             for j, block in enumerate(level.block):
-                h = block(h)
+                h = self._run(block, h)
                 if hasattr(level, "temporal_mixing"):
                     h = level.temporal_mixing[j](h)
                 if len(level.attn):
                     h = level.attn[j](h)
             if enc_fea is not None and hasattr(self, f"fusion_layer_{i}"):
-                h = getattr(self, f"fusion_layer_{i}")(enc_fea[i - 1], h, fusion_w)
+                h = self._run(getattr(self, f"fusion_layer_{i}"), enc_fea[i - 1], h, fusion_w)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
         return norm_silu_conv(self.norm_out, self.conv_out, h)
@@ -243,6 +257,16 @@ class DiagonalGaussian:
 
     def mode(self) -> torch.Tensor:
         return self.mean
+
+
+def is_temporal_or_fusion(name: str) -> bool:
+    """Whether a parameter of :class:`VideoAutoencoderKLResi` (by its name)
+    belongs to the decoder's temporal mixing or fusion layers:
+    ``decoder.fusion_layer_{i}.*``, ``decoder.temporal_mixing.*`` and
+    ``decoder.up.{i}.temporal_mixing.{j}.*``. The JAX package's flax paths
+    for them (``fusion_layer_{i}``, ``mid_temporal``, ``up_{i}_temporal_{j}``)
+    are picked by the same two words."""
+    return "fusion_layer" in name or "temporal" in name
 
 
 class VideoAutoencoderKLResi(nn.Module):

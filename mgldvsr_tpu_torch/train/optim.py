@@ -1,10 +1,13 @@
-"""The stage-1 optimiser as plain functions on tensors.
+"""The training optimisers as plain functions on tensors.
 
-The JAX trainer's optax chain (``mgldvsr_tpu/train/trainer.py:125-132``),
-operation for operation in float32: ``MultiSteps(grad_accum)`` around
-``clip_by_global_norm(max_grad_norm)`` (when set) and ``adamw``. The
-defaults are optax's, not ``torch.optim.AdamW``'s: weight decay 1e-4, eps
-1e-8 added outside the square root, eps_root 0. ``mu_dtype="bfloat16"``
+The JAX trainers' optax chains, operation for operation in float32:
+``MultiSteps(grad_accum)`` around ``clip_by_global_norm(max_grad_norm)``
+(when set) and ``adamw`` (stage 1, ``mgldvsr_tpu/train/trainer.py:125-132``)
+or ``adam(b1=0.5, b2=0.9)``, which is ``adamw`` with weight decay 0 (stage 2,
+``mgldvsr_tpu/train/stage2.py:98-110``, generator and discriminator). The
+defaults are optax ``adamw``'s, not ``torch.optim.AdamW``'s: b1 0.9, b2
+0.999, weight decay 1e-4, eps 1e-8 added outside the square root, eps_root
+0. ``mu_dtype="bfloat16"``
 keeps the first moment in bf16 (the update reads it before it is stored,
 and decays it by b1 rounded to bf16, as optax does); the second moment
 stays float32. XLA contracts some of these products and sums into fused
@@ -25,12 +28,9 @@ import torch
 
 Tensors = Dict[str, torch.Tensor]
 
-# optax.adamw's defaults, which the JAX trainer keeps
-B1 = 0.9
-B2 = 0.999
+# optax's, which both JAX trainers keep
 EPS = 1e-8
 EPS_ROOT = 0.0
-WEIGHT_DECAY = 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +39,9 @@ class AdamWConfig:
     mu_dtype: Optional[torch.dtype] = None
     max_grad_norm: Optional[float] = None
     grad_accum: int = 1
+    b1: float = 0.9
+    b2: float = 0.999
+    weight_decay: float = 1e-4
 
 
 def init_opt_state(params: Tensors, cfg: AdamWConfig) -> dict:
@@ -86,15 +89,15 @@ def adamw_updates(grads: Tensors, state: dict, params: Tensors, cfg: AdamWConfig
         mu_old, nu_old = state["mu"][k], state["nu"][k]
         # optax: (1 - b1) * g + b1 * mu with b1 in mu's dtype (bf16's 0.8984375
         # for a bf16 mu) and, as XLA computes it, the product not rounded
-        b1 = torch.tensor(B1, dtype=mu_old.dtype).item()
-        mu = (1 - B1) * g + b1 * mu_old.float()
-        nu = (1 - B2) * (g * g) + B2 * nu_old
-        bc1 = _bias_correction(B1, count, g.device)
-        bc2 = _bias_correction(B2, count, g.device)
+        b1 = torch.tensor(cfg.b1, dtype=mu_old.dtype).item()
+        mu = (1 - cfg.b1) * g + b1 * mu_old.float()
+        nu = (1 - cfg.b2) * (g * g) + cfg.b2 * nu_old
+        bc1 = _bias_correction(cfg.b1, count, g.device)
+        bc2 = _bias_correction(cfg.b2, count, g.device)
         mu_hat = mu / bc1.to(mu.dtype)
         nu_hat = nu / bc2.to(nu.dtype)
         u = mu_hat / (torch.sqrt(nu_hat + EPS_ROOT) + EPS)
-        u = u + WEIGHT_DECAY * params[k]
+        u = u + cfg.weight_decay * params[k]
         updates[k] = -cfg.learning_rate * u
         mu_old.copy_(mu)  # cast to mu_dtype on the way in
         nu_old.copy_(nu)

@@ -25,7 +25,8 @@ assert "triton" not in sys.modules, "triton was imported at import time"
 for m in ("cli.infer", "data.video_folder", "utils.config", "io.frames", "io.torch_ckpt",
           "infer.canvas", "cli.train", "train.trainer", "train.optim", "io.checkpoint",
           "data.cv_ops", "data.blur_kernels", "data.degradations", "data.file_client",
-          "data.datasets", "utils.tb", "utils.logging"):
+          "data.datasets", "utils.tb", "utils.logging", "train.stage2", "train.losses",
+          "models.lpips", "models.discriminator", "flow.spynet"):
     assert "mgldvsr_tpu_torch." + m in mods, m
 assert "yaml" not in sys.modules, "yaml was imported at import time"
 for m in ("cv2", "av"):

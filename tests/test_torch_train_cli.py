@@ -2,7 +2,8 @@
 widths: a run writes metrics, TensorBoard events, image grids, checkpoints
 and an exported checkpoint that the inference command line loads; a
 resumed run continues to the same state as one that was never stopped;
-the flags the port does not offer are refused."""
+the flags the port does not offer are refused. Stage 2's command line is
+tested in ``test_torch_stage2_cli.py``."""
 import json
 import os
 
@@ -91,11 +92,12 @@ def test_exported_checkpoint_loads_in_the_inference_cli(data_root, tmp_path):
 @pytest.mark.parametrize("flag", sorted(cli.REFUSED) + ["--stage"])
 def test_refused_flags(data_root, flag, capsys):
     argv = ["--data-root", data_root, "--device", "cpu"]
+    # --stage 2 is refused without its two data roots
     argv += ["--stage", "2"] if flag == "--stage" else [flag]
     with pytest.raises(SystemExit):
         cli.parse_args(argv)
     err = capsys.readouterr().err
-    assert "ROADMAP" in err or "--device" in err
+    assert "ROADMAP" in err or "--device" in err or "--lq-root" in err
 
 
 def test_config_sections_and_defaults(data_root):
