@@ -138,7 +138,30 @@ Phase 9  stage-2 training (the video VAE decoder's fusion and temporal
          memory and launches a micro-step (``launches_stage2``,
          ``launches_stage2_fused`` in the kernels line).
          ``--only-train`` builds the kernels and runs phases 8 and 9 alone,
-         ``--only-stage2`` phase 9 alone, without the result line.
+         ``--only-stage2`` phase 9 alone, ``--only-quality`` phase 4 and 5's
+         restores and phase 10, without the result line.
+
+Phase 10 the quality harness at full width, after phase 5, on phase 4's clip:
+         the restore ``out4`` (5 frames, 512x512), its GT the bicubic x4
+         input frames, ``other`` phase 5's restore, all three as uint8.
+         (a) in process: PSNR, SSIM, NIQE (pristine model fitted from the
+         GT frames), LPIPS (seeded VGG16), E*warp (phase 4's RAFT, 10
+         iterations, its last flow-head conv x1e-2: ``warp_forward`` once and
+         ``corr_lookup`` 10 times, every other kernel 0) and FID (seeded
+         InceptionV3 at 299^2, out4 against the GT; singular covariance),
+         the L1 and max deltas to ``other``; ms a frame of each metric
+         (warm, synchronised) and the peak memory; kernel 1 alone at
+         E*warp's [4,512,512,3] against its plain version, F.grid_sample
+         and its bound. The card's Inception
+         features against the CPU's within 1e-4 of the largest |feature|,
+         E*warp against the plain warp and lookup on the card within 1e-5
+         relative. (b) the frames as PNGs and the three networks as torch
+         files through ``python -m mgldvsr_tpu_torch.tools.quality_eval``:
+         its row equals (a), the host metrics bit for bit, LPIPS, E*warp
+         and FID within 1e-5 relative. (c) ``python -m
+         mgldvsr_tpu_torch.tools.quality_smoke --preset tiny`` on the card:
+         ``ok``. (b) and (c) run beside the end of (a). Prints the phase's
+         seconds; ``launches_quality`` in the kernels line.
 
 Prints one JSON line describing the kernels before the last line, and the
 result line ``{"ok": true, "device": {...}}`` last. Any failure raises and
@@ -186,7 +209,8 @@ FUSED_ONLY = ("gn_silu_conv3x3", "gn_scale_shift")  # launched by the fused conf
 # and more all head a chain, which the fused configuration gives to the two above
 DEFAULT_ONLY = ("channel_sums",)
 # on no restore path (phases 3-7): the restore's guidance step runs the guidance
-# pair; warp_forward alone runs in stage-2 training's swc loss (phase 9)
+# pair; warp_forward alone runs in stage-2 training's swc loss (phase 9) and in
+# E*warp (phase 10)
 STANDALONE = ("warp_forward", "warp_dx")
 
 # NVIDIA H100 SXM data sheet, dense: device memory bytes/s, tensor-core
@@ -2893,20 +2917,21 @@ def stage2_profile(seed: int, card: str, roots: dict, logdir: str) -> dict:
             "parts_ms": part_ms}
 
 
-def stage2_warp(card: str) -> dict:
-    """Kernel 1 at the swc loss's shape, a GT frame [1,512,512,3] f32 warped
-    by a flow of a few pixels: against its plain version, the library call
-    (F.grid_sample, bilinear, zeros, align_corners=True, on the NCHW frame)
-    and the bound (one read of x and the flow, one write; 4 taps of 2 flops
-    and ~12 flops of weights per output element)."""
+def warp_alone(card: str, n: int, what: str) -> dict:
+    """Kernel 1 alone on [n,512,512,3] f32 frames warped by a flow of a few
+    pixels (``what`` names the caller: the swc loss's n = 1, E*warp's T-1 =
+    4): against its plain version, the library call (F.grid_sample,
+    bilinear, zeros, align_corners=True, on the NCHW frames) and the bound
+    (one read of x and the flow, one write; 4 taps of 2 flops and ~12 flops
+    of weights per output element)."""
     import torch
     import torch.nn.functional as F
 
     from mgldvsr_tpu_torch.ops.kernels.flow_warp import warp_forward, warp_plain
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    x = torch.rand(1, 512, 512, 3, device="cuda", generator=gen)
-    flow = torch.randn(1, 512, 512, 2, device="cuda", generator=gen) * 3
+    x = torch.rand(n, 512, 512, 3, device="cuda", generator=gen)
+    flow = torch.randn(n, 512, 512, 2, device="cuda", generator=gen) * 3
     err = max_err(warp_forward(x, flow), warp_plain(x, flow))
     bound_ms, by = bound(nbytes(x, flow, x), 20 * x.numel(), "f32")
     gy, gx = torch.meshgrid(torch.arange(512.0, device="cuda"),
@@ -2920,12 +2945,12 @@ def stage2_warp(card: str) -> dict:
                                                        padding_mode="zeros",
                                                        align_corners=True)),
            "device_ms": graph_ms(lambda: warp_forward(x, flow))}
-    log(f"[phase9] warp_forward at the swc loss's shape x[1,512,512,3] f32: max_abs_err "
-        f"{err:.3e} (limit 1e-5) against the plain version; {out['ms']:.4f} ms "
-        f"(device {out['device_ms']:.4f}), plain {out['plain_ms']:.4f}, F.grid_sample "
-        f"{out['library_ms']:.4f}, bound {bound_ms:.4f} ms ({by})  [{card}]")
+    log(f"[{what}] warp_forward alone at x[{n},512,512,3] f32: max_abs_err {err:.3e} (limit "
+        f"1e-5) against the plain version; {out['ms']:.4f} ms (device {out['device_ms']:.4f}), "
+        f"plain {out['plain_ms']:.4f}, F.grid_sample {out['library_ms']:.4f}, bound "
+        f"{bound_ms:.4f} ms ({by})  [{card}]")
     if err > 1e-5:
-        raise AssertionError(f"phase 9: warp_forward at [1,512,512,3] disagrees ({err:.3e})")
+        raise AssertionError(f"{what}: warp_forward at [{n},512,512,3] disagrees ({err:.3e})")
     return out
 
 
@@ -2947,11 +2972,228 @@ def phase9(seed: int, card: str) -> dict:
         out["decoder"] = stage2_decoder(seed, card, roots)
         _, out["fused"] = stage2_full(seed, card, roots, os.path.join(tmp, "d"), 4, fused=True)
         out["profile"] = stage2_profile(seed, card, roots, os.path.join(tmp, "p"))
-    out["warp"] = stage2_warp(card)
+    out["warp"] = warp_alone(card, 1, "phase9")
     out["tiny"] = {f: phase9_tiny(seed, card, f) for f in (False, True)}
     out["wall_s"] = time.perf_counter() - t0
     log(f"[phase9] stage-2 training phase: {out['wall_s']:.1f} s of wall  [{card}]")
     return out
+
+
+# -- phase 10: the quality harness --------------------------------------------
+
+# the harness's keys; the host numpy ones must come out of the tool bit for
+# bit, the card's (and FID, on the card's features) within 1e-5 relative
+HOST_KEYS = ("psnr", "ssim", "niqe", "l1_vs_other", "max_vs_other")
+CARD_KEYS = ("lpips", "ewarp", "fid_vs_against")
+# the Inception features on the card against the CPU, of the largest |feature|
+# (float32, TF32 off); E*warp with the kernels against their plain versions
+INCEPTION_LIMIT = 1e-4
+EWARP_LIMIT = 1e-5
+TOOL_LIMIT = 1e-5
+
+
+def to_uint8(frames) -> np.ndarray:
+    """[T, H, W, 3] frames in [0, 1] on the card -> uint8, as a user's PNGs."""
+    import torch
+
+    return (frames.float().clamp(0, 1) * 255).round().to("cpu", torch.uint8).numpy()
+
+
+@contextlib.contextmanager
+def plain_flow_kernels():
+    """Bind E*warp's warp and RAFT's window lookup to the kernels' plain
+    versions for the enclosed calls; restore the wrappers after."""
+    from mgldvsr_tpu_torch.flow import raft
+    from mgldvsr_tpu_torch.metrics import temporal
+    from mgldvsr_tpu_torch.ops.kernels.corr_lookup import lookup_corr_plain
+    from mgldvsr_tpu_torch.ops.kernels.flow_warp import warp_plain
+
+    before = temporal.warp_forward, raft.lookup_corr
+    temporal.warp_forward, raft.lookup_corr = warp_plain, lookup_corr_plain
+    try:
+        yield
+    finally:
+        temporal.warp_forward, raft.lookup_corr = before
+
+
+def quality_metrics(clips: dict, nets: dict, niqe_npz: str, dev) -> tuple[dict, dict]:
+    """The harness's eight keys of one clip, with the tool's own functions on
+    the frames as the tool loads them ([T, H, W, 3] float32 in [0, 255]):
+    (row, seconds of each metric, the card synchronised around each); FID's
+    features and distance apart (``fid_features``, ``fid_distance``)."""
+    import torch
+
+    from mgldvsr_tpu_torch.metrics.image import calculate_psnr, calculate_ssim
+    from mgldvsr_tpu_torch.tools import quality_eval as qe
+
+    ours, gt, other = clips["ours"], clips["gt"], clips["other"]
+    steps = {
+        "psnr": lambda: float(np.mean([calculate_psnr(o, g, 0, test_y_channel=True)
+                                       for o, g in zip(ours, gt)])),
+        "ssim": lambda: float(np.mean([calculate_ssim(o, g, 0, test_y_channel=True)
+                                       for o, g in zip(ours, gt)])),
+        "lpips": lambda: qe.lpips_score(nets["lpips"], ours / 255.0, gt / 255.0, dev),
+        "niqe": lambda: qe.niqe_score(ours, niqe_npz),
+        "ewarp": lambda: qe.ewarp_score(nets["raft"], ours / 255.0, dev),
+        "l1_vs_other": lambda: float(np.mean(np.abs(ours - other))),
+        "max_vs_other": lambda: float(np.max(np.abs(ours - other))),
+        "fid_features": lambda: (qe.fid_features(nets["inception"], ours / 255.0, dev),
+                                 qe.fid_features(nets["inception"], gt / 255.0, dev)),
+    }
+    row, secs = {}, {}
+    for name, fn in steps.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        row[name] = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    return row, secs
+
+
+def quality_tool(tmp: str, clips: dict, nets: dict, niqe_npz: str):
+    """Write the clips as PNGs and the three networks as torch files (the
+    Inception one under pt_inception's names, its 1008-class head beside the
+    tower), and start ``python -m mgldvsr_tpu_torch.tools.quality_eval`` on
+    them on the card. Returns the running process."""
+    import torch
+
+    from mgldvsr_tpu_torch.io.frames import write_frame
+
+    dirs = {k: os.path.join(tmp, k) for k in clips}
+    for k, frames in clips.items():
+        os.makedirs(os.path.join(dirs[k], "000"))
+        for t, f in enumerate(frames):
+            write_frame(os.path.join(dirs[k], "000", f"{t:08d}.png"), f.astype(np.uint8))
+    ckpt = {k: os.path.join(tmp, f"{k}.pth") for k in nets}
+    for k, net in nets.items():
+        sd = {n: v.detach().cpu() for n, v in net.state_dict().items()}
+        if k == "inception":
+            sd |= {"fc.weight": torch.zeros(1008, 2048), "fc.bias": torch.zeros(1008)}
+        torch.save(sd, ckpt[k])
+    cmd = [sys.executable, "-m", "mgldvsr_tpu_torch.tools.quality_eval",
+           "--restored", dirs["ours"], "--gt", dirs["gt"], "--other", dirs["other"],
+           "--lpips-ckpt", ckpt["lpips"], "--niqe-params", niqe_npz,
+           "--raft-ckpt", ckpt["raft"], "--fid-against", dirs["gt"],
+           "--inception-ckpt", ckpt["inception"], "--device", "cuda"]
+    return subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish(proc, what: str, timeout: float = 600) -> list:
+    """The JSON lines a started process printed; raises when it failed."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 10: {what} exited {proc.returncode}:\n{out[-3000:]}\n"
+                             f"{err[-3000:]}")
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def phase10(pipe, frames, out4, out5, card: str) -> dict:
+    """The quality harness at full width on phase 4's clip: (a) in process,
+    (b) through the tool, (c) the tiny smoke."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from mgldvsr_tpu_torch.metrics.fid import calculate_activation_statistics, calculate_fid
+    from mgldvsr_tpu_torch.metrics.niqe import fit_niqe_params
+    from mgldvsr_tpu_torch.ops import kernels
+    from mgldvsr_tpu_torch.tools import quality_eval as qe
+    from mgldvsr_tpu_torch.tools.quality_smoke import gray255
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    u8 = {"ours": to_uint8(out4), "gt": to_uint8(frames), "other": to_uint8(out5)}
+    clips = {k: v.astype(np.float32) for k, v in u8.items()}
+    n = len(clips["ours"])
+    nets = {"raft": pipe.raft, "lpips": qe.build_lpips("random", dev),
+            "inception": qe.build_inception("random", dev)}
+    with tempfile.TemporaryDirectory() as tmp:
+        niqe_npz = os.path.join(tmp, "niqe.npz")
+        fit_niqe_params([gray255(f) for f in u8["gt"]], out_path=niqe_npz)
+
+        # (a) cold: the launches of the whole row; then warm, timed
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        row, _ = quality_metrics(clips, nets, niqe_npz, dev)
+        counts = kernels.launch_counts()
+        _, secs = quality_metrics(clips, nets, niqe_npz, dev)
+        peak = torch.cuda.max_memory_allocated()
+        feats_ours, feats_gt = row.pop("fid_features")
+        t0 = time.perf_counter()
+        row["fid_vs_against"] = calculate_fid(*calculate_activation_statistics(feats_ours),
+                                              *calculate_activation_statistics(feats_gt))
+        secs["fid_distance"] = time.perf_counter() - t0
+        want = {name: (1 if name == "warp_forward" else 10 if name == "corr_lookup" else 0)
+                for name in KERNELS}
+        if any(counts[name] != want[name] for name in KERNELS):
+            raise AssertionError(f"phase 10 (a): launches {counts}, expected {want}")
+        if not all(np.isfinite(v) for v in row.values()) or row["ewarp"] <= 0:
+            raise AssertionError(f"phase 10 (a): {row}")
+        ms = {k: 1000 * v / n for k, v in secs.items()}
+        log(f"[phase10] (a) 512x512, {n} frames, every metric on the card's frames as uint8: "
+            f"{ {k: float(v) for k, v in row.items()} }; ms a frame (warm, synchronised; "
+            f"FID's features of both populations and its host distance apart): "
+            f"{ {k: round(v, 3) for k, v in ms.items()} }; peak {peak / 2**30:.3f} GiB; "
+            f"launches {counts}  [{card}]")
+
+        # (b) and (c) run beside the rest of (a)'s checks
+        tool = quality_tool(tmp, u8, nets, niqe_npz)
+        smoke = subprocess.Popen(
+            [sys.executable, "-m", "mgldvsr_tpu_torch.tools.quality_smoke", "--preset", "tiny",
+             "--device", "cuda"], cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            # the card's Inception features against the CPU's
+            cpu_model = copy.deepcopy(nets["inception"]).cpu()
+            with torch.no_grad():
+                cpu_feats = cpu_model(torch.from_numpy(clips["ours"] / 255.0) * 2 - 1).numpy()
+            inc_err = float(np.abs(feats_ours - cpu_feats).max() / np.abs(cpu_feats).max())
+            # E*warp with the kernels against their plain versions, on the card
+            with plain_flow_kernels():
+                kernels.reset_launch_counts()
+                plain = qe.ewarp_score(nets["raft"], clips["ours"] / 255.0, dev)
+                plain_counts = kernels.launch_counts()
+            ewarp_err = abs(row["ewarp"] - plain) / abs(plain)
+            log(f"[phase10] (a) Inception features card against CPU {inc_err:.3e} of the "
+                f"largest |feature| (limit {INCEPTION_LIMIT}); E*warp kernels {row['ewarp']!r} "
+                f"against plain {plain!r}: {ewarp_err:.3e} relative (limit {EWARP_LIMIT})")
+            if inc_err > INCEPTION_LIMIT or ewarp_err > EWARP_LIMIT or any(plain_counts.values()):
+                raise AssertionError(f"phase 10 (a): Inception {inc_err:.3e}, E*warp "
+                                     f"{ewarp_err:.3e}, plain launches {plain_counts}")
+            rows = finish(tool, "quality_eval")
+            lines = finish(smoke, "quality_smoke")
+        finally:
+            for proc in (tool, smoke):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+
+    # (b) the tool's row against (a)
+    got = {**rows[0], "fid_vs_against": rows[-1].get("fid_vs_against")}
+    diff = {k: (got.get(k), row[k]) for k in HOST_KEYS if got.get(k) != row[k]}
+    rel = {k: abs(got[k] - row[k]) / max(abs(row[k]), 1e-30) for k in CARD_KEYS}
+    log(f"[phase10] (b) quality_eval on the PNGs and the saved networks: {rows[0]}; FID "
+        f"{got['fid_vs_against']!r}; relative to (a) {rel}  [{card}]")
+    if diff or any(v > TOOL_LIMIT for v in rel.values()) or rows[0]["tf32"] is not False:
+        raise AssertionError(f"phase 10 (b): the tool's row differs from (a): {diff} {rel}")
+    # (c) the tiny smoke
+    summary = lines[-1]
+    log(f"[phase10] (c) quality_smoke --preset tiny on the card: {summary}")
+    if not summary.get("ok"):
+        raise AssertionError(f"phase 10 (c): {summary}")
+    warp = warp_alone(card, n - 1, "phase10")
+    wall = time.perf_counter() - t_start
+    log(f"[phase10] quality phase: {wall:.1f} s of wall  [{card}]")
+    return {"row": row, "ms_a_frame": ms, "peak_bytes": peak, "counts": counts,
+            "inception_err": inc_err, "ewarp_err": ewarp_err, "tool_rel": rel,
+            "smoke": summary, "warp": warp, "wall_s": wall}
 
 
 def main() -> int:
@@ -2963,6 +3205,9 @@ def main() -> int:
                     help="build the kernels and run phases 8 and 9 alone (no result line)")
     ap.add_argument("--only-stage2", action="store_true",
                     help="build the kernels and run phase 9 alone (no result line)")
+    ap.add_argument("--only-quality", action="store_true",
+                    help="build the kernels and run phases 4 and 5's restores and phase 10 "
+                         "alone (no result line)")
     args = ap.parse_args()
 
     import torch
@@ -2987,6 +3232,12 @@ def main() -> int:
             log(json.dumps(phase8(args.seed, card), default=str))
         log(json.dumps(phase9(args.seed, card), default=str))
         return 0
+    if args.only_quality:
+        pipe, frames = full_pipeline(args.seed, args.steps)
+        out4, _ = full_restore(pipe, frames, args.seed, args.steps, card, fused=False)
+        out5, _ = full_restore(pipe, frames, args.seed, args.steps, card, fused=True)
+        log(json.dumps(phase10(pipe, frames, out4, out5, card), default=str))
+        return 0
 
     results = phase2(card)
     for fused in (False, True):
@@ -2999,6 +3250,7 @@ def main() -> int:
     out5, counts5 = full_restore(pipe, frames, args.seed, args.steps, card, fused=True)
     log(f"[phase5] mean |fused - default| over the frames {float((out5 - out4).abs().mean()):.4e} "
         f"(bf16 rounds at other places in the two configurations; no limit)")
+    quality = phase10(pipe, frames, out4, out5, card)
     del out4, out5
     tile = phase6(pipe, args.seed, args.steps, card)
     del pipe, frames
@@ -3018,6 +3270,7 @@ def main() -> int:
                 "launches_train_fused": train["fused"]["launches"][name],
                 "launches_stage2": stage2["default"]["launches"][name],
                 "launches_stage2_fused": stage2["fused"]["launches"][name],
+                "launches_quality": quality["counts"][name],
                 **results[name]}
                for name, (route, src, rep) in KERNELS.items()]
     for entry in kernels:

@@ -7,19 +7,24 @@ or uint8 for the JPEG round trip), with OpenCV's argument order and BGR
 channel order:
 
 - :func:`filter2D`: correlation with the kernel centred, border
-  ``BORDER_REFLECT_101``; in float64, rounded to float32 (OpenCV switches to
-  a float32 DFT for large kernels, so the two agree to about 1e-6, not bit
-  for bit).
+  ``BORDER_REFLECT_101`` (OpenCV's default) or ``BORDER_REPLICATE``. A
+  float64 image under OpenCV's DFT threshold of 50 taps is summed directly,
+  tap by tap in the kernel's row-major order, as OpenCV's own loop does: bit
+  for bit. Every other call goes through an FFT in float64, rounded to the
+  image's type (OpenCV takes a DFT or float32 sums there, so the two agree
+  to about 1e-6 on [0, 1], not bit for bit).
 - :func:`resize`: nearest, bilinear, bicubic (A = -0.75, replicated
   border), area (fractional box weights when shrinking, OpenCV's area
   coefficients when growing) and Lanczos-4, with OpenCV's pixel centres and
   its same-size copy.
-- :func:`cvtColor` with ``COLOR_BGR2GRAY`` on float32, bit for bit with
-  OpenCV's own AVX2 kernel: eight pixels at a time as
-  ``fma(r, 0.299, fma(g, 0.587, b * 0.114))``, the row's remaining pixels as
-  ``fma(r, 0.299, fma(b, 0.114, g * 0.587))``. (Where OpenCV hands the call
-  to Intel IPP instead, IPP picks between the same two orders by its own
-  rule, so a pixel may differ by one ulp.)
+- :func:`cvtColor` with ``COLOR_BGR2GRAY`` or ``COLOR_RGB2GRAY`` on
+  float32, bit for bit with OpenCV's own AVX2 kernel. With the channels in
+  memory order p0, p1, p2 and their weights c0, c1, c2 (0.114, 0.587, 0.299
+  for BGR; 0.299, 0.587, 0.114 for RGB): eight pixels at a time as
+  ``fma(p2, c2, fma(p1, c1, p0 * c0))``, the row's remaining pixels as
+  ``fma(p2, c2, fma(p0, c0, p1 * c1))``. (Where OpenCV hands the call to
+  Intel IPP instead, IPP picks between the same two orders by its own rule,
+  so a pixel may differ by one ulp.)
 - :func:`GaussianBlur` with OpenCV's sigma-from-size rule for sigma <= 0.
 - :func:`jpeg_roundtrip` (and :func:`imencode` / :func:`imdecode` around it):
   what ``cv2.imencode('.jpg', img, [IMWRITE_JPEG_QUALITY, q])`` followed by
@@ -44,7 +49,8 @@ from mgldvsr_tpu_torch.io.frames import decode_png, read_frame
 
 # OpenCV's enum values, so a call written for cv2 reads the same here
 INTER_NEAREST, INTER_LINEAR, INTER_CUBIC, INTER_AREA, INTER_LANCZOS4 = 0, 1, 2, 3, 4
-COLOR_BGR2GRAY = 6
+COLOR_BGR2GRAY, COLOR_RGB2GRAY = 6, 7
+BORDER_REPLICATE, BORDER_REFLECT_101 = 1, 4
 IMREAD_UNCHANGED, IMREAD_GRAYSCALE, IMREAD_COLOR = -1, 0, 1
 IMWRITE_JPEG_QUALITY = 1
 
@@ -52,11 +58,16 @@ IMWRITE_JPEG_QUALITY = 1
 # -- filtering ----------------------------------------------------------------
 
 
-def filter2D(img: np.ndarray, ddepth: int, kernel: np.ndarray) -> np.ndarray:
-    """``cv2.filter2D(img, -1, kernel)``: correlation of every channel with
-    ``kernel`` (odd sizes, anchor at the centre), ``BORDER_REFLECT_101``."""
+def filter2D(img: np.ndarray, ddepth: int, kernel: np.ndarray,
+             borderType: int = BORDER_REFLECT_101) -> np.ndarray:
+    """``cv2.filter2D(img, -1, kernel, borderType=...)``: correlation of every
+    channel with ``kernel`` (odd sizes, anchor at the centre)."""
     if ddepth != -1:
         raise ValueError("only ddepth=-1 (the input's depth) is supported")
+    pad_mode = {BORDER_REFLECT_101: "reflect", BORDER_REPLICATE: "edge"}.get(borderType)
+    if pad_mode is None:
+        raise ValueError(f"borderType {borderType} is not supported (BORDER_REFLECT_101 or "
+                         f"BORDER_REPLICATE)")
     kernel = np.asarray(kernel, np.float64)
     kh, kw = kernel.shape
     if kh % 2 == 0 or kw % 2 == 0:
@@ -66,14 +77,22 @@ def filter2D(img: np.ndarray, ddepth: int, kernel: np.ndarray) -> np.ndarray:
     if squeeze:
         x = x[..., None]
     ph, pw = kh // 2, kw // 2
-    xp = np.pad(x, ((ph, ph), (pw, pw), (0, 0)), mode="reflect")
-    # correlation = convolution with the flipped kernel, by FFT in float64
-    shape = (xp.shape[0] + kh - 1, xp.shape[1] + kw - 1)
-    fshape = tuple(_fft.next_fast_len(s, real=True) for s in shape)
-    fk = _fft.rfft2(kernel[::-1, ::-1], fshape)
-    fx = _fft.rfft2(xp, fshape, axes=(0, 1))
-    full = _fft.irfft2(fx * fk[..., None], fshape, axes=(0, 1))
-    out = full[kh - 1:kh - 1 + x.shape[0], kw - 1:kw - 1 + x.shape[1]]
+    xp = np.pad(x, ((ph, ph), (pw, pw), (0, 0)), mode=pad_mode)
+    h, w = x.shape[:2]
+    if img.dtype == np.float64 and kh * kw < 50:
+        # OpenCV's direct loop: one running sum a pixel, taps in row-major order
+        out = np.zeros_like(x)
+        for i in range(kh):
+            for j in range(kw):
+                out = out + kernel[i, j] * xp[i:i + h, j:j + w]
+    else:
+        # correlation = convolution with the flipped kernel, by FFT in float64
+        shape = (xp.shape[0] + kh - 1, xp.shape[1] + kw - 1)
+        fshape = tuple(_fft.next_fast_len(s, real=True) for s in shape)
+        fk = _fft.rfft2(kernel[::-1, ::-1], fshape)
+        fx = _fft.rfft2(xp, fshape, axes=(0, 1))
+        full = _fft.irfft2(fx * fk[..., None], fshape, axes=(0, 1))
+        out = full[kh - 1:kh - 1 + h, kw - 1:kw - 1 + w]
     out = out.astype(img.dtype if img.dtype != np.uint8 else np.float32)
     return out[..., 0] if squeeze else out
 
@@ -118,17 +137,20 @@ def _fma(a: np.ndarray, b: np.float32, c: np.ndarray) -> np.ndarray:
 
 
 def cvtColor(img: np.ndarray, code: int) -> np.ndarray:
-    """``cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)`` on a float32 BGR image, bit
-    for bit with OpenCV's own AVX2 kernel (see the module docstring)."""
-    if code != COLOR_BGR2GRAY or img.dtype != np.float32 or img.ndim != 3:
-        raise ValueError("only COLOR_BGR2GRAY of a float32 [H, W, 3] image is supported")
-    cb, cg, cr = np.float32(0.114), np.float32(0.587), np.float32(0.299)
-    b, g, r = img[..., 0], img[..., 1], img[..., 2]
+    """``cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)`` or ``COLOR_RGB2GRAY`` on a
+    float32 [H, W, 3] image, bit for bit with OpenCV's own AVX2 kernel (see
+    the module docstring)."""
+    weights = {COLOR_BGR2GRAY: (0.114, 0.587, 0.299), COLOR_RGB2GRAY: (0.299, 0.587, 0.114)}
+    if code not in weights or img.dtype != np.float32 or img.ndim != 3:
+        raise ValueError("only COLOR_BGR2GRAY or COLOR_RGB2GRAY of a float32 [H, W, 3] image "
+                         "is supported")
+    c0, c1, c2 = (np.float32(c) for c in weights[code])
+    p0, p1, p2 = img[..., 0], img[..., 1], img[..., 2]
     w = img.shape[1]
     vec = w - w % 8
     out = np.empty(img.shape[:2], np.float32)
-    out[:, :vec] = _fma(r[:, :vec], cr, _fma(g[:, :vec], cg, b[:, :vec] * cb))
-    out[:, vec:] = _fma(r[:, vec:], cr, _fma(b[:, vec:], cb, g[:, vec:] * cg))
+    out[:, :vec] = _fma(p2[:, :vec], c2, _fma(p1[:, :vec], c1, p0[:, :vec] * c0))
+    out[:, vec:] = _fma(p2[:, vec:], c2, _fma(p0[:, vec:], c0, p1[:, vec:] * c1))
     return out
 
 

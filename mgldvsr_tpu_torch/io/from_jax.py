@@ -3,9 +3,9 @@
 One function per tower, each the exact inverse of the JAX package's
 converter of that tower (``mgldvsr_tpu/io/ckpt_convert.py``):
 ``convert_unet``, ``convert_structcond``, ``convert_autoencoder(video=True,
-fusion=True)``, ``convert_openclip_text`` and ``convert_raft``, and of the
+fusion=True)``, ``convert_openclip_text`` and ``convert_raft``, of the
 stage-2 loss networks ``convert_lpips``, ``convert_discriminator`` and
-``convert_spynet``. The input is
+``convert_spynet``, and of FID's ``convert_inception``. The input is
 the tree as nested dicts of numpy arrays (with or without its top
 ``"params"`` level); the output loads into the port's module with
 ``load_state_dict(strict=True)``.
@@ -412,6 +412,25 @@ def spynet_state_dict(tree: Tree, levels: int = 6) -> Dict[str, torch.Tensor]:
         m = g.scope(f"basic_module.{i}.basic_module")
         for j in range(5):
             m.conv(str(2 * j), p[f"basic_module{i}"][f"conv{j}"])
+    return sd
+
+
+def inception_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_inception``: every ``{"conv", "bn"}`` node of the
+    tree becomes the pt_inception quintet ``<path>.conv.weight`` and
+    ``<path>.bn.{weight,bias,running_mean,running_var}`` (the FID tower holds
+    no ``fc`` or ``AuxLogits``)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(g: _SD, node: Tree) -> None:
+        if "conv" in node:
+            g.raw("conv.weight", np.asarray(node["conv"]["kernel"]).transpose(3, 2, 0, 1))
+            _frozen_bn(g.scope("bn"), node["bn"])
+            return
+        for name, child in node.items():
+            walk(g.scope(name), child)
+
+    walk(_SD(sd), _params(tree))
     return sd
 
 

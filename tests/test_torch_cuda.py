@@ -745,3 +745,24 @@ def test_relaid_weight_cache_after_updates(dev):
                                    atol=3 * 2 ** -8 * float(want.float().abs().max()))
         with torch.no_grad():
             w.copy_(w * 1.5 + 0.01)
+
+
+def test_ewarp_on_card_launches_kernels_and_matches_cpu(dev):
+    """E*warp of a seeded tiny RAFT on the card: one warp launch for every
+    pair, one lookup launch an iteration for each group of pairs, and the
+    CPU's plain versions' value within 1e-5 relative."""
+    from mgldvsr_tpu_torch.flow.raft import RAFT, RAFTConfig
+    from mgldvsr_tpu_torch.metrics.temporal import calculate_ewarp
+    from mgldvsr_tpu_torch.tools.quality_eval import seeded
+
+    raft = seeded(RAFT(RAFTConfig(iters=3))).eval()
+    with torch.no_grad():
+        raft.update_block.flow_head.conv2.weight.mul_(1e-2)
+    clip = torch.rand(5, 64, 96, 3, generator=torch.Generator().manual_seed(3))
+    want = calculate_ewarp(clip, raft, chunk_pairs=8)
+    kernels.reset_launch_counts()
+    got = calculate_ewarp(clip, raft.to(dev), chunk_pairs=8, device=dev)
+    counts = kernels.launch_counts()
+    assert counts["warp_forward"] == 1 and counts["corr_lookup"] == 3
+    assert sum(counts.values()) == 4
+    assert want > 0 and abs(got - want) <= 1e-5 * want, (got, want)

@@ -12,8 +12,9 @@ cv2 routes some calls to Intel IPP, whose float32 resize and gray
 conversion differ from OpenCV's own kernels (resize by up to 2e-5, gray by
 one ulp in a pixel-alignment pattern). ``cv_ops`` follows OpenCV's own
 kernels, so these tests turn IPP off, and measure what IPP gives too.
-Limits: gray bit for bit; filter2D, GaussianBlur and resize within 1e-5 on
-[0, 1]; the JPEG round trip bit for bit with libjpeg-turbo at every quality
+Limits: gray (BGR and RGB) bit for bit; filter2D, GaussianBlur and resize
+within 1e-5 on [0, 1] (filter2D's border modes within 1e-6, and bit for bit
+on float64 under OpenCV's DFT threshold); the JPEG round trip bit for bit with libjpeg-turbo at every quality
 tried (the contract allowed mean |d| <= 0.5/255, max |d| <= 4/255).
 """
 import os
@@ -75,6 +76,43 @@ def test_filter2d(ksize):
     img = _image(ksize, 67, 45)
     k = blur_kernels.make_kernel("aniso", ksize, 2.0, 0.7, 0.4, 1, 1, 1)
     assert np.abs(cv_ops.filter2D(img, -1, k) - cv2.filter2D(img, -1, k)).max() <= 1e-5
+
+
+@pytest.mark.parametrize("border", ["replicate", "reflect101"])
+@pytest.mark.parametrize("ksize", [7, 11])
+def test_filter2d_border_and_float64(border, ksize):
+    """``borderType``: float32 [0, 1] within 1e-6 (FFT against OpenCV's
+    sums); float64 [0, 255] under OpenCV's DFT threshold (7x7, NIQE's window)
+    bit for bit, over it (11x11, SSIM's) within 1e-6."""
+    cv_border = {"replicate": cv2.BORDER_REPLICATE, "reflect101": cv2.BORDER_REFLECT_101}[border]
+    ours = {"replicate": cv_ops.BORDER_REPLICATE, "reflect101": cv_ops.BORDER_REFLECT_101}[border]
+    ax = np.arange(ksize) - ksize // 2
+    g = np.exp(-(ax ** 2) / (2 * 1.3 ** 2))
+    k = np.outer(g, g) / np.outer(g, g).sum()
+    img = _image(ksize, 50, 61, c=1)[..., 0]
+    got = cv_ops.filter2D(img, -1, k, borderType=ours)
+    assert np.abs(got - cv2.filter2D(img, -1, k, borderType=cv_border)).max() <= 1e-6
+    img64 = np.round(img.astype(np.float64) * 255)
+    got64 = cv_ops.filter2D(img64, -1, k, borderType=ours)
+    want64 = cv2.filter2D(img64, -1, k, borderType=cv_border)
+    assert got64.dtype == np.float64
+    if ksize * ksize < 50:
+        np.testing.assert_array_equal(got64, want64)
+    else:
+        assert np.abs(got64 - want64).max() <= 1e-6
+
+
+@pytest.mark.parametrize("width", [7, 53, 64])
+def test_rgb_gray_is_bit_for_bit(no_ipp, width):
+    img = _image(width + 1, 31, width)
+    np.testing.assert_array_equal(cv_ops.cvtColor(img, cv_ops.COLOR_RGB2GRAY),
+                                  cv2.cvtColor(img, cv2.COLOR_RGB2GRAY))
+
+
+def test_rgb_gray_with_ipp_within_one_ulp():
+    img = _image(5, 31, 53)
+    got, want = cv_ops.cvtColor(img, cv_ops.COLOR_RGB2GRAY), cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)
+    assert (np.abs(got - want) <= np.spacing(np.maximum(got, want))).all()
 
 
 @pytest.mark.parametrize("ksize", [5, 51])
