@@ -28,7 +28,14 @@ Phase 2  hold each kernel (the seven that replace a TPU kernel, the
          (tensor-core or FMA) each type and head dim takes.
          The fused GroupNorm+SiLU+conv also: shapes off its tiles, narrow
          frames, a clipped variance, the re-laid weight bit for bit, and its
-         ``mma.sync`` kernel against its tensor-core kernel.
+         ``mma.sync`` kernel against its tensor-core kernel; the chain's one
+         C call equal to the statistics and conv kernels launched apart, bit
+         for bit, its device time from a CUDA graph and its host time a call
+         beside the cuDNN chain's. The standalone warp also: 3-channel
+         512x512 frames, 4 and 1 of them, under a scattered, a smooth and a
+         large flow, each equal to the plain warp bit for bit, with host
+         microseconds a call beside F.grid_sample's; the statistics kernel's
+         host time beside torch.var_mean's.
 Phase 3  tiny config at 256x256, float32, 2 steps, deterministic: the same
          weights on the card (kernels) and on the CPU (plain versions) must
          give the same frames, once in the default configuration and once
@@ -112,8 +119,9 @@ Phase 9  stage-2 training (the video VAE decoder's fusion and temporal
          bf16, fusion) through the training CLI's loop: 8 micro-steps at
          grad_accum 4 (the YAML's 8, cut for time): finite losses,
          temp_loss > 0, trainables and logvar changed at micro-steps 4 and 8
-         only, frozen VAE, LPIPS and SpyNet bit for bit, the warp, channel
-         sums and fused GroupNorm launched in every micro-step; a fresh
+         only, frozen VAE, LPIPS and SpyNet bit for bit, the channel sums
+         and fused GroupNorm launched in every micro-step, the warp exactly
+         once (the swc loss's warps in one call); a fresh
          pipeline resumes the step-4 checkpoint and replays 5-8, which must
          equal the straight run bit for bit. (c) four
          micro-steps through ``Stage2Trainer`` with disc_start 0: d_weight
@@ -126,8 +134,8 @@ Phase 9  stage-2 training (the video VAE decoder's fusion and temporal
          weight gradient. A kernels-only torch.profiler trace of the loop
          (device time, idle share) and the device time of its parts traced
          alone (flows, encode, decoder forward and backward, LPIPS,
-         discriminator); kernel 1 at the swc loss's shape against its plain
-         version, F.grid_sample and its bound. (a) two tiny fp32
+         discriminator); kernel 1 at the swc loss's stack [6,512,512,3]
+         against its plain version, F.grid_sample and its bound. (a) two tiny fp32
          micro-steps at 64x64 on the card and on the CPU in both
          configurations: the metrics, the generator's gradients of both
          micro-steps and Adam's moments card against CPU, the
@@ -770,10 +778,20 @@ def phase2(card: str):
         f"backward vs the plain dx "
         f"{max_err(sample_dx()[0].permute(0, 2, 3, 1), warp_mod.warp_dx_plain(g, flow)):.3e} "
         f"(another rounding of p + flow)")
-    record("warp_forward", max_err(warp_mod.warp_forward(x, flow), warp_mod.warp_plain(x, flow)),
-           1e-5, cuda_ms(lambda: warp_mod.warp_forward(x, flow)),
+    got = warp_mod.warp_forward(x, flow)
+    if not torch.equal(got, warp_mod.warp_plain(x, flow)):
+        raise AssertionError("warp_forward: the float4 kernel differs from the plain warp")
+    record("warp_forward", max_err(got, warp_mod.warp_plain(x, flow)), 0.0,
+           cuda_ms(lambda: warp_mod.warp_forward(x, flow)),
            cuda_ms(lambda: warp_mod.warp_plain(x, flow)), shape, *warp_bound, cuda_ms(sample),
            device_ms=graph_ms(lambda: warp_mod.warp_forward(x, flow)))
+    log(f"[phase2]   the host's share of a call: "
+        f"{host_us(lambda: warp_mod.warp_forward(x, flow)):.1f} us to return, F.grid_sample "
+        f"{host_us(sample):.1f} us")
+    # 3-channel frames at 512^2 (E*warp's 4 pairs, one swc pair) under three flows
+    frames = {f"[{n},512,512,3] {kind}": warp_alone(card, n, "phase2", kind)
+              for n in (4, 1) for kind in WARP_FLOWS}
+    results["warp_forward"]["frames_512"] = frames
     xr = x.clone().requires_grad_(True)
     warp_mod.warp_plain(xr, flow).backward(g)
     dx = warp_mod.warp_dx(g, flow)
@@ -935,6 +953,11 @@ def phase2(card: str):
                f"{list(shp)} bf16 eps {eps:g} (error relative to max |scale|, |shift|)",
                *bound(nbytes(x, w, b, *got), 3.0 * x.numel(), "f32"),
                cuda_ms(lambda: torch.var_mean(groups, dim=2), iters), graph_ms(stats, iters))
+        us = {"gn_scale_shift": host_us(stats),
+              "torch.var_mean": host_us(lambda: torch.var_mean(groups, dim=2))}
+        results["gn_scale_shift"].setdefault("host_us", {})[str(list(shp))] = us
+        log(f"[phase2]   the host's share of a call: {us['gn_scale_shift']:.1f} us to return, "
+            f"torch.var_mean {us['torch.var_mean']:.1f} us")
         del x, got, want
 
     # fused GroupNorm+SiLU+conv3x3: UNet res-block chains, the skip concat,
@@ -965,17 +988,34 @@ def phase2(card: str):
                cuda_ms(lambda: F.conv2d(F.silu(F.group_norm(x, 32, gwd, gbd, 1e-5)), wt, biasd,
                                         padding=1), iters))
         # the wrapper's two parts timed alone: the statistics launch and the
-        # conv kernel itself
+        # conv kernel itself; the one-call chain against the two launches
         def stats():
             return gn_mod.gn_scale_shift(x, gw, gb, 32, 1e-5)
 
+        def chain():
+            return conv_mod.gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5)
+
+        def cudnn_chain():
+            return F.conv2d(F.silu(F.group_norm(x, 32, gwd, gbd, 1e-5)), wt, biasd, padding=1)
+
         scale, shift = stats()
         variant = conv_mod.kernel_variant(dtype, co)
-        conv_only = conv_alone(x, scale, shift, wt, bias, got, variant)
+        two = torch.empty_like(got)
+        conv_only = conv_alone(x, scale, shift, wt, conv_mod.bias_fp32(bias), two, variant)
+        conv_only()
+        if not torch.equal(got, two):
+            raise AssertionError(f"gn_silu_conv3x3 [{n},{c},{h},{w_}]->{co}: the one-call chain "
+                                 f"differs from gn_scale_shift and the conv kernel")
         conv_ms = cuda_ms(conv_only, iters)
-        log(f"[phase2]   {variant} kernel; of which statistics {cuda_ms(stats, iters):.4f} ms, "
-            f"conv kernel alone {conv_ms:.4f} ms = "
-            f"{18e-9 * c * co * n * h * w_ / conv_ms:.0f} TFLOP/s")
+        us = {"chain": host_us(chain, 50), "cudnn_chain": host_us(cudnn_chain, 50)}
+        chain_graph = graph_ms(chain, iters)
+        results["gn_silu_conv3x3"].setdefault("chain", {})[f"[{n},{c},{h},{w_}]->{co}"] = {
+            "graph_ms": chain_graph, "host_us": us}
+        log(f"[phase2]   {variant} kernel, one C call equal to the two launches bit for bit; "
+            f"of which statistics {cuda_ms(stats, iters):.4f} ms, conv kernel alone "
+            f"{conv_ms:.4f} ms = {18e-9 * c * co * n * h * w_ / conv_ms:.0f} TFLOP/s; the chain "
+            f"on the device (graph) {chain_graph:.4f} ms; the host's share of a call "
+            f"{us['chain']:.1f} us to return, the cuDNN chain {us['cudnn_chain']:.1f} us")
         del x, wt, got, want
     results["gn_silu_conv3x3"]["variant"] = (
         "wgmma (conv_wgmma_kernel) for bf16 with more than 8 output channels; mma.sync "
@@ -2486,6 +2526,9 @@ def stage2_full(seed: int, card: str, roots: dict, logdir: str, steps: int, fuse
             if r["counts"][name] == 0:
                 raise AssertionError(f"phase 9 {phase}: kernel {name} not launched in "
                                      f"micro-step {r['step']}")
+        if r["counts"]["warp_forward"] != 1:  # the swc loss's warps in one call
+            raise AssertionError(f"phase 9 {phase}: {r['counts']['warp_forward']} warp_forward "
+                                 f"launches in micro-step {r['step']}, not 1")
         if not fused and any(r["counts"][name] for name in FUSED_ONLY):
             raise AssertionError(f"phase 9 {phase}: {FUSED_ONLY} launched with the switch off")
     _, frozen = partition_vae_params(trainer.vae)
@@ -2917,13 +2960,32 @@ def stage2_profile(seed: int, card: str, roots: dict, logdir: str) -> dict:
             "parts_ms": part_ms}
 
 
-def warp_alone(card: str, n: int, what: str) -> dict:
-    """Kernel 1 alone on [n,512,512,3] f32 frames warped by a flow of a few
-    pixels (``what`` names the caller: the swc loss's n = 1, E*warp's T-1 =
-    4): against its plain version, the library call (F.grid_sample,
-    bilinear, zeros, align_corners=True, on the NCHW frames) and the bound
-    (one read of x and the flow, one write; 4 taps of 2 flops and ~12 flops
-    of weights per output element)."""
+WARP_FLOWS = ("scattered", "smooth", "large")
+
+
+def warp_flow(kind: str, n: int, h: int, w: int, gen):
+    """[n,h,w,2] flows for kernel 1: ``scattered`` N(0,1) x 3 a pixel (a
+    tile's taps span ~20 px), ``smooth`` a 16x16 field of N(0,1) x 3 pixels
+    upsampled bilinearly (a few pixels, as a real flow between neighbouring
+    frames), ``large`` N(0,1) x 40 a pixel (taps far apart)."""
+    import torch
+    import torch.nn.functional as F
+
+    if kind == "smooth":
+        coarse = torch.randn(n, 2, 16, 16, device="cuda", generator=gen) * 3
+        return F.interpolate(coarse, size=(h, w), mode="bilinear",
+                             align_corners=False).permute(0, 2, 3, 1).contiguous()
+    return torch.randn(n, h, w, 2, device="cuda", generator=gen) * (40 if kind == "large" else 3)
+
+
+def warp_alone(card: str, n: int, what: str, kind: str = "scattered") -> dict:
+    """Kernel 1 alone on [n,512,512,3] f32 frames warped by a ``kind`` flow
+    (``what`` names the caller: the swc loss's stack of n = 6, E*warp's T-1
+    = 4, phase 2's n = 4 and 1 under each flow): equal to its plain version,
+    against the library call (F.grid_sample, bilinear, zeros,
+    align_corners=True, on the NCHW frames) and the bound (one read of x and
+    the flow, one write; 4 taps of 2 flops and ~12 flops of weights per
+    output element); host microseconds a call beside the library call's."""
     import torch
     import torch.nn.functional as F
 
@@ -2931,26 +2993,31 @@ def warp_alone(card: str, n: int, what: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     x = torch.rand(n, 512, 512, 3, device="cuda", generator=gen)
-    flow = torch.randn(n, 512, 512, 2, device="cuda", generator=gen) * 3
-    err = max_err(warp_forward(x, flow), warp_plain(x, flow))
+    flow = warp_flow(kind, n, 512, 512, gen)
+    got, want = warp_forward(x, flow), warp_plain(x, flow)
+    err = max_err(got, want)
     bound_ms, by = bound(nbytes(x, flow, x), 20 * x.numel(), "f32")
     gy, gx = torch.meshgrid(torch.arange(512.0, device="cuda"),
                             torch.arange(512.0, device="cuda"), indexing="ij")
     grid = torch.stack([(gx + flow[..., 0]) * (2 / 511) - 1, (gy + flow[..., 1]) * (2 / 511) - 1],
                        -1)
     xn = x.permute(0, 3, 1, 2).contiguous()
+
+    def sample():
+        return F.grid_sample(xn, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
     out = {"max_abs_err": err, "ms": cuda_ms(lambda: warp_forward(x, flow)),
            "plain_ms": cuda_ms(lambda: warp_plain(x, flow)), "bound_ms": bound_ms, "bound_by": by,
-           "library_ms": cuda_ms(lambda: F.grid_sample(xn, grid, mode="bilinear",
-                                                       padding_mode="zeros",
-                                                       align_corners=True)),
-           "device_ms": graph_ms(lambda: warp_forward(x, flow))}
-    log(f"[{what}] warp_forward alone at x[{n},512,512,3] f32: max_abs_err {err:.3e} (limit "
-        f"1e-5) against the plain version; {out['ms']:.4f} ms (device {out['device_ms']:.4f}), "
-        f"plain {out['plain_ms']:.4f}, F.grid_sample {out['library_ms']:.4f}, bound "
-        f"{bound_ms:.4f} ms ({by})  [{card}]")
-    if err > 1e-5:
-        raise AssertionError(f"{what}: warp_forward at [{n},512,512,3] disagrees ({err:.3e})")
+           "library_ms": cuda_ms(sample), "device_ms": graph_ms(lambda: warp_forward(x, flow)),
+           "host_us": host_us(lambda: warp_forward(x, flow)), "library_host_us": host_us(sample)}
+    log(f"[{what}] warp_forward alone at x[{n},512,512,3] f32, {kind} flow: max_abs_err "
+        f"{err:.3e} (limit 0: bit for bit) against the plain version; {out['ms']:.4f} ms (device "
+        f"{out['device_ms']:.4f}, host {out['host_us']:.1f} us a call), plain "
+        f"{out['plain_ms']:.4f}, F.grid_sample {out['library_ms']:.4f} (host "
+        f"{out['library_host_us']:.1f} us), bound {bound_ms:.4f} ms ({by})  [{card}]")
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: warp_forward at [{n},512,512,3], {kind} flow, differs from "
+                             f"its plain version ({err:.3e})")
     return out
 
 
@@ -2972,7 +3039,7 @@ def phase9(seed: int, card: str) -> dict:
         out["decoder"] = stage2_decoder(seed, card, roots)
         _, out["fused"] = stage2_full(seed, card, roots, os.path.join(tmp, "d"), 4, fused=True)
         out["profile"] = stage2_profile(seed, card, roots, os.path.join(tmp, "p"))
-    out["warp"] = warp_alone(card, 1, "phase9")
+    out["warp"] = warp_alone(card, 6, "phase9")
     out["tiny"] = {f: phase9_tiny(seed, card, f) for f in (False, True)}
     out["wall_s"] = time.perf_counter() - t0
     log(f"[phase9] stage-2 training phase: {out['wall_s']:.1f} s of wall  [{card}]")

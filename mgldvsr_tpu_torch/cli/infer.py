@@ -16,7 +16,9 @@ tiled protocol, ``latent`` also writes each frame's final latent as
 Without a checkpoint the towers get seeded random weights (a smoke run).
 Every window's noise comes from a ``torch.Generator`` seeded with ``--seed``
 and a CRC32 of ``clip/first frame name``: the same run gives the same
-frames in every process.
+frames in every process. The run keeps TF32 off for float32 matmuls and
+cuDNN convolutions (RAFT's flows), says so on its first line, and puts
+both flags back when it ends.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ import dataclasses
 import os
 import time
 import zlib
+
+from mgldvsr_tpu_torch.utils.precision import TF32_LINE, tf32_off
 
 
 def segment_seed(seed: int, clip: str, name: str) -> int:
@@ -191,8 +195,14 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> None:
+    """Restore every clip of ``--seqs-path``, with TF32 off (restored on exit)."""
     args = parse_args(argv)
+    print(TF32_LINE, flush=True)
+    with tf32_off():
+        restore_all(args)
 
+
+def restore_all(args) -> None:
     import numpy as np
     import torch
 

@@ -22,7 +22,9 @@ MGLD-VSR checkpoint (``export/mgld_ema.pt``, plus ``export/raft.pt``) that
 ``mgldvsr_tpu_torch.cli.infer --torch-ckpt ... --raft-ckpt ...`` loads.
 ``--resume`` continues from the latest checkpoint: the optimiser, EMA,
 accumulator and step, the data stream at the next clip, and the draws (each
-step's generator is seeded from ``--seed`` and the step).
+step's generator is seeded from ``--seed`` and the step). Both stages keep
+TF32 off for float32 matmuls and cuDNN convolutions, say so on their first
+line, and put both flags back when they end.
 
 Stage 2 finetunes the video VAE decoder's fusion and temporal layers on
 windows of GT frames (``--data-root``), LQ frames (``--lq-root``) and the
@@ -51,6 +53,7 @@ import os
 import time
 
 from mgldvsr_tpu_torch.cli.infer import tiny_pipeline_config
+from mgldvsr_tpu_torch.utils.precision import TF32_LINE, tf32_off
 
 REFUSED = {
     "--params": "reads an orbax directory, which needs JAX; give --torch-ckpt (ROADMAP item 11)",
@@ -448,9 +451,12 @@ def stage2(args, pipe=None, on_step=None, on_trainer=None):
 
 
 def main(argv=None):
+    """Train stage 1 or 2, with TF32 off (restored on exit)."""
     args = parse_args(argv)
+    print(TF32_LINE, flush=True)
     t0 = time.time()
-    (stage1 if args.stage == 1 else stage2)(args)
+    with tf32_off():
+        (stage1 if args.stage == 1 else stage2)(args)
     print(f"done in {time.time() - t0:.1f} s", flush=True)
 
 

@@ -30,11 +30,12 @@ struct Taps {
   float tx, ty;   // blend weights towards x0 + 1 and y0 + 1
 };
 
-// p + flow at pixel (y, x): floor, clamp before the cast (every tap of a
-// clamped base lies outside and reads zero), fractional weights
-__device__ __forceinline__ Taps taps_at(const float* flow_px, int y, int x, int h, int w) {
-  const float px = __fadd_rn((float)x, flow_px[0]);
-  const float py = __fadd_rn((float)y, flow_px[1]);
+// p + flow at pixel (y, x), the flow (fx, fy): floor, clamp before the cast
+// (every tap of a clamped base lies outside and reads zero), fractional
+// weights
+__device__ __forceinline__ Taps taps_of(float fx, float fy, int y, int x, int h, int w) {
+  const float px = __fadd_rn((float)x, fx);
+  const float py = __fadd_rn((float)y, fy);
   const float bx = floorf(px), by = floorf(py);
   Taps t;
   t.x0 = (int)fminf(fmaxf(bx, -2.f), (float)(w + 1));
@@ -42,6 +43,10 @@ __device__ __forceinline__ Taps taps_at(const float* flow_px, int y, int x, int 
   t.tx = __fsub_rn(px, bx);
   t.ty = __fsub_rn(py, by);
   return t;
+}
+
+__device__ __forceinline__ Taps taps_at(const float* flow_px, int y, int x, int h, int w) {
+  return taps_of(flow_px[0], flow_px[1], y, x, h, w);
 }
 
 // element strides of an [N, H, W, C] stack
@@ -102,8 +107,17 @@ __device__ __forceinline__ Vec<V> tap_load(const float* img, int yy, int xx, int
   return inside(yy, xx, h, w) ? vload<V>(img + offset(l, yy, xx, ch)) : vzero<V>();
 }
 
-// the 4-tap bilinear sample of channels [ch, ch + V): the plain warp's
-// top = v00 (1 - tx) + v01 tx, bot likewise, out = top (1 - ty) + bot ty
+// the plain warp's blend of one channel's four taps: top = v00 (1 - tx) +
+// v01 tx, bot likewise, out = top (1 - ty) + bot ty, with ux = 1 - tx and
+// uy = 1 - ty
+__device__ __forceinline__ float blend(float v00, float v01, float v10, float v11,
+                                       const Taps& t, float ux, float uy) {
+  const float top = __fadd_rn(__fmul_rn(v00, ux), __fmul_rn(v01, t.tx));
+  const float bot = __fadd_rn(__fmul_rn(v10, ux), __fmul_rn(v11, t.tx));
+  return __fadd_rn(__fmul_rn(top, uy), __fmul_rn(bot, t.ty));
+}
+
+// the 4-tap bilinear sample of channels [ch, ch + V)
 template <int V>
 __device__ __forceinline__ Vec<V> gather(const float* img, const Taps& t, int h, int w,
                                          const Layout& l, int ch) {
@@ -114,11 +128,7 @@ __device__ __forceinline__ Vec<V> gather(const float* img, const Taps& t, int h,
   const float ux = __fsub_rn(1.f, t.tx), uy = __fsub_rn(1.f, t.ty);
   Vec<V> out;
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    const float top = __fadd_rn(__fmul_rn(v00.v[j], ux), __fmul_rn(v01.v[j], t.tx));
-    const float bot = __fadd_rn(__fmul_rn(v10.v[j], ux), __fmul_rn(v11.v[j], t.tx));
-    out.v[j] = __fadd_rn(__fmul_rn(top, uy), __fmul_rn(bot, t.ty));
-  }
+  for (int j = 0; j < V; ++j) out.v[j] = blend(v00.v[j], v01.v[j], v10.v[j], v11.v[j], t, ux, uy);
   return out;
 }
 

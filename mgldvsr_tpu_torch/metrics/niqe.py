@@ -88,7 +88,10 @@ def _image_features(img: np.ndarray, block_size_h: int = 96, block_size_w: int =
                  for i in range(num_block_h) for j in range(num_block_w)]
         distparam.append(np.array(feats))
         if scale == 1:
-            img = cv_ops.resize(img / 255.0, (w // 2, h // 2),
+            # half the cropped image, as basicsr's loop does (the JAX package
+            # halves the uncropped size; the two agree where H and W are whole
+            # blocks)
+            img = cv_ops.resize(img / 255.0, (img.shape[1] // 2, img.shape[0] // 2),
                                 interpolation=cv_ops.INTER_LINEAR) * 255.0
     return np.concatenate(distparam, axis=1)
 

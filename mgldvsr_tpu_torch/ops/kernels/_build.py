@@ -59,6 +59,14 @@ SIGNATURES = {
     "mgld_gn_silu_conv_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, scale, shift, weight re-laid [9][co][cp], bias, out, n, c, cp, h, w, co, stream
     "mgld_gn_silu_conv_wgmma_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # the chain from one call: x, GroupNorm weight, GroupNorm bias, fp32 scratch [2, n, c]
+    # (scale, shift), conv weight (re-laid [9][co][cp] for wgmma), bias, out, n, c, (cp,) h, w,
+    # co, groups, eps, stream
+    "mgld_gn_silu_conv_chain_wgmma_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                           _I, _F, _P),
+    "mgld_gn_silu_conv_chain_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "mgld_gn_silu_conv_chain_f16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "mgld_gn_silu_conv_chain_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # x, GroupNorm weight, GroupNorm bias, scale, shift, n, c, h*w, groups, eps, stream
     "mgld_gn_scale_shift_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "mgld_gn_scale_shift_f16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
@@ -133,6 +141,17 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def bind(name: str):
+    """``(C entry, stream getter)`` for a wrapper's launch path, looked up
+    once: the ctypes function ``name`` of the loaded library (built on first
+    call), and ``torch._C._cuda_getCurrentRawStream``, which gives the
+    current stream of a device index as the integer the entries take."""
+    import torch
+
+    return getattr(library(), name), torch._C._cuda_getCurrentRawStream
 
 
 def check(err: int, name: str) -> None:

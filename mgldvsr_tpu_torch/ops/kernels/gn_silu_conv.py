@@ -1,12 +1,14 @@
-"""GroupNorm + SiLU + 3x3 conv as one chain of two launches, and its plain
-version.
+"""GroupNorm + SiLU + 3x3 conv as one chain of two launches from one host
+call, and its plain version.
 
 Replaces ``mgldvsr_tpu/ops/pallas/gn_silu_conv.py`` (``gn_silu_conv3x3``
 over ``_fused_fwd_impl``, kernel ``_kernel``). It is arithmetic-bound on the
 H100: 18 * C * Co flops per pixel against 2 * (C + Co) bytes. As in the JAX
 package the group statistics are taken outside the conv kernel: one launch
-(``groupnorm.gn_scale_shift``) reads x once and writes the folded fp32
-(scale, shift) per (frame, channel). The conv kernel (``csrc/gn_silu_conv.cu``)
+(``groupnorm.gn_scale_shift``'s kernel) reads x once and writes the folded
+fp32 (scale, shift) per (frame, channel) into a scratch from PyTorch's
+allocator; one C call enqueues it and the conv kernel, and the wrapper
+counts one launch of each. The conv kernel (``csrc/gn_silu_conv.cu``)
 normalises, applies SiLU, rounds to the working dtype and convolves as an
 implicit GEMM tiled through shared memory, so the normalised activation is
 never written to device memory. The TPU kernel held a whole frame in fast
@@ -38,16 +40,22 @@ import torch.nn.functional as F
 
 from mgldvsr_tpu_torch.ops.kernels import _build
 from mgldvsr_tpu_torch.ops.kernels.groupnorm import (
-    _launch_scale_shift,
-    recompute_grads,
     check_group_affine,
+    gn_scale_shift,
+    group_affine_ok,
+    recompute_grads,
 )
 
-# the C entries: the mma.sync kernel (bf16, f16) and the FMA kernel (f32) take
-# the weight as it is, the wgmma kernel (bf16) takes it re-laid
+# the C entries of the conv kernel alone, on ready statistics (timing and
+# tests): the mma.sync kernel (bf16, f16) and the FMA kernel (f32) take the
+# weight as it is (the wgmma kernel's, mgld_gn_silu_conv_wgmma_bf16, takes it
+# re-laid); and of the whole chain (statistics, then conv) in one call
 _ENTRY = {torch.bfloat16: "mgld_gn_silu_conv_bf16", torch.float16: "mgld_gn_silu_conv_f16",
           torch.float32: "mgld_gn_silu_conv_f32"}
-_WGMMA_ENTRY = "mgld_gn_silu_conv_wgmma_bf16"
+_CHAIN_ENTRY = {torch.bfloat16: "mgld_gn_silu_conv_chain_bf16",
+                torch.float16: "mgld_gn_silu_conv_chain_f16",
+                torch.float32: "mgld_gn_silu_conv_chain_f32"}
+_WGMMA_CHAIN_ENTRY = "mgld_gn_silu_conv_chain_wgmma_bf16"
 STAGE_CHANNELS = 64  # input channels per stage of the wgmma kernel
 
 
@@ -129,27 +137,31 @@ def gn_silu_conv3x3_plain(x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: tor
 
 
 def _launch(x, gn_weight, gn_bias, weight, bias, groups: int, eps: float) -> torch.Tensor:
+    """Both kernels from one C call: the statistics into one fp32 [2, N, C]
+    scratch (scale, then shift), then the conv kernel on them."""
     n, c, h, w = x.shape
     co = weight.shape[0]
-    scale, shift = _launch_scale_shift(x, gn_weight, gn_bias, groups, eps)
+    stats = torch.empty(2 * n * c, dtype=torch.float32, device=x.device)
     out = torch.empty(n, co, h, w, dtype=x.dtype, device=x.device)
     bias = bias_fp32(bias)
-    variant = kernel_variant(x.dtype, co)
-    pointers = (x.data_ptr(), scale.data_ptr(), shift.data_ptr())
-    if variant == "wgmma":
+    wgmma = kernel_variant(x.dtype, co) == "wgmma"
+    head = (x.data_ptr(), gn_weight.data_ptr(), gn_bias.data_ptr(), stats.data_ptr())
+    if wgmma:
         relaid = relaid_weight(weight)
-        name = _WGMMA_ENTRY
-        err = getattr(_build.library(), name)(
-            *pointers, relaid.data_ptr(), bias.data_ptr(), out.data_ptr(), n, c,
-            relaid.shape[2], h, w, co, _build.stream_ptr(x.device))
+        name = _WGMMA_CHAIN_ENTRY
+        fn, stream = _build.bind(name)
+        err = fn(*head, relaid.data_ptr(), bias.data_ptr(), out.data_ptr(), n, c,
+                 relaid.shape[2], h, w, co, groups, eps, stream(x.get_device()))
     else:
-        name = _ENTRY[x.dtype]
-        err = getattr(_build.library(), name)(
-            *pointers, weight.data_ptr(), bias.data_ptr(), out.data_ptr(), n, c, h, w, co,
-            _build.stream_ptr(x.device))
-    _build.check(err, name)
+        name = _CHAIN_ENTRY[x.dtype]
+        fn, stream = _build.bind(name)
+        err = fn(*head, weight.data_ptr(), bias.data_ptr(), out.data_ptr(), n, c, h, w, co,
+                 groups, eps, stream(x.get_device()))
+    if err:
+        _build.check(err, name)
+    gn_scale_shift.launches += 1
     gn_silu_conv3x3.launches += 1
-    gn_silu_conv3x3.wgmma_launches += variant == "wgmma"
+    gn_silu_conv3x3.wgmma_launches += wgmma
     return out
 
 
@@ -179,8 +191,25 @@ def gn_silu_conv3x3(x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Ten
     weight [Co,C,3,3] of the same dtype; contiguous float32 ``gn_weight``
     and ``gn_bias`` [C]; ``bias`` [Co] in float32 or x's dtype. Output
     [N,Co,H,W] in x's dtype."""
-    if x.device.type == "cpu":
+    if not x.is_cuda and x.device.type == "cpu":
         return gn_silu_conv3x3_plain(x, gn_weight, gn_bias, weight, bias, groups, eps)
+    if not (x.is_cuda and x.ndim == 4 and x.is_contiguous() and x.dtype in _ENTRY
+            and weight.dtype is x.dtype and weight.ndim == 4
+            and weight.shape[1:] == (x.shape[1], 3, 3) and weight.is_contiguous()
+            and weight.get_device() == x.get_device()
+            and group_affine_ok(x, gn_weight, gn_bias, groups)
+            and bias.shape == (weight.shape[0],) and bias.get_device() == x.get_device()
+            and (bias.dtype is torch.float32 or bias.dtype is x.dtype) and bias.is_contiguous()):
+        _check(x, gn_weight, gn_bias, weight, bias, groups)
+    if torch.is_grad_enabled() and (x.requires_grad or gn_weight.requires_grad
+                                    or gn_bias.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return _GNSiLUConv.apply(x, gn_weight, gn_bias, weight, bias, groups, eps)
+    return _launch(x, gn_weight, gn_bias, weight, bias, groups, eps)
+
+
+def _check(x, gn_weight, gn_bias, weight, bias, groups: int) -> None:
+    """Raise with the reason where ``gn_silu_conv3x3`` refuses its input."""
     if x.ndim != 4 or not x.is_contiguous() or x.device.type != "cuda":
         raise ValueError(f"gn_silu_conv3x3: need a contiguous CUDA [N,C,H,W] tensor, got "
                          f"{tuple(x.shape)} (contiguous={x.is_contiguous()}) on {x.device}")
@@ -201,10 +230,7 @@ def gn_silu_conv3x3(x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Ten
     if bias.dtype not in (torch.float32, x.dtype) or not bias.is_contiguous():
         raise ValueError(f"gn_silu_conv3x3: bias must be contiguous float32 or {x.dtype}, got "
                          f"{bias.dtype} (contiguous={bias.is_contiguous()})")
-    args = (x, gn_weight, gn_bias, weight, bias)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _GNSiLUConv.apply(*args, groups, eps)
-    return _launch(*args, groups, eps)
+    raise ValueError("gn_silu_conv3x3: input refused")  # every failing condition raised above
 
 
 gn_silu_conv3x3.launches = 0

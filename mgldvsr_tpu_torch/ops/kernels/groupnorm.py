@@ -157,20 +157,7 @@ def gn_scale_shift_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
 _SCALE_SHIFT_ENTRY = {torch.bfloat16: "mgld_gn_scale_shift_bf16",
                       torch.float16: "mgld_gn_scale_shift_f16",
                       torch.float32: "mgld_gn_scale_shift_f32"}
-
-
-def _launch_scale_shift(x, weight, bias, groups: int, eps: float):
-    """The launch without the checks (the fused conv's wrapper made them)."""
-    n, c, h, w = x.shape
-    out = torch.empty(2, n, c, dtype=torch.float32, device=x.device)
-    scale, shift = out[0], out[1]
-    name = _SCALE_SHIFT_ENTRY[x.dtype]
-    err = getattr(_build.library(), name)(
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        n, c, h * w, groups, eps, _build.stream_ptr(x.device))
-    _build.check(err, name)
-    gn_scale_shift.launches += 1
-    return scale, shift
+_F32 = torch.float32
 
 
 def gn_scale_shift(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -178,16 +165,44 @@ def gn_scale_shift(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """GroupNorm of a contiguous [N, C, H, W] tensor as fp32
     ``(scale, shift)``, each [N, C]: ``GroupNorm(x) = x * scale + shift``,
     in one launch. Contiguous float32 ``weight`` and ``bias`` of [C]. No
-    gradient: the fused conv's backward recomputes."""
-    if x.device.type == "cpu":
+    gradient: the fused conv's backward recomputes. The two are the rows of
+    one [2, N, C] tensor."""
+    if not x.is_cuda and x.device.type == "cpu":
         return gn_scale_shift_plain(x, weight, bias, groups, eps)
+    if not (x.is_cuda and x.ndim == 4 and x.is_contiguous() and x.dtype in _SCALE_SHIFT_ENTRY
+            and group_affine_ok(x, weight, bias, groups)):
+        _check_scale_shift(x, weight, bias, groups)
+    n, c, h, w = x.shape
+    out = torch.empty(2, n, c, dtype=_F32, device=x.device)
+    name = _SCALE_SHIFT_ENTRY[x.dtype]
+    fn, stream = _build.bind(name)
+    scale = out.data_ptr()
+    err = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), scale, scale + 4 * n * c, n, c,
+             h * w, groups, eps, stream(x.get_device()))
+    if err:
+        _build.check(err, name)
+    gn_scale_shift.launches += 1
+    return out.unbind()
+
+
+def _check_scale_shift(x, weight, bias, groups: int) -> None:
+    """Raise with the reason where ``gn_scale_shift`` refuses its input."""
     if x.ndim != 4 or not x.is_contiguous() or x.device.type != "cuda":
         raise ValueError(f"gn_scale_shift: need a contiguous CUDA [N,C,H,W] tensor, got "
                          f"{tuple(x.shape)} (contiguous={x.is_contiguous()}) on {x.device}")
     if x.dtype not in _FLOATS:
         raise TypeError(f"gn_scale_shift: floating input only, got {x.dtype}")
     check_group_affine("gn_scale_shift", x, weight, bias, groups)
-    return _launch_scale_shift(x, weight, bias, groups, eps)
+
+
+def group_affine_ok(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    groups: int) -> bool:
+    """Every condition of ``check_group_affine`` as one cheap test."""
+    c = x.shape[1]
+    return (c % groups == 0 and weight.dtype is _F32 and bias.dtype is _F32
+            and weight.shape == (c,) and bias.shape == (c,) and weight.is_contiguous()
+            and bias.is_contiguous() and weight.get_device() == x.get_device()
+            and bias.get_device() == x.get_device())
 
 
 def check_group_affine(who: str, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -41,6 +41,8 @@ import os
 import numpy as np
 import torch
 
+from mgldvsr_tpu_torch.utils.precision import tf32_off
+
 FRAME_EXTENSIONS = (".png", ".jpg", ".jpeg")
 BATCH = 8  # frames a network call (LPIPS, FID); E*warp groups RAFT's pairs by the same count
 
@@ -179,12 +181,8 @@ def main(argv=None) -> list:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("quality_eval: no CUDA device; pass --device cpu to score on the CPU")
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
+    with tf32_off():
         return score(args, device)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
 def score(args, device: torch.device) -> list:

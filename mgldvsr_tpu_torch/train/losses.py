@@ -5,8 +5,8 @@ Counterpart of ``mgldvsr_tpu/train/losses.py`` (the reference's
 ``contperceptual.py``), with its NHWC signatures: frames are
 [(b t), H, W, C]. ``swc_loss`` keeps the reference's loop quirks (a zeros
 first term, the warp one iteration stale) and the JAX package's argument
-order (see :func:`swc_loss`). The GAN weights are plain floats and 0-dim
-tensors.
+order (see :func:`swc_loss`), with its warps in one kernel call. The GAN
+weights are plain floats and 0-dim tensors.
 """
 from __future__ import annotations
 
@@ -63,28 +63,38 @@ def swc_loss(hr: torch.Tensor, gt: torch.Tensor, t: int,
     frames are the GT's, and the reconstruction enters only through the
     weight, so the term has a value and no gradient (whether upstream
     means this is an open question). ``hr`` must carry no gradient on the
-    card, where the warp is a kernel without one."""
+    card, where the warp is a kernel without one.
+
+    The reference's two loops warp each frame one iteration before the
+    term that reads it, and each loop's last warp is never read. No warp
+    depends on an earlier one, so the 2 (t-2) b warps that are read go to
+    the kernel in one call: frames 1..t-2 by their forward flows and by
+    the backward flows into them. The terms are added in the loops' order."""
     fwd_flows, bwd_flows = flows
     fwd_occs, bwd_occs = occs
     b = hr.shape[0] // t
     weight = 1.0 + w * sobel_magnitude(gt).detach()
     hrv = hr.reshape(b, t, *hr.shape[1:])
     wv = weight.reshape(b, t, *weight.shape[1:])
+    if t > 2:
+        inner = hrv[:, 1:t - 1]
+        warped = warp_frames(torch.stack([inner, inner]).flatten(0, 2),
+                             torch.stack([fwd_flows[:, 1:t - 1], bwd_flows[:, :t - 2]])
+                             .flatten(0, 2)).reshape(2, b, t - 2, *hr.shape[1:])
 
     def l1(a, y):
         return (a - y).abs().mean()
 
     loss = torch.zeros((), dtype=torch.float32, device=hr.device)
-    prev = torch.zeros_like(hrv[:, 0])
-    for i in range(t - 2, -1, -1):
+    zero = torch.zeros_like(hrv[:, 0])
+    for i in range(t - 2, -1, -1):  # frame i against frame i + 1 warped by fwd_flows[:, i + 1]
+        prev = zero if i == t - 2 else warped[0, :, i]
         m = wv[:, i] * (1.0 - fwd_occs[:, i])
         loss = loss + l1(m * prev, m * hrv[:, i])
-        prev = warp_frames(hrv[:, i], fwd_flows[:, i])
-    prev = torch.zeros_like(hrv[:, 0])
-    for i in range(1, t):
+    for i in range(1, t):  # frame i against frame i - 1 warped by bwd_flows[:, i - 2]
+        prev = zero if i == 1 else warped[1, :, i - 2]
         m = wv[:, i] * (1.0 - bwd_occs[:, i - 1])
         loss = loss + l1(m * prev, m * hrv[:, i])
-        prev = warp_frames(hrv[:, i], bwd_flows[:, i - 1])
     return loss
 
 

@@ -331,6 +331,37 @@ def test_cli_fixed_equals_restore_segment(tmp_path):
             frames_io.read_frame(str(tmp_path / "out" / "clip0" / name)), want[i])
 
 
+def _tf32_flags():
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("before", [(True, True), (False, True)])
+def test_cli_runs_with_tf32_off_and_restores_it(tmp_path, monkeypatch, capsys, before):
+    """The whole run sees TF32 off for matmuls and cuDNN, its first line
+    says so, and both flags are back as they were after it."""
+    seqs = str(tmp_path / "lq")
+    _write_clip(seqs, "clip0", 5, 16, 16)
+    inside = []
+    build = cli.build_pipeline
+
+    def spy(args):
+        inside.append(_tf32_flags())
+        return build(args)
+
+    monkeypatch.setattr(cli, "build_pipeline", spy)
+    saved = _tf32_flags()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+    try:
+        cli.main(["--seqs-path", seqs, "--out-path", str(tmp_path / "out"), "--preset", "tiny",
+                  "--ddpm-steps", "1", "--no-bf16", "--device", "cpu"])
+        after = _tf32_flags()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert inside == [(False, False)] and after == before
+    assert capsys.readouterr().out.splitlines()[0] == cli.TF32_LINE
+    assert len(os.listdir(tmp_path / "out" / "clip0")) == 5
+
+
 def test_segment_seed_is_stable_across_processes():
     """The window seed is the same under two string-hash seeds (the JAX
     CLI's ``hash((clip, name))`` is not)."""

@@ -70,6 +70,50 @@ def test_warp_kernels_match_plain(dev):
     torch.testing.assert_close(xr.grad, warp_dx_plain(g, flow), atol=1e-5, rtol=0)
 
 
+def _warp_case(dev, c, case):
+    """x [n,h,w,c] and a flow for ``warp_forward``: ``smooth`` (a coarse
+    field of a few pixels, upsampled), ``large`` (randn x 40: taps far from
+    their pixel), ``odd`` (H and W off the 16 x 64 tile), ``offset`` (x's base
+    one element off the 16-byte boundary: 4 channels leave the float4 kernel
+    for the tiled one) and ``outside`` (taps mostly beyond the image, whole
+    tiles reading only zeros); the rest randn x 3."""
+    import torch.nn.functional as F
+
+    gen = _gen(dev, 100 * c + len(case))
+    n, h, w = (2, 37, 101) if case == "odd" else (2, 64, 160)
+    flow = torch.randn(n, h, w, 2, device=dev, generator=gen) * 3
+    if case == "smooth":
+        coarse = torch.randn(n, 2, 4, 6, device=dev, generator=gen) * 3
+        flow = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+        flow = flow.permute(0, 2, 3, 1).contiguous()
+    elif case == "large":
+        flow = flow * 40
+    elif case == "outside":
+        flow = flow + torch.tensor([0.75 * w, -0.6 * h], device=dev)
+    if case == "offset":
+        x = torch.randn(n * h * w * c + 1, device=dev, generator=gen)[1:].view(n, h, w, c)
+        assert x.data_ptr() % 16 == 4 and x.is_contiguous()
+    else:
+        x = torch.randn(n, h, w, c, device=dev, generator=gen)
+    return x, flow
+
+
+@pytest.mark.parametrize("case", ["smooth", "large", "odd", "offset", "outside"])
+@pytest.mark.parametrize("c", [3, 4])
+def test_warp_forward_equals_plain(dev, c, case):
+    """Both forward kernels (the tiled gather; one thread a pixel with
+    float4 taps for aligned 4-channel images) do the plain warp's
+    arithmetic: equal, in one launch."""
+    x, flow = _warp_case(dev, c, case)
+    kernels.reset_launch_counts()
+    got = warp_forward(x, flow)
+    assert kernels.launch_counts()["warp_forward"] == 1
+    want = warp_plain(x, flow)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    if case == "outside":
+        assert (want == 0).float().mean() > 0.5
+
+
 def _attention_counts():
     return {name: n for name, n in kernels.launch_counts().items() if "attention" in name}
 
@@ -462,6 +506,42 @@ def test_fused_chain_is_two_launches_and_copies_nothing(dev):
     assert torch.equal(got, want) and conv_mod._derived.made == made
     assert {k: v for k, v in counts.items() if v} == {
         "gn_scale_shift": 1, "gn_silu_conv3x3": 1, "gn_silu_conv3x3_wgmma": 1}
+
+
+@pytest.mark.parametrize("n,c,h,w,co,dtype", [
+    (5, 320, 64, 64, 320, torch.bfloat16),   # wgmma, 8 x 16 tiles
+    (2, 1280, 8, 8, 96, torch.bfloat16),     # wgmma, 8 x 8 tiles, a cluster splitting K
+    (2, 64, 16, 16, 4, torch.bfloat16),      # mma.sync (few output channels)
+    (2, 64, 16, 16, 32, torch.float16),      # mma.sync
+    (2, 64, 16, 8, 96, torch.float32),       # fma
+])
+def test_chain_in_one_call_equals_the_two_launches(dev, n, c, h, w, co, dtype):
+    """The chain's one C call (statistics, then the conv kernel) equals
+    ``gn_scale_shift`` followed by the conv kernel alone, bit for bit, and
+    counts one launch of each."""
+    x, gw, gb, wt, bias = _conv_case(dev, n, c, h, w, co, dtype)
+    kernels.reset_launch_counts()
+    got = gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    wgmma = conv_mod.kernel_variant(dtype, co) == "wgmma"
+    assert counts == {"gn_scale_shift": 1, "gn_silu_conv3x3": 1,
+                      **({"gn_silu_conv3x3_wgmma": 1} if wgmma else {})}
+    scale, shift = gn_scale_shift(x, gw, gb, 32, 1e-5)
+    want = torch.empty_like(got)
+    if wgmma:
+        relaid = conv_mod.relaid_weight(wt)
+        err = _build.library().mgld_gn_silu_conv_wgmma_bf16(
+            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), relaid.data_ptr(),
+            bias.data_ptr(), want.data_ptr(), n, c, relaid.shape[2], h, w, co,
+            _build.stream_ptr(dev))
+    else:
+        err = getattr(_build.library(), conv_mod._ENTRY[dtype])(
+            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+            want.data_ptr(), n, c, h, w, co, _build.stream_ptr(dev))
+    _build.check(err, "conv")
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got.float(), gn_silu_conv3x3_plain(x, gw, gb, wt, bias).float(),
+                               atol=_conv_limit(got), rtol=0)
 
 
 def test_new_kernels_gradients_on_card(dev):

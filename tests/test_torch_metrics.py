@@ -8,8 +8,10 @@ Limits, each with its reason:
 - ``psnr_tensor`` / ``ssim_tensor`` against ``psnr_jnp`` / ``ssim_jnp``
   within 1e-5 (float32 sums in other orders);
 - ``fit_niqe_params`` within 1e-6 relative and ``calculate_niqe`` within
-  1e-4 relative (the window filter is bit for bit with OpenCV; the half-size
-  resize rounds in another order);
+  1e-4 relative where the cropped image is whole 96x96 blocks (the window
+  filter is bit for bit with OpenCV; the half-size resize rounds in another
+  order); elsewhere the port halves the cropped image and the JAX package
+  the uncropped size, and the scores differ;
 - ``InceptionV3FID`` within 1e-4 of the largest |feature| (float32 convs
   through about 90 layers; flax's ``apply`` runs without ``jit``);
 - the Inception state dict's round trip through ``convert_inception`` and
@@ -115,12 +117,40 @@ def no_ipp():
 
 @pytest.mark.parametrize("convert_to", ["y", "gray"])
 def test_calculate_niqe_matches_jax(tmp_path, no_ipp, convert_to):
+    """Where the cropped image is whole 96x96 blocks (196^2 less a 2-pixel
+    border), the two packages halve the same size."""
     path = str(tmp_path / "p.npz")
     jniqe.fit_niqe_params([_gray(s) for s in (20, 21, 22)], out_path=path)
-    img = _img255(23, 192, 200)
+    img = _img255(23, 196, 196)
     got = niqe.calculate_niqe(img, crop_border=2, params_path=path, convert_to=convert_to)
     want = jniqe.calculate_niqe(img, crop_border=2, params_path=path, convert_to=convert_to)
     assert np.isfinite(want) and abs(got - want) <= 1e-4 * abs(want), (got, want)
+
+
+@pytest.mark.parametrize("convert_to", ["y", "gray"])
+def test_niqe_halves_the_cropped_image(tmp_path, no_ipp, monkeypatch, convert_to):
+    """192x200 less a 2-pixel border is cropped to one row of two blocks,
+    96x192, and the second scale is that image halved, 48x96 (basicsr's
+    loop): the score equals the score of the cropped image itself. The JAX
+    package halves the uncropped 188x196 to 94x98 instead, so its score
+    differs there."""
+    path = str(tmp_path / "p.npz")
+    jniqe.fit_niqe_params([_gray(s) for s in (20, 21, 22)], out_path=path)
+    img = _img255(23, 192, 200)
+    sizes = []
+    resize = niqe.cv_ops.resize
+
+    def spy(src, dsize, **kwargs):
+        sizes.append((src.shape, dsize))
+        return resize(src, dsize, **kwargs)
+
+    monkeypatch.setattr(niqe.cv_ops, "resize", spy)
+    got = niqe.calculate_niqe(img, crop_border=2, params_path=path, convert_to=convert_to)
+    assert sizes == [((96, 192), (96, 48))]
+    cropped = niqe.calculate_niqe(img[2:98, 2:194], params_path=path, convert_to=convert_to)
+    assert np.isfinite(got) and got == cropped
+    want = jniqe.calculate_niqe(img, crop_border=2, params_path=path, convert_to=convert_to)
+    assert abs(got - want) > 1e-2 * abs(want), (got, want)
 
 
 def test_niqe_without_params_raises(monkeypatch):

@@ -436,6 +436,56 @@ def test_loss_primitives_match_jax():
         assert abs(got - want) <= 1e-6 * max(abs(want), 1e-6)
 
 
+def _swc_loss_two_loops(hr, gt, t, flows, occs, w=3.0):
+    """The swc loss as the reference's loops write it, one warp an
+    iteration, each loop's last warp unread."""
+    fwd_flows, bwd_flows = flows
+    fwd_occs, bwd_occs = occs
+    b = hr.shape[0] // t
+    weight = 1.0 + w * losses.sobel_magnitude(gt).detach()
+    hrv = hr.reshape(b, t, *hr.shape[1:])
+    wv = weight.reshape(b, t, *weight.shape[1:])
+    loss = torch.zeros((), dtype=torch.float32)
+    prev = torch.zeros_like(hrv[:, 0])
+    for i in range(t - 2, -1, -1):
+        m = wv[:, i] * (1.0 - fwd_occs[:, i])
+        loss = loss + (m * prev - m * hrv[:, i]).abs().mean()
+        prev = losses.warp_frames(hrv[:, i], fwd_flows[:, i])
+    prev = torch.zeros_like(hrv[:, 0])
+    for i in range(1, t):
+        m = wv[:, i] * (1.0 - bwd_occs[:, i - 1])
+        loss = loss + (m * prev - m * hrv[:, i]).abs().mean()
+        prev = losses.warp_frames(hrv[:, i], bwd_flows[:, i - 1])
+    return loss
+
+
+@pytest.mark.parametrize("t", [3, 5])
+def test_swc_loss_warps_in_one_call(monkeypatch, t):
+    """One warp call of the 2 (t-2) b frames the loss reads; the loss equals
+    the two-loop form bit for bit and the JAX package's within 1e-6."""
+    b, h, w = 2, 9, 7
+    x, y = _randn(b * t, h, w, 3, seed=20 + t), _randn(b * t, h, w, 3, seed=30 + t)
+    rs = np.random.RandomState(t)
+    flows = tuple(rs.randn(b, t - 1, h, w, 2).astype(np.float32) * 2 for _ in range(2))
+    occs = tuple((rs.rand(b, t - 1, h, w, 1) > 0.6).astype(np.float32) for _ in range(2))
+    tflows, toccs = tuple(map(_t, flows)), tuple(map(_t, occs))
+    calls = []
+    warp = losses.warp_frames
+
+    def counted(frames, flow):
+        calls.append(frames.shape[0])
+        return warp(frames, flow)
+
+    monkeypatch.setattr(losses, "warp_frames", counted)
+    got = losses.swc_loss(_t(x), _t(y), t, tflows, toccs)
+    assert calls == [2 * (t - 2) * b]
+    old = _swc_loss_two_loops(_t(x), _t(y), t, tflows, toccs)
+    assert calls[1:] == [b] * (2 * (t - 1)) and torch.equal(got, old)
+    want = float(jlosses.swc_loss(jnp.asarray(x), jnp.asarray(y), t,
+                                  tuple(map(jnp.asarray, flows)), tuple(map(jnp.asarray, occs))))
+    assert abs(float(got) - want) <= 1e-6 * abs(want)
+
+
 def _seeded(module, seed):
     from mgldvsr_tpu_torch.io.init_weights import init_module_weights
 

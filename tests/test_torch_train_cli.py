@@ -113,6 +113,35 @@ def test_config_sections_and_defaults(data_root):
     assert frozen.frozen_dtype == "bfloat16"
 
 
+def test_train_cli_runs_with_tf32_off_and_restores_it(data_root, tmp_path, monkeypatch, capsys):
+    """Both stages run with TF32 off for matmuls and cuDNN, the first line
+    says so, and both flags are back as they were after the run, also when
+    the run raises."""
+    inside = []
+
+    def spy(args):
+        inside.append((args.stage, torch.backends.cuda.matmul.allow_tf32,
+                       torch.backends.cudnn.allow_tf32))
+        if args.stage == 2:
+            raise KeyboardInterrupt
+
+    monkeypatch.setattr(cli, "stage1", spy)
+    monkeypatch.setattr(cli, "stage2", spy)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        cli.main(_argv(data_root, tmp_path / "a", 1))
+        assert capsys.readouterr().out.splitlines()[0] == cli.TF32_LINE
+        with pytest.raises(KeyboardInterrupt):
+            cli.main(["--stage", "2", "--data-root", data_root, "--lq-root", data_root,
+                      "--latent-root", data_root, "--tiny", "--device", "cpu",
+                      "--logdir", str(tmp_path / "b")])
+        after = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert inside == [(1, False, False), (2, False, False)] and after == (True, True)
+
+
 def test_without_cuda_the_default_device_raises(data_root, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -2,7 +2,7 @@
 """Profile warm full-width restores of the PyTorch port on the GPU.
 
     python3 tools/profile_torch_restore.py [--steps 50] [--top 25] [--fused]
-    python3 tools/profile_torch_restore.py --compare PARENT_TREE
+    python3 tools/profile_torch_restore.py --compare PARENT_TREE [--fused]
 
 One profile: builds the chip smoke's full-width pipeline (seeded random
 weights, bf16 towers, float32 RAFT) and runs one warm-up restore. Then it
@@ -21,8 +21,8 @@ as the one fused kernel. ``--root DIR`` profiles the package and
 example ``git archive <commit> | tar -x -C DIR``) against this checkout in
 one call, so that both run on the same card and host: one process per
 profile, in the order parent, change, change, parent, first in the default
-and then in the fused configuration, and a table of the JSON lines at the
-end.
+and then in the fused configuration (with ``--fused``, the fused one alone),
+and a table of the JSON lines at the end.
 """
 from __future__ import annotations
 
@@ -127,9 +127,10 @@ def profile_one(args) -> int:
 
 
 def compare(args) -> int:
-    """Parent, change, change, parent in each configuration, one process each."""
+    """Parent, change, change, parent in each configuration (the fused one
+    alone with ``--fused``), one process each."""
     rows = []
-    for fused in (False, True):
+    for fused in (True,) if args.fused else (False, True):
         for name, root in (("parent", args.compare), ("change", HERE), ("change", HERE),
                            ("parent", args.compare)):
             cmd = [sys.executable, os.path.abspath(__file__), "--root", root,
