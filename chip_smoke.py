@@ -171,6 +171,27 @@ Phase 10 the quality harness at full width, after phase 5, on phase 4's clip:
          ``ok``. (b) and (c) run beside the end of (a). Prints the phase's
          seconds; ``launches_quality`` in the kernels line.
 
+Phase 11 the multi-device restore on one card (after phase 6, phase 4's
+         weights, 10 steps, deterministic). (a) a world of one NCCL rank from a
+         file:// store: ``restore_windows_sharded`` of phase 4's window equals
+         ``restore_segment`` by ``torch.equal`` with the same launches; the
+         exchange receives nothing. (b) ten consecutive 512x512 frames as two
+         windows driven through ``sharded_step`` in lockstep
+         (``tools/multicard_check.lockstep``: window 1's first frame latent
+         handed to window 0 at every step): ``boundary_grad`` against autograd
+         of ``boundary_loss_plain`` within 1e-6 of max |grad|; at weight 0 each
+         window equals its ``restore_segment`` bit for bit, at 1 window 0
+         moves and window 1 does not, and a second run at 1 is the same bit
+         for bit; ``warp_forward`` once a step for window 0 only; every kernel
+         of the default configuration launched by window 0 (its counts are
+         ``launches_window_parallel`` in the kernels line); the pair's sampler
+         ms/step in turns with two ``restore_segment`` calls'. (c) the lockstep
+         at phase 3's tiny configuration, card against CPU within 1e-3. (d)
+         ``torchrun --nproc_per_node=1 -m mgldvsr_tpu_torch.cli.infer`` with
+         ``--window-parallel`` (fixed) and ``--patch-parallel`` (tile) on phase
+         7's clip: the same PNGs as the command without them.
+         ``--only-parallel`` builds the kernels and runs phase 11 alone.
+
 Prints one JSON line describing the kernels before the last line, and the
 result line ``{"ok": true, "device": {...}}`` last. Any failure raises and
 exits non-zero without the result line.
@@ -216,9 +237,9 @@ FUSED_ONLY = ("gn_silu_conv3x3", "gn_scale_shift")  # launched by the fused conf
 # launched by the default configuration alone: its GroupNorms of 128^2 pixels
 # and more all head a chain, which the fused configuration gives to the two above
 DEFAULT_ONLY = ("channel_sums",)
-# on no restore path (phases 3-7): the restore's guidance step runs the guidance
-# pair; warp_forward alone runs in stage-2 training's swc loss (phase 9) and in
-# E*warp (phase 10)
+# on no single-window restore path (phases 3-7): the restore's guidance step runs
+# the guidance pair; warp_forward alone runs in the window-parallel boundary term
+# (phase 11), stage-2 training's swc loss (phase 9) and E*warp (phase 10)
 STANDALONE = ("warp_forward", "warp_dx")
 
 # NVIDIA H100 SXM data sheet, dense: device memory bytes/s, tensor-core
@@ -504,6 +525,11 @@ def guidance_phase2(dev, gen, card: str, record) -> dict:
     def pair():
         return guide_mod.guidance_grad(lat, flows, occs, 5)
 
+    # launch B's sum is fixed point: every call gives the same bits
+    first = pair()
+    if not all(torch.equal(pair(), first) for _ in range(5)):
+        raise AssertionError("guidance: two calls of the pair on the same inputs differ")
+
     def autograd_step():
         """What the sampler ran per step before the pair: the loss through
         kernels 1 and 2, then torch.autograd.grad."""
@@ -521,9 +547,10 @@ def guidance_phase2(dev, gen, card: str, record) -> dict:
                              f"{err_old:.3e} (limit {tol:.3e})")
     n_old, dev_old = device_activity(autograd_step)
     n_new, dev_new = device_activity(pair)
-    if round(n_new) != 2:
+    # launch A, the accumulator's zero fill, launch B and its finishing kernel
+    if round(n_new) != 4:
         raise AssertionError(f"guidance: the pair made {n_new} device launches a call, "
-                             f"expected 2")
+                             f"expected 4")
     out = {
         "shape": shape, "ms": cuda_ms(pair), "device_ms": graph_ms(pair),
         "host_us": host_us(pair), "launches": n_new, "device_activity_ms": dev_new,
@@ -3263,6 +3290,233 @@ def phase10(pipe, frames, out4, out5, card: str) -> dict:
             "smoke": summary, "warp": warp, "wall_s": wall}
 
 
+# -- phase 11: the multi-device restore ---------------------------------------
+
+WINDOW_PARALLEL_STEPS = 10  # phase 11 (a) and (b) at full width
+
+
+@contextlib.contextmanager
+def rank_env(rank: int = 0, world: int = 1):
+    """``torchrun``'s rank variables for the enclosed block, then as they were."""
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase11_world_of_one(pipe, frames, card: str) -> dict:
+    """(a) a world of one NCCL rank on cuda:0 from a file:// store: the
+    window-parallel restore of one window equals ``restore_segment``."""
+    import datetime
+    import tempfile
+
+    import torch
+
+    from mgldvsr_tpu_torch.ops import kernels
+    from mgldvsr_tpu_torch.parallel import mesh
+    from mgldvsr_tpu_torch.parallel.sharded_sampler import exchange_first
+
+    steps = WINDOW_PARALLEL_STEPS
+    with tempfile.TemporaryDirectory() as tmp, rank_env(), sampler_steps(pipe, steps):
+        want_stages: dict = {}
+        kernels.reset_launch_counts()
+        want = pipe.restore_segment(frames, deterministic=True, stage_seconds=want_stages)
+        torch.cuda.synchronize()
+        want_counts = kernels.launch_counts()
+        device = mesh.init_group("cuda", f"file://{tmp}/store",
+                                 timeout=datetime.timedelta(minutes=5))
+        try:
+            backend = torch.distributed.get_backend()
+            nb, has_right = exchange_first(torch.ones(1, 64, 64, 4, device=device))
+            mesh.barrier()
+            stages: dict = {}
+            kernels.reset_launch_counts()
+            got = pipe.restore_windows_sharded(frames, deterministic=True, stage_seconds=stages)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        finally:
+            mesh.destroy()
+        witness = pipe.restore_segment(frames, deterministic=True)
+    equal, err = torch.equal(got, want), max_err(got, want)
+    spread = max_err(witness, want)
+    log(f"[phase11] (a) NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, backend "
+        f"{backend}, a world of one rank on {device}: the exchange received "
+        f"{'nothing' if not has_right and not nb.any() else 'something'} (has_right "
+        f"{has_right}); restore_windows_sharded of one 512x512 window, {steps} steps, "
+        f"deterministic: equal to restore_segment {equal} (max_abs_err {err:.3e}; "
+        f"restore_segment against itself {spread:.3e}); sampler "
+        f"{1000 * stages['sampler'] / steps:.2f} ms/step against "
+        f"{1000 * want_stages['sampler'] / steps:.2f}  [{card}]")
+    if has_right or nb.any():
+        raise AssertionError("phase 11 (a): the last rank received a neighbour's frame")
+    if counts != want_counts:
+        raise AssertionError(f"phase 11 (a): launches {counts} against restore_segment's "
+                             f"{want_counts}")
+    if not equal:
+        raise AssertionError(f"phase 11 (a): restore_windows_sharded differs from "
+                             f"restore_segment by {err:.3e}")
+    return dict(counts=counts, sampler_ms=1000 * stages["sampler"] / steps)
+
+
+def phase11_lockstep(pipe, card: str, seed: int) -> dict:
+    """(b) two windows in lockstep at full width on the card."""
+    import torch
+
+    from mgldvsr_tpu_torch.infer.pipeline import upscale_frames
+    from mgldvsr_tpu_torch.parallel import sharded_sampler as ss
+    from mgldvsr_tpu_torch.tools.multicard_check import lockstep
+
+    steps = WINDOW_PARALLEL_STEPS
+    frames = upscale_frames(torch.from_numpy(lq_clip(seed + 21, 128, frames=10)).cuda(), 4)
+    with sampler_steps(pipe, steps):
+        runs = {w: lockstep(pipe, frames, w) for w in (0.0, 1.0)}
+        seg_stages = [{}, {}, {}, {}]
+        alone = [pipe.restore_segment(frames[5 * w:5 * w + 5], deterministic=True,
+                                      stage_seconds=seg_stages[w]) for w in (0, 1)]
+        # in turns for the times: pair, segments (above), pair, segments
+        again = lockstep(pipe, frames, 1.0)
+        for w in (0, 1):
+            pipe.restore_segment(frames[5 * w:5 * w + 5], deterministic=True,
+                                 stage_seconds=seg_stages[2 + w])
+        torch.cuda.synchronize()
+    last, nb, bflow, bocc = runs[1.0]["boundary"]
+    got = ss.boundary_grad(last, nb, bflow, bocc)
+    leaf = last.detach().clone().requires_grad_(True)
+    ss.boundary_loss_plain(leaf, nb, bflow, bocc).backward()
+    g_err, g_max = max_err(got, leaf.grad), float(leaf.grad.abs().max())
+    unoccluded = float(1 - bocc.mean())
+    same0 = [torch.equal(runs[0.0]["outs"][w], alone[w]) for w in (0, 1)]
+    moved = [max_err(runs[1.0]["outs"][w], runs[0.0]["outs"][w]) for w in (0, 1)]
+    counts = runs[1.0]["counts"]
+    same = all(torch.equal(a, b) for a, b in zip(again["outs"], runs[1.0]["outs"]))
+    pair_ms = [1000 * r["sampler_s"] / steps for r in (runs[1.0], again)]
+    seg_ms = [1000 * (a["sampler"] + b["sampler"]) / steps
+              for a, b in (seg_stages[:2], seg_stages[2:])]
+    log(f"[phase11] (b) two 512x512 windows in lockstep, {steps} steps, deterministic: "
+        f"boundary_grad against autograd of boundary_loss_plain max_abs_err {g_err:.3e} (limit "
+        f"1e-6 of max |grad| {g_max:.3e}), {unoccluded:.3f} of the boundary unoccluded; at "
+        f"weight 0 each window equals its restore_segment {same0}; weight 1 against 0: window 0 "
+        f"{moved[0]:.3e}, window 1 {moved[1]:.3e}; warp_forward launches (window 0, window 1) "
+        f"{[c['warp_forward'] for c in counts]}; weight 1 again the same bit for bit {same}; "
+        f"the pair's sampler, in turns with two restore_segment calls' (weight 1): "
+        f"{pair_ms[0]:.2f} / {seg_ms[0]:.2f} / {pair_ms[1]:.2f} / {seg_ms[1]:.2f} ms/step "
+        f"({1000 * runs[0.0]['sampler_s'] / steps:.2f} at weight 0, the first)  [{card}]")
+    log(f"[phase11] (b) launches of window 0 (a rank with a right neighbour): "
+        f"{ {k: n for k, n in counts[0].items() if n} }  [{card}]")
+    if not (g_err <= 1e-6 * g_max and g_max > 0):
+        raise AssertionError(f"phase 11 (b): boundary_grad {g_err:.3e} from autograd")
+    if not all(same0):
+        raise AssertionError(f"phase 11 (b): at weight 0 the windows differ from "
+                             f"restore_segment: {same0}")
+    if not same:
+        raise AssertionError("phase 11 (b): the lockstep at weight 1 differs from itself")
+    if not (moved[0] > 0 and moved[1] == 0):
+        raise AssertionError(f"phase 11 (b): the boundary term moved the windows by {moved}")
+    if [c["warp_forward"] for c in counts] != [steps, 0]:
+        raise AssertionError(f"phase 11 (b): warp_forward launches "
+                             f"{[c['warp_forward'] for c in counts]}, expected [{steps}, 0]")
+    for name in KERNELS:
+        if (counts[0][name] == 0) != (name in FUSED_ONLY + ("warp_dx",)):
+            raise AssertionError(f"phase 11 (b): kernel {name} was launched {counts[0][name]} "
+                                 f"times by window 0")
+    if not (counts[0]["guidance_residual"] == counts[0]["guidance_scatter"] == steps
+            and counts[0]["corr_lookup"] == 2 * pipe.cfg.raft.iters):
+        raise AssertionError(f"phase 11 (b): window 0's launches {counts[0]}")
+    return dict(counts=counts[0], pair_ms=pair_ms, segments_ms=seg_ms)
+
+
+def phase11_tiny(seed: int, card: str) -> float:
+    """(c) the lockstep at phase 3's tiny configuration, card against CPU."""
+    import torch
+
+    from mgldvsr_tpu_torch.infer.pipeline import upscale_frames
+    from mgldvsr_tpu_torch.tools.multicard_check import lockstep
+
+    cpu, gpu = tiny_pipelines(seed)
+    frames = upscale_frames(torch.from_numpy(lq_clip(seed + 22, 64, frames=10)), 4)
+    want = lockstep(cpu, frames, 1.0)
+    got = lockstep(gpu, frames.cuda(), 1.0)
+    err = max(max_err(g.cpu(), w) for g, w in zip(got["outs"], want["outs"]))
+    moved = max_err(want["outs"][0], cpu.restore_segment(frames[:5], deterministic=True))
+    log(f"[phase11] (c) tiny 256x256 fp32 {cpu.cfg.ddpm_steps} steps, two windows in lockstep "
+        f"at weight 1: card vs CPU max_abs_err {err:.3e} (limit 1e-3); the boundary term moved "
+        f"window 0 by {moved:.3e} on the CPU; warp_forward launches "
+        f"{[c['warp_forward'] for c in got['counts']]}  [{card}]")
+    if not err <= 1e-3 or not moved > 0:
+        raise AssertionError(f"phase 11 (c): card vs CPU {err:.3e}, moved {moved:.3e}")
+    if [c["warp_forward"] for c in got["counts"]] != [cpu.cfg.ddpm_steps, 0]:
+        raise AssertionError(f"phase 11 (c): warp_forward launches {got['counts']}")
+    return err
+
+
+def phase11_cli(card: str) -> None:
+    """(d) the inference command line under torchrun with one rank:
+    ``--window-parallel`` (fixed mode) and ``--patch-parallel`` (tile mode)
+    write the frames of the same command without them."""
+    import tempfile
+
+    from mgldvsr_tpu_torch.cli import infer as cli
+    from mgldvsr_tpu_torch.io.frames import read_frame, write_frame
+
+    clip = (lq_clip(11, 32, frames=7, width=48) * 255).round().astype(np.uint8)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = repo
+    with tempfile.TemporaryDirectory() as tmp:
+        lq = os.path.join(tmp, "lq")
+        os.makedirs(os.path.join(lq, "clip0"))
+        for i, frame in enumerate(clip):
+            write_frame(os.path.join(lq, "clip0", f"{i:08d}.png"), frame)
+        for mode, flag in (("fixed", "--window-parallel"), ("tile", "--patch-parallel")):
+            argv = ["--seqs-path", lq, "--preset", "tiny", "--mode", mode, "--ddpm-steps", "2",
+                    "--seed", "1"]
+            ranked, alone = os.path.join(tmp, mode + "_ranked"), os.path.join(tmp, mode)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node=1", "-m", "mgldvsr_tpu_torch.cli.infer", *argv, flag,
+                 "--out-path", ranked], cwd=repo, env=env, capture_output=True, text=True,
+                timeout=300)
+            wall = time.perf_counter() - t0
+            if proc.returncode:
+                raise AssertionError(f"phase 11 (d) {mode}: torchrun exited {proc.returncode}:\n"
+                                     f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+            cli.main([*argv, "--out-path", alone])
+            names = sorted(os.listdir(os.path.join(alone, "clip0")))
+            diff = [int(np.abs(read_frame(os.path.join(ranked, "clip0", n)).astype(int)
+                               - read_frame(os.path.join(alone, "clip0", n))).max())
+                    for n in names]
+            log(f"[phase11] (d) torchrun --nproc_per_node=1 cli.infer --mode {mode} {flag}: "
+                f"{len(names)} frames, max |difference| to the run without it {max(diff)} "
+                f"(limit 0); {wall:.2f} s with torchrun's start  [{card}]")
+            if names != [f"{i:08d}.png" for i in range(7)] or max(diff):
+                raise AssertionError(f"phase 11 (d) {mode}: frames {names}, differences {diff}")
+            if "rank 0 of 1" not in proc.stdout:
+                raise AssertionError(f"phase 11 (d) {mode}: no process group:\n{proc.stdout}")
+
+
+def phase11(pipe, frames, seed: int, card: str) -> dict:
+    """The multi-device restore on one card: (a) a world of one NCCL rank,
+    (b) two windows in lockstep at full width, (c) the same at tiny widths
+    against the CPU, (d) the command line under torchrun."""
+    t0 = time.perf_counter()
+    one = phase11_world_of_one(pipe, frames, card)
+    pair = phase11_lockstep(pipe, card, seed)
+    phase11_tiny(seed, card)
+    phase11_cli(card)
+    log(f"[phase11] {time.perf_counter() - t0:.1f} s  [{card}]")
+    return dict(counts=pair["counts"], world_of_one=one, pair_ms=pair["pair_ms"],
+                segments_ms=pair["segments_ms"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -3275,6 +3529,9 @@ def main() -> int:
     ap.add_argument("--only-quality", action="store_true",
                     help="build the kernels and run phases 4 and 5's restores and phase 10 "
                          "alone (no result line)")
+    ap.add_argument("--only-parallel", action="store_true",
+                    help="build the kernels and run phase 11 alone on phase 4's weights (no "
+                         "result line)")
     args = ap.parse_args()
 
     import torch
@@ -3305,6 +3562,10 @@ def main() -> int:
         out5, _ = full_restore(pipe, frames, args.seed, args.steps, card, fused=True)
         log(json.dumps(phase10(pipe, frames, out4, out5, card), default=str))
         return 0
+    if args.only_parallel:
+        pipe, frames = full_pipeline(args.seed, args.steps)
+        log(json.dumps(phase11(pipe, frames, args.seed, card), default=str))
+        return 0
 
     results = phase2(card)
     for fused in (False, True):
@@ -3320,6 +3581,7 @@ def main() -> int:
     quality = phase10(pipe, frames, out4, out5, card)
     del out4, out5
     tile = phase6(pipe, args.seed, args.steps, card)
+    parallel = phase11(pipe, frames, args.seed, card)
     del pipe, frames
     phase7(card)
     train = phase8(args.seed, card)
@@ -3338,6 +3600,7 @@ def main() -> int:
                 "launches_stage2": stage2["default"]["launches"][name],
                 "launches_stage2_fused": stage2["fused"]["launches"][name],
                 "launches_quality": quality["counts"][name],
+                "launches_window_parallel": parallel["counts"][name],
                 **results[name]}
                for name, (route, src, rep) in KERNELS.items()]
     for entry in kernels:

@@ -6,12 +6,23 @@ one entry point):
       [--mode fixed|tile|latent] [--torch-ckpt ckpt] [--ddpm-steps 50] \\
       [--shard 0 --num-shards 1] [--seed 42] [--device cuda|cpu]
 
+  torchrun --nproc_per_node=N -m mgldvsr_tpu_torch.cli.infer ... \\
+      --window-parallel [--boundary-weight 1.0] | --mode tile --patch-parallel
+
 ``LQ_ROOT`` holds one folder of frames per clip; every clip is restored
 window by window (``num_frames`` frames, the last window padded) into
 ``OUT/<clip>/`` under the input frame names. ``fixed`` restores each window
 pre-upscaled x``sf`` in one piece, ``tile`` runs the arbitrary-resolution
 tiled protocol, ``latent`` also writes each frame's final latent as
 ``<name>.npy`` ([h/8, w/8, 4] float32) for stage-2 training.
+
+With several processes (one per card, ``torchrun``; ``--device cpu`` runs
+them on gloo), ``--window-parallel`` restores N consecutive windows at once,
+one a rank, coupled at every step through one boundary latent
+(``MGLDVSRPipeline.restore_windows_sharded``); a lone remainder window runs
+on rank 0, and each rank writes its own window. ``--patch-parallel`` splits
+tile mode's patches over the ranks and rank 0 writes the frames. Whatever
+else there is to restore runs on rank 0 alone.
 
 Without a checkpoint the towers get seeded random weights (a smoke run).
 Every window's noise comes from a ``torch.Generator`` seeded with ``--seed``
@@ -166,6 +177,22 @@ def parse_args(argv=None):
     ap.add_argument("--window-batch", type=int, default=1,
                     help="fixed mode: restore this many consecutive windows in one call; they "
                          "stay independent but share one generator")
+    ap.add_argument("--window-parallel", action="store_true",
+                    help="fixed mode, several ranks (torchrun): one num_frames window a rank, "
+                         "coupled at every step by one boundary latent sent to the left "
+                         "neighbour (cross-window coherent guidance); a remainder window runs "
+                         "on rank 0. With one rank --window-batch applies")
+    ap.add_argument("--boundary-weight", type=float, default=1.0,
+                    help="window-parallel: weight of the cross-window boundary guidance term "
+                         "(0 = independent windows)")
+    ap.add_argument("--patch-parallel", action="store_true",
+                    help="tile mode, several ranks (torchrun): split the canvas patches over "
+                         "the ranks and gather the finished ones (frames identical to one "
+                         "rank's)")
+    ap.add_argument("--init-method", default=None,
+                    help="with --window-parallel or --patch-parallel: the process group's init "
+                         "method (default env://, which torchrun sets up; file:///PATH for "
+                         "processes started with RANK, WORLD_SIZE and LOCAL_RANK set)")
     ap.add_argument("--flow-scale", type=float, default=None,
                     help="resolution RAFT runs at, relative to the working size (default: the "
                          "config's 1.0 in fixed mode, 0.25 in tile mode; latent mode always "
@@ -203,6 +230,24 @@ def main(argv=None) -> None:
 
 
 def restore_all(args) -> None:
+    """Join the process group where a parallel flag asks for one and the
+    process was started as a rank (``WORLD_SIZE`` set, or ``--init-method``
+    given), restore, and leave the group."""
+    distributed = (args.window_parallel or args.patch_parallel) and bool(
+        "WORLD_SIZE" in os.environ or args.init_method)
+    if not distributed:
+        restore_clips(args, None)
+        return
+    from mgldvsr_tpu_torch.parallel import mesh
+
+    device = mesh.init_group(args.device, args.init_method)
+    try:
+        restore_clips(argparse.Namespace(**{**vars(args), "device": str(device)}), mesh)
+    finally:
+        mesh.destroy()
+
+
+def restore_clips(args, mesh) -> None:
     import numpy as np
     import torch
 
@@ -214,8 +259,18 @@ def restore_all(args) -> None:
     load_weights(pipe, args)
     ds = VideoFolderDataset(args.seqs_path, num_frame=pipe.cfg.num_frames)
     t = pipe.cfg.num_frames
-    group_size = max(1, args.window_batch) if args.mode == "fixed" else 1
-    print(f"mode {args.mode} on {pipe.device}, frames through {codec()}", flush=True)
+    rank, world = (mesh.rank(), mesh.world()) if mesh else (0, 1)
+    # one flag decides the group size and the dispatch: --window-parallel
+    # with one rank falls back to --window-batch
+    window_parallel = args.window_parallel and args.mode == "fixed" and world > 1
+    patch_group = (mesh.subgroup(world) if mesh and args.patch_parallel and args.mode == "tile"
+                   else None)
+    if window_parallel:
+        group_size = world
+    else:
+        group_size = max(1, args.window_batch) if args.mode == "fixed" else 1
+    where = f" (rank {rank} of {world})" if mesh else ""
+    print(f"mode {args.mode} on {pipe.device}{where}, frames through {codec()}", flush=True)
 
     for seq_idx in range(len(ds)):
         if seq_idx % args.num_shards != args.shard:
@@ -225,35 +280,53 @@ def restore_all(args) -> None:
         segments = list(ds.segments(seq_idx))
         for g0 in range(0, len(segments), group_size):
             group = segments[g0:g0 + group_size]
+            n_frames += sum(len(names) for _, names, _ in group)
             clip, first_names, _ = group[0]
             outdir = os.path.join(args.out_path, clip)
             os.makedirs(outdir, exist_ok=True)
+            sharded = window_parallel and len(group) > 1
+            if sharded:
+                # rank r restores window r of the group; ranks past its end
+                # wait at the clip's barrier
+                sub = mesh.subgroup(len(group))
+                if rank >= len(group):
+                    continue
+            elif rank and patch_group is None:
+                continue  # rank 0 restores what is not split over the ranks
             gen = torch.Generator(device=pipe.device).manual_seed(
                 segment_seed(args.seed, clip, first_names[0]))
             frames = torch.from_numpy(np.concatenate([f for _, _, f in group])).to(pipe.device)
             latents = None
-            if args.mode == "tile":
+            if sharded:
+                out = pipe.restore_windows_sharded(
+                    upscale_frames(frames, pipe.cfg.sf), gen, group=sub, dec_w=args.dec_w,
+                    boundary_weight=args.boundary_weight)
+            elif args.mode == "tile":
                 out = pipe.restore_video(
                     frames, gen, dec_w=args.dec_w, pch_size=args.vqgantile_size,
                     pch_stride=args.vqgantile_stride, tile_overlap=args.tile_overlap,
-                    min_side=args.min_side, patch_batch=args.patch_batch,
+                    min_side=args.min_side, patch_batch=args.patch_batch, patch_group=patch_group,
                     **({"flow_scale": args.flow_scale} if args.flow_scale is not None else {}))
             elif args.mode == "latent":
                 out, latents = pipe.restore_with_latents(upscale_frames(frames, pipe.cfg.sf), gen)
                 latents = latents.float().cpu().numpy()
             else:
                 out = pipe.restore_segment(upscale_frames(frames, pipe.cfg.sf), gen)
+            if rank and not sharded:
+                continue  # every rank holds the gathered frames; rank 0 writes them
             out = (out.float().clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()
-            for w, (_, names, _) in enumerate(group):
+            for w, (_, names, _) in enumerate(group[rank:rank + 1] if sharded else group):
                 for i, name in enumerate(names):
                     write_frame(os.path.join(outdir, name), out[w * t + i])
                     if latents is not None:
                         np.save(os.path.join(outdir, os.path.splitext(name)[0] + ".npy"),
                                 np.ascontiguousarray(latents[w * t + i]))
-                n_frames += len(names)
+        if mesh:
+            mesh.barrier()
         dt = time.time() - t0
-        print(f"[{seq_idx}] {ds.clips[seq_idx]}: {n_frames} frames in {dt:.1f}s "
-              f"({n_frames / max(dt, 1e-9):.2f} frames/s)", flush=True)
+        if rank == 0:
+            print(f"[{seq_idx}] {ds.clips[seq_idx]}: {n_frames} frames in {dt:.1f}s "
+                  f"({n_frames / max(dt, 1e-9):.2f} frames/s)", flush=True)
 
 
 if __name__ == "__main__":

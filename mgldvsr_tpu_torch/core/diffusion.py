@@ -86,9 +86,13 @@ def window_tiled_randn(like: torch.Tensor, num_frames: int,
 
 def p_sample(sched: DiffusionSchedule, denoise_fn: Callable, x: torch.Tensor, i: int,
              generator: Optional[torch.Generator], cfg: SamplerConfig,
-             flows=None, masks=None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+             flows=None, masks=None, noise: Optional[torch.Tensor] = None,
+             extra_grad: Optional[Callable[[torch.Tensor], Optional[torch.Tensor]]] = None
+             ) -> torch.Tensor:
     """Posterior sample at step ``i`` plus the motion-guided correction.
-    ``noise`` overrides the draw (tests inject it)."""
+    ``noise`` overrides the draw (tests inject it). ``extra_grad(latents)``
+    gives a gradient to add to the guidance gradient, or None (the
+    window-parallel sampler's boundary term)."""
     mean, _, log_var = p_mean_variance(sched, denoise_fn, x, i)
     if noise is None:
         if cfg.temperature == 0:
@@ -101,7 +105,10 @@ def p_sample(sched: DiffusionSchedule, denoise_fn: Callable, x: torch.Tensor, i:
     nonzero = float(i > 0)
     latents = mean + nonzero * torch.exp(0.5 * log_var) * noise
     if flows is not None:
+        extra = extra_grad(latents) if extra_grad is not None else None
         grad = guidance_grad(latents, flows, masks, cfg.num_frames, cfg.guidance_mode)
+        if extra is not None:
+            grad = grad + extra
         n_windows = latents.shape[0] // cfg.num_frames
         latents = latents - cfg.guidance_scale * log_var * (n_windows * grad)
     return latents

@@ -21,9 +21,17 @@
 //     plain store (the thread owns the pixel: no atomics, no memset) and
 //     writes each warp's cotangent m sgn(r) / N to the scratch.
 //   guidance_scatter_kernel (launch B): a thread per (window, warp, pixel)
-//     recomputes the taps and adds the cotangent's 4 weighted taps into the
-//     source frame with float atomics; stream order puts it after A, so the
-//     gradient already holds the direct part.
+//     recomputes the taps and adds the cotangent's 4 weighted taps into a
+//     64-bit fixed-point accumulator of the source frame (integer atomics:
+//     the sum does not depend on the order the atomics land in, so a
+//     restore is the same bit for bit from run to run; float atomics made
+//     the gradient differ by ~5e-11 between identical calls, which the
+//     residuals' sign amplifies over the steps). Then guidance_finish_kernel
+//     adds each accumulator to the direct part, which A stored, rounding
+//     once. Each weighted tap (a float product, as the plain warp's
+//     transpose forms it) is scaled by a power of two that puts 1/N in [2^31, 2^32):
+//     exact in double, a tap's rounding to the integer grid under 2^-32 of
+//     1/N. Occlusion masks in [0, 1] keep every sum far inside 64 bits.
 //
 // Bound on the H100: bytes, under 1 MB for the restore's call (5 frames of
 // 64x64x4, their flows and masks, the gradient and the scratch), ~0.3 us
@@ -116,11 +124,21 @@ __global__ void guidance_residual_kernel(
   }
 }
 
+// one weighted tap of a cotangent into the fixed-point accumulator
+__device__ __forceinline__ void tap_add_fixed(unsigned long long* acc, int yy, int xx, int h,
+                                              int w, const Layout& l, int ch, float wt, float g,
+                                              double scale) {
+  if (!inside(yy, xx, h, w)) return;
+  const long long q = __double2ll_rn((double)__fmul_rn(g, wt) * scale);
+  atomicAdd(acc + offset(l, yy, xx, ch), (unsigned long long)q);
+}
+
 __global__ void guidance_scatter_kernel(const float* __restrict__ flow_fwd,
                                         const float* __restrict__ flow_bwd,
-                                        const float* __restrict__ cot, float* __restrict__ grad,
+                                        const float* __restrict__ cot,
+                                        unsigned long long* __restrict__ acc,
                                         const GuidanceTable tab, const Layout l, int b, int t,
-                                        int h, int w, int c, int slots) {
+                                        int h, int w, int c, int slots, double scale) {
   const int hw = h * w;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;  // ((window, slot), pixel)
   if (i >= b * slots * hw) return;
@@ -132,12 +150,29 @@ __global__ void guidance_scatter_kernel(const float* __restrict__ flow_fwd,
   const Taps taps = taps_at((e[1] == 0 ? flow_bwd : flow_fwd) + 2 * (fpair * hw + pix), y, x,
                             h, w);
   const float* g = cot + row * l.frame + offset(l, y, x, 0);
-  float* dst = grad + (win * t + e[0]) * l.frame;
+  unsigned long long* dst = acc + (win * t + e[0]) * l.frame;
+  const float ux = __fsub_rn(1.f, taps.tx), uy = __fsub_rn(1.f, taps.ty);
+  const float w00 = __fmul_rn(ux, uy), w01 = __fmul_rn(taps.tx, uy);
+  const float w10 = __fmul_rn(ux, taps.ty), w11 = __fmul_rn(taps.tx, taps.ty);
   for (int ch = 0; ch < c; ++ch) {
-    const Vec<1> gc{{g[ch * l.chan]}};
+    const float gc = g[ch * l.chan];
     // an occluded or zero-residual pixel adds nothing: skip its atomics
-    if (gc.v[0] != 0.f) scatter<1>(dst, taps, h, w, l, ch, gc);
+    if (gc == 0.f) continue;
+    tap_add_fixed(dst, taps.y0, taps.x0, h, w, l, ch, w00, gc, scale);
+    tap_add_fixed(dst, taps.y0, taps.x0 + 1, h, w, l, ch, w01, gc, scale);
+    tap_add_fixed(dst, taps.y0 + 1, taps.x0, h, w, l, ch, w10, gc, scale);
+    tap_add_fixed(dst, taps.y0 + 1, taps.x0 + 1, h, w, l, ch, w11, gc, scale);
   }
+}
+
+// grad += acc / scale over the n elements of both (dense, one layout: the
+// same storage offsets), one rounding to float an element
+__global__ void guidance_finish_kernel(float* __restrict__ grad,
+                                       const long long* __restrict__ acc, double inv_scale,
+                                       int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  grad[i] = (float)((double)grad[i] + (double)acc[i] * inv_scale);
 }
 
 bool load_table(const int* host, GuidanceTable* tab) {
@@ -171,11 +206,14 @@ extern "C" int mgld_guidance_residual_f32(const void* lat, const void* flow_fwd,
   return (int)cudaGetLastError();
 }
 
-// the layout of grad and of cot's slots in element strides (frame, row, col, chan)
+// the layout of grad, of the accumulator (int64, zeros, grad's strides) and of
+// cot's slots in element strides (frame, row, col, chan); scale: the fixed
+// point's power of two. Launches B, then the finishing kernel.
 extern "C" int mgld_guidance_scatter_f32(const void* flow_fwd, const void* flow_bwd,
-                                         const void* cot, void* grad, const int* table,
-                                         int s_frame, int s_row, int s_col, int s_chan, int b,
-                                         int t, int h, int w, int c, int slots, void* stream) {
+                                         const void* cot, void* grad, void* acc,
+                                         const int* table, int s_frame, int s_row, int s_col,
+                                         int s_chan, int b, int t, int h, int w, int c,
+                                         int slots, double scale, void* stream) {
   GuidanceTable tab;
   if (t < 1 || t > kMaxFrames || slots < 0 || slots > 2 * kMaxFrames || !load_table(table, &tab))
     return (int)cudaErrorInvalidValue;
@@ -184,7 +222,12 @@ extern "C" int mgld_guidance_scatter_f32(const void* flow_fwd, const void* flow_
   auto s = (cudaStream_t)stream;
   const Layout l{s_frame, s_row, s_col, s_chan};
   guidance_scatter_kernel<<<blocks_for(threads_total, kThreads), kThreads, 0, s>>>(
-      (const float*)flow_fwd, (const float*)flow_bwd, (const float*)cot, (float*)grad, tab, l, b,
-      t, h, w, c, slots);
+      (const float*)flow_fwd, (const float*)flow_bwd, (const float*)cot,
+      (unsigned long long*)acc, tab, l, b, t, h, w, c, slots, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int n = b * t * h * w * c;
+  guidance_finish_kernel<<<blocks_for(n, kThreads), kThreads, 0, s>>>(
+      (float*)grad, (const long long*)acc, 1.0 / scale, n);
   return (int)cudaGetLastError();
 }

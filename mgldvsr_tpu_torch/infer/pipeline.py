@@ -21,6 +21,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mgldvsr_tpu_torch.core.diffusion import (
     SamplerConfig,
@@ -52,7 +53,9 @@ from mgldvsr_tpu_torch.models.unet import (
     UNetConfig,
 )
 from mgldvsr_tpu_torch.models.vae import DiagonalGaussian, VAEConfig, VideoAutoencoderKLResi
+from mgldvsr_tpu_torch.ops.occlusion import forward_backward_consistency_check
 from mgldvsr_tpu_torch.ops.resize import resize2d
+from mgldvsr_tpu_torch.parallel.sharded_sampler import rank_generator, sample_video_sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,12 +277,15 @@ class MGLDVSRPipeline:
                  deterministic: bool, dec_w: Optional[float], guidance_scale: float,
                  flows: Optional[Callable[[], tuple]], denoise: Optional[Callable] = None,
                  window_noise: bool = False, clip01: bool = True,
-                 stage_seconds: Optional[Dict[str, float]] = None):
+                 stage_seconds: Optional[Dict[str, float]] = None,
+                 sampler: Optional[Callable] = None):
         """The stages every restore runs, in order: encode, the empty
         prompt, flows, x_T, the guided sampler, decode, colour fix. ``flows``
         gives the (flows, masks) pair, or is None for no guidance;
         ``denoise(lq_latent, context)`` builds the eps function (default
-        :meth:`denoise_fn`). Returns (frames, final latents [N,h,w,4])."""
+        :meth:`denoise_fn`); ``sampler(denoise_fn, x_T, generator, cfg,
+        flows, masks)`` gives the final latents (default :func:`sample_video`).
+        Returns (frames, final latents [N,h,w,4])."""
         cfg = self.cfg
         if generator is None and not deterministic:
             raise ValueError("a restore needs a torch.Generator unless deterministic")
@@ -304,14 +310,17 @@ class MGLDVSRPipeline:
                              guidance_mode=cfg.guidance_mode,
                              temperature=0.0 if deterministic else 1.0,
                              noise_window_tile=window_noise)
-        out = sample_video(self.sched, (denoise or self.denoise_fn)(init_latent, context), x_T,
-                           generator, scfg, fl, masks)
+        dn = (denoise or self.denoise_fn)(init_latent, context)
+        if sampler is None:
+            latents = sample_video(self.sched, dn, x_T, generator, scfg, fl, masks).latents
+        else:
+            latents = sampler(dn, x_T, generator, scfg, fl, masks)
         clock.lap("sampler")
-        decoded = self.decode(out.latents, enc_fea, dec_w).float()
+        decoded = self.decode(latents, enc_fea, dec_w).float()
         fixed = apply_colorfix(decoded, frames_pm1, cfg.colorfix)
         result = torch.clamp((fixed + 1.0) / 2.0, 0.0, 1.0) if clip01 else fixed
         clock.lap("decode")
-        return result, out.latents
+        return result, latents
 
     def restore_segment(self, frames_01: torch.Tensor,
                         generator: Optional[torch.Generator] = None,
@@ -384,13 +393,82 @@ class MGLDVSRPipeline:
         return self._restore(frames_01, generator, deterministic=deterministic, dec_w=dec_w,
                              guidance_scale=-1.0, flows=flows)
 
+    @torch.no_grad()
+    def boundary_flow(self, last: torch.Tensor, first: torch.Tensor):
+        """The flow across a window boundary: ``last`` (a window's last
+        frame) and ``first`` (the next window's first), [1,H,W,3] in [0,1] ->
+        (bflow [1,h,w,2] at latent resolution, which warps ``first`` towards
+        ``last`` as ``flows_backward`` does within a window, and its occlusion
+        mask [1,h,w,1]): one RAFT call on both directions at the config's
+        ``flow_scale``, then the consistency check."""
+        fs = self.cfg.flow_scale
+        pair = torch.cat([last, first])
+        if fs != 1.0:
+            _, h, w, _ = pair.shape
+            pair = resize2d(pair, (int(h * fs), int(w * fs)), method="bilinear")
+        both = flows_to_latent_res(self.raft(pair, pair.flip(0))[:, None], 0.125 / fs)[:, 0]
+        bflow, brev = both[:1].contiguous(), both[1:].contiguous()
+        return bflow, forward_backward_consistency_check(bflow, brev)[0]
+
+    def restore_windows_sharded(self, frames_01: torch.Tensor,
+                                generator: Optional[torch.Generator] = None, group=None,
+                                dec_w: Optional[float] = None, boundary_weight: float = 1.0,
+                                deterministic: bool = False,
+                                stage_seconds: Optional[Dict[str, float]] = None) -> torch.Tensor:
+        """D consecutive windows, one a rank of ``group`` (the whole world by
+        default), restored with the halo-coupled sampler
+        (:func:`~mgldvsr_tpu_torch.parallel.sharded_sampler.sample_video_sharded`):
+        every rank is given the same [D·t,H,W,3] target-size frames in [0,1]
+        and returns the SR frames [t,H,W,3] of its own window r. No frames
+        cross ranks; each step sends one latent frame to the left neighbour.
+
+        Rank r restores window r as :meth:`restore_segment` does, and adds the
+        boundary pair: the flow from its last frame to window r+1's first and
+        its occlusion (:meth:`boundary_flow`); the last rank gets zero flow
+        and an all-occluded mask. Every rank must hold ``generator`` in the
+        same state; each draws from its own (:func:`rank_generator`). At
+        ``boundary_weight=0``, each window is :meth:`restore_segment`'s.
+        ``deterministic`` zeroes every draw and needs no generator."""
+        t = self.cfg.num_frames
+        n = frames_01.shape[0]
+        if n % t:
+            raise ValueError(f"{n} frames is not a multiple of num_frames={t}")
+        d, r = n // t, dist.get_rank(group)
+        if d != dist.get_world_size(group):
+            raise ValueError(f"need exactly one rank per window: {d} windows, "
+                             f"{dist.get_world_size(group)} ranks")
+        if generator is None and not deterministic:
+            raise ValueError("a restore needs a torch.Generator unless deterministic")
+        mine = frames_01[r * t:(r + 1) * t]
+        boundary = {}
+
+        def flows():
+            (ff, fb), masks = self.compute_flows(mine)
+            if r < d - 1:
+                boundary["pair"] = self.boundary_flow(mine[-1:], frames_01[(r + 1) * t:][:1])
+            else:  # no right neighbour: the term is multiplied by 0
+                hl, wl = ff.shape[2:4]
+                boundary["pair"] = (ff.new_zeros(1, hl, wl, 2), ff.new_ones(1, hl, wl, 1))
+            return (ff, fb), masks
+
+        def sampler(dn, x_T, gen, scfg, fl, masks):
+            return sample_video_sharded(self.sched, dn, x_T, gen, scfg, fl, masks,
+                                        *boundary["pair"], boundary_weight=boundary_weight,
+                                        group=group)
+
+        return self._restore(
+            mine, None if deterministic else rank_generator(generator, group),
+            deterministic=deterministic, dec_w=dec_w, guidance_scale=self.cfg.guidance_scale,
+            flows=flows, sampler=sampler, stage_seconds=stage_seconds)[0]
+
     def restore_video(self, lq_frames_01: torch.Tensor,
                       generator: Optional[torch.Generator] = None, pch_size: int = 960,
                       pch_stride: int = 750, min_side: int = 512, dec_w: Optional[float] = None,
                       use_guidance: bool = True, flow_scale: float = 0.25,
                       deterministic: bool = False, tile: int = 64, tile_overlap: int = 32,
                       batch_tiles: int = 4, patch_batch: Optional[int] = None,
-                      stage_seconds: Optional[Dict[str, float]] = None) -> torch.Tensor:
+                      stage_seconds: Optional[Dict[str, float]] = None,
+                      patch_group=None) -> torch.Tensor:
         """The reference's ``oldcanvas_tile`` protocol on one window of LQ
         frames [T,h,w,3] in [0,1]; returns the SR frames in [0,1] on the
         pipeline's device.
@@ -415,7 +493,10 @@ class MGLDVSRPipeline:
         ``patch_batch`` gives the same frames up to the towers' rounding
         (bf16 kernels may sum in another order at another batch). ``patch_batch=None`` takes
         :meth:`patch_batch_envelope`. ``stage_seconds``, when given, gets
-        the seconds of ``upscale``, ``flows``, ``patches`` and ``gather``."""
+        the seconds of ``upscale``, ``flows``, ``patches`` and ``gather``.
+        ``patch_group`` (a process group; every rank calls with the same
+        frames and generator state) splits the patch groups over its ranks
+        (:meth:`_restore_patches`): the same frames on every rank."""
         cfg = self.cfg
         t = cfg.num_frames
         if generator is None and not deterministic:
@@ -461,12 +542,10 @@ class MGLDVSRPipeline:
 
         if patch_batch is None:
             patch_batch = self.patch_batch_envelope(*patches[0].shape[1:3])
-        kb = max(1, min(patch_batch, len(patches)))
         state = generator.get_state() if generator is not None else None
-        outs = []
-        for g0 in range(0, len(patches), kb):
-            idx = list(range(g0, min(g0 + kb, len(patches))))
-            group = idx + [idx[-1]] * (kb - len(idx))
+
+        def restore_group(group):
+            """Patches ``group`` (indices) on the window axis of one call."""
             # one concatenation a group: contiguous frames, flows and masks
             stacked = torch.cat([patches[i] for i in group], 0)
             fm = None
@@ -479,7 +558,9 @@ class MGLDVSRPipeline:
                 stacked, generator, tile=tile, tile_overlap=tile_overlap,
                 batch_tiles=batch_tiles, dec_w=dec_w, use_guidance=use_guidance,
                 flows_masks=fm, deterministic=deterministic, clip01=False, window_noise=True)
-            outs.extend(o[j * t:(j + 1) * t] for j in range(len(idx)))
+            return [o[j * t:(j + 1) * t] for j in range(len(group))]
+
+        outs = self._restore_patches(len(patches), restore_group, patch_batch, patch_group)
         clock.lap("patches")
 
         full = torch.clamp((spliter.gather(outs) + 1.0) / 2.0, 0.0, 1.0)
@@ -492,6 +573,33 @@ class MGLDVSRPipeline:
         full = full[:, :work_h, :work_w]
         clock.lap("gather")
         return full
+
+    def _restore_patches(self, n_patches: int, restore_group: Callable, patch_batch: int,
+                         group=None) -> List[torch.Tensor]:
+        """The finished tile-mode patches, in order: groups of ``kb``
+        patches (``restore_group(indices)``), the list padded by repeating
+        the last patch to whole groups. With a process group ``group`` the
+        groups are split over its ranks, padded so that every rank holds as
+        many, and gathered in order on every rank; ``kb`` is then the
+        smallest ``patch_batch`` of any rank (the envelope reads each card's
+        free memory), at most a rank's share."""
+        world, r = 1, 0
+        if group is not None:
+            world, r = dist.get_world_size(group), dist.get_rank(group)
+            pb = torch.tensor([patch_batch], device=self.device)
+            dist.all_reduce(pb, op=dist.ReduceOp.MIN, group=group)
+            patch_batch = int(pb.item())
+        kb = max(1, min(patch_batch, -(-n_patches // world)))
+        per_rank = kb * -(-n_patches // (world * kb))
+        order = list(range(n_patches)) + [n_patches - 1] * (world * per_rank - n_patches)
+        mine = order[r * per_rank:(r + 1) * per_rank]
+        outs = [o for g0 in range(0, per_rank, kb) for o in restore_group(mine[g0:g0 + kb])]
+        if group is None:
+            return outs[:n_patches]
+        local = torch.stack(outs)
+        gathered = [torch.empty_like(local) for _ in range(world)]
+        dist.all_gather(gathered, local, group=group)
+        return list(torch.cat(gathered)[:n_patches])
 
     def patch_batch_envelope(self, ph: int, pw: int) -> int:
         """Patches of ph x pw pixels a tile-mode group may hold: 0.8 of the

@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _L = ctypes.c_longlong
 _LP = ctypes.POINTER(ctypes.c_longlong)
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -42,10 +43,10 @@ SIGNATURES = {
     # term table (host ints), latents' and grad's strides[4], b, t, h, w, c, slots, 1/N, stream
     "mgld_guidance_residual_f32": (_P, _P, _P, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _F, _P),
-    # flow_fwd, flow_bwd, cotangent scratch, grad, term table, grad's strides[4], b, t, h, w,
-    # c, slots, stream
-    "mgld_guidance_scatter_f32": (_P, _P, _P, _P, _IP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                  _P),
+    # flow_fwd, flow_bwd, cotangent scratch, grad, int64 accumulator, term table, grad's
+    # strides[4], b, t, h, w, c, slots, fixed-point scale, stream
+    "mgld_guidance_scatter_f32": (_P, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _D, _P),
     # q, k, v, o, bh, n, d, scale, stream
     "mgld_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     "mgld_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _P),

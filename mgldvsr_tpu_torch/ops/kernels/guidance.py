@@ -1,5 +1,5 @@
 """Motion guidance's gradient: the temporal warp loss, its gradient in two
-CUDA launches, and their plain versions.
+CUDA kernels (launches A and B), and their plain versions.
 
 Every guided sampler step (``core/diffusion.p_sample``) moves the latents
 along d/d latents of :func:`temporal_warp_loss`, a sum of occlusion-masked
@@ -15,7 +15,12 @@ kernels (``csrc/guidance.cu``), which take in the loss's arithmetic as well:
   frame's direct gradient (a plain store) and each warp's cotangent into a
   scratch buffer;
 * :func:`guidance_scatter` (launch B): per (window, warp, pixel), the warp's
-  transpose, the cotangent's 4 weighted taps added into the source frame.
+  transpose, the cotangent's 4 weighted taps added into a 64-bit fixed-point
+  accumulator of the source frame (zeroed by PyTorch), then a finishing
+  kernel adds it to the direct part. Integer atomics make the sum
+  independent of the order they land in, so the card's restore is the same
+  bit for bit from run to run (float atomics were not: ~5e-11 between
+  identical calls, which the residuals' sign amplifies over the steps).
 
 The call moves under a megabyte, so both launches sit at a launch's floor;
 what they remove is the host's work, the ~170 small launches of the loss and
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Callable, NamedTuple, Tuple
 
 import torch
@@ -315,13 +321,21 @@ def _launch_residual(latents, flows, occs, num_frames, mode, stream, b, h, w, c)
     return grad, cot
 
 
+def _fixed_scale(n: int) -> float:
+    """Launch B's fixed point: the power of two that puts 1/N in [2^31,
+    2^32), so a sum of cotangents of |m| <= 1 stays far inside 64 bits."""
+    return math.ldexp(1.0, 32 - math.frexp(_inv_n(n))[1])
+
+
 def _launch_scatter(grad, cot, flows, num_frames, mode, stream, b, h, w, c):
     slots = warp_slots(num_frames, mode)
     if slots == 0:
         return grad
+    acc = torch.zeros_like(grad, dtype=torch.int64)  # grad's strides
     err = _build.library().mgld_guidance_scatter_f32(
         flows[0].data_ptr(), flows[1].data_ptr(), cot.data_ptr(), grad.data_ptr(),
-        _kernel_table(num_frames, mode), *grad.stride(), b, num_frames, h, w, c, slots, stream)
+        acc.data_ptr(), _kernel_table(num_frames, mode), *grad.stride(), b, num_frames, h, w, c,
+        slots, _fixed_scale(b * h * w * c), stream)
     _build.check(err, "mgld_guidance_scatter_f32")
     guidance_scatter.launches += 1
     return grad
@@ -370,8 +384,9 @@ guidance_scatter.launches = 0
 def guidance_grad(latents: torch.Tensor, flows: Pair, occs: Pair, num_frames: int,
                   mode: str = "reference") -> torch.Tensor:
     """d temporal_warp_loss(latents, flows, occs, num_frames, mode) / d
-    latents, a plain function of its inputs: launches A and B on the card
-    (no autograd, no memset), :func:`guidance_grad_plain` on the CPU."""
+    latents, a plain function of its inputs: launch A, the accumulator's
+    zero fill, launch B and its finishing kernel on the card (no autograd),
+    :func:`guidance_grad_plain` on the CPU."""
     if latents.is_cpu:
         return guidance_grad_plain(latents, flows, occs, num_frames, mode)
     geometry = _check_inputs("guidance_grad", latents, flows, occs, num_frames, mode)

@@ -846,3 +846,65 @@ def test_ewarp_on_card_launches_kernels_and_matches_cpu(dev):
     assert counts["warp_forward"] == 1 and counts["corr_lookup"] == 3
     assert sum(counts.values()) == 4
     assert want > 0 and abs(got - want) <= 1e-5 * want, (got, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 64, 4), (1, 37, 53, 4)])
+def test_boundary_grad_matches_plain(dev, shape):
+    """The window-parallel boundary term's gradient on the card (the warp
+    by ``warp_forward``) against autograd of its plain loss, at the restore's
+    [1,64,64,4] and an odd size; within 1e-6 of max |grad|."""
+    from mgldvsr_tpu_torch.parallel import sharded_sampler as ss
+
+    gen = _gen(dev, 5)
+    last = torch.randn(*shape, device=dev, generator=gen)
+    nb = torch.randn(*shape, device=dev, generator=gen)
+    bflow = torch.randn(*shape[:3], 2, device=dev, generator=gen) * 3
+    bocc = (torch.rand(*shape[:3], 1, device=dev, generator=gen) > 0.7).float()
+    kernels.reset_launch_counts()
+    got = ss.boundary_grad(last, nb, bflow, bocc)
+    assert kernels.launch_counts()["warp_forward"] == 1
+    leaf = last.clone().requires_grad_(True)
+    ss.boundary_loss_plain(leaf, nb, bflow, bocc).backward()
+    g_max = float(leaf.grad.abs().max())
+    assert g_max > 0
+    torch.testing.assert_close(got, leaf.grad, atol=1e-6 * g_max, rtol=0)
+
+
+def test_exchange_first_in_a_world_of_one_nccl_rank(dev, tmp_path, monkeypatch):
+    """One NCCL rank on the card: the group is NCCL on cuda:0, and the halo
+    exchange sends and receives nothing (no right neighbour: zeros,
+    has_right 0)."""
+    import datetime
+
+    from mgldvsr_tpu_torch.parallel import mesh
+    from mgldvsr_tpu_torch.parallel.sharded_sampler import exchange_first
+
+    for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    device = mesh.init_group("cuda", f"file://{tmp_path / 'store'}",
+                             timeout=datetime.timedelta(seconds=120))
+    try:
+        assert device == torch.device("cuda", 0)
+        assert torch.distributed.get_backend() == "nccl"
+        first = torch.ones(1, 64, 64, 4, device=device)
+        nb, has_right = exchange_first(first)
+        mesh.barrier()
+        assert has_right == 0 and nb.shape == first.shape and not nb.any()
+        assert mesh.subgroup(1) is torch.distributed.group.WORLD
+    finally:
+        mesh.destroy()
+
+
+def test_guidance_gradient_is_the_same_bit_for_bit_every_call(dev):
+    """Launch B sums in fixed point, so the gradient does not depend on the
+    order its atomics land in: ten calls on the restore's latents give the
+    same bits (float atomics gave ~5e-11 between calls)."""
+    gen = _gen(dev, 7)
+    lat = torch.randn(5, 4, 64, 64, device=dev, generator=gen).permute(0, 2, 3, 1)
+    flows = tuple(torch.randn(1, 4, 64, 64, 2, device=dev, generator=gen) for _ in range(2))
+    occs = tuple((torch.rand(1, 4, 64, 64, 1, device=dev, generator=gen) > 0.8).float()
+                 for _ in range(2))
+    first = guide_mod.guidance_grad(lat, flows, occs, 5)
+    assert first.any()
+    for _ in range(10):
+        assert torch.equal(guide_mod.guidance_grad(lat, flows, occs, 5), first)

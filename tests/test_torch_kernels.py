@@ -881,13 +881,34 @@ def test_guidance_term_table_matches_the_loss(mode, t):
             assert per_slot[x.slot].tolist() == [x.src, x.kind, x.flow]
 
 
-def _emulate_guidance_kernels(lat, flows, occs, t, mode):
+def _fixed_point_taps(g, flow, scale):
+    """Launch B's contribution of one slot: each of the 4 weighted taps of
+    the cotangent ``g`` [n,h,w,c] (the float product g·weight, the weights
+    formed as the kernel forms them) scaled by ``scale`` and rounded to an
+    integer, summed per target pixel exactly, int64 [n,h,w,c]."""
+    from mgldvsr_tpu_torch.ops.warp import bilinear_taps
+
+    n, h, w, c = g.shape
+    x0, y0, tx, ty = bilinear_taps(flow)
+    ux, uy = 1.0 - tx, 1.0 - ty
+    batch = torch.arange(n)[:, None, None] * (h * w)
+    out = torch.zeros(n * h * w, c, dtype=torch.int64)
+    for yy, xx, wt in ((y0, x0, ux * uy), (y0, x0 + 1, tx * uy), (y0 + 1, x0, ux * ty),
+                       (y0 + 1, x0 + 1, tx * ty)):
+        q = torch.round((g * wt[..., None]).double() * scale).long()
+        ok = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+        out.index_add_(0, (batch + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1))[ok], q[ok])
+    return out.reshape(n, h, w, c)
+
+
+def _emulate_guidance_kernels(lat, flows, occs, t, mode, slot_order=None):
     """Launches A and B as ``csrc/guidance.cu`` runs them, driven by the
     packed table the kernels read: A walks each frame's two table entries,
     gathers the warped neighbour, stores the direct part -(1/N sgn(r)) m and
     writes the cotangent of each warp to its slot; B adds the 4-tap transpose
-    of every slot into its source frame. Returns (gradient, direct part,
-    cotangent)."""
+    of every slot (in ``slot_order``) into a fixed-point accumulator of its
+    source frame, then the finishing kernel adds it to the direct part in
+    double and rounds once. Returns (gradient, direct part, cotangent)."""
     frames, flat = guide_mod.MAX_FRAMES, list(guide_mod._kernel_table(t, mode))
     per_term = np.array(flat[:frames * 8]).reshape(frames, 2, 4)
     per_slot = np.array(flat[frames * 8:]).reshape(2 * frames, 3)
@@ -915,9 +936,12 @@ def _emulate_guidance_kernels(lat, flows, occs, t, mode):
                 cot[:, slot] = ct
         grad[:, k] = direct
     direct_part = grad.clone()
-    for slot in range(slots):  # launch B
+    scale = guide_mod._fixed_scale(b * h * w * c)
+    acc = torch.zeros(b, t, h, w, c, dtype=torch.int64)
+    for slot in (range(slots) if slot_order is None else slot_order):  # launch B
         src, kind, flow = per_slot[slot].tolist()
-        grad[:, src] += warp_dx_plain(cot[:, slot], flow_of[kind][:, flow])
+        acc[:, src] += _fixed_point_taps(cot[:, slot], flow_of[kind][:, flow], scale)
+    grad = (direct_part.double() + acc.double() / scale).float()
     return grad.reshape(lat.shape), direct_part.reshape(lat.shape), cot
 
 
@@ -929,8 +953,11 @@ def _emulate_guidance_kernels(lat, flows, occs, t, mode):
 def test_guidance_kernel_emulation_matches_plain(mode, b, t, c, case):
     """The two launches emulated from the packed table against
     ``guidance_grad_plain`` (autograd of the loss), float32, 1e-6 of max |want|
-    (the transposed taps are summed in another order); the emulated direct
-    part and cotangent equal the launches' plain versions bit for bit."""
+    (the transposed taps are summed in fixed point, the plain version sums
+    floats in another order), and so is the plain version of launch B; the
+    emulated direct part and cotangent equal the launches' plain versions
+    bit for bit, and launch B's sum does not depend on the order of its
+    slots."""
     occluded = {"all occluded": 1.0, "none occluded": 0.0}.get(case, 0.3)
     lat, flows, occs = _guidance_inputs(b, t, 6, 7, c, seed=b * 10 + t + c, occluded=occluded,
                                         flow_px=40.0 if case == "flows outside" else 1.5)
@@ -940,8 +967,14 @@ def test_guidance_kernel_emulation_matches_plain(mode, b, t, c, case):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol, rtol=0)
     plain_direct, plain_cot = guide_mod.guidance_residual_plain(lat, flows, occs, t, mode)
     assert torch.equal(direct, plain_direct) and torch.equal(cot, plain_cot)
-    assert torch.equal(guide_mod.guidance_scatter_plain(plain_direct, plain_cot, flows, t, mode),
-                       got)
+    np.testing.assert_allclose(
+        guide_mod.guidance_scatter_plain(plain_direct, plain_cot, flows, t, mode).numpy(),
+        got.numpy(), atol=tol, rtol=0)
+    reordered = _emulate_guidance_kernels(lat, flows, occs, t, mode,
+                                          slot_order=range(guide_mod.warp_slots(t, mode))[::-1])
+    assert torch.equal(reordered[0], got)
+    scaled = guide_mod._inv_n(lat.numel()) * guide_mod._fixed_scale(lat.numel())
+    assert 2 ** 31 <= scaled < 2 ** 32
     if case == "all occluded" or t == 1:
         assert not want.any()
     else:

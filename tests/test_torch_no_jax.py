@@ -28,7 +28,8 @@ for m in ("cli.infer", "data.video_folder", "utils.config", "io.frames", "io.tor
           "data.datasets", "utils.tb", "utils.logging", "train.stage2", "train.losses",
           "models.lpips", "models.discriminator", "flow.spynet", "metrics", "metrics.image",
           "metrics.niqe", "metrics.inception", "metrics.fid", "metrics.temporal",
-          "tools.quality_eval", "tools.quality_smoke"):
+          "tools.quality_eval", "tools.quality_smoke", "parallel.mesh",
+          "parallel.sharded_sampler"):
     assert "mgldvsr_tpu_torch." + m in mods, m
 assert "yaml" not in sys.modules, "yaml was imported at import time"
 for m in ("cv2", "av"):
@@ -46,7 +47,7 @@ def _run(code):
 def test_every_port_module_imports_without_jax():
     proc = _run(_CHECK)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 43
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 46
 
 
 _METRICS_WITHOUT_CV2 = r"""
