@@ -192,6 +192,21 @@ Phase 11 the multi-device restore on one card (after phase 6, phase 4's
          7's clip: the same PNGs as the command without them.
          ``--only-parallel`` builds the kernels and runs phase 11 alone.
 
+Phase 12 training over ranks on one card (after phase 9, on phases 8 (b) and
+         9 (b)'s data). (a) a world of one NCCL rank (``rank_env``, a file://
+         store) runs phase 8 (b)'s full-width stage-1 CLI loop with
+         ``--mesh`` for its 8 micro-steps: the masters, moments, accumulator,
+         EMA, the metrics.jsonl losses and every micro-step's launches equal
+         phase 8 (b)'s straight run by ``torch.equal``; then the same with
+         ``--mesh --zero1`` (``launches_train_parallel`` in the kernels line).
+         (b) the same for stage 2 (phase 9 (b)'s loop, ``--mesh``). (c)
+         ``torchrun --standalone --nproc_per_node=1 -m
+         mgldvsr_tpu_torch.cli.train --tiny --mesh --zero1`` for 4 micro-steps
+         writes the metrics and the checkpoint of the command without the
+         flags, and that command resumes its step-2 checkpoint bit for bit.
+         ``--only-train-parallel`` builds the kernels and runs phases 8 (b)
+         and 9 (b)'s straight runs and phase 12 alone.
+
 Prints one JSON line describing the kernels before the last line, and the
 result line ``{"ok": true, "device": {...}}`` last. Any failure raises and
 exits non-zero without the result line.
@@ -204,6 +219,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1812,18 +1828,20 @@ def train_args(data_root: str, logdir: str, steps: int, *extra):
                            "--lr", str(TRAIN_LR), *extra])
 
 
-def train_full(seed: int, card: str, data_root: str, logdir: str, steps: int, fused: bool):
+def train_full(seed: int, card: str, data_root: str, logdir: str, steps: int, fused: bool,
+               extra=(), phase=None):
     """(b)/(c) the shipped widths through the command line's loop: bf16
     towers, float32 masters, seeded and jittered weights, the two-stage
-    recipe (GT 512, LQ 128, 5 frames), grad_accum 4. Checks every
-    micro-step; returns (final state's copies, per-step records)."""
+    recipe (GT 512, LQ 128, 5 frames), grad_accum 4; ``extra`` flags added
+    (phase 12: ``--mesh``). Checks every micro-step; returns (final state's
+    copies, stats, each micro-step's metrics.jsonl loss and launches)."""
     import torch
 
     from mgldvsr_tpu_torch.cli import train as cli
     from mgldvsr_tpu_torch.ops import kernels
     from mgldvsr_tpu_torch.train.trainer import partition_params
 
-    phase = "(c)" if fused else "(b)"
+    phase = phase or ("[phase8] (c)" if fused else "[phase8] (b)")
     pipe = full_train_pipeline(seed)
     train, frozen = partition_params(pipe)
     before = {k: p.detach().clone() for k, p in train.items()}
@@ -1846,31 +1864,33 @@ def train_full(seed: int, card: str, data_root: str, logdir: str, steps: int, fu
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     with fused_switch(fused):
-        state = cli.stage1(train_args(data_root, logdir, steps), pipe=pipe, on_step=on_step)
+        state = cli.stage1(train_args(data_root, logdir, steps, *extra), pipe=pipe,
+                           on_step=on_step)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     accum = 4
     every = TRAIN_EVERY_STEP_FUSED if fused else TRAIN_EVERY_STEP
     for r in records:
         if not np.isfinite(r["loss"]):
-            raise AssertionError(f"phase 8 {phase}: loss {r['loss']} at step {r['step']}")
+            raise AssertionError(f"{phase}: loss {r['loss']} at step {r['step']}")
         if r["changed"] != (r["step"] % accum == 0):
-            raise AssertionError(f"phase 8 {phase}: trainables changed={r['changed']} at "
+            raise AssertionError(f"{phase}: trainables changed={r['changed']} at "
                                  f"micro-step {r['step']} (grad_accum {accum})")
         for name in every:
             if r["counts"][name] == 0:
-                raise AssertionError(f"phase 8 {phase}: kernel {name} not launched in "
+                raise AssertionError(f"{phase}: kernel {name} not launched in "
                                      f"micro-step {r['step']}")
         if r["counts"]["attention_wgmma"] != r["counts"]["attention"]:
-            raise AssertionError(f"phase 8 {phase}: attention {r['counts']['attention']} "
+            raise AssertionError(f"{phase}: attention {r['counts']['attention']} "
                                  f"launches, {r['counts']['attention_wgmma']} on wgmma")
         if not fused and any(r["counts"][name] for name in FUSED_ONLY):
-            raise AssertionError(f"phase 8 {phase}: {FUSED_ONLY} launched with the switch off")
+            raise AssertionError(f"{phase}: {FUSED_ONLY} launched with the switch off")
     for k, p in frozen.items():
         if not torch.equal(p, frozen_before[k].to(p.dtype)):
-            raise AssertionError(f"phase 8 {phase}: frozen {k} changed")
+            raise AssertionError(f"{phase}: frozen {k} changed")
     if all(torch.equal(state.ema[k], v) for k, v in state.trainable.items()):
-        raise AssertionError(f"phase 8 {phase}: EMA equals the trainables")
+        raise AssertionError(f"{phase}: EMA equals the trainables")
+    logged = [json.loads(line)["loss"] for line in open(os.path.join(logdir, "metrics.jsonl"))]
     times = [r["s"] for r in records[1:]]
     waits = [r["wait_s"] for r in records[1:]]
     # the loop's wall over steps 2..N: from the end of step 1 to the end of
@@ -1883,8 +1903,8 @@ def train_full(seed: int, card: str, data_root: str, logdir: str, steps: int, fu
     other = [span - r["s"] - r["wait_s"] for span, r in zip(spans, records[1:])]
     per_step = {name: records[-1]["counts"][name] for name in KERNELS}
     n_train = sum(v.numel() for v in state.trainable.values())
-    log(f"[phase8] {phase} full width, fused conv {'on' if fused else 'off'}, {steps} "
-        f"micro-steps at grad_accum {accum}: losses {[round(r['loss'], 4) for r in records]}; "
+    log(f"{phase} full width{''.join(' ' + e for e in extra)}, fused conv "
+        f"{'on' if fused else 'off'}, {steps} micro-steps at grad_accum {accum}: losses {[round(r['loss'], 4) for r in records]}; "
         f"updates at {[r['step'] for r in records if r['changed']]}; the loop's wall over steps "
         f"2-{steps} {window:.4f} s = {clips_s:.4f} clips/s (checkpoint saves at steps "
         f"{[r['step'] for r in records[1:] if r['step'] % 4 == 0]} included); micro-step s "
@@ -1900,9 +1920,11 @@ def train_full(seed: int, card: str, data_root: str, logdir: str, steps: int, fu
                   for part in ("mu", "nu", "acc")})
     del state, pipe, train, frozen, before, frozen_before
     torch.cuda.empty_cache()
+    steps_seen = {"losses": logged, "counts": [r["counts"] for r in records]}
     return final, {"median_s": float(np.median(times)), "min_s": float(min(times)),
                    "max_s": float(max(times)), "window_s": window, "clips_per_s": clips_s,
-                   "wait_s": sum(waits), "other_s": other, "peak_bytes": peak, "launches": per_step}
+                   "wait_s": sum(waits), "other_s": other, "peak_bytes": peak,
+                   "launches": per_step}, steps_seen
 
 
 def train_resume(seed: int, card: str, data_root: str, logdir: str, straight: dict) -> None:
@@ -2117,7 +2139,18 @@ def train_cli_tiny(card: str, tmp: str) -> None:
         raise AssertionError(f"phase 8 (d): restored {frames} {shapes}")
 
 
-def phase8(seed: int, card: str) -> dict:
+def to_host(tree):
+    """A copy of a tree of tensors in host memory."""
+    if hasattr(tree, "cpu"):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return tree
+
+
+def phase8(seed: int, card: str, keep: dict | None = None) -> dict:
+    """``keep``: where (b)'s straight run is kept (in host memory) for phase
+    12 to hold its ranks against."""
     import shutil
     import tempfile
 
@@ -2125,14 +2158,16 @@ def phase8(seed: int, card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         data_root = os.path.join(tmp, "gt")
         train_clips(data_root, seed)
-        straight, out["default"] = train_full(seed, card, data_root, os.path.join(tmp, "b"), 8,
-                                              fused=False)
+        straight, out["default"], seen = train_full(seed, card, data_root,
+                                                    os.path.join(tmp, "b"), 8, fused=False)
+        if keep is not None:
+            keep["stage1"] = {"final": to_host(straight), **seen}
         train_resume(seed, card, data_root, os.path.join(tmp, "b"), straight)
         del straight
         shutil.rmtree(os.path.join(tmp, "b"))
         shutil.rmtree(os.path.join(tmp, "b_resumed"))
-        _, out["fused"] = train_full(seed, card, data_root, os.path.join(tmp, "c"), 4,
-                                     fused=True)
+        _, out["fused"], _ = train_full(seed, card, data_root, os.path.join(tmp, "c"), 4,
+                                        fused=True)
         out["profile"] = train_profile(seed, card, data_root, os.path.join(tmp, "p"))
         train_cli_tiny(card, tmp)
     return out
@@ -2489,17 +2524,20 @@ def stage2_pipeline(args):
     return pipe
 
 
-def stage2_full(seed: int, card: str, roots: dict, logdir: str, steps: int, fused: bool):
-    """(b)/(d) the shipped stage-2 config through the command line's loop:
-    every micro-step checked; returns (final state's copies, records)."""
+def stage2_full(seed: int, card: str, roots: dict, logdir: str, steps: int, fused: bool,
+                extra=(), phase=None):
+    """(b)/(d) the shipped stage-2 config through the command line's loop,
+    ``extra`` flags added (phase 12: ``--mesh``): every micro-step checked;
+    returns (final state's copies, stats, each micro-step's metrics.jsonl
+    losses and launches)."""
     import torch
 
     from mgldvsr_tpu_torch.cli import train as cli
     from mgldvsr_tpu_torch.ops import kernels
     from mgldvsr_tpu_torch.train.stage2 import partition_vae_params
 
-    phase = "(d)" if fused else "(b)"
-    args = stage2_args(roots, logdir, steps, seed)
+    phase = phase or ("[phase9] (d)" if fused else "[phase9] (b)")
+    args = stage2_args(roots, logdir, steps, seed, *extra)
     pipe = stage2_pipeline(args)
     held, before, records = {}, {}, []
 
@@ -2540,32 +2578,32 @@ def stage2_full(seed: int, card: str, roots: dict, logdir: str, steps: int, fuse
     for r in records:
         m = r["m"]
         if not all(np.isfinite(m[k]) for k in STAGE2_METRICS) or m["temp_loss"] <= 0:
-            raise AssertionError(f"phase 9 {phase}: metrics {m} at step {r['step']}")
+            raise AssertionError(f"{phase}: metrics {m} at step {r['step']}")
         # at an update every trainable moves but one whose gradient is
         # exactly zero (a bias that the next GroupNorm cancels)
         update = r["step"] % 4 == 0
         if (r["changed"] >= 0.95 * n_train and r["logvar"]) != update or (
                 not update and r["changed"]):
-            raise AssertionError(f"phase 9 {phase}: {r['changed']} of {n_train} trainables "
+            raise AssertionError(f"{phase}: {r['changed']} of {n_train} trainables "
                                  f"changed at micro-step {r['step']} (grad_accum 4), logvar "
                                  f"{r['logvar']}")
         for name in every:
             if r["counts"][name] == 0:
-                raise AssertionError(f"phase 9 {phase}: kernel {name} not launched in "
+                raise AssertionError(f"{phase}: kernel {name} not launched in "
                                      f"micro-step {r['step']}")
         if r["counts"]["warp_forward"] != 1:  # the swc loss's warps in one call
-            raise AssertionError(f"phase 9 {phase}: {r['counts']['warp_forward']} warp_forward "
+            raise AssertionError(f"{phase}: {r['counts']['warp_forward']} warp_forward "
                                  f"launches in micro-step {r['step']}, not 1")
         if not fused and any(r["counts"][name] for name in FUSED_ONLY):
-            raise AssertionError(f"phase 9 {phase}: {FUSED_ONLY} launched with the switch off")
+            raise AssertionError(f"{phase}: {FUSED_ONLY} launched with the switch off")
     _, frozen = partition_vae_params(trainer.vae)
     for k, p in frozen.items():
         if not torch.equal(p, held["frozen"][k].to(p.dtype)):
-            raise AssertionError(f"phase 9 {phase}: frozen VAE weight {k} changed")
+            raise AssertionError(f"{phase}: frozen VAE weight {k} changed")
     for name, sd in held["aux"].items():
         for k, v in getattr(trainer, name).state_dict().items():
             if not torch.equal(v, sd[k]):
-                raise AssertionError(f"phase 9 {phase}: {name} {k} changed")
+                raise AssertionError(f"{phase}: {name} {k} changed")
     times = [r["m"]["step_s"] for r in records[1:]]
     spans = [b["t_in"] - a["t_out"] for a, b in zip(records, records[1:])]
     saves = [s for s, r in zip(spans, records[1:]) if r["step"] % 4 == 0]
@@ -2574,8 +2612,9 @@ def stage2_full(seed: int, card: str, roots: dict, logdir: str, steps: int, fuse
     no_save = (len(spans) - len(saves)) / (window - sum(saves)) if len(spans) > len(saves) else None
     per_step = {name: records[-1]["counts"][name] for name in KERNELS}
     ms = {k: [round(r["m"][k], 4) for r in records] for k in ("loss_g", "temp_loss", "d_weight")}
-    log(f"[phase9] {phase} the shipped stage-2 config (VAE ch 128, bf16, fusion 2 blocks, 5 "
-        f"frames, GT 512) through the CLI loop, fused conv {'on' if fused else 'off'}, {steps} "
+    log(f"{phase} the shipped stage-2 config (VAE ch 128, bf16, fusion 2 blocks, 5 "
+        f"frames, GT 512) through the CLI loop{''.join(' ' + e for e in extra)}, fused conv "
+        f"{'on' if fused else 'off'}, {steps} "
         f"micro-steps at grad_accum 4: {ms}; trainables changed (of {n_train} with logvar) "
         f"{[r['changed'] for r in records]}; frozen VAE, LPIPS and SpyNet bit for bit; the "
         f"loop's wall over steps 2-{steps} {window:.4f} s = {clips_s:.4f} clips/s with the "
@@ -2589,9 +2628,12 @@ def stage2_full(seed: int, card: str, roots: dict, logdir: str, steps: int, fuse
     final = snapshot(state)
     del state, pipe, trainer, held
     torch.cuda.empty_cache()
+    logged = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
+    steps_seen = {"losses": [{k: r[k] for k in STAGE2_METRICS} for r in logged],
+                  "counts": [r["counts"] for r in records]}
     return final, {"clips_per_s": clips_s, "clips_per_s_no_save": no_save,
                    "median_s": float(np.median(times)), "window_s": window, "saves_s": saves,
-                   "peak_bytes": peak, "launches": per_step}
+                   "peak_bytes": peak, "launches": per_step}, steps_seen
 
 
 def stage2_resume(seed: int, card: str, roots: dict, logdir: str, straight: dict) -> dict:
@@ -3048,23 +3090,29 @@ def warp_alone(card: str, n: int, what: str, kind: str = "scattered") -> dict:
     return out
 
 
-def phase9(seed: int, card: str) -> dict:
+def phase9(seed: int, card: str, keep: dict | None = None) -> dict:
+    """``keep``: where (b)'s straight run is kept (in host memory) for phase
+    12 to hold its ranks against."""
     import shutil
     import tempfile
 
     t0 = time.perf_counter()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        roots = stage2_data(tmp, seed)
-        straight, out["default"] = stage2_full(seed, card, roots, os.path.join(tmp, "b"), 8,
-                                               fused=False)
+        # phase 12 trains on the same data: it lives in keep's directory
+        roots = stage2_data(os.path.join(keep["dir"], "s2") if keep else tmp, seed)
+        straight, out["default"], seen = stage2_full(seed, card, roots, os.path.join(tmp, "b"),
+                                                     8, fused=False)
+        if keep is not None:
+            keep["stage2"] = {"final": to_host(straight), "roots": roots, **seen}
         out["resume"] = stage2_resume(seed, card, roots, os.path.join(tmp, "b"), straight)
         del straight
         shutil.rmtree(os.path.join(tmp, "b"))
         shutil.rmtree(os.path.join(tmp, "b_resumed"))
         out["adversarial"] = stage2_adversarial(seed, card, roots)
         out["decoder"] = stage2_decoder(seed, card, roots)
-        _, out["fused"] = stage2_full(seed, card, roots, os.path.join(tmp, "d"), 4, fused=True)
+        _, out["fused"], _ = stage2_full(seed, card, roots, os.path.join(tmp, "d"), 4,
+                                         fused=True)
         out["profile"] = stage2_profile(seed, card, roots, os.path.join(tmp, "p"))
     out["warp"] = warp_alone(card, 6, "phase9")
     out["tiny"] = {f: phase9_tiny(seed, card, f) for f in (False, True)}
@@ -3517,6 +3565,197 @@ def phase11(pipe, frames, seed: int, card: str) -> dict:
                 segments_ms=pair["segments_ms"])
 
 
+# -- phase 12: training over ranks on one card --------------------------------
+
+
+def same_trees(got: dict, want: dict) -> tuple:
+    """(tensors equal bit for bit, tensors, max |difference|) of two trees
+    of tensors with the same keys (``want`` in host memory)."""
+    import torch
+
+    identical = total = 0
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            i, t, m = same_trees(g, w)
+            identical, total, worst = identical + i, total + t, max(worst, m)
+        elif isinstance(w, torch.Tensor):
+            g = g.detach().cpu()
+            total += 1
+            identical += torch.equal(g, w)
+            worst = max(worst, max_err(g, w))
+    return identical, total, worst
+
+
+@contextlib.contextmanager
+def world_of_one(tmp: str):
+    """A world of one NCCL rank on cuda:0 from a file:// store, for the
+    enclosed block."""
+    import datetime
+
+    from mgldvsr_tpu_torch.parallel import mesh
+
+    with rank_env():
+        mesh.init_group("cuda", f"file://{tmp}/store", timeout=datetime.timedelta(minutes=10))
+        try:
+            yield
+        finally:
+            mesh.destroy()
+
+
+def phase12_stage1(seed: int, card: str, ref: dict, zero1: bool) -> dict:
+    """(a) phase 8 (b)'s full-width CLI loop (8 micro-steps, the same data)
+    with ``--mesh`` [``--zero1``] in a world of one NCCL rank: the masters,
+    moments, accumulator, EMA, the metrics.jsonl losses and every
+    micro-step's launches equal phase 8's straight run."""
+    import tempfile
+
+    extra = ("--mesh", "--zero1") if zero1 else ("--mesh",)
+    with tempfile.TemporaryDirectory() as tmp:
+        data_root = os.path.join(tmp, "gt")
+        train_clips(data_root, seed)
+        with world_of_one(tmp):
+            final, stats, seen = train_full(seed, card, data_root, os.path.join(tmp, "b"), 8,
+                                            fused=False, extra=extra, phase="[phase12] (a)")
+    identical, total, worst = same_trees(final, ref["final"])
+    same_losses = seen["losses"] == ref["losses"]
+    same_counts = seen["counts"] == ref["counts"]
+    log(f"[phase12] (a) {' '.join(extra)} in a world of one NCCL rank against phase 8 (b)'s "
+        f"straight run: {identical} of {total} tensors bit for bit (masters, EMA, both moments, "
+        f"the accumulator; max |d| {worst:.3e}); metrics.jsonl losses equal {same_losses}; "
+        f"launches of every micro-step equal {same_counts}; peak "
+        f"{stats['peak_bytes'] / 2**30:.2f} GiB; {stats['clips_per_s']:.4f} clips/s  [{card}]")
+    if identical != total or not same_losses or not same_counts:
+        raise AssertionError(f"phase 12 (a) {extra}: {total - identical} of {total} tensors "
+                             f"differ (max {worst:.3e}), losses {seen['losses']} against "
+                             f"{ref['losses']}, launches equal {same_counts}")
+    return {"launches": stats["launches"], "peak_bytes": stats["peak_bytes"],
+            "clips_per_s": stats["clips_per_s"]}
+
+
+def phase12_stage2(seed: int, card: str, ref: dict) -> dict:
+    """(b) phase 9 (b)'s CLI loop with ``--mesh`` in a world of one NCCL
+    rank: the whole state, the metrics.jsonl losses and the launches equal
+    phase 9's straight run."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with world_of_one(tmp):
+            final, stats, seen = stage2_full(seed, card, ref["roots"], os.path.join(tmp, "b"), 8,
+                                             fused=False, extra=("--mesh",),
+                                             phase="[phase12] (b)")
+    identical, total, worst = same_trees(final, ref["final"])
+    same_losses = seen["losses"] == ref["losses"]
+    same_counts = seen["counts"] == ref["counts"]
+    log(f"[phase12] (b) stage 2 --mesh in a world of one NCCL rank against phase 9 (b)'s "
+        f"straight run: {identical} of {total} tensors bit for bit (trainables, logvar, the "
+        f"discriminator and its running statistics, both Adam states; max |d| {worst:.3e}); "
+        f"metrics.jsonl metrics equal {same_losses}; launches equal {same_counts}  [{card}]")
+    if identical != total or not same_losses or not same_counts:
+        raise AssertionError(f"phase 12 (b): {total - identical} of {total} tensors differ "
+                             f"(max {worst:.3e}), metrics equal {same_losses}, launches equal "
+                             f"{same_counts}")
+    return {"launches": stats["launches"]}
+
+
+def phase12_cli(card: str) -> dict:
+    """(c) ``torchrun --standalone --nproc_per_node=1 -m
+    mgldvsr_tpu_torch.cli.train --tiny --mesh --zero1`` for 4 micro-steps:
+    the metrics.jsonl losses and the step-4 checkpoint of the command
+    without the flags; then the command without them resumes the ranked
+    run's step-2 checkpoint and writes the same step-4 checkpoint."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mgldvsr_tpu_torch.cli import train as cli
+    from mgldvsr_tpu_torch.io.checkpoint import CheckpointManager
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = repo
+    keys = ("loss", "loss_simple", "loss_vlb", "grad_norm")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "tiny_gt")
+        train_clips(root, 40, clips=2, frames=6, size=48)
+        base = ["--stage", "1", "--data-root", root, "--tiny", "--max-steps", "4",
+                "--grad-accum", "2", "--ckpt-every", "2", "--log-every", "1", "--no-tb"]
+        runs = {name: os.path.join(tmp, name) for name in ("plain", "ranked", "resumed")}
+        cli.main([*base, "--logdir", runs["plain"]])
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+             "-m", "mgldvsr_tpu_torch.cli.train", *base, "--logdir", runs["ranked"], "--mesh",
+             "--zero1"], cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode or "rank 0 of 1" not in proc.stdout:
+            raise AssertionError(f"phase 12 (c): torchrun exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        os.makedirs(os.path.join(runs["resumed"], "ckpt"))
+        shutil.copytree(os.path.join(runs["ranked"], "ckpt", "2"),
+                        os.path.join(runs["resumed"], "ckpt", "2"))
+        cli.main([*base, "--logdir", runs["resumed"], "--resume"])
+        logged = {name: [{k: json.loads(line)[k] for k in keys}
+                         for line in open(os.path.join(d, "metrics.jsonl"))]
+                  for name, d in runs.items()}
+        states = {name: CheckpointManager(os.path.join(d, "ckpt")).restore(4)
+                  for name, d in runs.items()}
+    checks = {}
+    for name in ("ranked", "resumed"):
+        got, want = states[name], states["plain"]
+        checks[name] = same_trees({p: got[p] for p in ("trainable", "ema", "opt_state")},
+                                  {p: want[p] for p in ("trainable", "ema", "opt_state")})
+    same_losses = logged["ranked"] == logged["plain"]
+    resumed_tail = logged["resumed"] == logged["plain"][2:]
+    log(f"[phase12] (c) torchrun --nproc_per_node=1 cli.train --tiny --mesh --zero1, 4 "
+        f"micro-steps: metrics.jsonl equal to the run without the flags {same_losses}; its step-4 "
+        f"checkpoint {checks['ranked'][0]} of {checks['ranked'][1]} tensors bit for bit; resumed "
+        f"without --mesh from its step-2 checkpoint: steps 3-4 logged the same {resumed_tail}, "
+        f"the step-4 checkpoint {checks['resumed'][0]} of {checks['resumed'][1]} tensors bit for "
+        f"bit; {wall:.2f} s with torchrun's start  [{card}]")
+    for name, (identical, total, worst) in checks.items():
+        if identical != total:
+            raise AssertionError(f"phase 12 (c) {name}: {total - identical} of {total} tensors "
+                                 f"differ (max {worst:.3e})")
+    if not (same_losses and resumed_tail):
+        raise AssertionError(f"phase 12 (c): metrics {logged}")
+    return {"wall_s": wall}
+
+
+def phase12(seed: int, card: str, keep: dict) -> dict:
+    """Training over ranks on one card: (a) stage 1 with ``--mesh`` and
+    with ``--mesh --zero1``, (b) stage 2 with ``--mesh``, each in a world of
+    one NCCL rank against phases 8 and 9's straight runs, (c) the command
+    line under torchrun."""
+    t0 = time.perf_counter()
+    out = {"stage1": phase12_stage1(seed, card, keep["stage1"], zero1=False),
+           "stage1_zero1": phase12_stage1(seed, card, keep["stage1"], zero1=True),
+           "stage2": phase12_stage2(seed, card, keep["stage2"]),
+           "cli": phase12_cli(card)}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[phase12] {out['wall_s']:.1f} s  [{card}]")
+    return out
+
+
+def straight_runs(seed: int, card: str, keep: dict) -> None:
+    """Phases 8 (b) and 9 (b)'s straight runs alone, kept for phase 12."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_root = os.path.join(tmp, "gt")
+        train_clips(data_root, seed)
+        final, _, seen = train_full(seed, card, data_root, os.path.join(tmp, "b"), 8,
+                                    fused=False)
+        keep["stage1"] = {"final": to_host(final), **seen}
+        del final
+        roots = stage2_data(os.path.join(keep["dir"], "s2"), seed)
+        final, _, seen = stage2_full(seed, card, roots, os.path.join(tmp, "s2b"), 8, fused=False)
+        keep["stage2"] = {"final": to_host(final), "roots": roots, **seen}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -3532,6 +3771,9 @@ def main() -> int:
     ap.add_argument("--only-parallel", action="store_true",
                     help="build the kernels and run phase 11 alone on phase 4's weights (no "
                          "result line)")
+    ap.add_argument("--only-train-parallel", action="store_true",
+                    help="build the kernels and run phases 8 (b) and 9 (b)'s straight runs and "
+                         "phase 12 (no result line)")
     args = ap.parse_args()
 
     import torch
@@ -3566,6 +3808,12 @@ def main() -> int:
         pipe, frames = full_pipeline(args.seed, args.steps)
         log(json.dumps(phase11(pipe, frames, args.seed, card), default=str))
         return 0
+    if args.only_train_parallel:
+        with tempfile.TemporaryDirectory() as tmp:
+            keep = {"dir": tmp}
+            straight_runs(args.seed, card, keep)
+            log(json.dumps(phase12(args.seed, card, keep), default=str))
+        return 0
 
     results = phase2(card)
     for fused in (False, True):
@@ -3584,8 +3832,12 @@ def main() -> int:
     parallel = phase11(pipe, frames, args.seed, card)
     del pipe, frames
     phase7(card)
-    train = phase8(args.seed, card)
-    stage2 = phase9(args.seed, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        keep = {"dir": tmp}
+        train = phase8(args.seed, card, keep)
+        stage2 = phase9(args.seed, card, keep)
+        ranked = phase12(args.seed, card, keep)
+        del keep
 
     # launches: the count on the path that runs the kernel (the fused
     # configuration for the fused conv, the default one for the others)
@@ -3601,6 +3853,7 @@ def main() -> int:
                 "launches_stage2_fused": stage2["fused"]["launches"][name],
                 "launches_quality": quality["counts"][name],
                 "launches_window_parallel": parallel["counts"][name],
+                "launches_train_parallel": ranked["stage1"]["launches"][name],
                 **results[name]}
                for name, (route, src, rep) in KERNELS.items()]
     for entry in kernels:

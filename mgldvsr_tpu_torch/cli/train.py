@@ -6,6 +6,7 @@
       [--max-steps N] [--resume] [--tiny] [--torch-ckpt ckpt] [--device cuda|cpu]
   python -m mgldvsr_tpu_torch.cli.train --stage 2 --data-root GT --lq-root LQ \\
       --latent-root LATENTS [--config configs/video_autoencoder_kl_64x64x4_resi.yaml] ...
+  torchrun --nproc_per_node=N -m mgldvsr_tpu_torch.cli.train --mesh [--zero1] ...
 
 Stage 1 finetunes the denoiser's SPADE and temporal-conv weights and the
 struct-cond encoder on clips degraded on the fly (the shipped two-stage
@@ -39,30 +40,46 @@ names (taming's, basicsr's), so their checkpoints load with a plain
 ``load_state_dict``. At the end the VAE is exported as ``export/vqgan.pt``, which
 the inference CLI loads with ``--vqgan-ckpt``.
 
-Not offered (each a queued ROADMAP item): ``--mesh``, ``--multihost``,
-``--tensor-parallel``, ``--zero1`` (item 11, multi-GPU); ``--params`` (an
-orbax directory: the card's machine has neither JAX nor orbax; give
+``--mesh`` trains either stage data-parallel over the ranks of a
+``torchrun`` launch: one process and one card a rank (NCCL; gloo with
+``--device cpu``), one clip a rank a micro-step, so that a micro-step is the
+JAX command line's step on one clip per ``data`` slot: the ranks average
+their gradients every micro-step, the losses are the whole batch's, and
+stage 2's discriminator normalises with the whole batch's statistics.
+``--zero1`` adds the JAX package's ZeRO-1 split of the optimiser state over
+the ranks. Each rank draws its own shard of the clips (a resume continues
+it), and seeds its draws from ``--seed``, the step and its rank (rank 0's as
+without ``--mesh``). Rank 0 alone logs, writes images, checkpoints (the
+whole state: it resumes in any number of ranks) and the export, and reads
+the checkpoint it resumes from, which it hands to the other ranks. SIGUSR1
+or Ctrl-C on any rank saves at the end of the micro-step on every rank.
+``--multihost`` is the same path: ``torchrun --nnodes=N`` starts the ranks
+of every host.
+
+Not offered: ``--tensor-parallel`` (ROADMAP section 1 item 7); ``--params``
+(an orbax directory: the card's machine has neither JAX nor orbax; give
 ``--torch-ckpt``); ``--split-step`` (a TPU compile workaround for stage 2;
 the port's step is eager).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
+import signal
 import time
 
 from mgldvsr_tpu_torch.cli.infer import tiny_pipeline_config
 from mgldvsr_tpu_torch.utils.precision import TF32_LINE, tf32_off
 
 REFUSED = {
-    "--params": "reads an orbax directory, which needs JAX; give --torch-ckpt (ROADMAP item 11)",
-    "--mesh": "multi-GPU training is ROADMAP item 11",
-    "--multihost": "multi-GPU training is ROADMAP item 11",
-    "--tensor-parallel": "multi-GPU training is ROADMAP item 11",
-    "--zero1": "multi-GPU training is ROADMAP item 11",
+    "--params": "reads an orbax directory, which needs JAX; give --torch-ckpt (ROADMAP "
+                "section 1, 'Do not port')",
+    "--tensor-parallel": "tensor-parallel training is ROADMAP section 1 item 7; --mesh trains "
+                         "data-parallel",
     "--split-step": "a TPU compile workaround for stage 2; the port's step is eager "
-                    "(ROADMAP section 1)",
+                    "(ROADMAP section 1, 'Do not port')",
     "--platform": "the port picks its device with --device",
 }
 
@@ -170,6 +187,21 @@ def parse_args(argv=None):
     ap.add_argument("--sample-rows", action="store_true",
                     help="log sampler rows (reconstruction / samples / denoise_row) at every "
                          "image-log step")
+    ap.add_argument("--mesh", action="store_true",
+                    help="train data-parallel over the ranks of a torchrun launch (one process "
+                         "and one card a rank, NCCL; gloo with --device cpu): one clip a rank "
+                         "a micro-step, the gradients averaged over the ranks every micro-step")
+    ap.add_argument("--multihost", action="store_true",
+                    help="several hosts: the same path as --mesh, which it implies (torchrun "
+                         "--nnodes=N starts the ranks of every host)")
+    ap.add_argument("--zero1", action="store_true",
+                    help="with --mesh: split the Adam moments, the gradient accumulator and the "
+                         "EMA shadows of the tensors of at least 65,536 elements over the ranks "
+                         "(the parameters stay whole on every rank)")
+    ap.add_argument("--init-method", default=None,
+                    help="with --mesh: the process group's init method (default env://, which "
+                         "torchrun sets up; file:///PATH for processes started with RANK, "
+                         "WORLD_SIZE and LOCAL_RANK set)")
     for flag in REFUSED:
         ap.add_argument(flag, dest="refused_" + flag[2:].replace("-", "_"), nargs="?",
                         const=True, default=None, help=argparse.SUPPRESS)
@@ -185,8 +217,51 @@ def parse_args(argv=None):
             ap.error(f"{flag} is not offered by the port: {REFUSED[flag]}")
     if args.stage == 2 and not (args.lq_root and args.latent_root):
         ap.error("--stage 2 needs --lq-root and --latent-root")
+    args.mesh = args.mesh or args.multihost
     args.cfg = cfg
     return args
+
+
+@contextlib.contextmanager
+def process_group(args):
+    """With ``--mesh``: join the process group (``mesh.init_group``: NCCL on
+    ``cuda:{LOCAL_RANK}``, gloo for the CPU; it raises without ``RANK`` and
+    ``WORLD_SIZE``), put the rank's device in ``args.device``, say which rank
+    this is, and leave the group at the end. Without it, nothing."""
+    if not args.mesh:
+        yield
+        return
+    from mgldvsr_tpu_torch.parallel import mesh
+
+    device = mesh.init_group(args.device, args.init_method)
+    try:
+        import torch.distributed as dist
+
+        args.device = str(device)
+        print(f"rank {mesh.rank()} of {mesh.world()} on {device} ({dist.get_backend()})",
+              flush=True)
+        yield
+    finally:
+        mesh.destroy()
+
+
+def _group(args):
+    """The ranks that train together (the whole world) with ``--mesh``;
+    None without. The process group must exist (:func:`process_group`)."""
+    if not args.mesh:
+        return None
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("--mesh trains in a process group: join one first "
+                           "(cli.train.main does, through process_group)")
+    return dist.group.WORLD
+
+
+def step_seed(seed: int, step: int, rank: int) -> int:
+    """The seed of a micro-step's draws: rank 0's is the run's without
+    ``--mesh``; every other rank's differs from every rank's at every step."""
+    return seed * 1_000_003 + step + (rank << 40)
 
 
 def tower_dtype(device: str):
@@ -230,12 +305,15 @@ def build_pipeline(args):
     return pipe
 
 
-def _loggers(args):
+def _loggers(args, rank: int = 0):
     """(TensorBoard writer or None, MessageLogger, CheckpointManager) of a
-    run under ``--logdir``."""
+    run under ``--logdir``; (None, None, None) on a rank other than 0, which
+    writes nothing there."""
     from mgldvsr_tpu_torch.io.checkpoint import CheckpointManager
     from mgldvsr_tpu_torch.utils.logging import MessageLogger, env_info
 
+    if rank:
+        return None, None, None
     print(env_info(), flush=True)
     os.makedirs(args.logdir, exist_ok=True)
     tb = None
@@ -250,27 +328,44 @@ def _loggers(args):
     return tb, msg, ckpt
 
 
-def _train_loop(args, ds, state, micro_step, loggers, dev, on_step=None):
+def _train_loop(args, ds, state, micro_step, loggers, dev, trainer, on_step=None):
     """Micro-steps from ``state.step`` to ``--max-steps`` over ``ds``'s
-    samples, epoch after epoch from the sampler's stream (a resume continues
-    it at the next sample), prefetched in worker processes across epoch
-    boundaries. ``micro_step(state, item)`` returns (state, metrics, after);
-    the metrics are logged and the checkpoint saved, then ``after()`` runs
-    where it is not None, then ``on_step(step, state, metrics)``. SIGUSR1 and
-    Ctrl-C save. Returns the final state."""
+    samples, epoch after epoch from the sampler's stream of this rank's
+    shard (a resume continues it at the next sample), prefetched in worker
+    processes across epoch boundaries. ``micro_step(state, item)`` returns
+    (state, metrics, after); the metrics are logged and the checkpoint saved
+    (rank 0; the state gathered from the ranks' slices), then ``after()``
+    runs where it is not None, then ``on_step(step, state, metrics)``.
+    SIGUSR1 and Ctrl-C save: over ranks, at the end of the micro-step on
+    every rank, whichever rank the signal reached. Returns the final state
+    (this rank's)."""
     import torch
+
+    import torch.distributed as dist
 
     from mgldvsr_tpu_torch.data.datasets import ShardedSampler, prefetch_iterator
     from mgldvsr_tpu_torch.io.checkpoint import install_signal_save
 
+    group = trainer.group
+    rank, world = ((dist.get_rank(group), dist.get_world_size(group)) if group is not None
+                   else (0, 1))
     tb, msg, ckpt = loggers
     held = {"state": state, "in_step": False}
-    install_signal_save(lambda: None if held["in_step"] else (held["state"].step, held["state"]),
-                        ckpt)
-    sampler = ShardedSampler(len(ds), seed=args.seed)
+    flags = {"save": False, "stop": False}
+    if group is None:
+        install_signal_save(lambda: None if held["in_step"] else (held["state"].step,
+                                                                  held["state"]), ckpt)
+        handlers = {}
+    else:
+        handlers = _defer_signals(flags)
+    # one clip a rank a micro-step; the epoch enlarged (EnlargedSampler's
+    # ratio) so that every rank's shard holds at least one
+    sampler = ShardedSampler(len(ds), shard=rank, num_shards=world,
+                             ratio=-(-world // max(len(ds), 1)), seed=args.seed)
     per_epoch = len(sampler.epoch(0))
     if per_epoch == 0:
-        raise ValueError(f"no training samples under {args.data_root}")
+        raise ValueError(f"dataset too small: epoch yields 0 clips on this shard but each "
+                         f"step needs 1 (no training samples under {args.data_root})")
     step = state.step
 
     def stream(start):
@@ -278,6 +373,12 @@ def _train_loop(args, ds, state, micro_step, loggers, dev, on_step=None):
         while True:
             yield from sampler.epoch(epoch)[skip:]
             epoch, skip = epoch + 1, 0
+
+    def save(step, state, metrics, force):
+        if group is not None and (force or step % args.ckpt_every == 0):
+            state = trainer.gather(state)  # collective: every rank takes part
+        if ckpt is not None:
+            ckpt.save(step, state, metrics=metrics, force=force)
 
     items = prefetch_iterator(ds, stream(step))
     try:
@@ -296,29 +397,91 @@ def _train_loop(args, ds, state, micro_step, loggers, dev, on_step=None):
             metrics["data_wait_s"] = t0 - waited
             if step % args.log_every == 0 and dev.type == "cuda":
                 metrics["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
-            msg(step, metrics, lr=args.lr)
-            ckpt.save(step, state, metrics=metrics, force=ckpt.signal_pending)
-            ckpt.signal_pending = False
+            if msg is not None:
+                msg(step, metrics, lr=args.lr)
+            if group is None:
+                save(step, state, metrics, ckpt.signal_pending)
+                ckpt.signal_pending = False
+            else:
+                # a signal that reached any rank reaches every rank here
+                raised = torch.tensor([float(flags["save"]), float(flags["stop"])], device=dev)
+                dist.all_reduce(raised, op=dist.ReduceOp.MAX, group=group)
+                flags["stop"] = bool(raised[1])
+                save(step, state, metrics, bool(raised[0]) or flags["stop"])
+                flags["save"] = False
             if after is not None:
                 after()
             if on_step is not None:
                 on_step(step, state, metrics)
+            if flags["stop"]:
+                print("interrupted: checkpoint saved", flush=True)
+                break
             waited = time.perf_counter()
     except KeyboardInterrupt:
-        ckpt.save(step, state, force=True)
+        if group is not None:  # a second Ctrl-C over ranks: stop at once
+            raise
+        save(step, state, None, True)
         print("interrupted: checkpoint saved", flush=True)
     finally:
         items.close()  # drops the samples prefetched beyond the last step
         if tb is not None:
             tb.close()
-    ckpt.wait()
+        for sig, handler in handlers.items():
+            signal.signal(sig, handler)
+    if ckpt is not None:
+        ckpt.wait()
+    return state
+
+
+def _defer_signals(flags: dict) -> dict:
+    """Over ranks: SIGUSR1 asks for a checkpoint and the first Ctrl-C for a
+    checkpoint and a stop, each at the end of the micro-step in flight (the
+    save is a collective every rank must enter at the same step); a second
+    Ctrl-C interrupts at once. Returns the handlers they replace."""
+    def usr1(signum, frame):
+        flags["save"] = True
+        print("signal save deferred to the end of the micro-step in flight", flush=True)
+
+    def interrupt(signum, frame):
+        flags["stop"] = True
+        signal.signal(signal.SIGINT, signal.default_int_handler)
+        print("interrupt: stopping after a checkpoint at the end of the micro-step",
+              flush=True)
+
+    return {signal.SIGUSR1: signal.signal(signal.SIGUSR1, usr1),
+            signal.SIGINT: signal.signal(signal.SIGINT, interrupt)}
+
+
+def _resume(args, ckpt, state, group):
+    """The state to start from: with ``--resume`` and a checkpoint under
+    ``--logdir``, rank 0 reads the latest and every rank gets it (only rank
+    0 needs to see the directory); else ``state``."""
+    if not args.resume:
+        return state
+    step = ckpt.latest_step() if ckpt is not None else None
+    if group is not None:
+        import torch.distributed as dist
+
+        box = [step]
+        dist.broadcast_object_list(box, 0, group=group)
+        step = box[0]
+    if step is None:
+        return state
+    if ckpt is not None:
+        state = ckpt.restore(step, template=state)
+    if group is not None:
+        from mgldvsr_tpu_torch.parallel import mesh
+
+        state = mesh.broadcast_state(state, group)
+    print(f"resumed at step {state.step}", flush=True)
     return state
 
 
 def stage1(args, pipe=None, on_step=None):
-    """The stage-1 loop; returns the final training state. ``pipe`` (built
-    with float32 weights) replaces :func:`build_pipeline`; ``on_step(step,
-    state, metrics)`` runs after every micro-step."""
+    """The stage-1 loop; returns the final training state (whole, also over
+    ranks). ``pipe`` (built with float32 weights) replaces
+    :func:`build_pipeline`; ``on_step(step, state, metrics)`` runs after
+    every micro-step (with this rank's state)."""
     import torch
 
     from mgldvsr_tpu_torch.data.datasets import RealVSRRecurrentDataset
@@ -328,8 +491,10 @@ def stage1(args, pipe=None, on_step=None):
     from mgldvsr_tpu_torch.train.trainer import Stage1Config, Stage1Trainer, with_ema
     from mgldvsr_tpu_torch.utils.logging import ImageLogger
 
-    loggers = _loggers(args)
-    imglog = ImageLogger(args.logdir, args.image_every, tb=loggers[0])
+    group = _group(args)
+    rank = torch.distributed.get_rank(group) if group is not None else 0
+    loggers = _loggers(args, rank)
+    imglog = ImageLogger(args.logdir, args.image_every, tb=loggers[0]) if rank == 0 else None
     ckpt = loggers[2]
     if pipe is None:
         pipe = build_pipeline(args)
@@ -353,20 +518,21 @@ def stage1(args, pipe=None, on_step=None):
     trainer = Stage1Trainer(pipe, Stage1Config(learning_rate=args.lr,
                                                grad_accum=args.grad_accum,
                                                adam_mu_dtype=args.mu_dtype,
-                                               frozen_dtype=args.frozen_dtype))
-    state = trainer.init_state()
-    if args.resume and ckpt.latest_step() is not None:
-        state = ckpt.restore(template=state)
+                                               frozen_dtype=args.frozen_dtype),
+                            group=group, zero1=args.zero1)
+    start = trainer.init_state()
+    state = _resume(args, ckpt, start, group)
+    if state is not start:
         trainer.load_towers(state)
-        print(f"resumed at step {state.step}", flush=True)
+    state = trainer.shard(state)
 
     def micro_step(state, item):
         lq = upscale_frames(torch.from_numpy(item["lqs"]).to(dev), pipe.cfg.sf)
         gt = torch.from_numpy(item["gts"]).to(dev)
-        gen = torch.Generator(device=dev).manual_seed(args.seed * 1_000_003 + state.step)
+        gen = torch.Generator(device=dev).manual_seed(step_seed(args.seed, state.step, rank))
         state, metrics = trainer.train_step(state, lq, gt, gen)
         step = state.step
-        if not imglog.should_log(step):
+        if imglog is None or not imglog.should_log(step):
             return state, metrics, None
 
         def log_images():
@@ -379,14 +545,16 @@ def stage1(args, pipe=None, on_step=None):
 
         return state, metrics, log_images
 
-    state = _train_loop(args, ds, state, micro_step, loggers, dev, on_step)
-    export = os.path.join(args.logdir, "export")
-    os.makedirs(export, exist_ok=True)
-    save_params(os.path.join(export, "mgld_ema.pt"), {"state_dict": mgld_state_dict(
-        with_ema(state))})
-    save_params(os.path.join(export, "raft.pt"),
-                {k: v.float() for k, v in pipe.raft.state_dict().items()})
-    print(f"exported the EMA parameters to {export}", flush=True)
+    state = trainer.gather(_train_loop(args, ds, state, micro_step, loggers, dev, trainer,
+                                       on_step))
+    if rank == 0:
+        export = os.path.join(args.logdir, "export")
+        os.makedirs(export, exist_ok=True)
+        save_params(os.path.join(export, "mgld_ema.pt"), {"state_dict": mgld_state_dict(
+            with_ema(state))})
+        save_params(os.path.join(export, "raft.pt"),
+                    {k: v.float() for k, v in pipe.raft.state_dict().items()})
+        print(f"exported the EMA parameters to {export}", flush=True)
     return state
 
 
@@ -403,10 +571,11 @@ def seed_stage2_aux(trainer, seed: int) -> None:
 
 
 def stage2(args, pipe=None, on_step=None, on_trainer=None):
-    """The stage-2 loop; returns the final training state. ``pipe`` (built
-    with float32 weights) replaces :func:`build_pipeline`; ``on_trainer(
-    trainer)`` runs once the loss networks are loaded, before the state is
-    made; ``on_step(step, state, metrics)`` runs after every micro-step."""
+    """The stage-2 loop; returns the final training state (whole, also over
+    ranks). ``pipe`` (built with float32 weights) replaces
+    :func:`build_pipeline`; ``on_trainer(trainer)`` runs once the loss
+    networks are loaded, before the state is made; ``on_step(step, state,
+    metrics)`` runs after every micro-step (with this rank's state)."""
     import torch
 
     from mgldvsr_tpu_torch.data.datasets import REDSAutoencoderDataset
@@ -414,7 +583,9 @@ def stage2(args, pipe=None, on_step=None, on_trainer=None):
     from mgldvsr_tpu_torch.io.checkpoint import save_params
     from mgldvsr_tpu_torch.train.stage2 import Stage2Config, Stage2Trainer
 
-    loggers = _loggers(args)
+    group = _group(args)
+    rank = torch.distributed.get_rank(group) if group is not None else 0
+    loggers = _loggers(args, rank)
     ckpt = loggers[2]
     ds = REDSAutoencoderDataset(args.data_root, args.lq_root, args.latent_root,
                                 num_frame=args.num_frames)
@@ -423,15 +594,16 @@ def stage2(args, pipe=None, on_step=None, on_trainer=None):
     dev = pipe.device
     trainer = Stage2Trainer(pipe.vae, Stage2Config(learning_rate=args.lr,
                                                    grad_accum=args.grad_accum,
-                                                   num_frames=args.num_frames))
+                                                   num_frames=args.num_frames),
+                            group=group, zero1=args.zero1)
     seed_stage2_aux(trainer, args.seed)
     if on_trainer is not None:
         on_trainer(trainer)
-    state = trainer.init_state()
-    if args.resume and ckpt.latest_step() is not None:
-        state = ckpt.restore(template=state)
+    start = trainer.init_state()
+    state = _resume(args, ckpt, start, group)
+    if state is not start:
         trainer.load_vae(state)
-        print(f"resumed at step {state.step}", flush=True)
+    state = trainer.shard(state)
 
     def micro_step(state, item):
         lq = upscale_frames(torch.from_numpy(item["lqs"]).to(dev), 4)
@@ -440,24 +612,28 @@ def stage2(args, pipe=None, on_step=None, on_trainer=None):
         lat = torch.from_numpy(item["lts"]).to(dev) / pipe.cfg.scale_factor
         return (*trainer.train_step(state, lq, gt, lat), None)
 
-    state = _train_loop(args, ds, state, micro_step, loggers, dev, on_step)
-    export = os.path.join(args.logdir, "export")
-    os.makedirs(export, exist_ok=True)
-    vae = {k: v.detach().float() for k, v in pipe.vae.state_dict().items()}
-    vae.update(state.trainable)
-    save_params(os.path.join(export, "vqgan.pt"), {"state_dict": vae})
-    print(f"exported the VAE to {export}", flush=True)
+    state = trainer.gather(_train_loop(args, ds, state, micro_step, loggers, dev, trainer,
+                                       on_step))
+    if rank == 0:
+        export = os.path.join(args.logdir, "export")
+        os.makedirs(export, exist_ok=True)
+        vae = {k: v.detach().float() for k, v in pipe.vae.state_dict().items()}
+        vae.update(state.trainable)
+        save_params(os.path.join(export, "vqgan.pt"), {"state_dict": vae})
+        print(f"exported the VAE to {export}", flush=True)
     return state
 
 
 def main(argv=None):
-    """Train stage 1 or 2, with TF32 off (restored on exit)."""
+    """Train stage 1 or 2, with TF32 off (restored on exit); with
+    ``--mesh`` as one rank of the process group."""
     args = parse_args(argv)
-    print(TF32_LINE, flush=True)
-    t0 = time.time()
-    with tf32_off():
-        (stage1 if args.stage == 1 else stage2)(args)
-    print(f"done in {time.time() - t0:.1f} s", flush=True)
+    with process_group(args):
+        print(TF32_LINE, flush=True)
+        t0 = time.time()
+        with tf32_off():
+            (stage1 if args.stage == 1 else stage2)(args)
+        print(f"done in {time.time() - t0:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

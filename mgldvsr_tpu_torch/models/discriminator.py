@@ -13,13 +13,20 @@ normalises with the batch mean and the biased variance E[x^2] - E[x]^2
 ``r = 0.9 r + 0.1 batch`` with that same biased variance; evaluation
 normalises with the running statistics; eps is 1e-5. Training mode is the
 ``train`` argument of each call, not ``module.train()``. It computes in its
-weights' dtype (float32 as built).
+weights' dtype (float32 as built). Over several ranks (``group``, each with
+its share of the batch) a training pass normalises with the statistics of
+the whole batch, as the JAX step over the batch of every rank's clip does:
+the group sums the ranks' per-channel means of x and x², each weighted by
+its share of the rows, with a gradient through the sum; the running
+statistics then move the same on every rank.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from mgldvsr_tpu_torch.parallel import mesh
 
 
 class FlaxBatchNorm(nn.Module):
@@ -35,11 +42,19 @@ class FlaxBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool, group=None) -> torch.Tensor:
         x = x.to(self.weight.dtype)
         if train:
             mean = x.mean(dim=(0, 2, 3))
-            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            mean_sq = (x * x).mean(dim=(0, 2, 3))
+            if group is not None:
+                # the whole batch's means: each rank's weighted by its share
+                # of the group's values a channel (1.0 exactly in a world of one)
+                count = torch.tensor(float(x.numel() // x.shape[1]), device=x.device)
+                share = count / mesh.all_reduce_sum(count, group)
+                both = mesh.all_reduce_sum(torch.stack([mean, mean_sq]) * share, group)
+                mean, mean_sq = both.unbind()
+            var = (mean_sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -68,11 +83,13 @@ class NLayerDiscriminator(nn.Module):
         layers.append(nn.Conv2d(ndf * mult, 1, 4, stride=1, padding=1))
         self.main = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, group=None) -> torch.Tensor:
+        """``group``: the ranks whose rows make the batch of a training
+        pass (None: this process's rows alone)."""
         x = x.to(self.main[0].weight.dtype)
         for layer in self.main:
             if isinstance(layer, FlaxBatchNorm):
-                x = layer(x, train)
+                x = layer(x, train, group)
             elif isinstance(layer, nn.LeakyReLU):
                 x = F.leaky_relu(x, 0.2)
             else:

@@ -18,11 +18,18 @@ multiply-adds, so the two agree to about one float32 ulp, not bit for bit.
 ``grad_accum``-th call; Adam's count, which drives its bias correction,
 advances only then. The state is a dict of tensors keyed like the
 parameters, so it saves with ``torch.save``.
+
+Over several ranks (``step(..., zero=)``, a
+:class:`~mgldvsr_tpu_torch.parallel.mesh.ZeroShard`) the same arithmetic
+runs on each rank's slice of the tensors ZeRO-1 splits: the gradient, the
+accumulator and both moments are slices, each rank updates its slice of a
+master and the full masters are gathered; the clipping norm is the whole
+gradient's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -63,10 +70,11 @@ def global_norm(tensors: Tensors) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Tensors, max_norm: float) -> Tensors:
+def clip_by_global_norm(grads: Tensors, max_norm: float,
+                        norm_fn: Callable[[Tensors], torch.Tensor] = global_norm) -> Tensors:
     """optax ``clip_by_global_norm``: unchanged below ``max_norm``, else
-    each ``(g / norm) * max_norm``."""
-    norm = global_norm(grads)
+    each ``(g / norm) * max_norm``, the norm ``norm_fn(grads)``."""
+    norm = norm_fn(grads)
     if bool(norm < max_norm):
         return grads
     return {k: (g / norm.to(g.dtype)) * max_norm for k, g in grads.items()}
@@ -77,12 +85,13 @@ def _bias_correction(decay: float, count: int, device) -> torch.Tensor:
     return 1 - d ** torch.tensor(float(count), dtype=torch.float32, device=device)
 
 
-def adamw_updates(grads: Tensors, state: dict, params: Tensors, cfg: AdamWConfig) -> Tensors:
+def adamw_updates(grads: Tensors, state: dict, params: Tensors, cfg: AdamWConfig,
+                  norm_fn: Callable[[Tensors], torch.Tensor] = global_norm) -> Tensors:
     """optax ``[clip_by_global_norm] -> adamw`` on ``grads``: returns the
     updates (to add to ``params``) and advances ``state``'s count and
     moments in place."""
     if cfg.max_grad_norm:
-        grads = clip_by_global_norm(grads, cfg.max_grad_norm)
+        grads = clip_by_global_norm(grads, cfg.max_grad_norm, norm_fn)
     count = state["count"] + 1
     updates = {}
     for k, g in grads.items():
@@ -105,16 +114,28 @@ def adamw_updates(grads: Tensors, state: dict, params: Tensors, cfg: AdamWConfig
     return updates
 
 
-def step(grads: Tensors, state: dict, params: Tensors, cfg: AdamWConfig) -> bool:
+def step(grads: Tensors, state: dict, params: Tensors, cfg: AdamWConfig, zero=None) -> bool:
     """One micro-step of ``MultiSteps(grad_accum)`` around the inner chain:
     folds ``grads`` into the running mean and, on the ``grad_accum``-th
     micro-step, applies the inner update to ``params`` in place and zeroes
     the mean. Returns whether ``params`` changed. Without accumulation every
-    call applies ``grads``."""
+    call applies ``grads``.
+
+    With ``zero`` (a ``ZeroShard``), ``grads`` is the group's reduced
+    gradient (``zero.reduce_gradients``) and ``state`` this rank's (split
+    tensors as slices): the update runs on this rank's slices of ``params``,
+    then ``zero.all_gather`` fills in the other ranks' slices."""
+    full = params
+    norm_fn = global_norm
+    if zero is not None:
+        params = zero.locals(full)
+        norm_fn = lambda g: zero.norm(g, global_norm)  # noqa: E731
     if cfg.grad_accum <= 1:
-        updates = adamw_updates(grads, state, params, cfg)
+        updates = adamw_updates(grads, state, params, cfg, norm_fn)
         _apply(params, updates)
         state["gradient_step"] += 1
+        if zero is not None:
+            zero.all_gather(full)
         return True
     n = state["mini_step"]
     acc = state["acc"]
@@ -123,11 +144,13 @@ def step(grads: Tensors, state: dict, params: Tensors, cfg: AdamWConfig) -> bool
         a.copy_(a + (g - a) / float(n + 1))
     emit = n == cfg.grad_accum - 1
     if emit:
-        updates = adamw_updates(acc, state, params, cfg)
+        updates = adamw_updates(acc, state, params, cfg, norm_fn)
         _apply(params, updates)
         for a in acc.values():
             a.zero_()
         state["gradient_step"] += 1
+        if zero is not None:
+            zero.all_gather(full)
     state["mini_step"] = (n + 1) % cfg.grad_accum
     return emit
 

@@ -31,6 +31,16 @@ running statistics live in the state and are applied with
 in place. ``train_step`` updates the state's tensors in place and returns
 the state; it runs cuDNN's deterministic algorithms, so that a resumed run
 replays the run it continues bit for bit.
+
+Over several ranks (``group``, one clip a rank) a micro-step is the JAX
+step on the batch of every rank's clip. Three places differ from each rank
+stepping alone and averaging: the NLL and frame-difference terms divide by
+the whole batch's rows (``batch_ranks`` times the rank's); the adaptive
+weight is the ratio of the norms of the two last-layer gradients averaged
+over the group; the discriminator's training passes normalise with the
+whole batch's statistics. Then the gradients of both halves are averaged
+over the group, and with ``zero1`` the optimiser states are split over the
+ranks, as in stage 1.
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ from mgldvsr_tpu_torch.models.discriminator import NLayerDiscriminator
 from mgldvsr_tpu_torch.models.layers import cast_weights
 from mgldvsr_tpu_torch.models.lpips import LPIPS
 from mgldvsr_tpu_torch.models.vae import VideoAutoencoderKLResi, is_temporal_or_fusion
+from mgldvsr_tpu_torch.parallel import mesh
 from mgldvsr_tpu_torch.train import optim
 from mgldvsr_tpu_torch.train.losses import (
     adaptive_d_weight,
@@ -55,6 +66,7 @@ from mgldvsr_tpu_torch.train.losses import (
     swc_loss,
     vanilla_d_loss,
 )
+from mgldvsr_tpu_torch.train.trainer import group_means
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -105,9 +117,11 @@ class Stage2Trainer:
     discriminator's module, built on the VAE's device with PyTorch's
     default initialisation: fill them (``io.init_weights`` or
     ``load_state_dict``) before :meth:`init_state`, which reads the
-    discriminator's weights into the state."""
+    discriminator's weights into the state. ``group`` and ``zero1`` as
+    stage 1's trainer has them."""
 
-    def __init__(self, vae: VideoAutoencoderKLResi, cfg: Stage2Config = Stage2Config()):
+    def __init__(self, vae: VideoAutoencoderKLResi, cfg: Stage2Config = Stage2Config(),
+                 group=None, zero1: bool = False):
         self.vae = vae
         self.cfg = cfg
         self.device = next(vae.parameters()).device
@@ -120,6 +134,16 @@ class Stage2Trainer:
                                          weight_decay=0.0)
         self._d_loss = hinge_d_loss if cfg.disc_loss == "hinge" else vanilla_d_loss
         self._vae_holds = None  # the master dict the VAE was last loaded from
+        self.group = group
+        self.zero = None
+        # the ranks whose rows make the batch the loss terms divide by
+        self.batch_ranks = 1
+        if group is not None:
+            shapes = {k: p.shape for k, p in partition_vae_params(vae)[0].items()}
+            shapes["logvar"] = torch.Size([])
+            shapes.update({k: p.shape for k, p in self.disc.named_parameters()})
+            self.zero = mesh.ZeroShard(shapes, group, zero1)
+            self.batch_ranks = self.zero.world
 
     # -- state -------------------------------------------------------------
 
@@ -140,6 +164,14 @@ class Stage2Trainer:
             opt_d=optim.init_opt_state(self.disc_params(disc), self.opt_cfg), step=0)
         self.load_vae(state)
         return state
+
+    def shard(self, state: Stage2State) -> Stage2State:
+        """A full state (``init_state``'s, a checkpoint's) -> this rank's."""
+        return state if self.zero is None else mesh.shard_state(state, self.zero)
+
+    def gather(self, state: Stage2State) -> Stage2State:
+        """This rank's state -> the full one, on every rank (collective)."""
+        return state if self.zero is None else mesh.gather_state(state, self.zero)
 
     def disc_params(self, disc: Tensors) -> Tensors:
         """The discriminator's parameters among ``disc`` (no running
@@ -179,7 +211,8 @@ class Stage2Trainer:
             rec = rec + self.cfg.perceptual_weight * p.reshape(-1, 1, 1, 1)
         nll = rec / torch.exp(logvar) + logvar
         # the reference: the mean over every element, over the batch rows
-        return nll.mean() / nll.shape[0], rec.mean()
+        # (every rank's: the rank's mean is its share of the group's mean)
+        return nll.mean() / (nll.shape[0] * self.batch_ranks), rec.mean()
 
     def gen_step(self, state: Stage2State, lq_01: torch.Tensor, gt_01: torch.Tensor,
                  latents: torch.Tensor, flows, occs):
@@ -205,7 +238,7 @@ class Stage2Trainer:
                 nll_loss, rec_mean = self._nll_terms(r, gt, logvar)
                 r_nhwc, gt_nhwc = r.permute(0, 2, 3, 1), gt.permute(0, 2, 3, 1)
                 d = l1_diff(gt_nhwc, r_nhwc, t)
-                diff_term = cfg.diffloss_weight * d.mean() / d.shape[0]
+                diff_term = cfg.diffloss_weight * d.mean() / (d.shape[0] * self.batch_ranks)
                 temp = swc_loss(gt_nhwc, r_nhwc, t, flows, occs)
                 logits_fake = functional_call(self.disc, disc_eval, (r,), {"train": False})
                 g_loss = -logits_fake.mean()
@@ -214,8 +247,11 @@ class Stage2Trainer:
                 (dr_g,) = torch.autograd.grad(g_loss, r)
                 nll_w, = torch.autograd.grad(recon, last_w, dr_nll, retain_graph=True)
                 g_w, = torch.autograd.grad(recon, last_w, dr_g, retain_graph=True)
-                d_weight = adaptive_d_weight(nll_w.float().norm(), g_w.float().norm(),
-                                             cfg.disc_weight)
+                nll_w, g_w = nll_w.float(), g_w.float()
+                if self.group is not None:  # the whole batch's last-layer gradients
+                    both = mesh.all_reduce_mean({"nll": nll_w, "g": g_w}, self.group)
+                    nll_w, g_w = both["nll"], both["g"]
+                d_weight = adaptive_d_weight(nll_w.norm(), g_w.norm(), cfg.disc_weight)
                 scale = d_weight * adopt_weight(cfg.disc_factor, state.step, cfg.disc_start)
                 cot = (dr_nll.float() + dr_diff.float() + scale * dr_g.float()).to(r.dtype)
                 names = list(train)
@@ -227,16 +263,18 @@ class Stage2Trainer:
                  for k, g in zip(names, got)}
         grads["logvar"] = g_logvar.float()
         del got, cot, recon
+        if self.zero is not None:
+            grads = self.zero.reduce_gradients(grads)
         with torch.no_grad():
             weighted = nll_loss.detach() + diff_term.detach() + cfg.temploss_weight * temp
             applied = optim.step(grads, state.opt_g, {**state.trainable, "logvar": state.logvar},
-                                 self.opt_cfg)
+                                 self.opt_cfg, self.zero)
         if applied:
             self.load_vae(state)
-        metrics = {"loss_g": weighted + scale * g_loss.detach(), "nll_loss": nll_loss.detach(),
-                   "rec_loss": rec_mean.detach(), "temp_loss": temp.detach(),
-                   "g_loss": g_loss.detach(), "d_weight": d_weight}
-        return state, r.detach(), metrics
+        metrics = group_means({"loss_g": weighted + scale * g_loss.detach(),
+                               "nll_loss": nll_loss.detach(), "rec_loss": rec_mean.detach(),
+                               "temp_loss": temp.detach(), "g_loss": g_loss.detach()}, self.zero)
+        return state, r.detach(), dict(metrics, d_weight=d_weight)
 
     def disc_step(self, state: Stage2State, gt_01: torch.Tensor, recon_det: torch.Tensor):
         """The discriminator half on the detached reconstruction (NCHW):
@@ -251,19 +289,23 @@ class Stage2Trainer:
         params = self.disc_params(state.disc)
         live = {k: (v.detach().requires_grad_(factor != 0) if k in params else v)
                 for k, v in state.disc.items()}
+        passes = {"train": True, "group": self.group}
         with torch.enable_grad():
-            logits_real = functional_call(self.disc, live, (gt,), {"train": True})
-            logits_fake = functional_call(self.disc, live, (recon_det,), {"train": True})
+            logits_real = functional_call(self.disc, live, (gt,), passes)
+            logits_fake = functional_call(self.disc, live, (recon_det,), passes)
             loss_d = factor * self._d_loss(logits_real, logits_fake)
             if factor != 0:
                 got = torch.autograd.grad(loss_d, [live[k] for k in params])
                 grads = {k: g.float() for k, g in zip(params, got)}
             else:
                 grads = {k: torch.zeros_like(v) for k, v in params.items()}
+        if self.zero is not None:
+            grads = self.zero.reduce_gradients(grads)
         with torch.no_grad():
-            optim.step(grads, state.opt_d, params, self.opt_cfg)
-        metrics = {"loss_d": loss_d.detach(), "logits_real": logits_real.detach().mean(),
-                   "logits_fake": logits_fake.detach().mean()}
+            optim.step(grads, state.opt_d, params, self.opt_cfg, self.zero)
+        metrics = group_means({"loss_d": loss_d.detach(),
+                               "logits_real": logits_real.detach().mean(),
+                               "logits_fake": logits_fake.detach().mean()}, self.zero)
         return state._replace(step=state.step + 1), metrics
 
     def train_step(self, state: Stage2State, lq_01: torch.Tensor, gt_01: torch.Tensor,

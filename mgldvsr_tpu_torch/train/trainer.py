@@ -17,6 +17,16 @@ compute dtype and receive no gradient.
 
 :meth:`Stage1Trainer.train_step` updates the state's tensors in place (the
 JAX command line donates its state the same way) and returns the state.
+
+Over several ranks (``group``, one clip a rank) a micro-step is the JAX
+step on the batch of every rank's clip: each rank averages its float32
+gradient over the group before the norm and the optimiser (the JAX step's
+``psum`` inside every micro-step, before ``MultiSteps`` averages), and
+reports the loss terms as group means. With ``zero1`` the moments, the
+accumulator and the EMA shadows of the large trainables are split over the
+ranks (:class:`~mgldvsr_tpu_torch.parallel.mesh.ZeroShard`):
+:meth:`Stage1Trainer.shard` cuts a full state to this rank's,
+:meth:`Stage1Trainer.gather` puts it back together.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import torch
 
 from mgldvsr_tpu_torch.core.schedules import q_sample, respace_schedule
 from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline, upscale_frames
+from mgldvsr_tpu_torch.parallel import mesh
 from mgldvsr_tpu_torch.train import optim
 
 Tensors = Dict[str, torch.Tensor]
@@ -137,8 +148,23 @@ def _nchw(x):
     return x.permute(0, 3, 1, 2).contiguous()
 
 
+def group_means(values: Dict[str, torch.Tensor], zero) -> Dict[str, torch.Tensor]:
+    """0-dim metrics as means over the group of ``zero`` (a ``ZeroShard``),
+    in one collective; as they are without one."""
+    if zero is None:
+        return values
+    stacked = mesh.all_reduce_mean({"m": torch.stack(list(values.values()))}, zero.group)["m"]
+    return dict(zip(values, stacked.unbind()))
+
+
 class Stage1Trainer:
-    def __init__(self, pipe: MGLDVSRPipeline, cfg: Stage1Config = Stage1Config()):
+    """``group``: the ranks that train together, one clip each (None: this
+    process alone); ``zero1``: split the optimiser state over them, the
+    leaves of at least ``mesh.ZERO1_MIN_SIZE`` elements (read when the
+    trainer is made)."""
+
+    def __init__(self, pipe: MGLDVSRPipeline, cfg: Stage1Config = Stage1Config(), group=None,
+                 zero1: bool = False):
         self.pipe = pipe
         self.cfg = cfg
         self.device = pipe.device
@@ -151,6 +177,11 @@ class Stage1Trainer:
                                          max_grad_norm=cfg.max_grad_norm,
                                          grad_accum=cfg.grad_accum)
         self._towers_hold = None  # the master dict the towers were last loaded from
+        self.group = group
+        self.zero = None
+        if group is not None:
+            shapes = {k: p.shape for k, p in partition_params(pipe)[0].items()}
+            self.zero = mesh.ZeroShard(shapes, group, zero1)
 
     def init_state(self) -> TrainState:
         """Float32 masters of the towers' trainables, read before the towers
@@ -166,6 +197,14 @@ class Stage1Trainer:
             step=0)
         self.load_towers(state)
         return state
+
+    def shard(self, state: TrainState) -> TrainState:
+        """A full state (``init_state``'s, a checkpoint's) -> this rank's."""
+        return state if self.zero is None else mesh.shard_state(state, self.zero)
+
+    def gather(self, state: TrainState) -> TrainState:
+        """This rank's state -> the full one, on every rank (collective)."""
+        return state if self.zero is None else mesh.gather_state(state, self.zero)
 
     @torch.no_grad()
     def load_towers(self, state: TrainState) -> None:
@@ -246,22 +285,31 @@ class Stage1Trainer:
         [0, 1]; gt_01 the same. ``draws`` injects the micro-step's four
         draws (parity tests); otherwise they come from ``generator``.
         Returns the state (its tensors updated in place) and the metrics as
-        0-dim tensors."""
+        0-dim tensors (over a group: this rank's state, the group's
+        metrics)."""
         if self._towers_hold is not state.trainable:
             self.load_towers(state)
         if draws is None:
             n, hh, ww, _ = gt_01.shape
             draws = self.draws(n, hh // 8, ww // 8, generator)
         loss, metrics, grads = self.loss_and_grads(lq_01, gt_01, draws)
-        grad_norm = optim.global_norm(grads)
+        zero = self.zero
+        if zero is not None:
+            grads = zero.reduce_gradients(grads)
+            metrics = group_means(dict(metrics, loss=loss), zero)
+            loss = metrics.pop("loss")
+            grad_norm = zero.norm(grads, optim.global_norm)
+        else:
+            grad_norm = optim.global_norm(grads)
         with torch.no_grad():
-            applied = optim.step(grads, state.opt_state, state.trainable, self.opt_cfg)
+            applied = optim.step(grads, state.opt_state, state.trainable, self.opt_cfg, zero)
         del grads
         if applied:
             self.load_towers(state)
         step = state.step + 1
         if state.ema is not None:
-            ema_update(state.ema, state.trainable, step, self.cfg.ema_decay)
+            masters = state.trainable if zero is None else zero.locals(state.trainable)
+            ema_update(state.ema, masters, step, self.cfg.ema_decay)
         metrics = dict(metrics, loss=loss, grad_norm=grad_norm)
         return state._replace(step=step), metrics
 

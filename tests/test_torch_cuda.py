@@ -908,3 +908,59 @@ def test_guidance_gradient_is_the_same_bit_for_bit_every_call(dev):
     assert first.any()
     for _ in range(10):
         assert torch.equal(guide_mod.guidance_grad(lat, flows, occs, 5), first)
+
+
+def _world_of_one_nccl(monkeypatch, tmp_path):
+    import datetime
+
+    from mgldvsr_tpu_torch.parallel import mesh
+
+    for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    return mesh.init_group("cuda", f"file://{tmp_path / 'store'}",
+                           timeout=datetime.timedelta(seconds=120))
+
+
+def test_all_reduce_mean_in_a_world_of_one_nccl_rank_is_identity(dev, tmp_path, monkeypatch):
+    """One NCCL rank: the bucketed mean of a gradient-like dict (float32
+    leaves of odd sizes, a 0-dim one) gives the same tensors bit for bit,
+    and so does ZeRO-1's reduction (nothing splits in a world of one)."""
+    from mgldvsr_tpu_torch.parallel import mesh
+
+    device = _world_of_one_nccl(monkeypatch, tmp_path)
+    try:
+        gen = _gen(device, 3)
+        grads = {f"g{i}": torch.randn(shape, device=device, generator=gen)
+                 for i, shape in enumerate([(320, 320, 3, 3), (1280,), (7, 5), (), (3, 8, 1, 1)])}
+        out = mesh.all_reduce_mean(grads)
+        assert list(out) == list(grads)
+        assert all(torch.equal(out[k], v) for k, v in grads.items())
+        zero = mesh.ZeroShard({k: v.shape for k, v in grads.items()}, zero1=True)
+        assert not zero.axes
+        assert all(torch.equal(v, grads[k]) for k, v in zero.reduce_gradients(grads).items())
+    finally:
+        mesh.destroy()
+
+
+def test_flax_batch_norm_with_a_group_of_one_equals_it_without(dev, tmp_path, monkeypatch):
+    """The discriminator's BatchNorm over a group of one NCCL rank: the
+    output, its gradients and the running statistics equal the pass
+    without a group, bit for bit."""
+    from mgldvsr_tpu_torch.models.discriminator import FlaxBatchNorm
+    from mgldvsr_tpu_torch.parallel import mesh
+
+    device = _world_of_one_nccl(monkeypatch, tmp_path)
+    try:
+        x = torch.randn(10, 256, 15, 15, device=device, generator=_gen(device, 4))
+        outs = []
+        for group in (None, torch.distributed.group.WORLD):
+            bn = FlaxBatchNorm(256).to(device)
+            xi = x.clone().requires_grad_(True)
+            y = bn(xi, True, group)
+            (y * y.detach().flip(0)).sum().backward()
+            outs.append((y.detach(), xi.grad, bn.weight.grad, bn.running_mean.clone(),
+                         bn.running_var.clone()))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+    finally:
+        mesh.destroy()

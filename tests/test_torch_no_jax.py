@@ -29,7 +29,7 @@ for m in ("cli.infer", "data.video_folder", "utils.config", "io.frames", "io.tor
           "models.lpips", "models.discriminator", "flow.spynet", "metrics", "metrics.image",
           "metrics.niqe", "metrics.inception", "metrics.fid", "metrics.temporal",
           "tools.quality_eval", "tools.quality_smoke", "parallel.mesh",
-          "parallel.sharded_sampler"):
+          "parallel.sharded_sampler", "tools.multicard_check", "tools.multicard_train_check"):
     assert "mgldvsr_tpu_torch." + m in mods, m
 assert "yaml" not in sys.modules, "yaml was imported at import time"
 for m in ("cv2", "av"):
