@@ -49,6 +49,17 @@ def segment_seed(seed: int, clip: str, name: str) -> int:
     return ((seed & 0xFFFFFFFF) << 32) | zlib.crc32(f"{clip}/{name}".encode())
 
 
+TOWERS = ("unet", "structcond", "vae", "clip", "raft")
+
+
+def with_tower_settings(cfg, model_cfg):
+    """``cfg`` with the tower subtrees of a ``model:`` config applied
+    (``--set model.unet.use_temporal=false`` on the tiny preset)."""
+    from mgldvsr_tpu_torch.utils.config import apply_to_dataclass
+
+    return apply_to_dataclass(cfg, {k: v for k, v in (model_cfg or {}).items() if k in TOWERS})
+
+
 def tiny_pipeline_config(dtype, num_frames: int = 5, **knobs):
     """Smoke widths: the same graph as the shipped one, about ten times
     narrower (the inference and training command lines' tiny preset)."""
@@ -85,7 +96,7 @@ def build_pipeline(args):
     knobs = dict(ddpm_steps=args.ddpm_steps, guidance_scale=args.guidance, dec_w=args.dec_w,
                  colorfix=args.colorfix)
     if args.preset == "tiny":
-        cfg = tiny_pipeline_config(dt, **knobs)
+        cfg = with_tower_settings(tiny_pipeline_config(dt, **knobs), args.model_cfg)
     elif args.model_cfg:
         from mgldvsr_tpu_torch.utils.config import pipeline_config_from_dict
 

@@ -70,7 +70,7 @@ import os
 import signal
 import time
 
-from mgldvsr_tpu_torch.cli.infer import tiny_pipeline_config
+from mgldvsr_tpu_torch.cli.infer import tiny_pipeline_config, with_tower_settings
 from mgldvsr_tpu_torch.utils.precision import TF32_LINE, tf32_off
 
 REFUSED = {
@@ -282,7 +282,8 @@ def build_pipeline(args):
     dt = tower_dtype(args.device)
     model_cfg = args.cfg.get("model") or {}
     if args.tiny:
-        cfg = tiny_pipeline_config(dt, num_frames=args.num_frames)
+        cfg = with_tower_settings(tiny_pipeline_config(dt, num_frames=args.num_frames),
+                                  model_cfg)
     else:
         cfg = pipeline_config_from_dict(model_cfg) if model_cfg else PipelineConfig()
         # a tower's dtype from the config wins; otherwise the device's

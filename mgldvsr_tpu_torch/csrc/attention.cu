@@ -2,13 +2,17 @@
 // Replaces the TPU kernel mgldvsr_tpu/ops/pallas/attention.py
 // (resident_attention -> _attn_kernel).
 //
-// Two kernels live here and the wrapper chooses between them by type and
+// Three kernels live here and the wrapper chooses between them by type and
 // head dim:
 //
 //  * attention_wgmma_kernel: bf16 at head dim 64, which is every gated call
-//    of the full-width restore (320/5, 640/10, 256/4). Tensor cores.
+//    of the full-width restore at 512 px (320/5, 640/10, 256/4). Tensor
+//    cores.
 //  * attention_kernel<T, D>: fp32 (the parity mode, no TF32) and bf16 at
 //    head dims 8, 16, 32, 128. fp32 FMA units.
+//  * attention_wide_kernel<T, D>: head dim 512, the VAE's single-head mid
+//    attention, which the gate passes at 32^2 to 57^2 latents (frames of
+//    256 to 456 px; to 45^2 in fp32). fp32 FMA units.
 //
 // Bound on the H100: operations. One call does 4*N*N*D flops per head
 // against 4*N*D elements moved, and at D = 64 the exponentials of the
@@ -143,6 +147,145 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide kernel: head dim 512, contiguous [BH, N, D]. A thread cannot hold
+// a row of q and of the output in registers at this width (the FMA kernel's
+// design), so a block of WT threads takes WQ query rows, stages them in
+// shared memory, and splits the work two ways. For the logits of a tile of
+// WK keys, thread (row r, key j) reduces over D from shared memory; the 16
+// lanes of a row then reduce its tile max and sum by shuffles and carry the
+// row's running max and sum. For the output, thread t owns columns t,
+// t + WT, ... of all WQ rows and adds the tile's probabilities times V.
+// Rows of q and K are padded by 4 floats, so the 8 lanes of a 16-byte load
+// phase read 8 rows at 32 distinct banks. 98 KB of shared memory: two
+// blocks to an SM.
+// ---------------------------------------------------------------------------
+
+constexpr int WQ = 16;   // query rows of a block
+constexpr int WK = 16;   // keys of a tile
+constexpr int WT = 256;  // threads: WQ x WK logits, one each
+
+template <int D>
+constexpr int wide_smem_bytes() {
+  return (2 * WQ * (D + 4) + WK * D + WQ * WK + 2 * WQ) * 4;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(WT)
+attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, int n, float scale) {
+  static_assert(D % WT == 0, "each thread owns D / WT output columns");
+  static_assert(WQ * WK == WT && WK == 16, "a warp holds the logits of two rows");
+  constexpr int LD = D + 4;    // padded row of q and K, in floats
+  constexpr int CPT = D / WT;  // output columns of a thread
+  extern __shared__ float4 wide_smem[];
+  float* qs = reinterpret_cast<float*>(wide_smem);  // [WQ][LD], scaled
+  float* ks = qs + WQ * LD;                          // [WK][LD]
+  float* vs = ks + WK * LD;                          // [WK][D]
+  float* ps = vs + WK * D;                           // [WQ][WK] the tile's probabilities
+  float* cs = ps + WQ * WK;                          // [WQ] the tile's rescale of a row
+  float* ls = cs + WQ;                               // [WQ] the rows' sums
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int r = (tid >> 5) * 2 + (lane >> 4);  // this thread's logit: row r, key j
+  const int j = lane & 15;
+  const int q0 = blockIdx.x * WQ;
+  const long base = (long)blockIdx.y * n * D;
+
+  for (int idx = tid; idx < WQ * D; idx += WT) {
+    const int rr = idx / D, c = idx % D, row = q0 + rr;
+    qs[rr * LD + c] = row < n ? to_f(q[base + (long)row * D + c]) * scale : 0.f;
+  }
+  float acc[WQ][CPT];
+#pragma unroll
+  for (int rr = 0; rr < WQ; ++rr)
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc) acc[rr][cc] = 0.f;
+  float m = -INFINITY, l = 0.f;
+
+  for (int k0 = 0; k0 < n; k0 += WK) {
+    __syncthreads();  // the previous tile, its probabilities and rescales are consumed
+    for (int idx = tid; idx < WK * D; idx += WT) {
+      const int rr = idx / D, c = idx % D, key = k0 + rr;
+      const bool ok = key < n;
+      ks[rr * LD + c] = ok ? to_f(k[base + (long)key * D + c]) : 0.f;
+      vs[rr * D + c] = ok ? to_f(v[base + (long)key * D + c]) : 0.f;
+    }
+    __syncthreads();
+
+    const float4* qr = reinterpret_cast<const float4*>(qs + r * LD);
+    const float4* kr = reinterpret_cast<const float4*>(ks + j * LD);
+    float s = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < D / 4; ++c) {
+      const float4 a = qr[c], b = kr[c];
+      s = fmaf(a.x, b.x, s);
+      s = fmaf(a.y, b.y, s);
+      s = fmaf(a.z, b.z, s);
+      s = fmaf(a.w, b.w, s);
+    }
+    if (k0 + j >= n) s = -INFINITY;
+    float tile_max = s;
+#pragma unroll
+    for (int off = 8; off; off >>= 1)
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
+    const float m_new = fmaxf(m, tile_max);  // finite: key k0 < n is in the tile
+    const float p = expf(s - m_new);
+    float tile_sum = p;
+#pragma unroll
+    for (int off = 8; off; off >>= 1) tile_sum += __shfl_xor_sync(0xffffffffu, tile_sum, off);
+    const float corr = expf(m - m_new);  // 0 on the first tile (m = -inf)
+    l = l * corr + tile_sum;
+    m = m_new;
+    ps[r * WK + j] = p;
+    if (j == 0) cs[r] = corr;
+    __syncthreads();
+
+#pragma unroll
+    for (int rr = 0; rr < WQ; ++rr) {
+      const float c_r = cs[rr];
+#pragma unroll
+      for (int cc = 0; cc < CPT; ++cc) acc[rr][cc] *= c_r;
+    }
+#pragma unroll 4
+    for (int jj = 0; jj < WK; ++jj) {
+      float vv[CPT];
+#pragma unroll
+      for (int cc = 0; cc < CPT; ++cc) vv[cc] = vs[jj * D + tid + cc * WT];
+#pragma unroll
+      for (int rr = 0; rr < WQ; ++rr) {
+        const float pr = ps[rr * WK + jj];
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) acc[rr][cc] = fmaf(pr, vv[cc], acc[rr][cc]);
+      }
+    }
+  }
+
+  if (j == 0) ls[r] = l;
+  __syncthreads();
+#pragma unroll
+  for (int rr = 0; rr < WQ; ++rr) {
+    const int row = q0 + rr;
+    if (row >= n) break;
+    const float inv = 1.f / ls[rr];
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc)
+      o[base + (long)row * D + tid + cc * WT] = from_f<T>(acc[rr][cc] * inv);
+  }
+}
+
+template <typename T, int D>
+int launch_wide(const T* q, const T* k, const T* v, T* o, int bh, int n, float scale,
+                cudaStream_t s) {
+  constexpr int smem = wide_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(attention_wide_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n + WQ - 1) / WQ, bh);
+  attention_wide_kernel<T, D><<<grid, WT, smem, s>>>(q, k, v, o, n, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int bh, int n,
            int d, float scale, void* stream) {
@@ -158,6 +301,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int n,
     case 32: attention_kernel<T, 32><<<grid, QT, 0, s>>>(qp, kp, vp, op, n, scale); break;
     case 64: attention_kernel<T, 64><<<grid, QT, 0, s>>>(qp, kp, vp, op, n, scale); break;
     case 128: attention_kernel<T, 128><<<grid, QT, 0, s>>>(qp, kp, vp, op, n, scale); break;
+    case 512: return launch_wide<T, 512>(qp, kp, vp, op, bh, n, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

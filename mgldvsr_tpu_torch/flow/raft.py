@@ -197,6 +197,18 @@ class RAFTConfig:
     corr_levels: int = 4
     corr_radius: int = 4
     iters: int = 10
+    # the JAX package's lookup switch ("xla" / "pallas" choose a plain or a
+    # TPU path); here the lookup is the corr_lookup kernel on the card and
+    # its plain version on the CPU, so only "auto" is taken
+    lookup_impl: str = "auto"
+
+    def __post_init__(self):
+        if self.lookup_impl != "auto":
+            raise ValueError(
+                f"RAFTConfig.lookup_impl={self.lookup_impl!r}: only 'auto' is taken. The "
+                f"correlation lookup is the corr_lookup CUDA kernel on the card and its "
+                f"plain version on the CPU; the JAX package's 'xla' and 'pallas' paths "
+                f"(a plain path or a TPU kernel on the card) are not ported")
 
 
 class RAFT(nn.Module):

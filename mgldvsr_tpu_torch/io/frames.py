@@ -41,22 +41,25 @@ def read_frame(path: str) -> np.ndarray:
         return decode_png(f.read())
 
 
-def write_frame(path: str, rgb: np.ndarray) -> None:
+def write_frame(path: str, rgb: np.ndarray, compression: int | None = None) -> None:
     """Write [H, W, 3] uint8 RGB; the format follows the extension with
-    PIL, and is PNG without it."""
+    PIL, and is PNG without it. ``compression``: a PNG's zlib level, 0-9
+    (default 6)."""
     rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
     if rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError(f"expected [H, W, 3] uint8, got {rgb.shape}")
     if codec() == "PIL":
         from PIL import Image
 
-        Image.fromarray(rgb).save(path)
+        png = os.path.splitext(path)[1].lower() == ".png"
+        Image.fromarray(rgb).save(path, **({"compress_level": compression}
+                                           if png and compression is not None else {}))
         return
     if os.path.splitext(path)[1].lower() != ".png":
         raise RuntimeError(f"{path}: only PNG frames can be written without PIL, which is not "
                            f"installed")
     with open(path, "wb") as f:
-        f.write(encode_png(rgb))
+        f.write(encode_png(rgb, 6 if compression is None else compression))
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -134,9 +137,10 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def encode_png(rgb: np.ndarray) -> bytes:
-    """[H, W, 3] uint8 -> an 8-bit RGB PNG, every row unfiltered."""
+def encode_png(rgb: np.ndarray, level: int = 6) -> bytes:
+    """[H, W, 3] uint8 -> an 8-bit RGB PNG, every row unfiltered, deflated
+    at zlib ``level``."""
     h, w, _ = rgb.shape
     rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
     return (_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _chunk(b"IEND", b""))

@@ -94,10 +94,16 @@ def _cross_attn(g: _SD, p: Tree) -> None:
     g.linear("to_out.0", p["to_out"])
 
 
+def _linear_or_conv(g: _SD, key: str, p: Tree) -> None:
+    """A dense kernel [I, O] or a 1x1 conv kernel [1, 1, I, O] (the
+    transformers' projections without ``use_linear_in_transformer``)."""
+    (g.linear if np.ndim(p["kernel"]) == 2 else g.conv)(key, p)
+
+
 def _transformer(g: _SD, p: Tree, depth: int) -> None:
     g.norm("norm", p["GroupNorm_0"])
-    g.linear("proj_in", p["proj_in"])
-    g.linear("proj_out", p["proj_out"])
+    _linear_or_conv(g, "proj_in", p["proj_in"])
+    _linear_or_conv(g, "proj_out", p["proj_out"])
     for d in range(depth):
         b = g.scope(f"transformer_blocks.{d}")
         bp = p[f"block_{d}"]
@@ -144,8 +150,10 @@ def _time_embed(g: _SD, p: Tree) -> None:
 
 
 def unet_state_dict(tree: Tree, cfg: UNetConfig = UNetConfig()) -> Dict[str, torch.Tensor]:
-    """Inverse of ``convert_unet`` (dual, temporal)."""
+    """Inverse of ``convert_unet(dual=cfg.use_spade,
+    temporal=cfg.use_temporal)``."""
     p = _params(tree)
+    dual = cfg.use_spade
     sd: Dict[str, torch.Tensor] = {}
     g = _SD(sd)
     _time_embed(g.scope("time_embed"), p["time_embed"])
@@ -157,7 +165,7 @@ def unet_state_dict(tree: Tree, cfg: UNetConfig = UNetConfig()) -> Dict[str, tor
     for level in range(len(cfg.channel_mult)):
         for nr in range(cfg.num_res_blocks):
             blk = g.scope(f"input_blocks.{idx}")
-            _resblock(blk.scope("0"), p[f"in_{level}_{nr}_res"], dual=True)
+            _resblock(blk.scope("0"), p[f"in_{level}_{nr}_res"], dual)
             if ds in cfg.attention_resolutions:
                 _transformer(blk.scope("1"), p[f"in_{level}_{nr}_attn"], depth)
             idx += 1
@@ -166,17 +174,21 @@ def unet_state_dict(tree: Tree, cfg: UNetConfig = UNetConfig()) -> Dict[str, tor
             idx += 1
             ds *= 2
     mid = g.scope("middle_block")
-    _resblock(mid.scope("0"), p["mid_res1"], dual=True)
-    _stconv(mid.scope("1"), p["mid_stconv1"])
-    _transformer(mid.scope("2"), p["mid_attn"], depth)
-    _tattn(mid.scope("3"), p["mid_tattn"])
-    _resblock(mid.scope("4"), p["mid_res2"], dual=True)
-    _stconv(mid.scope("5"), p["mid_stconv2"])
+    _resblock(mid.scope("0"), p["mid_res1"], dual)
+    if cfg.use_temporal:
+        _stconv(mid.scope("1"), p["mid_stconv1"])
+        _transformer(mid.scope("2"), p["mid_attn"], depth)
+        _tattn(mid.scope("3"), p["mid_tattn"])
+        _resblock(mid.scope("4"), p["mid_res2"], dual)
+        _stconv(mid.scope("5"), p["mid_stconv2"])
+    else:
+        _transformer(mid.scope("1"), p["mid_attn"], depth)
+        _resblock(mid.scope("2"), p["mid_res2"], dual)
     idx = 0
     for level in reversed(range(len(cfg.channel_mult))):
         for i in range(cfg.num_res_blocks + 1):
             blk = g.scope(f"output_blocks.{idx}")
-            _resblock(blk.scope("0"), p[f"out_{level}_{i}_res"], dual=True)
+            _resblock(blk.scope("0"), p[f"out_{level}_{i}_res"], dual)
             sub = 1
             if ds in cfg.attention_resolutions:
                 _transformer(blk.scope(str(sub)), p[f"out_{level}_{i}_attn"], depth)
@@ -245,8 +257,11 @@ def _simple_resblock(g: _SD, p: Tree) -> None:
 
 def vae_state_dict(tree: Tree, cfg: VAEConfig = VAEConfig(num_frames=5, enable_fusion=True)
                    ) -> Dict[str, torch.Tensor]:
-    """Inverse of ``convert_autoencoder(video=True, fusion=True)``."""
+    """Inverse of ``convert_autoencoder(video=cfg.num_frames > 1,
+    fusion=cfg.enable_fusion)``; the image ``AutoencoderKL`` is
+    ``num_frames=1, enable_fusion=False``."""
     p = _params(tree)
+    video = cfg.num_frames > 1
     sd: Dict[str, torch.Tensor] = {}
     g = _SD(sd)
     ep, enc = p["encoder"], g.scope("encoder")
@@ -269,17 +284,19 @@ def vae_state_dict(tree: Tree, cfg: VAEConfig = VAEConfig(num_frames=5, enable_f
     dp, dec = p["decoder"], g.scope("decoder")
     dec.conv("conv_in", dp["conv_in"])
     _vae_resnet(dec.scope("mid.block_1"), dp["mid_block_1"])
-    _stconv(dec.scope("temporal_mixing"), dp["mid_temporal"])
+    if video:
+        _stconv(dec.scope("temporal_mixing"), dp["mid_temporal"])
     _vae_attn(dec.scope("mid.attn_1"), dp["mid_attn_1"])
     _vae_resnet(dec.scope("mid.block_2"), dp["mid_block_2"])
     curr_res = cfg.resolution // 2 ** (len(cfg.ch_mult) - 1)
     for i in reversed(range(len(cfg.ch_mult))):
         for j in range(cfg.num_res_blocks + 1):
             _vae_resnet(dec.scope(f"up.{i}.block.{j}"), dp[f"up_{i}_block_{j}"])
-            _stconv(dec.scope(f"up.{i}.temporal_mixing.{j}"), dp[f"up_{i}_temporal_{j}"])
+            if video:
+                _stconv(dec.scope(f"up.{i}.temporal_mixing.{j}"), dp[f"up_{i}_temporal_{j}"])
             if curr_res in cfg.attn_resolutions:
                 _vae_attn(dec.scope(f"up.{i}.attn.{j}"), dp[f"up_{i}_attn_{j}"])
-        if i in (1, 2):
+        if cfg.enable_fusion and i in (1, 2):
             fp, f = dp[f"fusion_layer_{i}"], dec.scope(f"fusion_layer_{i}")
             _simple_resblock(f.scope("encode_enc_1"), fp["encode_enc_1"])
             _simple_resblock(f.scope("encode_enc_3"), fp["encode_enc_3"])
@@ -296,6 +313,18 @@ def vae_state_dict(tree: Tree, cfg: VAEConfig = VAEConfig(num_frames=5, enable_f
     dec.conv("conv_out", dp["conv_out"])
     g.conv("quant_conv", p["quant_conv"])
     g.conv("post_quant_conv", p["post_quant_conv"])
+    return sd
+
+
+def multidim_temporal_conv_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
+    """The JAX ``MultiDimTemporalConv``'s params -> upstream's keys
+    (``temporal_conv1``, ``temporal_conv2``, ``temporal_alpha``)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    g.conv("temporal_conv1", p["temporal_conv1"])
+    g.conv("temporal_conv2", p["temporal_conv2"])
+    g.raw("temporal_alpha", np.asarray(p["alpha"]).reshape(1))
     return sd
 
 

@@ -14,7 +14,12 @@ conversion. As the JAX package's loader does
   the UNet, ``structcond_stage_model.`` the struct-cond encoder,
   ``first_stage_model.`` the VAE, ``cond_stage_model.model.`` the OpenCLIP
   text tower. A video VAE checkpoint has no prefix; RAFT's is
-  ``raft-things``.
+  ``raft-things``;
+- an SD 1.x checkpoint's text tower is Hugging Face's ``CLIPTextModel``
+  under ``cond_stage_model.transformer.``
+  (:func:`hf_clip_text_state_dict` renames it to open_clip's keys: the
+  JAX package's ``convert_hf_clip_text``); build the pipeline with
+  ``clip=frozen_clip_vit_l_config()`` for it.
 
 Keys the upstream modules hold and the port's towers do not compute are
 dropped before the strict load (:data:`UPSTREAM_ONLY`): OpenCLIP's vision
@@ -36,6 +41,7 @@ TOWER_PREFIXES = {
     "vae": "first_stage_model.",
     "clip": "cond_stage_model.model.",
 }
+HF_CLIP_PREFIX = "cond_stage_model.transformer."
 # prefixes of the upstream names each tower's port does not hold
 UPSTREAM_ONLY = {
     "clip": ("visual.", "logit_scale", "text_projection", "attn_mask"),
@@ -100,6 +106,46 @@ def tower_state_dict(sd: Mapping[str, torch.Tensor], prefix: str, tower: str,
             if k.startswith(prefix) and not _upstream_only(tower, k[len(prefix):], module)}
 
 
+def hf_clip_text_state_dict(sd: Mapping[str, torch.Tensor], prefix: str = HF_CLIP_PREFIX
+                            ) -> StateDict:
+    """The Hugging Face ``CLIPTextModel`` keys under ``prefix`` ->
+    :class:`OpenCLIPTextEncoder` keys: ``embeddings.*`` to the token and
+    positional embeddings, ``final_layer_norm`` to ``ln_final``, and per
+    layer ``layer_norm{1,2}`` to ``ln_{1,2}``, the q / k / v projections
+    concatenated (in that order) into ``attn.in_proj_*``, ``mlp.fc{1,2}``
+    to ``mlp.c_fc`` / ``mlp.c_proj``. ``embeddings.position_ids`` (a
+    buffer) is dropped; any other key under ``prefix`` that is not read
+    raises."""
+    p = f"{prefix}text_model."
+    src = {k[len(p):]: v for k, v in sd.items() if k.startswith(p)}
+    used = {"embeddings.position_ids"}
+
+    def take(key):
+        used.add(key)
+        return src[key]
+
+    out = {"token_embedding.weight": take("embeddings.token_embedding.weight"),
+           "positional_embedding": take("embeddings.position_embedding.weight"),
+           "ln_final.weight": take("final_layer_norm.weight"),
+           "ln_final.bias": take("final_layer_norm.bias")}
+    i = 0
+    while f"encoder.layers.{i}.layer_norm1.weight" in src:
+        a, b = f"encoder.layers.{i}.", f"transformer.resblocks.{i}."
+        for hf, oc in (("layer_norm1", "ln_1"), ("layer_norm2", "ln_2"),
+                       ("self_attn.out_proj", "attn.out_proj"), ("mlp.fc1", "mlp.c_fc"),
+                       ("mlp.fc2", "mlp.c_proj")):
+            for leaf in ("weight", "bias"):
+                out[f"{b}{oc}.{leaf}"] = take(f"{a}{hf}.{leaf}")
+        for leaf in ("weight", "bias"):
+            out[f"{b}attn.in_proj_{leaf}"] = torch.cat(
+                [take(f"{a}self_attn.{n}_proj.{leaf}") for n in "qkv"], 0)
+        i += 1
+    left = sorted(set(src) - used)
+    if left:
+        raise KeyError(f"{len(left)} Hugging Face CLIP keys not read, e.g. {left[:3]}")
+    return out
+
+
 def load_tower(module: torch.nn.Module, sd: Mapping[str, torch.Tensor], prefix: str = "",
                tower: str = "") -> None:
     """Strict load of the keys under ``prefix`` into ``module``."""
@@ -113,7 +159,10 @@ def load_mgld_checkpoint(pipe, sd: Mapping[str, torch.Tensor],
     tower; RAFT ships on its own); returns the number of shadows applied."""
     sd, n_ema = apply_litema_shadows(sd)
     for name in towers:
-        load_tower(pipe.towers()[name], sd, TOWER_PREFIXES[name], name)
+        if name == "clip" and any(k.startswith(HF_CLIP_PREFIX) for k in sd):
+            load_tower(pipe.clip, hf_clip_text_state_dict(sd), "", "clip")
+        else:
+            load_tower(pipe.towers()[name], sd, TOWER_PREFIXES[name], name)
     return n_ema
 
 

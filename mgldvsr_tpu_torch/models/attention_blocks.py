@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mgldvsr_tpu_torch.models.layers import Conv1d, GroupNorm, LayerNorm, Linear
+from mgldvsr_tpu_torch.models.layers import Conv1d, GroupNorm, LayerNorm, Linear, conv1x1
 from mgldvsr_tpu_torch.ops.attention import attend
 
 
@@ -90,26 +90,35 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """Transformer over flattened H*W with linear in/out projections (the
-    SD 2.1 ``use_linear_in_transformer`` flavour)."""
+    """Transformer over flattened H*W. ``use_linear``: linear in/out
+    projections (the SD 2.1 ``use_linear_in_transformer`` flavour), else
+    1x1 convs (weights [inner, c, 1, 1]) as SD 1.x has them."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int,
-                 context_dim: int, dtype=torch.float32):
+                 context_dim: int, dtype=torch.float32, use_linear: bool = True):
         super().__init__()
         inner = heads * dim_head
+        self.use_linear = use_linear
         self.norm = GroupNorm(channels, eps=1e-6, dtype=dtype)
-        self.proj_in = Linear(channels, inner)
+        self.proj_in = Linear(channels, inner) if use_linear else conv1x1(channels, inner)
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(inner, heads, dim_head, context_dim) for _ in range(depth)])
-        self.proj_out = Linear(inner, channels)
+        self.proj_out = Linear(inner, channels) if use_linear else conv1x1(inner, channels)
 
     def forward(self, x, context=None):
         n, c, h, w = x.shape
-        y = self.norm(x).reshape(n, c, h * w).transpose(1, 2)
-        y = self.proj_in(y)
+        y = self.norm(x)
+        if self.use_linear:
+            y = self.proj_in(y.reshape(n, c, h * w).transpose(1, 2))
+        else:
+            y = self.proj_in(y)
+            y = y.reshape(n, y.shape[1], h * w).transpose(1, 2)
         for block in self.transformer_blocks:
             y = block(y, context)
-        y = self.proj_out(y).transpose(1, 2).reshape(n, c, h, w)
+        if self.use_linear:
+            y = self.proj_out(y).transpose(1, 2).reshape(n, c, h, w)
+        else:
+            y = self.proj_out(y.transpose(1, 2).reshape(n, -1, h, w))
         return y + x
 
 

@@ -34,6 +34,16 @@ class CLIPTextConfig:
     dtype: torch.dtype = torch.float32
 
 
+def frozen_clip_vit_l_config(dtype: torch.dtype = torch.float32) -> CLIPTextConfig:
+    """The SD 1.x text tower (upstream FrozenCLIPEmbedder, Hugging Face's
+    CLIP ViT-L/14): width 768, 12 layers and heads, quick-gelu, the last
+    layer's output after the final LayerNorm. Its checkpoints carry Hugging
+    Face key names: load them through
+    :func:`mgldvsr_tpu_torch.io.torch_ckpt.hf_clip_text_state_dict`."""
+    return CLIPTextConfig(width=768, heads=12, layers=12, layer="last", act="quick_gelu",
+                          dtype=dtype)
+
+
 def empty_prompt_tokens(batch: int, context_length: int = 77, *,
                         device: torch.device | str) -> torch.Tensor:
     """Token ids of the empty prompt: [SOT, EOT, 0, ...] per row, on

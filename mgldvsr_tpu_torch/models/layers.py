@@ -28,7 +28,9 @@ state-dict keys are the same either way.
 """
 from __future__ import annotations
 
+import itertools
 import os
+from typing import Iterator, Optional
 
 import torch
 import torch.nn as nn
@@ -218,26 +220,63 @@ def timestep_embed_mlp(in_dim: int, dim: int) -> nn.Sequential:
     return nn.Sequential(Linear(in_dim, dim), nn.SiLU(), Linear(dim, dim))
 
 
+def dropout(x: torch.Tensor, p: float, seed: int) -> torch.Tensor:
+    """flax ``nn.Dropout(p)`` in training: each element kept with
+    probability 1 - p and scaled by 1 / (1 - p), else zero. The mask comes
+    from a generator seeded with ``seed`` on ``x``'s device, so a block
+    recomputed in the backward (``use_checkpoint``) draws the same mask."""
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=g, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def dropout_seeds(seed: Optional[int]) -> Optional[Iterator[int]]:
+    """The res blocks' dropout seeds of one forward: seed, seed + 1, ...
+    in call order, or None (no dropout)."""
+    return None if seed is None else itertools.count(seed)
+
+
+def next_seed(seeds: Optional[Iterator[int]]) -> Optional[int]:
+    return None if seeds is None else next(seeds)
+
+
+def norm_silu_dropout_conv(norm: GroupNorm, conv: Conv2d, x: torch.Tensor, p: float,
+                           seed) -> torch.Tensor:
+    """``conv(dropout(silu(norm(x))))`` where ``seed`` is given and ``p`` >
+    0 (the JAX blocks' ``deterministic=False`` branch), else
+    :func:`norm_silu_conv`. The fused GroupNorm+SiLU+conv chain has no
+    dropout between its SiLU and its conv, so a block that drops runs the
+    three apart."""
+    if p and seed is not None:
+        return conv(dropout(F.silu(norm(x)), p, seed))
+    return norm_silu_conv(norm, conv, x)
+
+
 class UNetResBlock(nn.Module):
     """OpenAI-UNet residual block with additive timestep conditioning
-    (keys in_layers.{0,2}, emb_layers.1, out_layers.{0,3}, skip_connection)."""
+    (keys in_layers.{0,2}, emb_layers.1, out_layers.{0,3}, skip_connection).
+    ``dropout`` acts before the second conv when a ``dropout_seed`` is
+    passed (training), never otherwise."""
 
-    def __init__(self, cin: int, cout: int, emb_channels: int, dtype=torch.float32):
+    def __init__(self, cin: int, cout: int, emb_channels: int, dtype=torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.in_layers = norm_silu_conv3x3(cin, cout, dtype)
         self.emb_layers = nn.Sequential(nn.SiLU(), Linear(emb_channels, cout))
-        # norm, SiLU, dropout 0, conv: children kept for their keys (.0, .3)
+        # norm, SiLU, dropout, conv: children kept for their keys (.0, .3)
         self.out_layers = nn.Sequential(GroupNorm(cout, dtype=dtype), nn.SiLU(),
-                                        nn.Dropout(0.0), conv3x3(cout, cout))
+                                        nn.Dropout(dropout), conv3x3(cout, cout))
         self.skip_connection = conv1x1(cin, cout) if cin != cout else nn.Identity()
 
-    def residual(self, x, emb):
+    def residual(self, x, emb, dropout_seed=None):
         h = norm_silu_conv(self.in_layers[0], self.in_layers[2], x)
         h = h + self.emb_layers(emb)[:, :, None, None].to(h.dtype)
-        return norm_silu_conv(self.out_layers[0], self.out_layers[3], h)
+        return norm_silu_dropout_conv(self.out_layers[0], self.out_layers[3], h, self.dropout,
+                                      dropout_seed)
 
-    def forward(self, x, emb):
-        h = self.residual(x, emb)
+    def forward(self, x, emb, dropout_seed=None):
+        h = self.residual(x, emb, dropout_seed)
         return self.skip_connection(x) + h
 
 

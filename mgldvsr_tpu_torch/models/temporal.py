@@ -2,7 +2,8 @@
 
 Counterpart of ``mgldvsr_tpu/models/temporal.py``. Inputs are the flattened
 video layout [B*T, C, H, W]. Both modules blend with a learnable scalar:
-out = alpha * temporal(x) + (1 - alpha) * x (key ``temporal_alpha``).
+out = alpha * temporal(x) + (1 - alpha) * x (key ``temporal_alpha``);
+``MultiDimTemporalConv`` gates by sigmoid(alpha) instead.
 """
 from __future__ import annotations
 
@@ -29,6 +30,30 @@ class SpatialTemporalConv(nn.Module):
         res = self.temporal_conv(v).permute(0, 2, 1, 3, 4).reshape(bt, c, h, w)
         alpha = self.temporal_alpha.to(x.dtype)
         return alpha * res.to(x.dtype) + (1 - alpha) * x
+
+
+class MultiDimTemporalConv(nn.Module):
+    """Two temporal convs over T, kernel 3 at dilation 1 and 2 (keys
+    ``temporal_conv1``, ``temporal_conv2``), blended by a sigmoid gate:
+    out = g * (conv1(x) + conv2(x)) + (1 - g) * x, g = sigmoid(alpha)
+    (key ``temporal_alpha``)."""
+
+    def __init__(self, channels: int, num_frames: int):
+        super().__init__()
+        self.num_frames = num_frames
+        self.temporal_conv1 = Conv3d(channels, channels, (3, 1, 1), padding=(1, 0, 0))
+        self.temporal_conv2 = Conv3d(channels, channels, (3, 1, 1), padding=(2, 0, 0),
+                                     dilation=(2, 1, 1))
+        self.temporal_alpha = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x):
+        bt, c, h, w = x.shape
+        t = self.num_frames
+        v = x.reshape(bt // t, t, c, h, w).permute(0, 2, 1, 3, 4)
+        res = self.temporal_conv1(v) + self.temporal_conv2(v)
+        res = res.permute(0, 2, 1, 3, 4).reshape(bt, c, h, w)
+        gate = torch.sigmoid(self.temporal_alpha).to(x.dtype)
+        return gate * res.to(x.dtype) + (1 - gate) * x
 
 
 class _TemporalQKV(nn.Module):

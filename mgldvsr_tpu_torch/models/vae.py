@@ -9,7 +9,13 @@ concat form; the JAX package's decomposed form is a TPU rewrite of it.
 ``use_checkpoint`` recomputes each decoder res block and fusion block in the
 backward (non-reentrant ``torch.utils.checkpoint``) instead of keeping its
 activations: the stage-2 memory lever. The JAX package's ``remat_min_res``
-(remat only above a resolution) is a TPU fit lever and is not ported.
+(remat only above a resolution) is a TPU fit lever and is not ported: the
+config takes its default 0 and refuses any other value.
+
+``dropout`` is accepted and inert, as it is in the JAX package, whose
+Encoder and Decoder never pass ``deterministic=False`` to their res blocks.
+``AutoencoderKL`` is the frozen image VAE of SD: no temporal layers, no
+fusion.
 """
 from __future__ import annotations
 
@@ -46,11 +52,21 @@ class VAEConfig:
     z_channels: int = 4
     double_z: bool = True
     embed_dim: int = 4
+    dropout: float = 0.0         # inert, as in the JAX package
     num_frames: int = 1          # >1 adds temporal mixing in the decoder
     enable_fusion: bool = False  # LQ-feature fusion taps at up-levels 1, 2
     num_fuse_block: int = 2
     use_checkpoint: bool = False  # recompute decoder blocks in the backward
+    remat_min_res: int = 0       # the JAX package's TPU-only remat selectivity: 0 only
     dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if self.remat_min_res != 0:
+            raise ValueError(
+                f"VAEConfig.remat_min_res={self.remat_min_res!r}: selective remat by "
+                f"resolution is a TPU-only option of the JAX package and is not ported; "
+                f"use use_checkpoint=True (every decoder block recomputed) and leave "
+                f"remat_min_res at 0")
 
 
 class _Level(nn.Module):
@@ -287,3 +303,27 @@ class VideoAutoencoderKLResi(nn.Module):
 
     def decode(self, z, enc_fea, fusion_w: float = 1.0):
         return self.decoder(self.post_quant_conv(z), enc_fea, fusion_w)
+
+
+class AutoencoderKL(nn.Module):
+    """The frozen SD image VAE (upstream ``AutoencoderKL``): the encoder, a
+    decoder with neither temporal layers nor fusion, and the quant convs.
+    All NCHW."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = Encoder(cfg)
+        self.decoder = Decoder(dataclasses.replace(cfg, num_frames=1, enable_fusion=False))
+        self.quant_conv = conv1x1(2 * cfg.z_channels, 2 * cfg.embed_dim)
+        self.post_quant_conv = conv1x1(cfg.embed_dim, cfg.z_channels)
+
+    def encode_moments(self, x):
+        return self.quant_conv(self.encoder(x))
+
+    def decode(self, z):
+        return self.decoder(self.post_quant_conv(z))
+
+    def forward(self, x):
+        mean, _ = self.encode_moments(x).chunk(2, dim=1)
+        return self.decode(mean)

@@ -1,4 +1,4 @@
-"""Self-attention: two CUDA kernels with an fp32 online softmax, and their
+"""Self-attention: three CUDA kernels with an fp32 online softmax, and their
 plain version.
 
 Replaces ``mgldvsr_tpu/ops/pallas/attention.py`` (``resident_attention``,
@@ -10,7 +10,7 @@ which a 227 KB shared-memory block cannot, so both kernels stream K/V tiles
 through shared memory with a running max and sum per query row and never
 write the [N, N] logits out (``csrc/attention.cu``).
 
-The wrapper chooses between two hand-written kernels by type and head dim
+The wrapper chooses between three hand-written kernels by type and head dim
 (:func:`kernel_variant`); this is a dispatch, not a fallback, and a CUDA
 tensor launches one of them or raises:
 
@@ -22,6 +22,11 @@ tensor launches one of them or raises:
   no copy and the output is written [B, N, H, D] contiguous.
 * ``"fma"``: float32 (the parity mode, no TF32) and bfloat16 at head dims
   8, 16, 32 and 128, on the fp32 FMA units over contiguous [BH, N, D].
+* ``"wide"``: head dim 512 in either type, the VAE's single-head mid
+  attention at frames of 256 to 456 px (the sizes the gate passes it at),
+  on the fp32 FMA units over contiguous [BH, N, D]: a block shares its
+  query rows' logits and output columns among its threads, which cannot
+  hold a row of 512 in registers.
 
 A CPU tensor takes the plain version. Where autograd needs a gradient, both
 entries go through an autograd Function whose forward is the same call and
@@ -38,7 +43,7 @@ import torch
 from mgldvsr_tpu_torch.ops.kernels import _build
 from mgldvsr_tpu_torch.ops.kernels.groupnorm import recompute_grads
 
-SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
+SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128, 512)
 
 
 def pick_block_q(n: int, d: int, itemsize: int, budget: int = 10 * 1024 * 1024) -> int:
@@ -55,7 +60,10 @@ def pick_block_q(n: int, d: int, itemsize: int, budget: int = 10 * 1024 * 1024) 
 
 
 def kernel_variant(dtype: torch.dtype, d: int) -> str:
-    """Which of the two kernels serves a call: ``"wgmma"`` or ``"fma"``."""
+    """Which of the three kernels serves a call: ``"wgmma"``, ``"fma"`` or
+    ``"wide"``."""
+    if d == 512:
+        return "wide"
     return "wgmma" if dtype == torch.bfloat16 and d == 64 else "fma"
 
 
@@ -173,8 +181,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     """softmax(q k^T / sqrt(d)) v for contiguous [BH, N, D] float32 or
     bfloat16 tensors; output in the input dtype. bfloat16 at head dim 64
     takes the tensor-core kernel (as the case B = 1 of its [B, N, H, D]
-    entry), everything else the FMA kernel. Differentiable: the backward
-    replays the plain version."""
+    entry), head dim 512 the wide kernel, everything else the FMA kernel.
+    Differentiable: the backward replays the plain version."""
     if _needs_grad(q, k, v):
         return _Attention.apply(q, k, v)
     return _attention(q, k, v)
@@ -198,6 +206,7 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
              float(d ** -0.5), _build.stream_ptr(q.device))
     _build.check(err, "mgld_attention")
     attention.launches += 1
+    attention.wide_launches += d == 512
     return out
 
 
@@ -206,9 +215,9 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
 
     The tensor-core variant reads each operand through its strides where
     :func:`route` allows, copies it otherwise, and writes a
-    contiguous [B, N, H, D]; the FMA variant folds all three into contiguous
-    [BH, N, D] copies and returns a permuted view. Differentiable: the
-    backward replays the plain version."""
+    contiguous [B, N, H, D]; the FMA and wide variants fold all three into
+    contiguous [BH, N, D] copies and return a permuted view.
+    Differentiable: the backward replays the plain version."""
     if _needs_grad(q, k, v):
         return _AttentionBNHD.apply(q, k, v)
     return _attention_bnhd(q, k, v)
@@ -219,7 +228,7 @@ def _attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         return attention_bnhd_plain(q, k, v)
     _check(q, k, v, 4, "[B,N,H,D]")
     b, n, h, d = q.shape
-    if kernel_variant(q.dtype, d) == "fma":
+    if kernel_variant(q.dtype, d) != "wgmma":
         out = _attention(*(_fold(z).contiguous() for z in (q, k, v)))
         return out.reshape(b, h, n, d).permute(0, 2, 1, 3)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
@@ -227,9 +236,11 @@ def _attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return out
 
 
-# launches: every launch of either kernel; wgmma_launches: those of the
-# tensor-core kernel; strided_launches: those of them that read q, k and v
-# in place through their strides, with no copy made
+# launches: every launch of any of the three kernels; wgmma_launches: those
+# of the tensor-core kernel; strided_launches: those of them that read q, k
+# and v in place through their strides, with no copy made; wide_launches:
+# those of the head-dim-512 kernel
 attention.launches = 0
 attention.wgmma_launches = 0
 attention.strided_launches = 0
+attention.wide_launches = 0

@@ -137,11 +137,19 @@ class TrainState(NamedTuple):
 class Stage1Draws(NamedTuple):
     """The four draws of one micro-step, NHWC where they are latents: the
     posterior noises of the LQ and GT encodes, the respaced timestep of each
-    frame, and the eps noise (the JAX trainer's ``split(rng, 4)``)."""
+    frame, and the eps noise (the JAX trainer's ``split(rng, 4)``). A fifth,
+    the dropout seed, is drawn only when the UNet or the struct-cond
+    encoder has ``dropout`` > 0 (None: no dropout)."""
     lq_posterior: torch.Tensor
     gt_posterior: torch.Tensor
     t: torch.Tensor
     noise: torch.Tensor
+    dropout_seed: Optional[int] = None
+
+
+# the UNet's res blocks draw their dropout masks from seed + this, k, ...,
+# the struct-cond encoder's (fewer than this many) from seed + k
+UNET_DROPOUT_SEED_OFFSET = 1024
 
 
 def _nchw(x):
@@ -222,14 +230,17 @@ class Stage1Trainer:
     # -- loss --------------------------------------------------------------
 
     def p_losses(self, z_gt: torch.Tensor, z_lq: torch.Tensor, context: torch.Tensor,
-                 t: torch.Tensor, noise: torch.Tensor):
+                 t: torch.Tensor, noise: torch.Tensor, dropout_seed: Optional[int] = None):
         """Denoising loss at per-frame respaced timesteps ``t``; latents
-        NHWC. Runs the struct-cond encoder and the UNet with gradient."""
+        NHWC. Runs the struct-cond encoder and the UNet with gradient, with
+        their dropout when ``dropout_seed`` is given."""
         sched = self.sched
         x_noisy = q_sample(sched, z_gt, t, noise)
         t_ori = sched.timestep_map[t]
-        s_cond = self.pipe.structcond(_nchw(z_lq), t_ori)
-        out = self.pipe.unet(_nchw(x_noisy), t_ori, context, s_cond).permute(0, 2, 3, 1)
+        unet_seed = None if dropout_seed is None else dropout_seed + UNET_DROPOUT_SEED_OFFSET
+        s_cond = self.pipe.structcond(_nchw(z_lq), t_ori, dropout_seed=dropout_seed)
+        out = self.pipe.unet(_nchw(x_noisy), t_ori, context, s_cond,
+                             dropout_seed=unet_seed).permute(0, 2, 3, 1)
         err = (out - noise) ** 2
         loss_simple = err.mean(dim=(1, 2, 3))
         # logvar fixed at zero (learn_logvar False): loss == loss_simple
@@ -250,7 +261,11 @@ class Stage1Trainer:
 
         lq, gt = randn(), randn()
         t = torch.randint(0, self.sched.num_timesteps, (n,), generator=generator, device=dev)
-        return Stage1Draws(lq, gt, t, randn())
+        noise = randn()
+        seed = None
+        if self.pipe.cfg.unet.dropout or self.pipe.cfg.structcond.dropout:
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator, device=dev).item())
+        return Stage1Draws(lq, gt, t, noise, seed)
 
     # -- full step ---------------------------------------------------------
 
@@ -270,7 +285,7 @@ class Stage1Trainer:
             p.grad = None
         with torch.enable_grad():
             loss, metrics = self.p_losses(z_gt, z_lq, context, draws.t.to(self.device),
-                                          draws.noise)
+                                          draws.noise, draws.dropout_seed)
             loss.backward()
         # each micro-step's gradient in float32 at once
         grads = {k: p.grad.float() for k, p in train.items()}

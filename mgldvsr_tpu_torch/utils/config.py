@@ -13,6 +13,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+_BOOLS = {"true": True, "false": False}
 
 
 def load_yaml(path: str) -> Dict:
@@ -65,9 +66,13 @@ def apply_to_dataclass(instance, cfg: Optional[Dict]):
     """``cfg`` applied on top of a dataclass instance with
     ``dataclasses.replace``: values the instance already holds survive keys
     the config does not name. Nested dataclasses recurse, lists become
-    tuples where the field holds a tuple, and ``dtype`` takes the names
-    "float32", "bfloat16" and "float16". An unknown key raises
-    ``KeyError`` naming the valid ones."""
+    tuples where the field holds a tuple, ``dtype`` takes the names
+    "float32", "bfloat16" and "float16", and a bool field takes "true" /
+    "false" in any case (``--set model.unet.use_temporal=false`` reaches
+    the config as that string; the JAX loader keeps the string, which is
+    truthy) and refuses any other string. An unknown key raises
+    ``KeyError`` naming the valid ones; a dataclass's own checks (e.g.
+    ``VAEConfig.remat_min_res``) raise ``ValueError``."""
     fields = {f.name for f in dataclasses.fields(instance)}
     kwargs: Dict[str, Any] = {}
     for key, value in (cfg or {}).items():
@@ -81,6 +86,11 @@ def apply_to_dataclass(instance, cfg: Optional[Dict]):
             if value not in _DTYPES:
                 raise KeyError(f"dtype {value!r}; valid: {sorted(_DTYPES)}")
             value = _DTYPES[value]
+        elif isinstance(current, bool) and isinstance(value, str):
+            if value.lower() not in _BOOLS:
+                raise ValueError(f"{type(instance).__name__}.{key}: {value!r} is not a bool; "
+                                 f"use true or false")
+            value = _BOOLS[value.lower()]
         elif isinstance(current, tuple) and isinstance(value, list):
             value = tuple(value)
         kwargs[key] = value

@@ -138,9 +138,33 @@ def test_attention_kernel_matches_plain(dev, dtype, n, d):
     got = attention(q, k, v).float()
     tensor_cores = int(dtype == torch.bfloat16 and d == 64)
     assert _attention_counts() == {"attention": 1, "attention_wgmma": tensor_cores,
-                                   "attention_strided": tensor_cores}
+                                   "attention_strided": tensor_cores,
+                                   "attention_wide": 0}
     torch.testing.assert_close(got, want, atol=tol, rtol=0)
     torch.testing.assert_close(got, attention_plain(q, k, v).float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1024, 1030])
+def test_vae_mid_attention_takes_the_wide_kernel_on_card(dev, dtype, n):
+    """The VAE's single-head d=512 mid attention at 32^2 latents (256 px
+    frames; and N off the 16-row tiles) passes the JAX gate and takes the
+    wide kernel, once, through the dispatch. Limits as
+    ``test_attention_kernel_matches_plain``'s, against the plain math in
+    float32 on the same values."""
+    from mgldvsr_tpu_torch.ops.attention import attend, attention_math
+
+    gen = _gen(dev, n)
+    q, k, v = (torch.randn(5, n, 1, 512, device=dev, generator=gen) for _ in range(3))
+    q, k, v = q.to(dtype), k.to(dtype), (v + 1).to(dtype)
+    want = attention_math(q.float(), k.float(), v.float())
+    tol = 1e-4 if dtype == torch.float32 else 3 * 2 ** -8 * float(want.abs().max())
+    kernels.reset_launch_counts()
+    got = attend(q, k, v)
+    assert _attention_counts() == {"attention": 1, "attention_wgmma": 0, "attention_strided": 0,
+                                   "attention_wide": 1}
+    assert got.shape == q.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
 
 
 @pytest.mark.parametrize("n", [1024, 1100])
@@ -179,11 +203,13 @@ def test_attention_strided_entry_on_card(dev, n):
     got = attention_bnhd(q, k, v)
     assert got.is_contiguous() and got.shape == (2, n, 5, 64)
     assert torch.equal(got, want)
-    assert _attention_counts() == {"attention": 1, "attention_wgmma": 1, "attention_strided": 1}
+    assert _attention_counts() == {"attention": 1, "attention_wgmma": 1,
+                                   "attention_strided": 1, "attention_wide": 0}
     chan = torch.randn(2, 5, 3, 64, n, device=dev, generator=gen).to(torch.bfloat16)
     q, k, v = chan.permute(2, 0, 4, 1, 3).unbind(0)  # [B,N,H,D] with stride N in D
     got = attention_bnhd(q, k, v)
-    assert _attention_counts() == {"attention": 2, "attention_wgmma": 2, "attention_strided": 1}
+    assert _attention_counts() == {"attention": 2, "attention_wgmma": 2,
+                                   "attention_strided": 1, "attention_wide": 0}
     want = attention(fold(q), fold(k), fold(v)).reshape(2, 5, n, 64).permute(0, 2, 1, 3)
     assert torch.equal(got, want)
     # a contiguous [BH,N,D] view whose base is 2 bytes off a 16-byte boundary
@@ -197,7 +223,8 @@ def test_attention_strided_entry_on_card(dev, n):
     assert q.is_contiguous() and q.data_ptr() % 16 == 2
     kernels.reset_launch_counts()
     got = attention_bnhd(q, k, v)
-    assert _attention_counts() == {"attention": 1, "attention_wgmma": 1, "attention_strided": 0}
+    assert _attention_counts() == {"attention": 1, "attention_wgmma": 1,
+                                   "attention_strided": 0, "attention_wide": 0}
     assert torch.equal(got, attention_bnhd(q.clone(), k.clone(), v.clone()))
 
 

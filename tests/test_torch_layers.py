@@ -88,7 +88,28 @@ def test_attention_gate_matches_jax(n, d, itemsize):
     assert pick_block_q(n, d, itemsize) == jax_pick(n, d, itemsize)
 
 
-@pytest.mark.parametrize("n,m,heads,d", [(1024, 1024, 2, 16), (64, 77, 2, 16), (1030, 1030, 1, 8)])
+@pytest.mark.parametrize("n,d,itemsize,want", [(1024, 512, 4, True), (1024, 512, 2, True),
+                                               (2304, 512, 2, True), (3249, 512, 2, True),
+                                               (3364, 512, 2, False), (2116, 512, 4, False),
+                                               (4096, 512, 2, False), (1024, 64, 2, True),
+                                               (4096, 64, 2, True), (1024, 16, 4, True),
+                                               (1000, 64, 2, False)])
+def test_attention_gate_passes_the_vae_mid_attention(n, d, itemsize, want):
+    """The port's gate is the JAX package's: self-attention with N >= 1024
+    that ``pick_block_q`` passes. So the VAE's d=512 mid attention at 32^2
+    to 57^2 latents in bf16 (to 45^2 in float32) goes to the kernel, as it
+    goes to the TPU kernel; 58^2 and 64^2 (512 px frames) do not."""
+    from mgldvsr_tpu.ops.pallas.attention import pick_block_q as jax_pick
+    from mgldvsr_tpu_torch.ops.attention import gated
+    from mgldvsr_tpu_torch.ops.kernels.attention import SUPPORTED_HEAD_DIMS
+
+    assert gated(n, n, d, itemsize) == want == (n >= 1024 and jax_pick(n, d, itemsize) > 0)
+    assert d in SUPPORTED_HEAD_DIMS
+    assert not gated(n, 77, d, itemsize)
+
+
+@pytest.mark.parametrize("n,m,heads,d", [(1024, 1024, 2, 16), (64, 77, 2, 16), (1030, 1030, 1, 8),
+                                         (1024, 1024, 1, 512)])
 def test_attend_matches_jax(n, m, heads, d):
     """Gated self-attention (through the kernel wrapper, plain on the CPU)
     and ungated cross-attention against the JAX dispatch, float32."""
