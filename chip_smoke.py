@@ -24,10 +24,13 @@ Phase 2  hold each kernel (the seven that replace a TPU kernel, the
          boundary, and a constant input. The RAFT lookup also: one launch a
          call, ragged level maps and centres far outside them.
          Attention also: ragged N, large logits, the [B,N,H,D] strided entry
-         bit for bit against the folded call, which of its three kernels
-         (tensor-core, FMA or wide) each type and head dim takes, and the
-         wide kernel at the VAE's mid attention of 256 px frames
-         ([5,1024,512], bf16 and f32) with its own times and bound.
+         bit for bit against the folded call, which of its four kernels
+         (tensor-core, FMA, and the two at head dim 512) each type and head
+         dim takes, and the head-dim-512 kernels at the VAE's mid attention
+         of 256-456 px frames (bf16 [5,1024|2304|3249,512], f32
+         [5,1024|2025,512]) with their own times and bounds, and on the
+         VAE's own views (read in place in bf16, bit for bit the folded
+         call) with the block's reshape, timed beside the copies.
          The fused GroupNorm+SiLU+conv also: shapes off its tiles, narrow
          frames, a clipped variance, the re-laid weight bit for bit, and its
          ``mma.sync`` kernel against its tensor-core kernel; the chain's one
@@ -230,8 +233,14 @@ Phase 13 full width against float32 (after phase 11, phase 4's seed and
          use_spade=False``) at phase 3's tiny widths, card against CPU: its
          forward (1e-4 of max |eps|), the restore without guidance (1e-3),
          and phase 3's guided restore on two clips, as (a)'s guided one
-         with a limit of 1e-3.
-         ``--only-fp32`` builds the kernels and runs phases 13 and 14 alone.
+         with a limit of 1e-3. (d), run after (a): phase 4's bf16 pipeline
+         at (a)'s 256 px, 2 steps, on (a)'s frames, against the fp32 twin's
+         restore on the card, held to ``BF16_256_BOUND`` (PERF.md section 6,
+         written before the first card run); the VAE's mid attention takes
+         the bf16 head-dim-512 kernel twice, reading its views in place.
+         ``--only-fp32`` builds the kernels and runs phases 13 and 14 alone;
+         ``--only-attention`` phase 2's attention checks and head-dim-512
+         rows alone.
 Phase 14 the soak tool on the card (``mgldvsr_tpu_torch.tools.soak_train
          --tiny``): the training command line as a subprocess for 40
          micro-steps, SIGUSR1 at step 10, SIGKILL, ``--resume``; the step counter must
@@ -640,7 +649,7 @@ def attention_checks(dev, gen) -> None:
 
     def counts(wgmma: int, strided: int):
         return {"attention": 1, "attention_wgmma": wgmma, "attention_strided": strided,
-                "attention_wide": 0}
+                "attention_wide": 0, "attention_wide_strided": 0}
 
     # N off the 128-row tiles: masked keys, unwritten query rows. Held against
     # the plain version in bf16 and in float32 on the same bf16 values.
@@ -695,47 +704,85 @@ def attention_checks(dev, gen) -> None:
               counts(0, 0))
 
 
+# the VAE's mid attention at the gate's smallest and largest latents: 32^2,
+# 48^2 and 57^2 in bf16 (frames of 256, 384 and 456 px), 32^2 and 45^2 in
+# float32 (256 and 360 px)
+WIDE_SHAPES = (("bf16", 1024), ("bf16", 2304), ("bf16", 3249), ("f32", 1024), ("f32", 2025))
+
+
 def wide_attention(dev, gen, card: str) -> dict:
-    """The wide kernel at the shape the gate gives it on a restore: the VAE's
-    single-head d=512 mid attention at 32^2 latents, 5 frames of 256 px,
-    in bf16 (the default towers) and float32 (the parity mode; phase 13
-    (a) runs it). Limits as the FMA kernel's: 3 bf16 ulps at max |want| in
-    bf16, 1e-4 in float32, against the plain version on the same inputs
-    and in float32 on the same values. 4 N^2 D flops a head; the bound
-    takes the type's peak (the tensor cores' for bf16)."""
+    """The head-dim-512 kernels at every shape of ``WIDE_SHAPES``, 5 frames,
+    in bf16 (the default towers; the tensor-core kernel) and float32 (the
+    parity mode, phase 13 (a); the FMA kernel). Limits as the FMA kernel's:
+    3 bf16 ulps at max |want| in bf16, 1e-4 in float32, against the plain
+    version on the same inputs and in float32 on the same values. 4 N^2 D
+    flops a head; the bound takes the type's peak (the tensor cores' for
+    bf16). Beside the kernel alone (token rows, contiguous): ``attend`` on
+    the VAE's own views with the block's reshape back to NCHW (``vae_ms``:
+    read in place in bf16 where N is a multiple of 8, copies otherwise),
+    and the same views copied into token rows first (``folded_ms``), which
+    in bf16 must give the same bits."""
     import torch
     import torch.nn.functional as F
 
     from mgldvsr_tpu_torch.ops import kernels
+    from mgldvsr_tpu_torch.ops.attention import attend
     from mgldvsr_tpu_torch.ops.kernels import attention as attn_mod
 
     out = {}
-    for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        q, k, v = attention_inputs(5, 1024, 512, dtype, dev, gen)
+    for kind, n in WIDE_SHAPES:
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        side = int(round(n ** 0.5))
+        q, k, v = attention_inputs(5, n, 512, dtype, dev, gen)
         kernels.reset_launch_counts()
         got = attn_mod.attention(q, k, v)
-        counts = {name: n for name, n in kernels.launch_counts().items() if "attention" in name}
+        counts = {name: c for name, c in kernels.launch_counts().items() if "attention" in name}
         want32 = attn_mod.attention_plain(q.float(), k.float(), v.float())
         tol = bf16_ulps(3, want32) if dtype == torch.bfloat16 else 1e-4
         err = max(max_err(got, want32), max_err(got, attn_mod.attention_plain(q, k, v)))
-        row = {"shape": f"[5,1024,512] {kind}", "max_abs_err": err, "limit": tol,
+        del want32
+        if counts != {"attention": 1, "attention_wgmma": 0, "attention_strided": 0,
+                      "attention_wide": 1, "attention_wide_strided": 1}:
+            raise AssertionError(f"attention wide [5,{n},512] {kind}: launches {counts}")
+        if not (err <= tol and torch.isfinite(got).all()):
+            raise AssertionError(f"attention wide [5,{n},512] {kind}: {err:.3e} > {tol:.3e}")
+        # the same values as the VAE hands them over: [5,512,N] viewed [5,N,1,512]
+        views = [z.transpose(1, 2).contiguous().transpose(1, 2)[:, :, None] for z in (q, k, v)]
+
+        def vae():
+            return attend(*views)[:, :, 0].transpose(1, 2).reshape(5, 512, side, side)
+
+        def folded():
+            o = attn_mod.attention(*(z[:, :, 0].contiguous() for z in views))
+            return o.transpose(1, 2).reshape(5, 512, side, side)
+
+        kernels.reset_launch_counts()
+        through_views = vae()
+        in_place = kernels.launch_counts()["attention_wide_strided"]
+        if in_place != int(dtype == torch.bfloat16 and n % 8 == 0):
+            raise AssertionError(f"attention wide [5,{n},512] {kind}: the VAE's views were "
+                                 f"read in place {in_place} times")
+        same = torch.equal(through_views, folded())
+        if dtype == torch.bfloat16 and not same:
+            raise AssertionError(f"attention wide [5,{n},512] bf16: the VAE's views differ "
+                                 f"from the folded call by {max_err(through_views, folded()):.3e}")
+        row = {"shape": f"[5,{n},512] {kind}", "max_abs_err": err, "limit": tol,
                "ms": cuda_ms(lambda: attn_mod.attention(q, k, v), iters=10),
                "plain_ms": cuda_ms(lambda: attn_mod.attention_plain(q, k, v), iters=10),
                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                   q[None], k[None], v[None]), iters=10)}
+                   q[None], k[None], v[None]), iters=10),
+               "vae_ms": cuda_ms(vae, iters=10), "vae_in_place": bool(in_place),
+               "folded_ms": cuda_ms(folded, iters=10), "vae_equals_folded": same}
         row["bound_ms"], row["bound_by"] = bound(nbytes(q, k, v, got),
-                                                 4.0 * 5 * 1024 * 1024 * 512, kind)
-        log(f"[phase2] attention wide [5,1024,512] {kind} vs the plain version: max_abs_err "
+                                                 4.0 * 5 * n * n * 512, kind)
+        log(f"[phase2] attention wide [5,{n},512] {kind} vs the plain version: max_abs_err "
             f"{err:.3e} (limit {tol:.3e}) kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {counts}  [{card}]")
-        if counts != {"attention": 1, "attention_wgmma": 0, "attention_strided": 0,
-                      "attention_wide": 1}:
-            raise AssertionError(f"attention wide {kind}: launches {counts}")
-        if not (err <= tol and torch.isfinite(got).all()):
-            raise AssertionError(f"attention wide {kind}: {err:.3e} > {tol:.3e}")
-        out[kind] = row
-        del q, k, v, got, want32
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); the VAE's views "
+            f"{'in place' if in_place else 'copied'} {row['vae_ms']:.4f} ms, copied into "
+            f"token rows {row['folded_ms']:.4f} ms, the same bits: {same}; {counts}  [{card}]")
+        out[row["shape"]] = row
+        del q, k, v, got, views, through_views
     return out
 
 
@@ -961,8 +1008,10 @@ def phase2(card: str):
         f"[8,4224,64] (264 blocks, two to an SM) {wave_ms[8]:.4f} ms = "
         f"{4e-9 * 8 * 4224 * 4224 * 64 / wave_ms[8]:.0f} TFLOP/s  [{card}]")
     results["attention"]["variant"] = ("wgmma (attention_wgmma_kernel) for bf16 at head dim 64; "
-                                       "wide (attention_wide_kernel) at head dim 512; "
-                                       "fma (attention_kernel) for f32 and other head dims")
+                                       "wide_wgmma (attention_wide_wgmma_kernel) for bf16 and "
+                                       "wide_fma (attention_wide_fma_kernel) for f32 at head "
+                                       "dim 512; fma (attention_kernel) for f32 and other "
+                                       "head dims")
     attention_checks(dev, gen)
     results["attention"]["wide"] = wide_attention(dev, gen, card)
 
@@ -3835,6 +3884,12 @@ UNGUIDED_LIMIT = 1e-4
 # (1.28x the reading: both restores repeat bit for bit from run to run),
 # the mean at the 0.05 written first.
 BF16_BOUND = {"max": 0.6, "mean": 0.05}
+# (d)'s bound on phase 4's bf16 pipeline at 256 px, 2 steps, against (a)'s
+# fp32 restore on the card, written before the first card run: about 3x the
+# port's own bf16 drift on the CPU at that size and step count
+# (tests/test_torch_full_width.py: max 0.164, mean 9.3e-3, 37.6 dB), the
+# bound that test holds the CPU drift to
+BF16_256_BOUND = {"max": 0.5, "mean": 0.03}
 
 
 def guidance_residuals(latents, flows, masks, t: int, mode: str) -> list:
@@ -4100,6 +4155,49 @@ def phase13_bf16_vs_fp32(pipe16, pipe32, frames, steps: int, card: str) -> dict:
     return out
 
 
+def phase13_bf16_256(pipe16, pipe32, seed: int, card: str) -> dict:
+    """(d) phase 4's bf16 pipeline at (a)'s 256 px, 2 steps, deterministic,
+    on (a)'s frames: the VAE's mid attention on the bf16 head-dim-512
+    kernel (encode and decode, reading the VAE's views in place), held
+    against the fp32 twin's restore of the same frames on the card within
+    ``BF16_256_BOUND``."""
+    import torch
+
+    from mgldvsr_tpu_torch.infer.pipeline import upscale_frames
+    from mgldvsr_tpu_torch.ops import kernels
+
+    steps = 2
+    frames = upscale_frames(torch.from_numpy(lq_clip(seed + 3, 64)), 4).cuda()
+    outs, counts, secs = {}, {}, {}
+    for name, pipe in (("fp32", pipe32), ("bf16", pipe16)):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[name] = with_steps(pipe, steps).restore_segment(frames, deterministic=True)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        counts[name] = kernels.launch_counts()
+    d = (outs["bf16"].float() - outs["fp32"]).abs()
+    out = {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
+           "psnr_db": float(10 * torch.log10(1.0 / (d * d).mean())), "seconds": secs,
+           "bound": BF16_256_BOUND, "counts": counts["bf16"]}
+    attn = {k: n for k, n in counts["bf16"].items() if "attention" in k}
+    log(f"[phase13] (d) bf16 (phase 4's weights) vs fp32 on the card, 256x256, {steps} steps, "
+        f"deterministic: max |d| {out['max_abs']:.4e} (bound {BF16_256_BOUND['max']}), mean |d| "
+        f"{out['mean_abs']:.4e} (bound {BF16_256_BOUND['mean']}), PSNR {out['psnr_db']:.2f} dB; "
+        f"bf16 {secs['bf16']:.2f} s, fp32 {secs['fp32']:.2f} s; {attn}  [{card}]")
+    if outs["bf16"].shape != frames.shape or not torch.isfinite(outs["bf16"]).all():
+        raise AssertionError(f"phase 13 (d): output {tuple(outs['bf16'].shape)} is not finite")
+    # 7 gated calls a step on the head-dim-64 tensor-core kernel (the 32^2
+    # level's), the VAE's mid attention twice on the wide one, in place
+    if (attn["attention_wgmma"], attn["attention_wide"], attn["attention_wide_strided"],
+            attn["attention"]) != (7 * steps, 2, 2, 7 * steps + 2):
+        raise AssertionError(f"phase 13 (d): attention launches {attn}")
+    fp32_launches(counts["fp32"], steps, 7, "phase 13 (d)", wide=2)
+    if not (out["max_abs"] <= BF16_256_BOUND["max"] and out["mean_abs"] <= BF16_256_BOUND["mean"]):
+        raise AssertionError(f"phase 13 (d): bf16 against fp32 beyond the bound: {out}")
+    return out
+
+
 def phase13_stock_unet(seed: int, card: str) -> dict:
     """(c) the stock UNet at tiny widths, card against CPU: its forward; the
     restore without guidance; the guided restore (phase 3's) on two clips
@@ -4151,8 +4249,9 @@ def phase13_stock_unet(seed: int, card: str) -> dict:
 
 
 def phase13(pipe16, frames, seed: int, steps: int, card: str) -> dict:
-    """Full width against float32: (a) card against CPU, (b) bf16 against
-    fp32, (c) the stock UNet at tiny widths."""
+    """Full width against float32: (a) card against CPU, (d) bf16 against
+    fp32 at (a)'s size, (b) bf16 against fp32 at 512 px, (c) the stock UNet
+    at tiny widths."""
     import torch
 
     from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline
@@ -4169,6 +4268,7 @@ def phase13(pipe16, frames, seed: int, steps: int, card: str) -> dict:
             if not torch.equal(v.to(sd16[k].dtype), sd16[k]):
                 raise AssertionError(f"phase 13: the fp32 twin's {name}.{k} is not phase 4's")
     out = {"card_vs_cpu": phase13_card_vs_cpu(pipe32, seed, card),
+           "bf16_256px": phase13_bf16_256(pipe16, pipe32, seed, card),
            "bf16_vs_fp32": phase13_bf16_vs_fp32(pipe16, pipe32, frames, steps, card),
            "stock_unet": phase13_stock_unet(seed, card)}
     del pipe32
@@ -4246,6 +4346,9 @@ def main() -> int:
     ap.add_argument("--only-train-parallel", action="store_true",
                     help="build the kernels and run phases 8 (b) and 9 (b)'s straight runs and "
                          "phase 12 (no result line)")
+    ap.add_argument("--only-attention", action="store_true",
+                    help="build the kernels and run phase 2's attention checks and the "
+                         "head-dim-512 kernels alone (no result line)")
     ap.add_argument("--only-fp32", action="store_true",
                     help="build the kernels and run phases 13 and 14 alone (no result line)")
     args = ap.parse_args()
@@ -4281,6 +4384,12 @@ def main() -> int:
     if args.only_parallel:
         pipe, frames = full_pipeline(args.seed, args.steps)
         log(json.dumps(phase11(pipe, frames, args.seed, card), default=str))
+        return 0
+    if args.only_attention:
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        attention_checks(dev, gen)
+        log(json.dumps(wide_attention(dev, gen, card)))
         return 0
     if args.only_fp32:
         pipe, frames = full_pipeline(args.seed, args.steps)
@@ -4344,6 +4453,7 @@ def main() -> int:
             entry["wgmma_launches"] = counts4["attention_wgmma"]
             entry["strided_launches"] = counts4["attention_strided"]
             entry["wide_launches_fp32_256px"] = fp32["card_vs_cpu"]["counts"]["attention_wide"]
+            entry["wide_launches_bf16_256px"] = fp32["bf16_256px"]["counts"]["attention_wide"]
         if entry["name"] == "gn_silu_conv3x3":
             entry["wgmma_launches"] = counts5["gn_silu_conv3x3_wgmma"]
     log(json.dumps({"kernels": kernels}))

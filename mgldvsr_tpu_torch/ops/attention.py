@@ -17,7 +17,11 @@ run on the tensor cores, and the kernel reads q, k and v through their
 [B, N, H, D] contiguous, so merging the heads is a view too. The
 struct-cond encoder's ``QKVAttentionBlock`` views have stride N in D; those
 are copied once each. float32 and other head dims take the FMA kernel over
-folded copies, and head dim 512 the wide kernel over folded copies.
+folded copies. Head dim 512 (the VAE's ``VAEAttnBlock``) takes the wide
+kernels: in bfloat16 its q, k, v views of NCHW 1x1-conv outputs (stride N
+in D) are read in place where N is a multiple of 8, and the output comes
+back as a view of a [B, 512, N] tensor, so the block's reshape to NCHW is a
+view too; float32 copies them into token rows.
 """
 from __future__ import annotations
 

@@ -52,6 +52,10 @@ SIGNATURES = {
     "mgld_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     # q, k, v, o, batch, heads, n, strides[12], scale, stream
     "mgld_attention_wgmma_bf16": (_P, _P, _P, _P, _I, _I, _I, _LP, _F, _P),
+    # q, k, v, o, batch, n, tok_major, strides[8], scale, stream
+    "mgld_attention_wide_bf16": (_P, _P, _P, _P, _I, _I, _I, _LP, _F, _P),
+    # q, k, v, o, batch, n, strides[8], scale, stream
+    "mgld_attention_wide_f32": (_P, _P, _P, _P, _I, _I, _LP, _F, _P),
     # levels[n_levels][3] (address, hl, wl), coords, out, b, hw, n_levels, radius, stream
     "mgld_corr_lookup_f32": (_LP, _P, _P, _I, _I, _I, _I, _P),
     # x, scale, shift, weight, bias, out, n, c, h, w, co, stream

@@ -1,4 +1,4 @@
-"""Self-attention: three CUDA kernels with an fp32 online softmax, and their
+"""Self-attention: four CUDA kernels with an fp32 online softmax, and their
 plain version.
 
 Replaces ``mgldvsr_tpu/ops/pallas/attention.py`` (``resident_attention``,
@@ -6,11 +6,11 @@ whose kernel is ``_attn_kernel``). The work is bound by operations on the
 H100 (4 N^2 D flops per head against 4 N D elements moved; at D = 64 the
 softmax's exponentials cost about as many clocks as the two products do on
 the tensor cores). The TPU kernel held a head's K/V resident in fast memory,
-which a 227 KB shared-memory block cannot, so both kernels stream K/V tiles
+which a 227 KB shared-memory block cannot, so the kernels stream K/V tiles
 through shared memory with a running max and sum per query row and never
 write the [N, N] logits out (``csrc/attention.cu``).
 
-The wrapper chooses between three hand-written kernels by type and head dim
+The wrapper chooses between four hand-written kernels by type and head dim
 (:func:`kernel_variant`); this is a dispatch, not a fallback, and a CUDA
 tensor launches one of them or raises:
 
@@ -22,11 +22,15 @@ tensor launches one of them or raises:
   no copy and the output is written [B, N, H, D] contiguous.
 * ``"fma"``: float32 (the parity mode, no TF32) and bfloat16 at head dims
   8, 16, 32 and 128, on the fp32 FMA units over contiguous [BH, N, D].
-* ``"wide"``: head dim 512 in either type, the VAE's single-head mid
-  attention at frames of 256 to 456 px (the sizes the gate passes it at),
-  on the fp32 FMA units over contiguous [BH, N, D]: a block shares its
-  query rows' logits and output columns among its threads, which cannot
-  hold a row of 512 in registers.
+* ``"wide_wgmma"``: bfloat16 at head dim 512, the VAE's single-head mid
+  attention at frames of 256 to 456 px (the sizes the gate passes it at).
+  The ``"wgmma"`` kernel's scheme with 64-column sub-tiles of D; two
+  warpgroups own 256 output columns each. It reads one head's operands in
+  place in either layout :func:`wide_layout` names: token rows, or the
+  VAE's d rows (its q, k, v are NCHW 1x1-conv outputs), which it also
+  writes, so the VAE's reshape back to NCHW is a view.
+* ``"wide_fma"``: float32 at head dim 512 (the VAE's mid attention at 256
+  to 360 px), an FMA kernel tiled in registers over token rows.
 
 A CPU tensor takes the plain version. Where autograd needs a gradient, both
 entries go through an autograd Function whose forward is the same call and
@@ -44,6 +48,7 @@ from mgldvsr_tpu_torch.ops.kernels import _build
 from mgldvsr_tpu_torch.ops.kernels.groupnorm import recompute_grads
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128, 512)
+WIDE = 512  # the head dim of the VAE's mid attention, served by the wide kernels
 
 
 def pick_block_q(n: int, d: int, itemsize: int, budget: int = 10 * 1024 * 1024) -> int:
@@ -60,21 +65,45 @@ def pick_block_q(n: int, d: int, itemsize: int, budget: int = 10 * 1024 * 1024) 
 
 
 def kernel_variant(dtype: torch.dtype, d: int) -> str:
-    """Which of the three kernels serves a call: ``"wgmma"``, ``"fma"`` or
-    ``"wide"``."""
-    if d == 512:
-        return "wide"
+    """Which of the four kernels serves a call: ``"wgmma"``, ``"fma"``,
+    ``"wide_wgmma"`` or ``"wide_fma"``."""
+    if d == WIDE:
+        return "wide_wgmma" if dtype == torch.bfloat16 else "wide_fma"
     return "wgmma" if dtype == torch.bfloat16 and d == 64 else "fma"
+
+
+def wide_layout(dtype: torch.dtype, shape: tuple[int, ...], strides: tuple[int, ...],
+                byte_offset: int = 0) -> str | None:
+    """How a head-dim-512 kernel reads one [B, N, H, 512] operand in place:
+    ``"nd"`` (token rows: unit stride in D), ``"dn"`` (d rows: unit stride
+    in N, as the VAE's NCHW conv outputs give them; bfloat16 only, N a
+    multiple of 8), or None (the caller copies it into token rows). Either
+    needs one head and the base (``byte_offset`` from a 16-byte boundary),
+    the row stride and, with more than one batch, the batch stride on
+    16-byte boundaries, the size of the kernels' loads."""
+    b, n, h, d = shape
+    sb, sn, _, sd = strides
+    itemsize = torch.finfo(dtype).bits // 8
+    if d != WIDE or h != 1 or byte_offset % 16 or (b > 1 and sb * itemsize % 16):
+        return None
+    if sd == 1 and sn * itemsize % 16 == 0:
+        return "nd"
+    if dtype == torch.bfloat16 and sn == 1 and sd * itemsize % 16 == 0 and n % 8 == 0:
+        return "dn"
+    return None
 
 
 def route(dtype: torch.dtype, shape: tuple[int, ...], strides: tuple[int, ...],
           byte_offset: int = 0) -> bool:
     """Whether the kernel reads one [B, N, H, D] operand of a gated call in
-    place. The tensor-core kernel reads a view through its strides when D
-    has unit stride and the base (``byte_offset`` from a 16-byte boundary)
-    and the batch, row and head strides are multiples of 16 bytes, the size
-    of its loads; otherwise the caller copies the view. The FMA kernel takes
-    folded contiguous copies only."""
+    place. The tensor-core kernel at head dim 64 reads a view through its
+    strides when D has unit stride and the base (``byte_offset`` from a
+    16-byte boundary) and the batch, row and head strides are multiples of
+    16 bytes, the size of its loads; otherwise the caller copies the view.
+    At head dim 512 :func:`wide_layout` decides. The FMA kernel takes folded
+    contiguous copies only."""
+    if shape[-1] == WIDE:
+        return wide_layout(dtype, shape, strides, byte_offset) is not None
     itemsize = torch.finfo(dtype).bits // 8
     *outer, last = strides
     return (kernel_variant(dtype, shape[-1]) == "wgmma" and last == 1 and byte_offset % 16 == 0
@@ -145,6 +174,40 @@ def _launch_wgmma(q, k, v, out) -> None:
     attention.strided_launches += all(a is z for a, z in zip((q, k, v), views))
 
 
+def _launch_wide(q, k, v) -> torch.Tensor:
+    """A head-dim-512 kernel on one head's [B,N,1,512] views -> [B,N,1,512].
+    All three in the ``"dn"`` layout are read in place and the output is
+    written d rows too (a [B,512,N] tensor, viewed); otherwise each operand
+    that is not in ``"nd"`` is copied into token rows, and the output is
+    written so. Counts a strided launch when no operand was copied."""
+    b, n, _, d = q.shape
+    views = (q, k, v)
+    layouts = [wide_layout(z.dtype, z.shape, z.stride(), z.data_ptr()) for z in views]
+    tok = layouts == ["dn"] * 3
+    if tok:
+        out = torch.empty((b, d, n), dtype=q.dtype, device=q.device).transpose(1, 2)[:, :, None]
+    else:
+        q, k, v = (z if lay == "nd" else z.clone(memory_format=torch.contiguous_format)
+                   for z, lay in zip(views, layouts))
+        out = torch.empty((b, n, 1, d), dtype=q.dtype, device=q.device)
+    row = 3 if tok else 1
+    strides = (ctypes.c_longlong * 8)(*(s for z in (q, k, v, out)
+                                        for s in (z.stride(0), z.stride(row))))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    lib = _build.library()
+    if q.dtype == torch.bfloat16:
+        err = lib.mgld_attention_wide_bf16(*ptrs, b, n, int(tok), strides, d ** -0.5,
+                                           _build.stream_ptr(q.device))
+    else:
+        err = lib.mgld_attention_wide_f32(*ptrs, b, n, strides, d ** -0.5,
+                                          _build.stream_ptr(q.device))
+    _build.check(err, "mgld_attention_wide")
+    attention.launches += 1
+    attention.wide_launches += 1
+    attention.wide_strided_launches += all(a is z for a, z in zip((q, k, v), views))
+    return out
+
+
 def _needs_grad(q, k, v) -> bool:
     return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
 
@@ -181,7 +244,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     """softmax(q k^T / sqrt(d)) v for contiguous [BH, N, D] float32 or
     bfloat16 tensors; output in the input dtype. bfloat16 at head dim 64
     takes the tensor-core kernel (as the case B = 1 of its [B, N, H, D]
-    entry), head dim 512 the wide kernel, everything else the FMA kernel.
+    entry), head dim 512 a wide kernel (as BH batches of one head),
+    everything else the FMA kernel.
     Differentiable: the backward replays the plain version."""
     if _needs_grad(q, k, v):
         return _Attention.apply(q, k, v)
@@ -195,6 +259,8 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention: tensors must be contiguous")
     bh, n, d = q.shape
+    if d == WIDE:
+        return _launch_wide(*(z[:, :, None] for z in (q, k, v)))[:, :, 0]
     out = torch.empty_like(q)
     if kernel_variant(q.dtype, d) == "wgmma":
         # [BH,N,D] is the case B = 1 of [B,N,H,D] with the heads outermost
@@ -206,7 +272,6 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
              float(d ** -0.5), _build.stream_ptr(q.device))
     _build.check(err, "mgld_attention")
     attention.launches += 1
-    attention.wide_launches += d == 512
     return out
 
 
@@ -215,8 +280,11 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
 
     The tensor-core variant reads each operand through its strides where
     :func:`route` allows, copies it otherwise, and writes a
-    contiguous [B, N, H, D]; the FMA and wide variants fold all three into
-    contiguous [BH, N, D] copies and return a permuted view.
+    contiguous [B, N, H, D]. The wide variants take one head's operands as
+    :func:`_launch_wide` says (the VAE's NCHW views in place, their output a
+    view of [B, 512, N]); the FMA variant, and the wide ones at more heads,
+    fold all three into contiguous [BH, N, D] copies and return a permuted
+    view.
     Differentiable: the backward replays the plain version."""
     if _needs_grad(q, k, v):
         return _AttentionBNHD.apply(q, k, v)
@@ -228,6 +296,8 @@ def _attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         return attention_bnhd_plain(q, k, v)
     _check(q, k, v, 4, "[B,N,H,D]")
     b, n, h, d = q.shape
+    if d == WIDE and h == 1:
+        return _launch_wide(q, k, v)
     if kernel_variant(q.dtype, d) != "wgmma":
         out = _attention(*(_fold(z).contiguous() for z in (q, k, v)))
         return out.reshape(b, h, n, d).permute(0, 2, 1, 3)
@@ -236,11 +306,13 @@ def _attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return out
 
 
-# launches: every launch of any of the three kernels; wgmma_launches: those
-# of the tensor-core kernel; strided_launches: those of them that read q, k
-# and v in place through their strides, with no copy made; wide_launches:
-# those of the head-dim-512 kernel
+# launches: every launch of any of the four kernels; wgmma_launches: those
+# of the head-dim-64 tensor-core kernel; strided_launches: those of them that
+# read q, k and v in place through their strides, with no copy made;
+# wide_launches: those of the two head-dim-512 kernels; wide_strided_launches:
+# those of them that read q, k and v in place
 attention.launches = 0
 attention.wgmma_launches = 0
 attention.strided_launches = 0
 attention.wide_launches = 0
+attention.wide_strided_launches = 0

@@ -139,32 +139,75 @@ def test_attention_kernel_matches_plain(dev, dtype, n, d):
     tensor_cores = int(dtype == torch.bfloat16 and d == 64)
     assert _attention_counts() == {"attention": 1, "attention_wgmma": tensor_cores,
                                    "attention_strided": tensor_cores,
-                                   "attention_wide": 0}
+                                   "attention_wide": 0, "attention_wide_strided": 0}
     torch.testing.assert_close(got, want, atol=tol, rtol=0)
     torch.testing.assert_close(got, attention_plain(q, k, v).float(), atol=tol, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [1024, 1030])
+def _vae_views(dev, n, dtype, seed):
+    """q, k, v as the VAE's mid attention hands them over: [5, 512, N]
+    1x1-conv outputs (NCHW, flattened) viewed as [5, N, 1, 512], stride N in
+    D. v has mean 1 (outputs O(1))."""
+    gen = _gen(dev, seed)
+    q, k, v = (torch.randn(5, 512, n, device=dev, generator=gen) for _ in range(3))
+    return [z.to(dtype).transpose(1, 2)[:, :, None] for z in (q, k, v + 1)]
+
+
+@pytest.mark.parametrize("dtype,n", [(torch.bfloat16, 1024), (torch.bfloat16, 1030),
+                                     (torch.bfloat16, 2304), (torch.bfloat16, 3249),
+                                     (torch.float32, 1024), (torch.float32, 2025)])
 def test_vae_mid_attention_takes_the_wide_kernel_on_card(dev, dtype, n):
-    """The VAE's single-head d=512 mid attention at 32^2 latents (256 px
-    frames; and N off the 16-row tiles) passes the JAX gate and takes the
-    wide kernel, once, through the dispatch. Limits as
+    """The VAE's single-head d=512 mid attention at the gate's smallest and
+    largest latents (32^2 to 57^2 in bf16, to 45^2 in float32; and N off the
+    64-row tiles) passes the JAX gate and takes a wide kernel, once, through
+    the dispatch, on the VAE's own views. bf16 reads them in place where N
+    is a multiple of 8 and writes [5, 512, N], so the reshape back to NCHW
+    is a view; otherwise they are copied. Limits as
     ``test_attention_kernel_matches_plain``'s, against the plain math in
     float32 on the same values."""
     from mgldvsr_tpu_torch.ops.attention import attend, attention_math
 
-    gen = _gen(dev, n)
-    q, k, v = (torch.randn(5, n, 1, 512, device=dev, generator=gen) for _ in range(3))
-    q, k, v = q.to(dtype), k.to(dtype), (v + 1).to(dtype)
+    q, k, v = _vae_views(dev, n, dtype, n)
     want = attention_math(q.float(), k.float(), v.float())
     tol = 1e-4 if dtype == torch.float32 else 3 * 2 ** -8 * float(want.abs().max())
     kernels.reset_launch_counts()
     got = attend(q, k, v)
+    in_place = int(dtype == torch.bfloat16 and n % 8 == 0)
     assert _attention_counts() == {"attention": 1, "attention_wgmma": 0, "attention_strided": 0,
-                                   "attention_wide": 1}
+                                   "attention_wide": 1, "attention_wide_strided": in_place}
     assert got.shape == q.shape and got.dtype == dtype
+    assert got[:, :, 0].transpose(1, 2).is_contiguous() == bool(in_place)
     torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("n", [1024, 2304])
+def test_wide_attention_vae_views_equal_the_folded_call_on_card(dev, n):
+    """bf16 at d=512: the VAE's views read in place (d rows) equal the same
+    values folded into contiguous token rows, bit for bit."""
+    q, k, v = _vae_views(dev, n, torch.bfloat16, n + 7)
+    kernels.reset_launch_counts()
+    got = attention_bnhd(q, k, v)
+    assert kernels.launch_counts()["attention_wide_strided"] == 1
+    want = attention(*(z[:, :, 0].contiguous() for z in (q, k, v)))
+    assert kernels.launch_counts()["attention_wide_strided"] == 2  # contiguous rows: in place
+    assert torch.equal(got[:, :, 0], want)
+
+
+@pytest.mark.parametrize("n", [1024, 1030])
+def test_wide_attention_large_logits_on_card(dev, n):
+    """bf16 at d=512 with q scaled by 8 (logits of tens: the running max
+    moves and the accumulator is rescaled from tile to tile), against the
+    plain version in float32 on the same values, 2e-2, as at d = 64."""
+    gen = _gen(dev, n + 3)
+    q, k, v = (torch.randn(5, n, 512, device=dev, generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    q = q * 8
+    kernels.reset_launch_counts()
+    got = attention(q, k, v)
+    assert kernels.launch_counts()["attention_wide"] == 1
+    assert torch.isfinite(got).all()
+    want = attention_plain(q.float(), k.float(), v.float())
+    torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=0)
 
 
 @pytest.mark.parametrize("n", [1024, 1100])
@@ -204,12 +247,14 @@ def test_attention_strided_entry_on_card(dev, n):
     assert got.is_contiguous() and got.shape == (2, n, 5, 64)
     assert torch.equal(got, want)
     assert _attention_counts() == {"attention": 1, "attention_wgmma": 1,
-                                   "attention_strided": 1, "attention_wide": 0}
+                                   "attention_strided": 1, "attention_wide": 0,
+                                   "attention_wide_strided": 0}
     chan = torch.randn(2, 5, 3, 64, n, device=dev, generator=gen).to(torch.bfloat16)
     q, k, v = chan.permute(2, 0, 4, 1, 3).unbind(0)  # [B,N,H,D] with stride N in D
     got = attention_bnhd(q, k, v)
     assert _attention_counts() == {"attention": 2, "attention_wgmma": 2,
-                                   "attention_strided": 1, "attention_wide": 0}
+                                   "attention_strided": 1, "attention_wide": 0,
+                                   "attention_wide_strided": 0}
     want = attention(fold(q), fold(k), fold(v)).reshape(2, 5, n, 64).permute(0, 2, 1, 3)
     assert torch.equal(got, want)
     # a contiguous [BH,N,D] view whose base is 2 bytes off a 16-byte boundary
@@ -224,7 +269,8 @@ def test_attention_strided_entry_on_card(dev, n):
     kernels.reset_launch_counts()
     got = attention_bnhd(q, k, v)
     assert _attention_counts() == {"attention": 1, "attention_wgmma": 1,
-                                   "attention_strided": 0, "attention_wide": 0}
+                                   "attention_strided": 0, "attention_wide": 0,
+                                   "attention_wide_strided": 0}
     assert torch.equal(got, attention_bnhd(q.clone(), k.clone(), v.clone()))
 
 

@@ -97,14 +97,16 @@ def test_attention_plain_matches_resident_attention(n, d):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
-def _tiled_attention(q, k, v, q_rows=128, key_tile=128):
-    """The tensor-core kernel's arithmetic, tile by tile, in plain tensor
+def _tiled_attention(q, k, v, q_rows=128, key_tile=128, d_tile=None):
+    """The tensor-core kernels' arithmetic, tile by tile, in plain tensor
     code: blocks of ``q_rows`` query rows walk ``key_tile``-key tiles (rows
-    past N zero-filled) with a running max and sum in float32; keys >= N are
-    masked to -inf before the max; P = exp2(S scale log2e - max) is rounded
-    to the input type before P V, while the sum keeps the float32 values;
-    the accumulator is rescaled by exp2(old max - new max); query rows >= N
-    are never written."""
+    past N zero-filled) with a running max and sum in float32; S is summed
+    in float32 over ``d_tile``-wide sub-tiles of D where given (the
+    head-dim-512 kernel's 64-column sub-tiles); keys >= N are masked to -inf
+    before the max; P = exp2(S scale log2e - max) is rounded to the input
+    type before P V, while the sum keeps the float32 values; the accumulator
+    is rescaled by exp2(old max - new max); query rows >= N are never
+    written."""
     bh, n, d = q.shape
     scale_log2 = d ** -0.5 * 1.4426950408889634
     tiles = -(-n // key_tile)
@@ -120,7 +122,11 @@ def _tiled_attention(q, k, v, q_rows=128, key_tile=128):
         for j in range(tiles):
             kt = kp[:, j * key_tile:(j + 1) * key_tile].float()
             vt = vp[:, j * key_tile:(j + 1) * key_tile]
-            s = qt @ kt.transpose(1, 2)
+            if d_tile is None:
+                s = qt @ kt.transpose(1, 2)
+            else:
+                s = sum(qt[..., c:c + d_tile] @ kt[..., c:c + d_tile].transpose(1, 2)
+                        for c in range(0, d, d_tile))
             keys = j * key_tile + torch.arange(key_tile)
             s = s.masked_fill(keys >= n, float("-inf"))
             m_new = torch.maximum(m, s.amax(-1))
@@ -165,6 +171,51 @@ def test_tiled_attention_arithmetic_matches_resident_attention(n, q_rows):
     want = resident_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 128, True)
     got = _tiled_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), q_rows)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("scale", [1, 8])
+def test_tiled_wide_attention_arithmetic_matches_plain(scale):
+    """The bf16 head-dim-512 kernel's arithmetic: 64-row blocks, 64-key
+    tiles, S over eight 64-column sub-tiles of D, the fp32 online softmax
+    and P rounded to bf16 before P V, on bf16 values at [2,1030,512] (N off
+    the tiles) against the plain version in float32 on the same values: 3
+    bf16 ulps at max |want|, the card's limit; with q scaled by 8 (logits of
+    tens, the max moving from tile to tile) 2e-2, the card's limit there."""
+    rs = np.random.RandomState(1030 + scale)
+    q, k, v = (torch.from_numpy(rs.randn(2, 1030, 512).astype(np.float32)) for _ in range(3))
+    q, k, v = (q * scale).to(torch.bfloat16), k.to(torch.bfloat16), (v + 1).to(torch.bfloat16)
+    got = _tiled_attention(q, k, v, q_rows=64, key_tile=64, d_tile=64).float()
+    want = attention_plain(q.float(), k.float(), v.float())
+    tol = 3 * 2 ** -8 * float(want.abs().max()) if scale == 1 else 2e-2
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol, rtol=0)
+
+
+def _vae_mid_views(n, dtype):
+    """The VAE's mid-attention operands without memory: a [5, 512, N]
+    1x1-conv output viewed [5, N, 1, 512], stride N in D."""
+    return torch.empty(5, 512, n, dtype=dtype, device="meta").transpose(1, 2)[:, :, None]
+
+
+@pytest.mark.parametrize("dtype,view,offset,want", [
+    (torch.bfloat16, lambda: _vae_mid_views(1024, torch.bfloat16), 0, "dn"),   # 256 px
+    (torch.bfloat16, lambda: _vae_mid_views(2304, torch.bfloat16), 0, "dn"),   # 384 px
+    (torch.bfloat16, lambda: _vae_mid_views(3249, torch.bfloat16), 0, None),   # 456 px: N odd
+    (torch.bfloat16, lambda: _vae_mid_views(1030, torch.bfloat16), 0, None),   # N % 8 = 6
+    (torch.float32, lambda: _vae_mid_views(1024, torch.float32), 0, None),     # fp32: rows only
+    (torch.bfloat16, lambda: _vae_mid_views(1024, torch.bfloat16), 2, None),   # base off 16 B
+    (torch.bfloat16, lambda: torch.empty(5, 3249, 1, 512, dtype=torch.bfloat16), 0, "nd"),
+    (torch.float32, lambda: torch.empty(5, 2025, 1, 512), 0, "nd"),
+    (torch.bfloat16, lambda: torch.empty(5, 1024, 2, 512, dtype=torch.bfloat16), 0, None),
+])
+def test_wide_attention_dispatch(dtype, view, offset, want):
+    """Head dim 512: which kernel each type takes, and in which layout the
+    VAE's views and token rows are read in place (``route`` is whether)."""
+    from mgldvsr_tpu_torch.ops.kernels.attention import kernel_variant, route, wide_layout
+
+    z = view()
+    assert kernel_variant(dtype, 512) == ("wide_wgmma" if dtype == torch.bfloat16 else "wide_fma")
+    assert wide_layout(dtype, z.shape, z.stride(), offset) == want
+    assert route(dtype, z.shape, z.stride(), offset) == (want is not None)
 
 
 @pytest.mark.parametrize("radius", [2, 4])

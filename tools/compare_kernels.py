@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's standalone warp, the fused chain's statistics kernel and
-the whole fused chain in two trees on one GPU, in turns.
+"""Time the port's standalone warp, the fused chain's statistics kernel, the
+whole fused chain and the head-dim-512 attention in two trees on one GPU, in
+turns.
 
     python3 tools/compare_kernels.py --parent PARENT_TREE
     python3 tools/compare_kernels.py --root TREE
@@ -17,7 +18,10 @@ Each run, seeded and at the shapes the port's paths give the kernels:
 float32 frames under a scattered, a smooth and a large flow, and on the swc
 loss's stack [6,512,512,3]; ``gn_scale_shift`` at [5,320,64,64],
 [5,960,64,64], [5,1280,8,8] and [5,128,512,512] bf16; ``gn_silu_conv3x3``,
-the whole chain, at the full-width towers' main shapes. For each: CUDA-event
+the whole chain, at the full-width towers' main shapes; ``attention`` at head
+dim 512 (the VAE's mid attention, whichever kernel the tree has for it) on
+[5,1024,512] and [5,3249,512] bf16 and [5,1024,512] float32 (frames of 256
+and 456 px). For each: CUDA-event
 ms over repeated calls (``ms``), the device ms of the calls replayed from a
 CUDA graph (``device_ms``) and the host microseconds a call takes to return
 (``host_us``). The last line is one JSON object with every run.
@@ -35,6 +39,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHAINS = ((5, 320, 64, 64, 320), (5, 960, 64, 64, 320), (5, 2560, 8, 8, 1280),
           (5, 320, 64, 64, 4), (5, 128, 512, 512, 128))
 STATS = ((5, 320, 64, 64), (5, 960, 64, 64), (5, 1280, 8, 8), (5, 128, 512, 512))
+WIDE = ((1024, "bf16"), (3249, "bf16"), (1024, "f32"))
 
 
 def _timers():
@@ -51,6 +56,7 @@ def run_one(root: str) -> dict:
     import torch
 
     from mgldvsr_tpu_torch.ops.kernels import _build
+    from mgldvsr_tpu_torch.ops.kernels import attention as attn_mod
     from mgldvsr_tpu_torch.ops.kernels import flow_warp as warp_mod
     from mgldvsr_tpu_torch.ops.kernels import gn_silu_conv as conv_mod
     from mgldvsr_tpu_torch.ops.kernels import groupnorm as gn_mod
@@ -92,6 +98,11 @@ def run_one(root: str) -> dict:
              lambda: conv_mod.gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5),
              5 if h >= 512 else 50)
         del x, wt
+    for n, kind in WIDE:
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        q, k, v = t.attention_inputs(5, n, 512, dtype, "cuda", gen)
+        time(f"attention [5,{n},512] {kind}", lambda: attn_mod.attention(q, k, v), 5)
+        del q, k, v
     return {"root": os.path.abspath(root), "card": t.card_line(), "rows": rows}
 
 
