@@ -36,7 +36,11 @@ Phase 2  hold each kernel (the seven that replace a TPU kernel, the
          ``mma.sync`` kernel against its tensor-core kernel; the chain's one
          C call equal to the statistics and conv kernels launched apart, bit
          for bit, its device time from a CUDA graph and its host time a call
-         beside the cuDNN chain's. The standalone warp also: 3-channel
+         beside the cuDNN chain's; and at the output widths tensor-parallel
+         training gives a rank (``--tensor-parallel`` 2 and 4: Co 160 and 80
+         of the UNet's 320, 640 and 320 of its 1280, 128 of the struct-cond's
+         256, 256 of the VAE decoder's 512), bf16 and f32, against the plain
+         version, timed. The standalone warp also: 3-channel
          512x512 frames, 4 and 1 of them, under a scattered, a smooth and a
          large flow, each equal to the plain warp bit for bit, with host
          microseconds a call beside F.grid_sample's; the statistics kernel's
@@ -206,9 +210,12 @@ Phase 12 training over ranks on one card (after phase 9, on phases 8 (b) and
          ``--mesh --zero1`` (``launches_train_parallel`` in the kernels line).
          (b) the same for stage 2 (phase 9 (b)'s loop, ``--mesh``). (c)
          ``torchrun --standalone --nproc_per_node=1 -m
-         mgldvsr_tpu_torch.cli.train --tiny --mesh --zero1`` for 4 micro-steps
-         writes the metrics and the checkpoint of the command without the
-         flags, and that command resumes its step-2 checkpoint bit for bit.
+         mgldvsr_tpu_torch.cli.train --tiny --mesh --zero1 --tensor-parallel
+         1`` for 4 micro-steps writes the metrics and the checkpoint of the
+         command without the flags, and that command resumes its step-2
+         checkpoint bit for bit; with ``--tensor-parallel 2`` the grid
+         degrades to 1 x 1 (NCCL puts no two ranks on one card), prints the
+         mesh line and writes the same metrics and checkpoint.
          ``--only-train-parallel`` builds the kernels and runs phases 8 (b)
          and 9 (b)'s straight runs and phase 12 alone.
 Phase 13 full width against float32 (after phase 11, phase 4's seed and
@@ -1190,7 +1197,7 @@ def phase2(card: str):
     results["gn_silu_conv3x3"]["variant"] = (
         "wgmma (conv_wgmma_kernel) for bf16 with more than 8 output channels; mma.sync "
         "(conv_mma_kernel) for f16 and bf16 up to 8 channels; fma (conv_fma_kernel) for f32")
-    conv_checks(dev, gen)
+    results["gn_silu_conv3x3"]["tensor_parallel_widths"] = conv_checks(dev, gen)
     return results
 
 
@@ -1215,11 +1222,18 @@ def conv_alone(x, scale, shift, wt, bias, out, variant):
     return lambda: _build.check(entry(*args), "conv")
 
 
-def conv_checks(dev, gen) -> None:
+# the chains tensor-parallel training gives a rank (its rows of the conv, the
+# whole input): [N, C, H, W] -> Co / T at T = 2 and 4
+TENSOR_PARALLEL_CHAINS = ((5, 320, 64, 64, 160), (5, 320, 64, 64, 80), (5, 2560, 8, 8, 640),
+                          (5, 2560, 8, 8, 320), (5, 256, 64, 64, 128), (5, 512, 64, 64, 256))
+
+
+def conv_checks(dev, gen) -> dict:
     """The fused GroupNorm+SiLU+conv off the timed shapes: C and Co off the
     tensor-core kernel's tiles, narrow frames, a clipped variance, the re-laid
-    weight, the chain's launches, and the ``mma.sync`` kernel against the
-    tensor-core one."""
+    weight, the chain's launches, the ``mma.sync`` kernel against the
+    tensor-core one, and the output widths of tensor-parallel training.
+    Returns the last's errors and times."""
     import torch
 
     from mgldvsr_tpu_torch.ops import kernels
@@ -1299,6 +1313,29 @@ def conv_checks(dev, gen) -> None:
     scale, shift = gn_mod.gn_scale_shift(x, gw, gb, 32, 1e-5)
     conv_alone(x, scale, shift, wt, conv_mod.bias_fp32(bias), old, "mma")()
     check("[2,320,32,32]->320 bf16, mma.sync kernel vs wgmma kernel", old, new, bf16_ulps(2, new))
+
+    # a rank's rows of the towers' convs under --tensor-parallel 2 and 4 (Co
+    # 160 and 80 are partial 128-wide tiles of the wgmma grid): 3 ulps at max
+    # |y| in bf16, 1e-4 of max |y| in f32, as the full widths' limits
+    sliced = {}
+    for n, c, h, w, co in TENSOR_PARALLEL_CHAINS:
+        for dtype in (bf16, torch.float32):
+            x, gw, gb, wt, bias = case(n, c, h, w, co)
+            x, wt, bias = x.to(dtype), wt.to(dtype), bias.to(dtype)
+            got = conv_mod.gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5)
+            want = conv_mod.gn_silu_conv3x3_plain(x, gw, gb, wt, bias, 32, 1e-5)
+            name = f"[{n},{c},{h},{w}]->{co} {'bf16' if dtype == bf16 else 'f32'}"
+            check(f"{name} (a rank's rows under tensor parallelism)", got, want,
+                  bf16_ulps(3, want) if dtype == bf16 else 1e-4 * float(want.abs().max()))
+            sliced[name] = {
+                "variant": conv_mod.kernel_variant(dtype, co), "max_abs_err": max_err(got, want),
+                "ms": cuda_ms(lambda: conv_mod.gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5)),
+                "plain_ms": cuda_ms(
+                    lambda: conv_mod.gn_silu_conv3x3_plain(x, gw, gb, wt, bias, 32, 1e-5))}
+            log(f"[phase2]   {sliced[name]['variant']} {sliced[name]['ms']:.4f} ms, plain "
+                f"{sliced[name]['plain_ms']:.4f} ms")
+            del x, wt, got, want
+    return sliced
 
 
 def tiny_config(frames: int = 5):
@@ -3789,10 +3826,14 @@ def phase12_stage2(seed: int, card: str, ref: dict) -> dict:
 
 def phase12_cli(card: str) -> dict:
     """(c) ``torchrun --standalone --nproc_per_node=1 -m
-    mgldvsr_tpu_torch.cli.train --tiny --mesh --zero1`` for 4 micro-steps:
-    the metrics.jsonl losses and the step-4 checkpoint of the command
-    without the flags; then the command without them resumes the ranked
-    run's step-2 checkpoint and writes the same step-4 checkpoint."""
+    mgldvsr_tpu_torch.cli.train --tiny --mesh --zero1 --tensor-parallel 1``
+    for 4 micro-steps: the metrics.jsonl losses and the step-4 checkpoint of
+    the command without the flags; then the command without them resumes
+    the ranked run's step-2 checkpoint and writes the same step-4
+    checkpoint. ``--tensor-parallel 2`` in a world of one NCCL rank (in
+    this process) degrades to 1 x 1, prints the mesh line and writes the
+    same again."""
+    import io
     import shutil
     import tempfile
 
@@ -3811,17 +3852,27 @@ def phase12_cli(card: str) -> dict:
         train_clips(root, 40, clips=2, frames=6, size=48)
         base = ["--stage", "1", "--data-root", root, "--tiny", "--max-steps", "4",
                 "--grad-accum", "2", "--ckpt-every", "2", "--log-every", "1", "--no-tb"]
-        runs = {name: os.path.join(tmp, name) for name in ("plain", "ranked", "resumed")}
+        runs = {name: os.path.join(tmp, name)
+                for name in ("plain", "ranked", "resumed", "degraded")}
         cli.main([*base, "--logdir", runs["plain"]])
+        mesh_line = "mesh {'data': 1, 'tensor': 1} over 1 devices, host 0/1"
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
              "-m", "mgldvsr_tpu_torch.cli.train", *base, "--logdir", runs["ranked"], "--mesh",
-             "--zero1"], cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+             "--zero1", "--tensor-parallel", "1"], cwd=repo, env=env, capture_output=True,
+            text=True, timeout=600)
         wall = time.perf_counter() - t0
-        if proc.returncode or "rank 0 of 1" not in proc.stdout:
+        if proc.returncode or "rank 0 of 1" not in proc.stdout or mesh_line not in proc.stdout:
             raise AssertionError(f"phase 12 (c): torchrun exited {proc.returncode}:\n"
                                  f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        printed = io.StringIO()
+        with world_of_one(tmp), contextlib.redirect_stdout(printed):
+            cli.stage1(cli.parse_args([*base, "--logdir", runs["degraded"], "--mesh", "--zero1",
+                                       "--tensor-parallel", "2"]))
+        if mesh_line not in printed.getvalue():
+            raise AssertionError(f"phase 12 (c) --tensor-parallel 2: no mesh line in\n"
+                                 f"{printed.getvalue()[-2000:]}")
         os.makedirs(os.path.join(runs["resumed"], "ckpt"))
         shutil.copytree(os.path.join(runs["ranked"], "ckpt", "2"),
                         os.path.join(runs["resumed"], "ckpt", "2"))
@@ -3832,18 +3883,20 @@ def phase12_cli(card: str) -> dict:
         states = {name: CheckpointManager(os.path.join(d, "ckpt")).restore(4)
                   for name, d in runs.items()}
     checks = {}
-    for name in ("ranked", "resumed"):
+    for name in ("ranked", "resumed", "degraded"):
         got, want = states[name], states["plain"]
         checks[name] = same_trees({p: got[p] for p in ("trainable", "ema", "opt_state")},
                                   {p: want[p] for p in ("trainable", "ema", "opt_state")})
-    same_losses = logged["ranked"] == logged["plain"]
+    same_losses = logged["ranked"] == logged["plain"] == logged["degraded"]
     resumed_tail = logged["resumed"] == logged["plain"][2:]
-    log(f"[phase12] (c) torchrun --nproc_per_node=1 cli.train --tiny --mesh --zero1, 4 "
-        f"micro-steps: metrics.jsonl equal to the run without the flags {same_losses}; its step-4 "
-        f"checkpoint {checks['ranked'][0]} of {checks['ranked'][1]} tensors bit for bit; resumed "
-        f"without --mesh from its step-2 checkpoint: steps 3-4 logged the same {resumed_tail}, "
-        f"the step-4 checkpoint {checks['resumed'][0]} of {checks['resumed'][1]} tensors bit for "
-        f"bit; {wall:.2f} s with torchrun's start  [{card}]")
+    log(f"[phase12] (c) torchrun --nproc_per_node=1 cli.train --tiny --mesh --zero1 "
+        f"--tensor-parallel 1, 4 micro-steps: metrics.jsonl equal to the run without the flags "
+        f"(and to --tensor-parallel 2's, degraded to 1 x 1 with the mesh line) {same_losses}; "
+        f"its step-4 checkpoint {checks['ranked'][0]} of {checks['ranked'][1]} tensors bit for "
+        f"bit ({checks['degraded'][0]} with --tensor-parallel 2); resumed without --mesh from its "
+        f"step-2 checkpoint: steps 3-4 logged the same {resumed_tail}, the step-4 checkpoint "
+        f"{checks['resumed'][0]} of {checks['resumed'][1]} tensors bit for bit; {wall:.2f} s with "
+        f"torchrun's start  [{card}]")
     for name, (identical, total, worst) in checks.items():
         if identical != total:
             raise AssertionError(f"phase 12 (c) {name}: {total - identical} of {total} tensors "

@@ -6,7 +6,8 @@
       [--max-steps N] [--resume] [--tiny] [--torch-ckpt ckpt] [--device cuda|cpu]
   python -m mgldvsr_tpu_torch.cli.train --stage 2 --data-root GT --lq-root LQ \\
       --latent-root LATENTS [--config configs/video_autoencoder_kl_64x64x4_resi.yaml] ...
-  torchrun --nproc_per_node=N -m mgldvsr_tpu_torch.cli.train --mesh [--zero1] ...
+  torchrun --nproc_per_node=N -m mgldvsr_tpu_torch.cli.train --mesh [--zero1] \\
+      [--tensor-parallel T] ...
 
 Stage 1 finetunes the denoiser's SPADE and temporal-conv weights and the
 struct-cond encoder on clips degraded on the fly (the shipped two-stage
@@ -47,19 +48,27 @@ JAX command line's step on one clip per ``data`` slot: the ranks average
 their gradients every micro-step, the losses are the whole batch's, and
 stage 2's discriminator normalises with the whole batch's statistics.
 ``--zero1`` adds the JAX package's ZeRO-1 split of the optimiser state over
-the ranks. Each rank draws its own shard of the clips (a resume continues
-it), and seeds its draws from ``--seed``, the step and its rank (rank 0's as
+the ranks. ``--tensor-parallel T`` lays the N ranks out as JAX's
+``('data', 'tensor')`` mesh of N / T x T (T degraded to the largest divisor
+of N that is at most T, as JAX degrades it; the command prints the mesh):
+the T ranks of a data index take the same clip and draws, and every tower
+holds its rank's rows of the kernels the JAX rule splits (output axes at
+least 256 wide; not norms, embeddings or logvar), each such layer's output
+gathered at once, so the step is the data-parallel step on the N / T clips;
+``--zero1`` then splits over the data ranks. Without ``--mesh``,
+``--tensor-parallel 1`` is the JAX default and changes nothing. Each data
+index draws its own shard of the clips (a resume continues it), and seeds
+its draws from ``--seed``, the step and its data index (index 0's as
 without ``--mesh``). Rank 0 alone logs, writes images, checkpoints (the
-whole state: it resumes in any number of ranks) and the export, and reads
-the checkpoint it resumes from, which it hands to the other ranks. SIGUSR1
-or Ctrl-C on any rank saves at the end of the micro-step on every rank.
-``--multihost`` is the same path: ``torchrun --nnodes=N`` starts the ranks
-of every host.
+whole state, in the single-process layout: it resumes in any grid, and
+without ``--mesh``) and the export, and reads the checkpoint it resumes
+from, which it hands to the other ranks. SIGUSR1 or Ctrl-C on any rank
+saves at the end of the micro-step on every rank. ``--multihost`` is the
+same path: ``torchrun --nnodes=N`` starts the ranks of every host.
 
-Not offered: ``--tensor-parallel`` (ROADMAP section 1 item 7); ``--params``
-(an orbax directory: the card's machine has neither JAX nor orbax; give
-``--torch-ckpt``); ``--split-step`` (a TPU compile workaround for stage 2;
-the port's step is eager).
+Not offered: ``--params`` (an orbax directory: the card's machine has
+neither JAX nor orbax; give ``--torch-ckpt``); ``--split-step`` (a TPU
+compile workaround for stage 2; the port's step is eager).
 """
 from __future__ import annotations
 
@@ -76,8 +85,6 @@ from mgldvsr_tpu_torch.utils.precision import TF32_LINE, tf32_off
 REFUSED = {
     "--params": "reads an orbax directory, which needs JAX; give --torch-ckpt (ROADMAP "
                 "section 1, 'Do not port')",
-    "--tensor-parallel": "tensor-parallel training is ROADMAP section 1 item 7; --mesh trains "
-                         "data-parallel",
     "--split-step": "a TPU compile workaround for stage 2; the port's step is eager "
                     "(ROADMAP section 1, 'Do not port')",
     "--platform": "the port picks its device with --device",
@@ -198,6 +205,10 @@ def parse_args(argv=None):
                     help="with --mesh: split the Adam moments, the gradient accumulator and the "
                          "EMA shadows of the tensors of at least 65,536 elements over the ranks "
                          "(the parameters stay whole on every rank)")
+    ap.add_argument("--tensor-parallel", type=int, default=1,
+                    help="with --mesh: the tensor axis of the (data x tensor) grid of ranks: T "
+                         "ranks a clip, each holding its rows of the kernels the JAX rule splits "
+                         "(degraded to the largest divisor of the world that is at most T)")
     ap.add_argument("--init-method", default=None,
                     help="with --mesh: the process group's init method (default env://, which "
                          "torchrun sets up; file:///PATH for processes started with RANK, "
@@ -218,6 +229,11 @@ def parse_args(argv=None):
     if args.stage == 2 and not (args.lq_root and args.latent_root):
         ap.error("--stage 2 needs --lq-root and --latent-root")
     args.mesh = args.mesh or args.multihost
+    if args.tensor_parallel < 1:
+        ap.error(f"--tensor-parallel {args.tensor_parallel}: the tensor axis needs at least 1 rank")
+    if args.tensor_parallel > 1 and not args.mesh:
+        ap.error(f"--tensor-parallel {args.tensor_parallel} splits the towers over the ranks of "
+                 f"a torchrun launch: give --mesh")
     args.cfg = cfg
     return args
 
@@ -245,23 +261,33 @@ def process_group(args):
         mesh.destroy()
 
 
-def _group(args):
-    """The ranks that train together (the whole world) with ``--mesh``;
-    None without. The process group must exist (:func:`process_group`)."""
+def _grid(args):
+    """With ``--mesh``: the world as a (data x tensor) grid of ranks
+    (``mesh.init_grid(--tensor-parallel)``, collective), after printing the
+    mesh as the JAX command line does; None without. The process group must
+    exist (:func:`process_group`)."""
     if not args.mesh:
         return None
     import torch.distributed as dist
 
+    from mgldvsr_tpu_torch.parallel import mesh
+
     if not dist.is_initialized():
         raise RuntimeError("--mesh trains in a process group: join one first "
                            "(cli.train.main does, through process_group)")
-    return dist.group.WORLD
+    grid = mesh.init_grid(args.tensor_parallel)
+    n = mesh.world()
+    hosts = n // int(os.environ.get("LOCAL_WORLD_SIZE", n))
+    print(f"mesh {{'data': {grid.dp}, 'tensor': {grid.tp}}} over {n} devices, host "
+          f"{os.environ.get('GROUP_RANK', 0)}/{hosts}", flush=True)
+    return grid
 
 
-def step_seed(seed: int, step: int, rank: int) -> int:
-    """The seed of a micro-step's draws: rank 0's is the run's without
-    ``--mesh``; every other rank's differs from every rank's at every step."""
-    return seed * 1_000_003 + step + (rank << 40)
+def step_seed(seed: int, step: int, index: int) -> int:
+    """The seed of a micro-step's draws for data index ``index``: index 0's
+    is the run's without ``--mesh``; every other index's differs from every
+    index's at every step."""
+    return seed * 1_000_003 + step + (index << 40)
 
 
 def tower_dtype(device: str):
@@ -338,8 +364,8 @@ def _train_loop(args, ds, state, micro_step, loggers, dev, trainer, on_step=None
     (rank 0; the state gathered from the ranks' slices), then ``after()``
     runs where it is not None, then ``on_step(step, state, metrics)``.
     SIGUSR1 and Ctrl-C save: over ranks, at the end of the micro-step on
-    every rank, whichever rank the signal reached. Returns the final state
-    (this rank's)."""
+    every rank, whichever rank the signal reached. Each data index of the
+    grid streams its own shard. Returns the final state (this rank's)."""
     import torch
 
     import torch.distributed as dist
@@ -347,22 +373,22 @@ def _train_loop(args, ds, state, micro_step, loggers, dev, trainer, on_step=None
     from mgldvsr_tpu_torch.data.datasets import ShardedSampler, prefetch_iterator
     from mgldvsr_tpu_torch.io.checkpoint import install_signal_save
 
-    group = trainer.group
-    rank, world = ((dist.get_rank(group), dist.get_world_size(group)) if group is not None
-                   else (0, 1))
+    grid = trainer.grid
+    ranked = grid is not None
+    shard, shards = (grid.data_index, grid.dp) if ranked else (0, 1)
     tb, msg, ckpt = loggers
     held = {"state": state, "in_step": False}
     flags = {"save": False, "stop": False}
-    if group is None:
+    if not ranked:
         install_signal_save(lambda: None if held["in_step"] else (held["state"].step,
                                                                   held["state"]), ckpt)
         handlers = {}
     else:
         handlers = _defer_signals(flags)
-    # one clip a rank a micro-step; the epoch enlarged (EnlargedSampler's
-    # ratio) so that every rank's shard holds at least one
-    sampler = ShardedSampler(len(ds), shard=rank, num_shards=world,
-                             ratio=-(-world // max(len(ds), 1)), seed=args.seed)
+    # one clip a data index a micro-step; the epoch enlarged (EnlargedSampler's
+    # ratio) so that every shard holds at least one
+    sampler = ShardedSampler(len(ds), shard=shard, num_shards=shards,
+                             ratio=-(-shards // max(len(ds), 1)), seed=args.seed)
     per_epoch = len(sampler.epoch(0))
     if per_epoch == 0:
         raise ValueError(f"dataset too small: epoch yields 0 clips on this shard but each "
@@ -376,7 +402,7 @@ def _train_loop(args, ds, state, micro_step, loggers, dev, trainer, on_step=None
             epoch, skip = epoch + 1, 0
 
     def save(step, state, metrics, force):
-        if group is not None and (force or step % args.ckpt_every == 0):
+        if ranked and (force or step % args.ckpt_every == 0):
             state = trainer.gather(state)  # collective: every rank takes part
         if ckpt is not None:
             ckpt.save(step, state, metrics=metrics, force=force)
@@ -400,13 +426,13 @@ def _train_loop(args, ds, state, micro_step, loggers, dev, trainer, on_step=None
                 metrics["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
             if msg is not None:
                 msg(step, metrics, lr=args.lr)
-            if group is None:
+            if not ranked:
                 save(step, state, metrics, ckpt.signal_pending)
                 ckpt.signal_pending = False
             else:
                 # a signal that reached any rank reaches every rank here
                 raised = torch.tensor([float(flags["save"]), float(flags["stop"])], device=dev)
-                dist.all_reduce(raised, op=dist.ReduceOp.MAX, group=group)
+                dist.all_reduce(raised, op=dist.ReduceOp.MAX)
                 flags["stop"] = bool(raised[1])
                 save(step, state, metrics, bool(raised[0]) or flags["stop"])
                 flags["save"] = False
@@ -419,7 +445,7 @@ def _train_loop(args, ds, state, micro_step, loggers, dev, trainer, on_step=None
                 break
             waited = time.perf_counter()
     except KeyboardInterrupt:
-        if group is not None:  # a second Ctrl-C over ranks: stop at once
+        if ranked:  # a second Ctrl-C over ranks: stop at once
             raise
         save(step, state, None, True)
         print("interrupted: checkpoint saved", flush=True)
@@ -453,27 +479,28 @@ def _defer_signals(flags: dict) -> dict:
             signal.SIGINT: signal.signal(signal.SIGINT, interrupt)}
 
 
-def _resume(args, ckpt, state, group):
-    """The state to start from: with ``--resume`` and a checkpoint under
-    ``--logdir``, rank 0 reads the latest and every rank gets it (only rank
-    0 needs to see the directory); else ``state``."""
+def _resume(args, ckpt, state, grid):
+    """The state to start from (whole, in the single-process layout): with
+    ``--resume`` and a checkpoint under ``--logdir``, rank 0 reads the
+    latest and every rank gets it (only rank 0 needs to see the directory);
+    else ``state``."""
     if not args.resume:
         return state
     step = ckpt.latest_step() if ckpt is not None else None
-    if group is not None:
+    if grid is not None:
         import torch.distributed as dist
 
         box = [step]
-        dist.broadcast_object_list(box, 0, group=group)
+        dist.broadcast_object_list(box, 0)
         step = box[0]
     if step is None:
         return state
     if ckpt is not None:
         state = ckpt.restore(step, template=state)
-    if group is not None:
+    if grid is not None:
         from mgldvsr_tpu_torch.parallel import mesh
 
-        state = mesh.broadcast_state(state, group)
+        state = mesh.broadcast_state(state)
     print(f"resumed at step {state.step}", flush=True)
     return state
 
@@ -489,11 +516,15 @@ def stage1(args, pipe=None, on_step=None):
     from mgldvsr_tpu_torch.infer.pipeline import upscale_frames
     from mgldvsr_tpu_torch.io.checkpoint import save_params
     from mgldvsr_tpu_torch.io.torch_ckpt import mgld_state_dict
+    from mgldvsr_tpu_torch.parallel.tensor import gather_module_state
     from mgldvsr_tpu_torch.train.trainer import Stage1Config, Stage1Trainer, with_ema
     from mgldvsr_tpu_torch.utils.logging import ImageLogger
 
-    group = _group(args)
-    rank = torch.distributed.get_rank(group) if group is not None else 0
+    grid = _grid(args)
+    rank = torch.distributed.get_rank() if grid is not None else 0
+    index = grid.data_index if grid is not None else 0
+    # the ranks that run the sampler rows with rank 0: its tensor group
+    samples_rows = args.sample_rows and index == 0
     loggers = _loggers(args, rank)
     imglog = ImageLogger(args.logdir, args.image_every, tb=loggers[0]) if rank == 0 else None
     ckpt = loggers[2]
@@ -520,41 +551,42 @@ def stage1(args, pipe=None, on_step=None):
                                                grad_accum=args.grad_accum,
                                                adam_mu_dtype=args.mu_dtype,
                                                frozen_dtype=args.frozen_dtype),
-                            group=group, zero1=args.zero1)
-    start = trainer.init_state()
-    state = _resume(args, ckpt, start, group)
-    if state is not start:
-        trainer.load_towers(state)
-    state = trainer.shard(state)
+                            grid=grid, zero1=args.zero1)
+    state = trainer.shard(_resume(args, ckpt, trainer.init_state(), grid))
 
     def micro_step(state, item):
         lq = upscale_frames(torch.from_numpy(item["lqs"]).to(dev), pipe.cfg.sf)
         gt = torch.from_numpy(item["gts"]).to(dev)
-        gen = torch.Generator(device=dev).manual_seed(step_seed(args.seed, state.step, rank))
+        gen = torch.Generator(device=dev).manual_seed(step_seed(args.seed, state.step, index))
         state, metrics = trainer.train_step(state, lq, gt, gen)
         step = state.step
-        if imglog is None or not imglog.should_log(step):
+        if step % args.image_every or not (imglog is not None or samples_rows):
             return state, metrics, None
 
         def log_images():
             rows = {"lq": lq.float().cpu().numpy(), "gt": gt.float().cpu().numpy()}
-            if args.sample_rows:
+            if args.sample_rows:  # every rank of rank 0's tensor group samples
                 sgen = torch.Generator(device=dev).manual_seed(args.seed + step)
                 rows.update({k: v.float().cpu().numpy()
                              for k, v in pipe.log_images(lq, sgen).items()})
-            imglog.log_images(step, rows)
+            if imglog is not None:
+                imglog.log_images(step, rows)
 
         return state, metrics, log_images
 
     state = trainer.gather(_train_loop(args, ds, state, micro_step, loggers, dev, trainer,
                                        on_step))
+    # the towers whole on every rank (collective under --tensor-parallel)
+    towers = {t: gather_module_state(m) for t, m in pipe.towers().items()}
+    state = state._replace(frozen={k: towers[k.partition(".")[0]][k.partition(".")[2]]
+                                   for k in state.frozen})
     if rank == 0:
         export = os.path.join(args.logdir, "export")
         os.makedirs(export, exist_ok=True)
         save_params(os.path.join(export, "mgld_ema.pt"), {"state_dict": mgld_state_dict(
             with_ema(state))})
         save_params(os.path.join(export, "raft.pt"),
-                    {k: v.float() for k, v in pipe.raft.state_dict().items()})
+                    {k: v.float() for k, v in towers["raft"].items()})
         print(f"exported the EMA parameters to {export}", flush=True)
     return state
 
@@ -582,10 +614,11 @@ def stage2(args, pipe=None, on_step=None, on_trainer=None):
     from mgldvsr_tpu_torch.data.datasets import REDSAutoencoderDataset
     from mgldvsr_tpu_torch.infer.pipeline import upscale_frames
     from mgldvsr_tpu_torch.io.checkpoint import save_params
+    from mgldvsr_tpu_torch.parallel.tensor import gather_module_state
     from mgldvsr_tpu_torch.train.stage2 import Stage2Config, Stage2Trainer
 
-    group = _group(args)
-    rank = torch.distributed.get_rank(group) if group is not None else 0
+    grid = _grid(args)
+    rank = torch.distributed.get_rank() if grid is not None else 0
     loggers = _loggers(args, rank)
     ckpt = loggers[2]
     ds = REDSAutoencoderDataset(args.data_root, args.lq_root, args.latent_root,
@@ -596,15 +629,11 @@ def stage2(args, pipe=None, on_step=None, on_trainer=None):
     trainer = Stage2Trainer(pipe.vae, Stage2Config(learning_rate=args.lr,
                                                    grad_accum=args.grad_accum,
                                                    num_frames=args.num_frames),
-                            group=group, zero1=args.zero1)
+                            grid=grid, zero1=args.zero1)
     seed_stage2_aux(trainer, args.seed)
     if on_trainer is not None:
         on_trainer(trainer)
-    start = trainer.init_state()
-    state = _resume(args, ckpt, start, group)
-    if state is not start:
-        trainer.load_vae(state)
-    state = trainer.shard(state)
+    state = trainer.shard(_resume(args, ckpt, trainer.init_state(), grid))
 
     def micro_step(state, item):
         lq = upscale_frames(torch.from_numpy(item["lqs"]).to(dev), 4)
@@ -615,10 +644,10 @@ def stage2(args, pipe=None, on_step=None, on_trainer=None):
 
     state = trainer.gather(_train_loop(args, ds, state, micro_step, loggers, dev, trainer,
                                        on_step))
+    vae = {k: v.float() for k, v in gather_module_state(pipe.vae).items()}  # collective
     if rank == 0:
         export = os.path.join(args.logdir, "export")
         os.makedirs(export, exist_ok=True)
-        vae = {k: v.detach().float() for k, v in pipe.vae.state_dict().items()}
         vae.update(state.trainable)
         save_params(os.path.join(export, "vqgan.pt"), {"state_dict": vae})
         print(f"exported the VAE to {export}", flush=True)

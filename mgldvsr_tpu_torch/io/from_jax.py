@@ -13,10 +13,15 @@ the tree as nested dicts of numpy arrays (with or without its top
 Layouts: flax conv kernels [kh,kw,I,O] -> torch [O,I,kh,kw]; 3-D
 [kt,kh,kw,I,O] -> [O,I,kt,kh,kw]; dense [I,O] -> [O,I]; the struct-cond
 qkv goes back from [3,H,d] to upstream's head-interleaved [H,3,d] order.
+
+The same maps, run on a tree that holds paths instead of arrays
+(:func:`jax_paths`), say which JAX leaf each torch key comes from and which
+torch axis the leaf's last (output) axis becomes: the tensor-parallel rule
+reads the JAX path.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +42,27 @@ def _params(tree: Tree) -> Tree:
     return tree["params"] if "params" in tree else tree
 
 
+class _Trace:
+    """A stand-in for a JAX parameter tree that holds paths instead of
+    arrays. Every node exists but ``params`` (the maps then take the tree
+    as it is), so optional branches are written too; :meth:`_SD.raw` keeps
+    only the keys the module has (``keys``), each as its JAX path and the
+    torch axis of the leaf's last axis (in ``found``)."""
+
+    def __init__(self, path: Tuple[str, ...], keys, found: dict):
+        self.path, self.keys, self.found = path, keys, found
+
+    def __getitem__(self, key: str) -> "_Trace":
+        return _Trace(self.path + (key,), self.keys, self.found)
+
+    def __contains__(self, key: str) -> bool:
+        return key != "params"
+
+
+def _conv_layout(k: np.ndarray) -> np.ndarray:
+    return k.transpose({4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2), 3: (2, 1, 0)}[k.ndim])
+
+
 class _SD:
     """Prefix-scoped writer into a flat state dict (the mirror of the JAX
     converters' ``SDGet`` reader)."""
@@ -48,18 +74,24 @@ class _SD:
     def scope(self, sub: str) -> "_SD":
         return _SD(self.sd, f"{self.prefix}{sub}.")
 
-    def raw(self, key: str, value) -> None:
-        self.sd[f"{self.prefix}{key}"] = _tensor(value)
+    def raw(self, key: str, value, layout=None, out_axis: int = -1) -> None:
+        """``value`` (a leaf), through ``layout`` (the leaf -> the torch
+        layout) where given; ``out_axis``: the torch axis its last axis
+        becomes."""
+        key = f"{self.prefix}{key}"
+        if isinstance(value, _Trace):
+            if key in value.keys:
+                value.found[key] = (value.path, out_axis)
+            return
+        self.sd[key] = _tensor(value if layout is None else layout(np.asarray(value)))
 
     def conv(self, key: str, p: Tree) -> None:
-        k = np.asarray(p["kernel"])
-        perm = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2), 3: (2, 1, 0)}[k.ndim]
-        self.raw(f"{key}.weight", k.transpose(perm))
+        self.raw(f"{key}.weight", p["kernel"], _conv_layout, out_axis=0)
         if "bias" in p:
             self.raw(f"{key}.bias", p["bias"])
 
     def linear(self, key: str, p: Tree) -> None:
-        self.raw(f"{key}.weight", np.asarray(p["kernel"]).T)
+        self.raw(f"{key}.weight", p["kernel"], np.transpose, out_axis=0)
         if "bias" in p:
             self.raw(f"{key}.bias", p["bias"])
 
@@ -97,7 +129,10 @@ def _cross_attn(g: _SD, p: Tree) -> None:
 def _linear_or_conv(g: _SD, key: str, p: Tree) -> None:
     """A dense kernel [I, O] or a 1x1 conv kernel [1, 1, I, O] (the
     transformers' projections without ``use_linear_in_transformer``)."""
-    (g.linear if np.ndim(p["kernel"]) == 2 else g.conv)(key, p)
+    g.raw(f"{key}.weight", p["kernel"], lambda k: k.T if k.ndim == 2 else _conv_layout(k),
+          out_axis=0)
+    if "bias" in p:
+        g.raw(f"{key}.bias", p["bias"])
 
 
 def _transformer(g: _SD, p: Tree, depth: int) -> None:
@@ -117,7 +152,7 @@ def _transformer(g: _SD, p: Tree, depth: int) -> None:
 
 def _stconv(g: _SD, p: Tree) -> None:
     g.conv("temporal_conv", p["temporal_conv"])
-    g.raw("temporal_alpha", np.asarray(p["alpha"]).reshape(1))
+    g.raw("temporal_alpha", p["alpha"], _one)
 
 
 def _tattn(g: _SD, p: Tree) -> None:
@@ -126,18 +161,27 @@ def _tattn(g: _SD, p: Tree) -> None:
     for name in ("to_q", "to_k", "to_v"):
         a.linear(name, p[name])
     a.linear("to_out.0", p["to_out"])
-    g.raw("temporal_alpha", np.asarray(p["alpha"]).reshape(1))
+    g.raw("temporal_alpha", p["alpha"], _one)
+
+
+def _one(a: np.ndarray) -> np.ndarray:
+    return a.reshape(1)
 
 
 def _qkv_legacy(g: _SD, p: Tree, channels: int, num_heads: int) -> None:
     d = channels // num_heads
-    w = np.asarray(p["qkv"]["kernel"]).T                     # [3C, C], [3,H,d] rows
-    w = w.reshape(3, num_heads, d, channels).transpose(1, 0, 2, 3)
-    b = np.asarray(p["qkv"]["bias"]).reshape(3, num_heads, d).transpose(1, 0, 2)
+
+    def weight(k):  # [C, 3C] -> [3C, C, 1], the rows from [3,H,d] to [H,3,d]
+        k = k.T.reshape(3, num_heads, d, channels).transpose(1, 0, 2, 3)
+        return k.reshape(3 * channels, channels)[..., None]
+
+    def bias(b):
+        return b.reshape(3, num_heads, d).transpose(1, 0, 2).reshape(3 * channels)
+
     g.norm("norm", p["GroupNorm_0"])
-    g.raw("qkv.weight", w.reshape(3 * channels, channels)[..., None])
-    g.raw("qkv.bias", b.reshape(3 * channels))
-    g.raw("proj_out.weight", np.asarray(p["proj_out"]["kernel"]).T[..., None])
+    g.raw("qkv.weight", p["qkv"]["kernel"], weight, out_axis=0)
+    g.raw("qkv.bias", p["qkv"]["bias"], bias)
+    g.raw("proj_out.weight", p["proj_out"]["kernel"], lambda k: k.T[..., None], out_axis=0)
     g.raw("proj_out.bias", p["proj_out"]["bias"])
 
 
@@ -300,12 +344,10 @@ def vae_state_dict(tree: Tree, cfg: VAEConfig = VAEConfig(num_frames=5, enable_f
             fp, f = dp[f"fusion_layer_{i}"], dec.scope(f"fusion_layer_{i}")
             _simple_resblock(f.scope("encode_enc_1"), fp["encode_enc_1"])
             _simple_resblock(f.scope("encode_enc_3"), fp["encode_enc_3"])
-            k = 0
-            while f"encode_enc_2_{k}" in fp:
+            for k in range(cfg.num_fuse_block):
                 rdb, rp = f.scope(f"encode_enc_2.{k}"), fp[f"encode_enc_2_{k}"]
                 for c in range(1, 6):
                     rdb.conv(f"conv{c}", rp[f"conv{c}"])
-                k += 1
         if i != 0:
             dec.conv(f"up.{i}.upsample.conv", dp[f"up_{i}_upsample"]["conv"])
             curr_res *= 2
@@ -324,7 +366,7 @@ def multidim_temporal_conv_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
     g = _SD(sd)
     g.conv("temporal_conv1", p["temporal_conv1"])
     g.conv("temporal_conv2", p["temporal_conv2"])
-    g.raw("temporal_alpha", np.asarray(p["alpha"]).reshape(1))
+    g.raw("temporal_alpha", p["alpha"], _one)
     return sd
 
 
@@ -342,7 +384,7 @@ def clip_state_dict(tree: Tree, cfg: CLIPTextConfig = CLIPTextConfig()
         b, bp = g.scope(f"transformer.resblocks.{i}"), p[f"resblock_{i}"]
         b.norm("ln_1", bp["ln_1"])
         b.norm("ln_2", bp["ln_2"])
-        b.raw("attn.in_proj_weight", np.asarray(bp["attn_in_proj"]["kernel"]).T)
+        b.raw("attn.in_proj_weight", bp["attn_in_proj"]["kernel"], np.transpose, out_axis=0)
         b.raw("attn.in_proj_bias", bp["attn_in_proj"]["bias"])
         b.linear("attn.out_proj", bp["attn_out_proj"])
         b.linear("mlp.c_fc", bp["mlp_c_fc"])
@@ -453,7 +495,7 @@ def inception_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
 
     def walk(g: _SD, node: Tree) -> None:
         if "conv" in node:
-            g.raw("conv.weight", np.asarray(node["conv"]["kernel"]).transpose(3, 2, 0, 1))
+            g.raw("conv.weight", node["conv"]["kernel"], _conv_layout, out_axis=0)
             _frozen_bn(g.scope("bn"), node["bn"])
             return
         for name, child in node.items():
@@ -474,6 +516,37 @@ def pipeline_state_dicts(params: Tree, cfg) -> Dict[str, Dict[str, torch.Tensor]
         "clip": clip_state_dict(params["clip"], cfg.clip),
         "raft": raft_state_dict(params["raft"], cfg.raft),
     }
+
+
+def jax_paths(tower: str, module: torch.nn.Module) -> Dict[str, Tuple[Tuple[str, ...], int]]:
+    """Where each entry of ``module``'s state dict comes from in the JAX
+    state: ``{torch key: (JAX path, torch axis of the leaf's last axis)}``,
+    from this module's maps run on a tree of paths. ``tower`` is the JAX
+    state's name for the module (``unet``, ``structcond``, ``vae``,
+    ``clip``, ``raft``; stage 2's ``lpips``, ``spynet`` and ``disc``), and
+    heads every path. Raises where a key has no JAX leaf."""
+    from mgldvsr_tpu_torch.models.discriminator import FlaxBatchNorm
+
+    keys = set(module.state_dict())
+    found: dict = {}
+    tree = _Trace((tower,), keys, found)
+    cfg = getattr(module, "cfg", None)
+    maps = {
+        "unet": lambda: unet_state_dict(tree, cfg),
+        "structcond": lambda: structcond_state_dict(tree, cfg),
+        "vae": lambda: vae_state_dict(tree, cfg),
+        "clip": lambda: clip_state_dict(tree, cfg),
+        "raft": lambda: raft_state_dict(tree, cfg),
+        "lpips": lambda: lpips_state_dict(tree),
+        "spynet": lambda: spynet_state_dict(tree, len(module.basic_module)),
+        "disc": lambda: discriminator_state_dict(tree, sum(
+            isinstance(m, FlaxBatchNorm) for m in module.modules())),
+    }
+    maps[tower]()
+    missing = keys - set(found)
+    if missing:
+        raise KeyError(f"jax_paths({tower!r}): no JAX leaf for {sorted(missing)[:5]}")
+    return found
 
 
 # -- training state ------------------------------------------------------------

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from mgldvsr_tpu_torch.models.layers import LayerNorm, Linear
 from mgldvsr_tpu_torch.ops.attention import attention_math
+from mgldvsr_tpu_torch.parallel.tensor import linear_columns
 
 SOT_TOKEN = 49406
 EOT_TOKEN = 49407
@@ -55,7 +56,11 @@ def empty_prompt_tokens(batch: int, context_length: int = 77, *,
 
 
 class _Attention(nn.Module):
-    """Causal MHA with torch ``nn.MultiheadAttention``'s parameter names."""
+    """Causal MHA with torch ``nn.MultiheadAttention``'s parameter names.
+    Under tensor parallelism ``in_proj_weight`` holds its rank's rows
+    (``tensor_parallel``: the grid) and the projection is gathered."""
+    column_parallel = ("in_proj_weight",)
+    tensor_parallel = None
 
     def __init__(self, width: int, heads: int):
         super().__init__()
@@ -66,8 +71,7 @@ class _Attention(nn.Module):
 
     def forward(self, x, mask):
         b, l, d = x.shape
-        w = self.in_proj_weight
-        qkv = F.linear(x.to(w.dtype), w, self.in_proj_bias.to(w.dtype))
+        qkv = linear_columns(x, self.in_proj_weight, self.in_proj_bias, self.tensor_parallel)
         q, k, v = (z.reshape(b, l, self.heads, d // self.heads) for z in qkv.chunk(3, dim=-1))
         return self.out_proj(attention_math(q, k, v, mask).reshape(b, l, d))
 

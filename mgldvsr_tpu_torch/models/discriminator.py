@@ -18,7 +18,8 @@ its share of the batch) a training pass normalises with the statistics of
 the whole batch, as the JAX step over the batch of every rank's clip does:
 the group sums the ranks' per-channel means of x and x², each weighted by
 its share of the rows, with a gradient through the sum; the running
-statistics then move the same on every rank.
+statistics then move the same on every rank. On a (data x tensor) grid the
+group is the data group: the T ranks of a data index hold the same rows.
 """
 from __future__ import annotations
 

@@ -24,7 +24,11 @@ keep their plain code.
 ``MGLD_FUSED_GN_CONV`` (read at call time; ``1``/``true``/``on``, or
 ``auto`` = on for CUDA tensors) sends every 4-D GroupNorm -> SiLU -> conv3x3
 chain through the one-kernel :func:`gn_silu_conv3x3`; the modules and their
-state-dict keys are the same either way.
+state-dict keys are the same either way. Under tensor parallelism
+(:mod:`mgldvsr_tpu_torch.parallel.tensor`) a chain's conv holds its rank's
+output channels: the kernel takes that slice of the weight and of the bias,
+reads the whole input for its GroupNorm statistics, and the output is
+gathered.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from mgldvsr_tpu_torch.ops.kernels.groupnorm import (
     fused_group_norm,
     group_scale_shift,
 )
+from mgldvsr_tpu_torch.parallel.tensor import ColumnParallel, copy_to_group, gather_columns
 
 
 class Conv2d(nn.Conv2d):
@@ -168,11 +173,21 @@ def fused_gn_conv_enabled(x: torch.Tensor) -> bool:
 def norm_silu_conv(norm: GroupNorm, conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
     """``conv(silu(norm(x)))`` for a 3x3, stride-1, padding-1 ``conv``: one
     fused kernel when the switch is on and ``x`` is 4-D, else the plain
-    composition of the two modules. Both read the same parameters."""
+    composition of the two modules. Both read the same parameters. A
+    column-parallel ``conv`` gives the kernel its rows of the weight and the
+    bias, then gathers the output channels; the input and the GroupNorm's
+    parameters pass ``copy_to_group``, since each rank's slice gives a part
+    of their gradients."""
     if x.ndim == 4 and fused_gn_conv_enabled(x):
-        dtype = conv.weight.dtype
-        return gn_silu_conv3x3(x.to(dtype).contiguous(), norm.weight, norm.bias, conv.weight,
-                               conv.bias, norm.num_groups, norm.eps)
+        x = x.to(conv.weight.dtype).contiguous()
+        if not isinstance(conv, ColumnParallel):
+            return gn_silu_conv3x3(x, norm.weight, norm.bias, conv.weight, conv.bias,
+                                   norm.num_groups, norm.eps)
+        grid, rows = conv.tensor_parallel, conv.weight.shape[0]
+        x, gn_weight, gn_bias, bias = copy_to_group(grid, x, norm.weight, norm.bias, conv.bias)
+        bias = bias.narrow(0, grid.tensor_index * rows, rows).float()
+        return gather_columns(gn_silu_conv3x3(x, gn_weight, gn_bias, conv.weight, bias,
+                                              norm.num_groups, norm.eps), 1, grid)
     return conv(F.silu(norm(x)))
 
 

@@ -32,20 +32,24 @@ in place. ``train_step`` updates the state's tensors in place and returns
 the state; it runs cuDNN's deterministic algorithms, so that a resumed run
 replays the run it continues bit for bit.
 
-Over several ranks (``group``, one clip a rank) a micro-step is the JAX
-step on the batch of every rank's clip. Three places differ from each rank
-stepping alone and averaging: the NLL and frame-difference terms divide by
-the whole batch's rows (``batch_ranks`` times the rank's); the adaptive
-weight is the ratio of the norms of the two last-layer gradients averaged
-over the group; the discriminator's training passes normalise with the
-whole batch's statistics. Then the gradients of both halves are averaged
-over the group, and with ``zero1`` the optimiser states are split over the
-ranks, as in stage 1.
+Over several ranks (``grid``, one clip a data index) a micro-step is the
+JAX step on the batch of every data index's clip. Three places differ from
+each rank stepping alone and averaging, all over the data group: the NLL
+and frame-difference terms divide by the whole batch's rows
+(``batch_ranks`` times the rank's); the adaptive weight is the ratio of the
+norms of the two last-layer gradients averaged over the group; the
+discriminator's training passes normalise with the whole batch's
+statistics. Then the gradients of both halves are averaged over the data
+group, and with ``zero1`` the optimiser states are split over the data
+ranks, as in stage 1. With a tensor axis the VAE, LPIPS, SpyNet and the
+discriminator are split by the JAX rule, as stage 1's towers are (the
+decoder's ``conv_out``, 3 channels wide, never is: the adaptive weight
+reads whole gradients).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import functional_call
@@ -56,7 +60,7 @@ from mgldvsr_tpu_torch.models.discriminator import NLayerDiscriminator
 from mgldvsr_tpu_torch.models.layers import cast_weights
 from mgldvsr_tpu_torch.models.lpips import LPIPS
 from mgldvsr_tpu_torch.models.vae import VideoAutoencoderKLResi, is_temporal_or_fusion
-from mgldvsr_tpu_torch.parallel import mesh
+from mgldvsr_tpu_torch.parallel import mesh, tensor
 from mgldvsr_tpu_torch.train import optim
 from mgldvsr_tpu_torch.train.losses import (
     adaptive_d_weight,
@@ -117,11 +121,11 @@ class Stage2Trainer:
     discriminator's module, built on the VAE's device with PyTorch's
     default initialisation: fill them (``io.init_weights`` or
     ``load_state_dict``) before :meth:`init_state`, which reads the
-    discriminator's weights into the state. ``group`` and ``zero1`` as
+    discriminator's weights into the state. ``grid`` and ``zero1`` as
     stage 1's trainer has them."""
 
     def __init__(self, vae: VideoAutoencoderKLResi, cfg: Stage2Config = Stage2Config(),
-                 group=None, zero1: bool = False):
+                 grid: Optional[mesh.Grid] = None, zero1: bool = False):
         self.vae = vae
         self.cfg = cfg
         self.device = next(vae.parameters()).device
@@ -134,16 +138,27 @@ class Stage2Trainer:
                                          weight_decay=0.0)
         self._d_loss = hinge_d_loss if cfg.disc_loss == "hinge" else vanilla_d_loss
         self._vae_holds = None  # the master dict the VAE was last loaded from
-        self.group = group
+        self.grid = grid
+        self.group = None if grid is None else grid.data_group
         self.zero = None
+        self._module_axes = None  # each module's parameters the tensor rule splits
         # the ranks whose rows make the batch the loss terms divide by
         self.batch_ranks = 1
-        if group is not None:
+        if grid is not None:
             shapes = {k: p.shape for k, p in partition_vae_params(vae)[0].items()}
             shapes["logvar"] = torch.Size([])
             shapes.update({k: p.shape for k, p in self.disc.named_parameters()})
-            self.zero = mesh.ZeroShard(shapes, group, zero1)
-            self.batch_ranks = self.zero.world
+            axes = {t: mesh.tensor_axes(t, m, grid.tp) for t, m in self.modules().items()}
+            # the state's names: the VAE's and the discriminator's parameters
+            split = {**axes["vae"], **axes["disc"]}
+            self._module_axes = axes if any(axes.values()) else None
+            self.zero = mesh.ZeroShard(shapes, grid.data_group, zero1,
+                                       mesh.AxisSplit(split, grid.tensor_group) if split else None)
+            self.batch_ranks = grid.dp
+
+    def modules(self) -> Dict[str, torch.nn.Module]:
+        """The VAE and the loss networks, by their names in the JAX state."""
+        return {"vae": self.vae, "lpips": self.lpips, "disc": self.disc, "spynet": self.spynet}
 
     # -- state -------------------------------------------------------------
 
@@ -166,8 +181,18 @@ class Stage2Trainer:
         return state
 
     def shard(self, state: Stage2State) -> Stage2State:
-        """A full state (``init_state``'s, a checkpoint's) -> this rank's."""
-        return state if self.zero is None else mesh.shard_state(state, self.zero)
+        """A full state (``init_state``'s, a checkpoint's) -> this rank's.
+        The first call also splits the VAE and the loss networks over the
+        tensor group (after :meth:`init_state` read the discriminator)."""
+        self._vae_holds = None  # a resumed state may share the start's dicts: reload
+        if self.zero is None:
+            return state
+        if self._module_axes:
+            for t, m in self.modules().items():
+                tensor.shard_module(m, self._module_axes[t], self.grid)
+            self._module_axes = None
+            state = state._replace(frozen=partition_vae_params(self.vae)[1])
+        return mesh.shard_state(state, self.zero)
 
     def gather(self, state: Stage2State) -> Stage2State:
         """This rank's state -> the full one, on every rank (collective)."""

@@ -18,15 +18,21 @@ compute dtype and receive no gradient.
 :meth:`Stage1Trainer.train_step` updates the state's tensors in place (the
 JAX command line donates its state the same way) and returns the state.
 
-Over several ranks (``group``, one clip a rank) a micro-step is the JAX
-step on the batch of every rank's clip: each rank averages its float32
-gradient over the group before the norm and the optimiser (the JAX step's
-``psum`` inside every micro-step, before ``MultiSteps`` averages), and
-reports the loss terms as group means. With ``zero1`` the moments, the
+Over several ranks (``grid``, a :class:`~mgldvsr_tpu_torch.parallel.mesh.Grid`:
+one clip a data index) a micro-step is the JAX step on the batch of every
+data index's clip: each rank averages its float32 gradient over its data
+group before the norm and the optimiser (the JAX step's ``psum`` inside
+every micro-step, before ``MultiSteps`` averages), and reports the loss
+terms as the data group's means. With ``zero1`` the moments, the
 accumulator and the EMA shadows of the large trainables are split over the
-ranks (:class:`~mgldvsr_tpu_torch.parallel.mesh.ZeroShard`):
-:meth:`Stage1Trainer.shard` cuts a full state to this rank's,
-:meth:`Stage1Trainer.gather` puts it back together.
+data ranks (:class:`~mgldvsr_tpu_torch.parallel.mesh.ZeroShard`). With a
+tensor axis (``grid.tp`` > 1) the T ranks of a data index take the same clip
+and draws, and every tower's leaves that the JAX rule splits are held as
+this rank's rows, in the towers
+(:func:`~mgldvsr_tpu_torch.parallel.tensor.shard_module`) and in every field
+of the state. :meth:`Stage1Trainer.shard` cuts a full state to this rank's
+(and splits the towers), :meth:`Stage1Trainer.gather` puts it back
+together.
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ import torch
 
 from mgldvsr_tpu_torch.core.schedules import q_sample, respace_schedule
 from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline, upscale_frames
-from mgldvsr_tpu_torch.parallel import mesh
+from mgldvsr_tpu_torch.parallel import mesh, tensor
 from mgldvsr_tpu_torch.train import optim
 
 Tensors = Dict[str, torch.Tensor]
@@ -166,13 +172,13 @@ def group_means(values: Dict[str, torch.Tensor], zero) -> Dict[str, torch.Tensor
 
 
 class Stage1Trainer:
-    """``group``: the ranks that train together, one clip each (None: this
-    process alone); ``zero1``: split the optimiser state over them, the
-    leaves of at least ``mesh.ZERO1_MIN_SIZE`` elements (read when the
-    trainer is made)."""
+    """``grid``: the ranks that train together (None: this process alone);
+    ``zero1``: split the optimiser state over its data ranks, the leaves of
+    at least ``mesh.ZERO1_MIN_SIZE`` elements (read when the trainer is
+    made)."""
 
-    def __init__(self, pipe: MGLDVSRPipeline, cfg: Stage1Config = Stage1Config(), group=None,
-                 zero1: bool = False):
+    def __init__(self, pipe: MGLDVSRPipeline, cfg: Stage1Config = Stage1Config(),
+                 grid: Optional[mesh.Grid] = None, zero1: bool = False):
         self.pipe = pipe
         self.cfg = cfg
         self.device = pipe.device
@@ -185,15 +191,23 @@ class Stage1Trainer:
                                          max_grad_norm=cfg.max_grad_norm,
                                          grad_accum=cfg.grad_accum)
         self._towers_hold = None  # the master dict the towers were last loaded from
-        self.group = group
+        self.grid = grid
+        self.group = None if grid is None else grid.data_group
         self.zero = None
-        if group is not None:
+        # each tower's parameters that the tensor rule splits, until shard() splits them
+        self._tower_axes = None
+        if grid is not None:
             shapes = {k: p.shape for k, p in partition_params(pipe)[0].items()}
-            self.zero = mesh.ZeroShard(shapes, group, zero1)
+            axes = {t: mesh.tensor_axes(t, m, grid.tp) for t, m in pipe.towers().items()}
+            split = {f"{t}.{n}": a for t, names in axes.items() for n, a in names.items()}
+            self._tower_axes = axes if split else None
+            self.zero = mesh.ZeroShard(shapes, grid.data_group, zero1,
+                                       mesh.AxisSplit(split, grid.tensor_group) if split else None)
 
     def init_state(self) -> TrainState:
         """Float32 masters of the towers' trainables, read before the towers
-        are cast to their compute dtypes (load float32 weights first)."""
+        are cast to their compute dtypes (load float32 weights first); the
+        full state, before :meth:`shard`."""
         train, _ = partition_params(self.pipe)
         masters = {k: p.detach().float().clone() for k, p in train.items()}
         self.pipe.cast_to_compute_dtypes()
@@ -207,11 +221,23 @@ class Stage1Trainer:
         return state
 
     def shard(self, state: TrainState) -> TrainState:
-        """A full state (``init_state``'s, a checkpoint's) -> this rank's."""
-        return state if self.zero is None else mesh.shard_state(state, self.zero)
+        """A full state (``init_state``'s, a checkpoint's) -> this rank's.
+        The first call also splits the towers over the tensor group."""
+        self._towers_hold = None  # a resumed state may share the start's dicts: reload
+        if self.zero is None:
+            return state
+        if self._tower_axes:
+            for t, m in self.pipe.towers().items():
+                tensor.shard_module(m, self._tower_axes[t], self.grid)
+            self._tower_axes = None
+            state = state._replace(frozen=partition_params(self.pipe)[1])
+        return mesh.shard_state(state, self.zero)
 
     def gather(self, state: TrainState) -> TrainState:
-        """This rank's state -> the full one, on every rank (collective)."""
+        """This rank's state -> the full one, on every rank (collective).
+        The frozen towers stay this rank's
+        (:func:`~mgldvsr_tpu_torch.parallel.tensor.gather_module_state`
+        gathers a tower)."""
         return state if self.zero is None else mesh.gather_state(state, self.zero)
 
     @torch.no_grad()

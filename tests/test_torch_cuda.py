@@ -464,6 +464,32 @@ def test_gn_silu_conv_kernel_matches_plain(dev, n, c, h, w, co, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=_conv_limit(want), rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,c,h,w,co", [
+    (5, 320, 64, 64, 160),   # the UNet's 320 over 2 ranks: a partial 128-wide wgmma tile
+    (5, 320, 64, 64, 80),    # ... over 4
+    (5, 2560, 8, 8, 640),    # its 1280 at 8 x 8 over 2
+    (5, 2560, 8, 8, 320),    # ... over 4
+    (5, 256, 64, 64, 128),   # the struct-cond's 256 over 2
+    (5, 512, 64, 64, 256),   # the VAE decoder's 512 over 2
+])
+def test_gn_silu_conv_at_a_rank_s_output_widths(dev, n, c, h, w, co, dtype):
+    """Kernel 7 on a rank's rows of a conv split by tensor-parallel
+    training (a parameter of its own, as ``shard_module`` makes it) and the
+    whole input, against the plain version at the limits above; after an
+    in-place update of the rows (the trainer copies its masters in so), the
+    re-laid weight follows."""
+    x, gw, gb, wt, bias = _conv_case(dev, n, c, h, w, co, dtype)
+    rows = torch.nn.Parameter(wt.clone())
+    with torch.no_grad():
+        for scale in (1.0, 0.5):
+            rows.copy_(wt * scale)
+            got = gn_silu_conv3x3(x, gw, gb, rows, bias, 32, 1e-5)
+            want = gn_silu_conv3x3_plain(x, gw, gb, wt * scale, bias, 32, 1e-5)
+            assert got.shape == (n, co, h, w)
+            torch.testing.assert_close(got.float(), want.float(), atol=_conv_limit(want), rtol=0)
+
+
 def _conv_case(dev, n, c, h, w, co, dtype, mean=0.3):
     gen = _gen(dev, n + c + h + w + co)
     x = (torch.randn(n, c, h, w, device=dev, generator=gen) * 1.5 + mean).to(dtype)

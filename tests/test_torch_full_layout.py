@@ -14,6 +14,10 @@ Leaves up to 65,536 elements hold distinct values; larger ones are a ramp
 along their last axis broadcast over the others (no memory), offset by the
 leaf's index (modulo 200), so a leaf sent to another key or a transposed
 kernel shows.
+
+The tensor-parallel rule at the same geometry: the port reads each leaf's
+JAX path from ``io.from_jax``'s maps (``jax_paths``) and must split exactly
+the leaves the JAX package's ``_param_spec`` splits in this tree.
 """
 import dataclasses
 
@@ -25,11 +29,13 @@ import torch
 from mgldvsr_tpu.infer.pipeline import MGLDVSRPipeline as JaxPipeline
 from mgldvsr_tpu.infer.pipeline import PipelineConfig as JaxPipelineConfig
 from mgldvsr_tpu.io import ckpt_convert
+from mgldvsr_tpu.parallel import mesh as jmesh
 from mgldvsr_tpu_torch.flow.raft import RAFT
 from mgldvsr_tpu_torch.io import from_jax
 from mgldvsr_tpu_torch.models.cliptext import OpenCLIPTextEncoder
 from mgldvsr_tpu_torch.models.unet import InflatedUNetDualCond, StructCondEncoder
 from mgldvsr_tpu_torch.models.vae import VideoAutoencoderKLResi
+from mgldvsr_tpu_torch.parallel import mesh, tensor
 from tests.test_torch_models import port_config
 
 SMALL = 1 << 16
@@ -145,3 +151,68 @@ def test_shipped_geometry_sizes(shipped):
         module = _module(name, cfg)
         assert sum(p.numel() for p in module.state_dict().values()) == counts[name], name
     assert dataclasses.replace(cfg.unet).use_temporal and cfg.unet.use_spade
+
+
+TOWERS = ["unet", "structcond", "vae", "clip", "raft"]
+
+
+@pytest.mark.parametrize("tower", TOWERS)
+def test_shipped_tensor_rule_splits_what_jax_splits(shipped, tower):
+    """Each torch key's JAX path (``from_jax.jax_paths``) is a leaf of the
+    shipped JAX tree with as many elements, whose last axis is as wide as
+    the torch axis named for it, and every JAX leaf is one key's. At T = 2
+    and 4 the port's rule (``mesh.tensor_axes``) splits exactly the leaves
+    for which ``_param_spec`` returns a ``tensor`` axis, along that torch
+    axis; ``time_embed``'s kernels are split (no ``embedding`` in their
+    flax path), CLIP's token and positional embeddings are not."""
+    jcfg, cfg, tree = shipped
+    module = _module(tower, cfg)
+    sd = module.state_dict()
+    by_path = {path[1:]: (k, axis) for k, (path, axis) in from_jax.jax_paths(tower, module).items()}
+    flat = jax.tree_util.tree_flatten_with_path(tree[tower])[0]
+
+    def keys(path):
+        names = tuple(e.key for e in path)
+        return names[1:] if names[0] == "params" else names
+
+    assert set(by_path) == {keys(path) for path, _ in flat}
+    for path, leaf in flat:
+        k, axis = by_path[keys(path)]
+        assert leaf.size == sd[k].numel(), k
+        if leaf.ndim >= 2:
+            assert leaf.shape[-1] == sd[k].shape[axis], k
+    for tp in (2, 4):
+        want = {}
+        for path, leaf in flat:
+            if "tensor" in tuple(jmesh._param_spec(tuple(str(e) for e in path), leaf, tp)):
+                k, axis = by_path[keys(path)]
+                want[k] = axis % sd[k].ndim
+        got = mesh.tensor_axes(tower, module, tp)
+        assert got == want, (tp, sorted(set(got) ^ set(want))[:5])
+        assert want and set(want.values()) == {0}
+        if tower in ("unet", "structcond"):
+            assert "time_embed.0.weight" in got
+        if tower == "clip":
+            assert "token_embedding.weight" not in got and "positional_embedding" not in got
+            assert "transformer.resblocks.0.attn.in_proj_weight" in got
+
+
+def test_shipped_split_holds_each_rank_s_share(shipped):
+    """A rank of a T-rank tensor group holds its rows of every split leaf:
+    after ``shard_module`` (on ``meta``, as rank 1 of T), every tower's
+    parameter count, trainable and frozen alike, falls by the split leaves'
+    elements x (1 - 1/T) at T = 2 and 4; the split leaves are most of every
+    tower but RAFT's."""
+    _, cfg, _ = shipped
+    for tp in (2, 4):
+        grid = mesh.Grid(dp=1, tp=tp, data_index=0, tensor_index=1)
+        for tower in TOWERS:
+            module = _module(tower, cfg)
+            axes = mesh.tensor_axes(tower, module, tp)
+            whole = sum(p.numel() for p in module.parameters())
+            split = sum(p.numel() for n, p in module.named_parameters() if n in axes)
+            tensor.shard_module(module, axes, grid)
+            held = sum(p.numel() for p in module.parameters())
+            assert held == whole - split * (tp - 1) // tp, (tower, tp)
+            assert split / whole > (0.5 if tower != "raft" else 0.1), (tower, split / whole)
+            assert sorted(tensor.split_parameters(module)) == sorted(axes)

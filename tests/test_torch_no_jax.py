@@ -28,7 +28,7 @@ for m in ("cli.infer", "data.video_folder", "utils.config", "io.frames", "io.tor
           "data.datasets", "utils.tb", "utils.logging", "train.stage2", "train.losses",
           "models.lpips", "models.discriminator", "flow.spynet", "metrics", "metrics.image",
           "metrics.niqe", "metrics.inception", "metrics.fid", "metrics.temporal",
-          "tools.quality_eval", "tools.quality_smoke", "parallel.mesh",
+          "tools.quality_eval", "tools.quality_smoke", "parallel.mesh", "parallel.tensor",
           "parallel.sharded_sampler", "tools.multicard_check", "tools.multicard_train_check",
           "cli.prepare_data", "tools.soak_train"):
     assert "mgldvsr_tpu_torch." + m in mods, m

@@ -77,6 +77,8 @@ from tests.test_pipeline import tiny_config
 from tests.test_torch_models import numpy_tree, port_config
 from tests.test_torch_parallel import run_ranks
 from tests.test_torch_stage2 import _assert_leaves_close, _calm_spynet, _disc_names, _gen_names
+from tests.test_torch_stage2_cli import _argv as _stage2_argv
+from tests.test_torch_stage2_cli import roots  # noqa: F401  (a fixture: stage 2's data)
 from tests.test_torch_train import _jax_params, _port_names
 
 torch.set_num_threads(1)
@@ -85,6 +87,10 @@ N, SIZE = 5, 32  # stage 1: frames a clip, GT size
 T = 3  # stage 2: frames a clip
 LR = 5e-5
 MIN_SIZE = 1024  # ZeRO-1's threshold here: the tiny models' leaves are small
+# the tensor rule's width here: the tiny towers' 64-wide levels, their
+# time embeddings, GEGLUs, CLIP's projections and RAFT are split
+MIN_OUT = 64
+TP = 2  # the grid's tensor axis: D x TP ranks
 
 
 def _rand(shape, seed):
@@ -114,7 +120,7 @@ from mgldvsr_tpu_torch.train import trainer as T
 blob = torch.load(args["blob"], weights_only=False)
 d = dict(np.load(args["draws"]))
 mesh.init_group("cpu", args["init"], timeout=TIMEOUT)
-group = torch.distributed.group.WORLD
+grid = mesh.init_grid(1)
 rows = slice(rank * int(args["n"]), (rank + 1) * int(args["n"]))
 
 
@@ -133,10 +139,8 @@ for name, zero1, clips in (("replicated", False, ""), ("zero1", True, ""),
     pipe = MGLDVSRPipeline(blob["cfg"], device="cpu")
     for tower, sd in blob["towers"].items():
         pipe.towers()[tower].load_state_dict(sd)
-    tr = T.Stage1Trainer(pipe, T.Stage1Config(grad_accum=2), group=group, zero1=zero1)
-    state = CheckpointManager(args["ckpt"]).restore(0, template=tr.init_state())
-    tr.load_towers(state)
-    state = tr.shard(state)
+    tr = T.Stage1Trainer(pipe, T.Stage1Config(grad_accum=2), grid=grid, zero1=zero1)
+    state = tr.shard(CheckpointManager(args["ckpt"]).restore(0, template=tr.init_state()))
     snaps = []
     for k in (0, 1):
         draws = T.Stage1Draws(*(torch.from_numpy(d[f"{f}{k}"][rows])
@@ -149,8 +153,44 @@ for name, zero1, clips in (("replicated", False, ""), ("zero1", True, ""),
     torch.save({"snaps": snaps, "axes": tr.zero.axes,
                 "full": {"mu": clone(full.opt_state["mu"]), "ema": clone(full.ema)}},
                f"{out}/s1_{name}_rank{rank}.pt")
+
+
+def run_clip0(grid, clips=""):
+    # clip 0, two micro-steps (the update): the whole state after each
+    pipe = MGLDVSRPipeline(blob["cfg"], device="cpu")
+    for tower, sd in blob["towers"].items():
+        pipe.towers()[tower].load_state_dict(sd)
+    tr = T.Stage1Trainer(pipe, T.Stage1Config(grad_accum=2), grid=grid)
+    state = tr.shard(CheckpointManager(args["ckpt"]).restore(0, template=tr.init_state()))
+    clip = slice(0, int(args["n"]))
+    snaps = []
+    for k in (0, 1):
+        draws = T.Stage1Draws(*(torch.from_numpy(d[f"{f}{k}"][clip])
+                                for f in ("lq_post", "gt_post", "t", "noise")))
+        state, m = tr.train_step(state, torch.from_numpy(d["lq" + clips][clip]),
+                                 torch.from_numpy(d["gt" + clips][clip]), draws=draws)
+        full = tr.gather(state)
+        snaps.append({"trainable": clone(full.trainable), "ema": clone(full.ema),
+                      "opt": clone({k_: full.opt_state[k_] for k_ in ("mu", "nu", "acc")})})
+    split = [k for k, v in state.trainable.items() if v.shape != full.trainable[k].shape]
+    return snaps, split
+
+
+# a 1 x 2 grid: both ranks take clip 0 and split the towers, in both configurations
+mesh.TENSOR_MIN_OUT = int(args["min_out"])
+grid = mesh.init_grid(2)
+for fused in ("0", "1"):
+    os.environ["MGLD_FUSED_GN_CONV"] = fused
+    snaps, split = run_clip0(grid)
+    torch.save({"snaps": snaps, "split": split}, f"{out}/s1_tensor{fused}_rank{rank}.pt")
 mesh.destroy()
-if rank == 0:  # one process taking the clips one at a time: micro-step 1's gradients
+if rank == 0:  # one process on clip 0 (and moved: the witness), in both configurations
+    for fused in ("0", "1"):
+        os.environ["MGLD_FUSED_GN_CONV"] = fused
+        torch.save(run_clip0(None)[0], f"{out}/s1_clip0_fused{fused}.pt")
+        torch.save(run_clip0(None, "_moved")[0], f"{out}/s1_clip0_moved{fused}.pt")
+    os.environ["MGLD_FUSED_GN_CONV"] = "0"
+    # one process taking the clips one at a time: micro-step 1's gradients
     accs = []
     for r in range(int(args["clips"])):
         pipe = MGLDVSRPipeline(blob["cfg"], device="cpu")
@@ -158,7 +198,6 @@ if rank == 0:  # one process taking the clips one at a time: micro-step 1's grad
             pipe.towers()[tower].load_state_dict(sd)
         tr = T.Stage1Trainer(pipe, T.Stage1Config(grad_accum=2))
         state = CheckpointManager(args["ckpt"]).restore(0, template=tr.init_state())
-        tr.load_towers(state)
         clip = slice(r * int(args["n"]), (r + 1) * int(args["n"]))
         draws = T.Stage1Draws(*(torch.from_numpy(d[f"{f}0"][clip])
                                 for f in ("lq_post", "gt_post", "t", "noise")))
@@ -166,6 +205,52 @@ if rank == 0:  # one process taking the clips one at a time: micro-step 1's grad
                                  torch.from_numpy(d["gt"][clip]), draws=draws)
         accs.append(clone(state.opt_state["acc"]))
     torch.save(accs, f"{out}/s1_one_at_a_time.pt")
+"""
+
+
+_GRID1_CHILD = r"""
+from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline
+from mgldvsr_tpu_torch.io.checkpoint import CheckpointManager
+from mgldvsr_tpu_torch.train import trainer as T
+blob = torch.load(args["blob"], weights_only=False)
+d = dict(np.load(args["draws"]))
+mesh.init_group("cpu", args["init"], timeout=TIMEOUT)
+mesh.ZERO1_MIN_SIZE = int(args["min_size"])
+mesh.TENSOR_MIN_OUT = int(args["min_out"])
+grid = mesh.init_grid(int(args["tp"]))
+rows = slice(grid.data_index * int(args["n"]), (grid.data_index + 1) * int(args["n"]))
+lq, gt = (torch.from_numpy(d[k][rows]) for k in ("lq", "gt"))
+
+
+def clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: clone(v) for k, v in tree.items()}
+    return tree
+
+
+for name, zero1 in (("grid", False), ("grid_zero1", True)):
+    pipe = MGLDVSRPipeline(blob["cfg"], device="cpu")
+    for tower, sd in blob["towers"].items():
+        pipe.towers()[tower].load_state_dict(sd)
+    tr = T.Stage1Trainer(pipe, T.Stage1Config(grad_accum=2), grid=grid, zero1=zero1)
+    state = tr.shard(CheckpointManager(args["ckpt"]).restore(0, template=tr.init_state()))
+    snaps = []
+    for k in (0, 1):
+        draws = T.Stage1Draws(*(torch.from_numpy(d[f"{f}{k}"][rows])
+                                for f in ("lq_post", "gt_post", "t", "noise")))
+        state, m = tr.train_step(state, lq, gt, draws=draws)
+        full = tr.gather(state)
+        snaps.append({"metrics": {k_: float(v) for k_, v in m.items()},
+                      "trainable": clone(full.trainable), "ema": clone(full.ema),
+                      "opt": clone({k_: full.opt_state[k_] for k_ in ("mu", "nu", "acc")})})
+    shapes = {k: tuple(v.shape) for k, v in state.opt_state["mu"].items()}
+    towers = {t: sum(p.numel() for p in m.parameters()) for t, m in pipe.towers().items()}
+    torch.save({"snaps": snaps, "zero_axes": tr.zero.axes, "tensor_axes": tr.zero.tensor.axes,
+                "mu_shapes": shapes, "tower_elements": towers, "grid": (grid.dp, grid.tp)},
+               f"{out}/s1_{name}_rank{rank}.pt")
+mesh.destroy()
 """
 
 
@@ -206,7 +291,11 @@ def stage1(tmp_path_factory):
                tmp / "blob.pt")
     ranks = _in_background(run_ranks, tmp, _STAGE1_CHILD, D, timeout=400,
                            blob=tmp / "blob.pt", draws=tmp / "draws.npz", ckpt=tmp / "ckpt",
-                           n=N, min_size=MIN_SIZE, clips=D)
+                           n=N, min_size=MIN_SIZE, min_out=MIN_OUT, clips=D)
+    (tmp / "grid").mkdir()
+    grid = _in_background(run_ranks, tmp / "grid", _GRID1_CHILD, D * TP, timeout=400,
+                          blob=tmp / "blob.pt", draws=tmp / "draws.npz", ckpt=tmp / "ckpt",
+                          n=N, min_size=MIN_SIZE, min_out=MIN_OUT, tp=TP)
     step = jax.jit(jtr.train_step)
     states, metrics, state = [state0], [], state0
     for key in keys:
@@ -214,10 +303,17 @@ def stage1(tmp_path_factory):
         states.append(jax.device_get(state))
         metrics.append(jax.device_get(m))
     ranks.result()
+    grid.result()
     got = {name: [_load(tmp, f"s1_{name}_rank{r}.pt") for r in range(D)]
            for name in ("replicated", "zero1", "witness")}
+    got.update({name: [_load(tmp / "grid", f"s1_{name}_rank{r}.pt") for r in range(D * TP)]
+                for name in ("grid", "grid_zero1")})
     return dict(cfg=cfg, states=states, metrics=metrics, got=got, start=start,
-                one_at_a_time=_load(tmp, "s1_one_at_a_time.pt"))
+                one_at_a_time=_load(tmp, "s1_one_at_a_time.pt"),
+                tensor={f: [_load(tmp, f"s1_tensor{f}_rank{r}.pt") for r in range(D)]
+                        for f in ("0", "1")},
+                clip0={**{f: _load(tmp, f"s1_clip0_fused{f}.pt") for f in ("0", "1")},
+                       **{"moved" + f: _load(tmp, f"s1_clip0_moved{f}.pt") for f in ("0", "1")}})
 
 
 def _assert_grads_close(got, want, rel=3e-4, witness=None):
@@ -258,8 +354,12 @@ def _assert_after_adam(got, want, grads):
 
 def _rank0_full(stage1, name, snap):
     """Rank 0's tensors of micro-step ``snap`` with the split ones whole
-    (both ranks' slices put together along their axes)."""
+    (both ranks' slices put together along their axes; the grids' ranks
+    saved their state gathered)."""
     ranks = stage1["got"][name]
+    if name.startswith("grid"):
+        got = ranks[0]["snaps"][snap]
+        return {"trainable": got["trainable"], "ema": got["ema"], **got["opt"]}
     axes = ranks[0]["axes"]
 
     def whole(part, sub=None):
@@ -272,11 +372,13 @@ def _rank0_full(stage1, name, snap):
             "mu": whole("opt", "mu"), "nu": whole("opt", "nu"), "acc": whole("opt", "acc")}
 
 
-@pytest.mark.parametrize("name", ["replicated", "zero1"])
+@pytest.mark.parametrize("name", ["replicated", "zero1", "grid", "grid_zero1"])
 def test_stage1_two_ranks_match_the_jax_step_on_two_clips(stage1, name):
     """Micro-step 1: the group's loss and grad_norm, the accumulator (the
     whole batch's gradient), no update. Micro-step 2 (the update): the
-    masters, both moments and the EMA shadows."""
+    masters, both moments and the EMA shadows. ``grid``: the two clips on a
+    2 x 2 grid of ranks (two a clip, the towers split by the tensor rule at
+    ``MIN_OUT``), its state gathered."""
     m = stage1["got"][name][0]["snaps"][0]["metrics"]
     want = stage1["metrics"][0]
     loss = float(want["loss"])
@@ -312,12 +414,94 @@ def test_stage1_ranks_average_the_clips_gradients_bit_for_bit(stage1, name):
 
 
 def test_stage1_replicas_hold_the_same_masters(stage1):
-    """After every micro-step both ranks hold the same masters, bit for bit,
-    replicated and under ZeRO-1 (where they are gathered from the slices)."""
-    for name, (r0, r1) in stage1["got"].items():
-        assert len(r0["snaps"]) == 2, name
-        for a, b in zip(r0["snaps"], r1["snaps"]):
-            assert all(torch.equal(a["trainable"][k], v) for k, v in b["trainable"].items()), name
+    """After every micro-step every rank holds the same masters, bit for
+    bit, replicated and under ZeRO-1 (where they are gathered from the
+    slices), and on the grid (gathered from the tensor slices too)."""
+    for name, ranks in stage1["got"].items():
+        assert len(ranks[0]["snaps"]) == 2, name
+        for other in ranks[1:]:
+            for a, b in zip(ranks[0]["snaps"], other["snaps"]):
+                assert all(torch.equal(a["trainable"][k], v)
+                           for k, v in b["trainable"].items()), name
+
+
+def _assert_close_or_kink(got, want, witness, rel=1e-6):
+    """Each leaf within ``rel`` of its max |want| plus ``rel`` of the
+    largest leaf's (leaves whose exact gradient is zero hold rounding), or,
+    behind a kink, within 1.5x the distance at which ``witness`` (``want``'s
+    run with its clips moved) stands from ``want``."""
+    top = max(float(w.abs().max()) for w in want.values())
+    assert set(got) == set(want)
+    for k, w in want.items():
+        tol = max(rel * (float(w.abs().max()) + top), 1.5 * float((witness[k] - w).abs().max()))
+        err = float((got[k] - w).abs().max())
+        assert err <= tol, (k, err, tol)
+
+
+@pytest.mark.parametrize("name", ["grid", "grid_zero1"])
+def test_stage1_grid_equals_the_data_parallel_ranks(stage1, name):
+    """The 2 x 2 grid against the port's two data-parallel ranks on the
+    same clips (replicated or ZeRO-1 as the grid): micro-step 1's loss and
+    accumulator, micro-step 2's moments, within 1e-6 of each leaf's max (the
+    split layers sum the input gradient in two parts and add the bias after
+    the gather: rounding), or behind SPADE's kink within 1.5x the witness's
+    distance (the rounding sends a few ReLU inputs within rounding of zero
+    to the other side: struct-cond leaves move by 1.5e-4 of the largest
+    leaf's max, where the witness moves them by 1e-2); grad_norm, which sums
+    those leaves, within 1e-6 relative or 1.5x the witness's; the masters
+    and EMA shadows after the update as above. The grid splits a share of
+    every tower, trainables included, and each rank holds its slice of each
+    split leaf's moments."""
+    ref_name = "zero1" if name == "grid_zero1" else "replicated"
+    grid = stage1["got"][name]
+    assert grid[0]["grid"] == (D, TP)
+    m, want = grid[0]["snaps"][0]["metrics"], stage1["got"][ref_name][0]["snaps"][0]["metrics"]
+    moved = stage1["got"]["witness"][0]["snaps"][0]["metrics"]
+    assert abs(m["loss"] - want["loss"]) <= 1e-6 * abs(want["loss"])
+    tol = max(1e-6 * want["grad_norm"], 1.5 * abs(moved["grad_norm"] - want["grad_norm"]))
+    assert abs(m["grad_norm"] - want["grad_norm"]) <= tol
+    g1, r1 = _rank0_full(stage1, name, 0), _rank0_full(stage1, ref_name, 0)
+    g2, r2 = _rank0_full(stage1, name, 1), _rank0_full(stage1, ref_name, 1)
+    w1, w2 = _rank0_full(stage1, "witness", 0), _rank0_full(stage1, "witness", 1)
+    _assert_close_or_kink(g1["acc"], r1["acc"], w1["acc"])
+    for part in ("mu", "nu"):
+        _assert_close_or_kink(g2[part], r2[part], w2[part])
+    _assert_after_adam(g2["trainable"], r2["trainable"], r1["acc"])
+    _assert_after_adam(g2["ema"], r2["ema"], r1["acc"])
+    taxes = grid[0]["tensor_axes"]
+    train = stage1["start"].trainable
+    assert 0 < sum(k in taxes for k in train) < len(train)
+    for tower in ("unet", "structcond", "vae", "clip", "raft"):
+        assert any(k.startswith(tower + ".") for k in taxes), tower
+    for k, shape in grid[0]["mu_shapes"].items():
+        want_shape = list(train[k].shape)
+        for axes in (taxes, grid[0]["zero_axes"]):
+            if k in axes:
+                want_shape[axes[k]] //= TP if axes is taxes else D
+        assert list(shape) == want_shape, k
+
+
+@pytest.mark.parametrize("fused", ["0", "1"])
+def test_stage1_one_by_two_grid_equals_one_process(stage1, fused):
+    """A 1 x 2 grid (both ranks on clip 0, the towers split) against one
+    process on clip 0, in the default configuration and with
+    ``MGLD_FUSED_GN_CONV=1`` (every chain's conv takes its rank's rows of
+    the weight and the bias, the GroupNorm the whole input): the gathered
+    accumulator of micro-step 1 and the moments of micro-step 2 as the
+    grid against the data-parallel ranks (the witness: the one process on
+    the moved clip); the gathered masters and EMA shadows after the update
+    as above; both ranks gather the same."""
+    ranks, one = stage1["tensor"][fused], stage1["clip0"][fused]
+    witness = stage1["clip0"]["moved" + fused]
+    assert ranks[0]["split"] and ranks[0]["split"] == ranks[1]["split"]
+    got = ranks[0]["snaps"]
+    _assert_close_or_kink(got[0]["opt"]["acc"], one[0]["opt"]["acc"], witness[0]["opt"]["acc"])
+    for part in ("mu", "nu"):
+        _assert_close_or_kink(got[1]["opt"][part], one[1]["opt"][part], witness[1]["opt"][part])
+    _assert_after_adam(got[1]["trainable"], one[1]["trainable"], one[0]["opt"]["acc"])
+    _assert_after_adam(got[1]["ema"], one[1]["ema"], one[0]["opt"]["acc"])
+    for a, b in zip(got, ranks[1]["snaps"]):
+        assert all(torch.equal(a["trainable"][k], v) for k, v in b["trainable"].items())
 
 
 def test_zero1_splits_each_large_moment_in_half_along_the_jax_rule(stage1, monkeypatch):
@@ -375,6 +559,40 @@ def test_zero1_spec_matches_jax(monkeypatch):
             assert mesh.zero1_spec(shape, dp, MIN_SIZE) == want, (shape, dp)
 
 
+def test_zero1_spec_on_a_tensor_slice_matches_jax(stage1, monkeypatch):
+    """ZeRO-1 on a rank's tensor slice picks the axis that the JAX
+    package's ``_zero1_spec(leaf, base, dp)`` picks for the global leaf
+    with its tensor axis in ``base``: never the tensor axis, divisibility
+    and the size threshold judged on the whole leaf (a slice under
+    MIN_SIZE whose leaf is not is split). Shapes of every kind at dp 2 and
+    4, and every trainable of the 2 x 2 grid's ZeRO-1 run."""
+    class Leaf:
+        def __init__(self, shape):
+            self.shape, self.ndim, self.size = shape, len(shape), int(np.prod(shape))
+
+    def want(shape, axis, dp):
+        base = jmesh.P(*["tensor" if i == axis else None for i in range(len(shape))])
+        spec = tuple(jmesh._zero1_spec(Leaf(shape), base, dp))
+        return spec.index("data") if "data" in spec else None
+
+    monkeypatch.setattr(jmesh, "ZERO1_MIN_SIZE", MIN_SIZE)
+    cases = [((320, 320, 3, 3), 0), ((1280, 1280), 0), ((3072, 1024), 0), ((96, 32, 1), 0),
+             ((640, 4, 3, 3), 0), ((128, 12), 0), ((256, 3, 3, 3, 3), 0), ((1024, 1024), None),
+             ((64, 64, 1, 1), 0), ((4096, 7), 0)]
+    assert mesh.zero1_spec((128, 12), 2, MIN_SIZE, tensor_axis=0) == 1  # its slice: 768
+    for dp in (2, 4):
+        for shape, axis in cases:
+            assert mesh.zero1_spec(shape, dp, MIN_SIZE, tensor_axis=axis) == want(
+                shape, axis, dp), (shape, axis, dp)
+    run = stage1["got"]["grid_zero1"][0]
+    split = 0
+    for k, v in stage1["start"].trainable.items():
+        axis = run["tensor_axes"].get(k)
+        assert run["zero_axes"].get(k) == want(tuple(v.shape), axis, D), k
+        split += k in run["zero_axes"] and axis is not None
+    assert split  # leaves split both ways
+
+
 def test_zero1_placement_holds_what_jax_places_on_a_device(stage1, monkeypatch):
     """``place_train_state(zero1=True)`` on a 2-device JAX mesh of the
     virtual CPU devices: device 0 holds as many Adam-moment elements as a
@@ -390,18 +608,108 @@ def test_zero1_placement_holds_what_jax_places_on_a_device(stage1, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the column-parallel layers alone
+# ---------------------------------------------------------------------------
+
+_LAYERS_CHILD = r"""
+from mgldvsr_tpu_torch.models import layers
+from mgldvsr_tpu_torch.models.cliptext import ResidualAttentionBlock
+from mgldvsr_tpu_torch.parallel import tensor
+
+
+class Net(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.c1 = layers.Conv1d(8, 12, 1)
+        self.c2 = layers.Conv2d(8, 16, 3, padding=1)
+        self.c3 = layers.Conv3d(16, 8, (3, 1, 1), padding=(1, 0, 0))
+        self.norm = layers.GroupNorm(8, num_groups=4)
+        self.chain = layers.conv3x3(8, 16)
+        self.lin = layers.Linear(16, 6)
+        self.block = ResidualAttentionBlock(16, 2, "gelu")
+
+    def forward(self, x):  # [2, 8, 4, 4]
+        a = self.c1(x.flatten(2))                                   # [2, 12, 16]
+        b = self.c2(x)                                              # [2, 16, 4, 4]
+        c = self.c3(b[:, :, None].expand(-1, -1, 3, -1, -1))        # [2, 8, 3, 4, 4]
+        h = layers.norm_silu_conv(self.norm, self.chain, c.mean(2))  # [2, 16, 4, 4]
+        t = self.block(h.flatten(2).transpose(1, 2), None)          # [2, 16, 16]
+        return (a.square().mean() + self.lin(t).sin().sum() + c.square().mean()), t
+
+
+mesh.init_group("cpu", args["init"], timeout=TIMEOUT)
+grid = mesh.init_grid(2)
+out_rows = {}
+for fused in ("0", "1"):
+    os.environ["MGLD_FUSED_GN_CONV"] = fused
+    torch.manual_seed(0)
+    whole, split = Net(), Net()
+    for p in whole.parameters():
+        torch.nn.init.normal_(p, std=0.3)
+    split.load_state_dict(whole.state_dict())
+    axes = {k: 0 for k, v in whole.named_parameters() if v.ndim >= 2 and "norm" not in k}
+    tensor.shard_module(split, axes, grid)
+    x = torch.randn(2, 8, 4, 4, generator=torch.Generator().manual_seed(1))
+    res = {}
+    for name, net in (("whole", whole), ("split", split)):
+        xi = x.clone().requires_grad_(True)
+        loss, t = net(xi)
+        loss.backward()
+        grads = {k: v.grad for k, v in net.named_parameters()}
+        if name == "split":
+            grads = mesh.AxisSplit(axes, grid.tensor_group).gather(grads)
+            res["state"] = tensor.gather_module_state(net)
+        res[name] = {"loss": loss.detach(), "t": t.detach(), "dx": xi.grad, "grads": grads}
+    res["split_names"] = tensor.split_parameters(split)
+    res["whole_state"] = whole.state_dict()
+    out_rows[fused] = res
+torch.save(out_rows, f"{out}/layers_rank{rank}.pt")
+mesh.destroy()
+"""
+
+
+def test_column_parallel_layers_equal_their_whole_forms(tmp_path):
+    """Two gloo ranks split every conv (1-, 2- and 3-D), linear, CLIP's
+    in-projection and a GroupNorm->SiLU->conv3x3 chain's conv of a small
+    net by their output axes (``shard_module``), in the default
+    configuration and with ``MGLD_FUSED_GN_CONV=1``: the loss, the
+    activations, the input's gradient and every parameter's (the split
+    ones gathered) equal the unsplit net's within 1e-6 relative (the input
+    gradient summed in two parts, the bias added after the gather); the
+    gathered state dict equals the unsplit one bit for bit; both ranks
+    agree."""
+    run_ranks(tmp_path, _LAYERS_CHILD, 2, timeout=120)
+    ranks = [_load(tmp_path, f"layers_rank{r}.pt") for r in range(2)]
+    for fused, got in ranks[0].items():
+        assert len(got["split_names"]) == 9, got["split_names"]
+        w, s = got["whole"], got["split"]
+        for key in ("loss", "t", "dx"):
+            scale = float(w[key].abs().max())
+            assert float((s[key] - w[key]).abs().max()) <= 1e-6 * scale, (fused, key)
+        for k, g in w["grads"].items():
+            assert s["grads"][k].shape == g.shape, k
+            err = float((s["grads"][k] - g).abs().max())
+            assert err <= 1e-6 * float(g.abs().max()), (fused, k, err)
+        assert all(torch.equal(got["state"][k], v) for k, v in got["whole_state"].items())
+        other = ranks[1][fused]["split"]
+        assert torch.equal(other["loss"], s["loss"]) and torch.equal(other["dx"], s["dx"])
+
+
+# ---------------------------------------------------------------------------
 # stage 2
 # ---------------------------------------------------------------------------
 
 _STAGE2_CHILD = r"""
 from mgldvsr_tpu_torch.io.checkpoint import CheckpointManager
 from mgldvsr_tpu_torch.models.vae import VideoAutoencoderKLResi
+from mgldvsr_tpu_torch.parallel import tensor
 from mgldvsr_tpu_torch.train import stage2 as S
 blob = torch.load(args["blob"], weights_only=False)
 d = dict(np.load(args["data"]))
 mesh.init_group("cpu", args["init"], timeout=TIMEOUT)
-group = torch.distributed.group.WORLD
-rows = slice(rank * int(args["t"]), (rank + 1) * int(args["t"]))
+mesh.TENSOR_MIN_OUT = int(args["min_out"])
+grid = mesh.init_grid(int(args["tp"]))
+rows = slice(grid.data_index * int(args["t"]), (grid.data_index + 1) * int(args["t"]))
 lq, gt, lat = (torch.from_numpy(d[k][rows]) for k in ("lq", "gt", "lat"))
 
 
@@ -416,24 +724,34 @@ def clone(tree):
 def build():
     vae = VideoAutoencoderKLResi(blob["cfg"].vae)
     vae.load_state_dict(blob["vae"])
-    tr = S.Stage2Trainer(vae, S.Stage2Config(**blob["s2cfg"]), group=group)
+    tr = S.Stage2Trainer(vae, S.Stage2Config(**blob["s2cfg"]), grid=grid)
     tr.lpips.load_state_dict(blob["lpips"])
     tr.spynet.load_state_dict(blob["spynet"])
-    state = CheckpointManager(args["ckpt"]).restore(0, template=tr.init_state())
-    tr.load_vae(state)
-    return tr, state
+    return tr, tr.shard(CheckpointManager(args["ckpt"]).restore(0, template=tr.init_state()))
+
+
+def snapshot(tr, state, m):
+    full = tr.gather(state)  # whole: the grid's tensor slices put together
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "trainable": clone(full.trainable), "logvar": clone(full.logvar),
+            "disc": clone(full.disc), "opt_g": clone(full.opt_g), "opt_d": clone(full.opt_d)}
 
 
 runs = {}
 for name, latents in (("ranks", lat), ("witness", torch.from_numpy(d["lat_moved"][rows]))):
+    if grid.tp > 1 and name == "witness":
+        continue
     tr, state = build()
     runs[name] = []
     for _ in range(2):
         state, m = tr.train_step(state, lq, gt, latents)
-        runs[name].append({"metrics": {k: float(v) for k, v in m.items()},
-                           "trainable": clone(state.trainable), "logvar": clone(state.logvar),
-                           "disc": clone(state.disc), "opt_g": clone(state.opt_g),
-                           "opt_d": clone(state.opt_d)})
+        runs[name].append(snapshot(tr, state, m))
+if grid.tp > 1:  # the grid: each rank's whole state and the split leaves
+    torch.save({"snaps": runs["ranks"], "tensor_axes": tr.zero.tensor.axes,
+                "modules": {k: tensor.split_parameters(m) for k, m in tr.modules().items()}},
+               f"{out}/s2_grid_rank{rank}.pt")
+    mesh.destroy()
+    sys.exit(0)
 # the witness: each rank divides the NLL and frame-difference terms by its own rows
 tr, state = build()
 tr.batch_ranks = 1
@@ -442,7 +760,7 @@ torch.save({"snaps": runs["ranks"], "witness": runs["witness"],
             "own_rows": {k: float(v) for k, v in m.items()}}, f"{out}/s2_rank{rank}.pt")
 mesh.destroy()
 if rank == 0:  # one process on the batch of both clips
-    group = None
+    grid = None
     tr, state = build()
     one = []
     for _ in range(2):
@@ -493,7 +811,11 @@ def stage2(tmp_path_factory):
                 "lpips": tr.lpips.state_dict(), "spynet": tr.spynet.state_dict()},
                tmp / "blob.pt")
     ranks = _in_background(run_ranks, tmp, _STAGE2_CHILD, D, timeout=400, blob=tmp / "blob.pt",
-                           data=tmp / "data.npz", ckpt=tmp / "ckpt", t=T)
+                           data=tmp / "data.npz", ckpt=tmp / "ckpt", t=T, min_out=MIN_OUT, tp=1)
+    (tmp / "grid").mkdir()
+    grid = _in_background(run_ranks, tmp / "grid", _STAGE2_CHILD, D * TP, timeout=400,
+                          blob=tmp / "blob.pt", data=tmp / "data.npz", ckpt=tmp / "ckpt", t=T,
+                          min_out=MIN_OUT, tp=TP)
     step = jax.jit(jtr.train_step)
     states, metrics, state = [state0], [], state0
     for _ in range(2):
@@ -502,9 +824,11 @@ def stage2(tmp_path_factory):
         states.append(jax.device_get(state))
         metrics.append(jax.device_get(m))
     ranks.result()
+    grid.result()
     return dict(cfg=cfg, states=states, metrics=metrics,
                 got=[_load(tmp, f"s2_rank{r}.pt") for r in range(D)], start=start,
-                one_process=_load(tmp, "s2_one_process.pt"))
+                one_process=_load(tmp, "s2_one_process.pt"),
+                grid=[_load(tmp / "grid", f"s2_grid_rank{r}.pt") for r in range(D * TP)])
 
 
 def test_stage2_ranks_equal_one_process_on_the_batch(stage2):
@@ -534,20 +858,29 @@ def test_stage2_ranks_equal_one_process_on_the_batch(stage2):
             _assert_leaves_close(got[part][moment], one[part][moment], 1e-4)
 
 
+def _stage2_ranks(stage2, who):
+    """Every rank's snapshots: the two data-parallel ranks, or the 2 x 2
+    grid's four (each saved its state gathered)."""
+    return [r["snaps"] for r in (stage2["got"] if who == "ranks" else stage2["grid"])]
+
+
+@pytest.mark.parametrize("who", ["ranks", "grid"])
 @pytest.mark.parametrize("micro_step", [1, 2])
-def test_stage2_two_ranks_metrics_match_jax(stage2, micro_step):
+def test_stage2_two_ranks_metrics_match_jax(stage2, micro_step, who):
     """nll_loss and d_weight among them: the whole batch's rows divide the
     NLL, and the adaptive weight is the norms' ratio of the group's
-    last-layer gradients."""
+    last-layer gradients. ``grid``: the two clips on a 2 x 2 grid, the VAE,
+    LPIPS, the discriminator and SpyNet split by the tensor rule at
+    ``MIN_OUT``."""
     want = stage2["metrics"][micro_step - 1]
     scale = abs(float(want["logits_real"])) + abs(float(want["logits_fake"]))
-    for r in range(D):
-        got = stage2["got"][r]["snaps"][micro_step - 1]["metrics"]
+    for snaps in _stage2_ranks(stage2, who):
+        got = snaps[micro_step - 1]["metrics"]
         for name in ("loss_g", "nll_loss", "rec_loss", "temp_loss", "g_loss", "d_weight",
                      "loss_d", "logits_real", "logits_fake"):
             w = float(want[name])
             floor = scale if name in ("g_loss", "logits_fake", "logits_real") else abs(w)
-            assert abs(got[name] - w) <= 1e-5 * max(abs(w), floor), (r, name, got[name], w)
+            assert abs(got[name] - w) <= 1e-5 * max(abs(w), floor), (name, got[name], w)
     assert got["d_weight"] > 0 and got["temp_loss"] > 0
 
 
@@ -561,13 +894,16 @@ def test_stage2_dividing_by_a_rank_s_own_rows_misses_d_weight_twice(stage2):
     assert wit["nll_loss"] / float(want["nll_loss"]) == pytest.approx(2.0, rel=1e-4)
 
 
-def test_stage2_two_ranks_gradients_statistics_and_updates_match_jax(stage2):
+@pytest.mark.parametrize("who", ["ranks", "grid"])
+def test_stage2_two_ranks_gradients_statistics_and_updates_match_jax(stage2, who):
     """Micro-step 1: the generator's and the discriminator's accumulated
     gradients (the whole batch's), the running statistics; micro-step 2:
     the statistics, the trainables, logvar and the discriminator after the
-    update, both Adam states; both ranks hold the same."""
+    update, both Adam states; every rank holds the same. The grid against
+    the data-parallel ranks' witness."""
     j1, j2 = stage2["states"][1], stage2["states"][2]
-    r0, w0 = stage2["got"][0]["snaps"], stage2["got"][0]["witness"]
+    ranks = _stage2_ranks(stage2, who)
+    r0, w0 = ranks[0], stage2["got"][0]["witness"]
     grads_g = _gen_names(j1.opt_g.acc_grads, stage2)
     one = stage2["one_process"][0]["opt_g"]["acc"]
     top = max(float(w.abs().max()) for w in grads_g.values())
@@ -593,9 +929,45 @@ def test_stage2_two_ranks_gradients_statistics_and_updates_match_jax(stage2):
         _assert_leaves_close(r0[1]["opt_d"][moment], _disc_names(getattr(adam_d, moment), stage2),
                              1e-4, witness=w0[1]["opt_d"][moment])
     assert r0[1]["opt_g"]["count"] == r0[1]["opt_d"]["count"] == int(adam_g.count) == 1
-    r1 = stage2["got"][1]["snaps"][1]
-    for part in ("trainable", "disc"):
-        assert all(torch.equal(r1[part][k], v) for k, v in r0[1][part].items()), part
+    for other in ranks[1:]:
+        for part in ("trainable", "disc"):
+            assert all(torch.equal(other[1][part][k], v) for k, v in r0[1][part].items()), part
+
+
+def test_stage2_grid_splits_every_network_by_the_jax_rule(stage2, monkeypatch):
+    """The 2 x 2 grid split a share of the VAE's trainables and of the
+    discriminator; and at the loss networks' real widths (LPIPS' VGG16, the
+    PatchGAN, SpyNet) with the rule's own threshold, the port splits
+    exactly the leaves that the JAX package's ``_param_spec`` splits in the
+    JAX stage-2 state (``aux`` and ``disc``), at T = 2 and 4, along the
+    torch axis of the flax kernel's last one."""
+    grid = stage2["grid"][0]
+    axes = grid["tensor_axes"]
+    start = stage2["start"]
+    assert 0 < sum(k in axes for k in start.trainable) < len(start.trainable)
+    assert 0 < sum(k in axes for k in start.disc) < len(start.disc)
+    assert all(grid["modules"].values())
+    tr = pstage2.Stage2Trainer(VideoAutoencoderKLResi(stage2["cfg"].vae))
+    state0 = stage2["states"][0]
+    trees = {"lpips": state0.aux["lpips"], "spynet": state0.aux["spynet"],
+             "disc": {"params": state0.disc["params"]}}
+    for tp in (2, 4):
+        for name, tree in trees.items():
+            module = tr.modules()[name]
+            paths = from_jax.jax_paths(name, module)
+            by_path = {p[1:]: (k, axis) for k, (p, axis) in paths.items()}
+            want = {}
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+                keys = tuple(e.key for e in path)
+                keys = keys[1:] if keys[0] == "params" and name != "disc" else keys
+                torch_key, axis = by_path[keys]
+                spec = tuple(jmesh._param_spec(tuple(str(e) for e in path), leaf, tp))
+                if "tensor" in spec:
+                    want[torch_key] = axis % module.state_dict()[torch_key].ndim
+                assert np.prod(leaf.shape) == module.state_dict()[torch_key].numel()
+            got = mesh.tensor_axes(name, module, tp)
+            assert got == want, (name, tp)
+            assert want or name == "spynet", name
 
 
 # ---------------------------------------------------------------------------
@@ -605,10 +977,12 @@ def test_stage2_two_ranks_gradients_statistics_and_updates_match_jax(stage2):
 _CLI_CHILD = r"""
 from mgldvsr_tpu_torch.cli import train as cli
 mesh.ZERO1_MIN_SIZE = int(args["min_size"])
+mesh.TENSOR_MIN_OUT = int(args.get("min_out", mesh.TENSOR_MIN_OUT))
 cli.main(["--stage", "1", "--data-root", args["data"], "--tiny", "--device", "cpu",
           "--max-steps", args["steps"], "--grad-accum", "2", "--ckpt-every", "2",
-          "--log-every", "1", "--no-tb", "--logdir", args["logdir"], "--mesh", "--zero1",
-          "--init-method", args["init"]] + (["--resume"] if args["resume"] == "1" else []))
+          "--log-every", "1", "--no-tb", "--logdir", args["logdir"], "--mesh",
+          "--init-method", args["init"]] + args.get("flags", "--zero1").split(",")
+         + (["--resume"] if args["resume"] == "1" else []))
 """
 
 
@@ -666,12 +1040,15 @@ def test_cli_mesh_zero1_in_two_ranks_saves_whole_and_resumes(data_root, tmp_path
 
 
 def test_cli_mesh_in_a_world_of_one_is_the_run_without_it(data_root, tmp_path):
-    """One gloo rank with ``--mesh --zero1`` writes the checkpoint and the
-    losses of the command without the flags, bit for bit: every collective
-    of a world of one leaves its tensors as they were."""
+    """One gloo rank with ``--mesh --zero1 --tensor-parallel 1`` writes the
+    checkpoint and the losses of the command without the flags, bit for
+    bit: every collective of a world of one leaves its tensors as they
+    were."""
     (tmp_path / "r").mkdir()
     run_ranks(tmp_path / "r", _CLI_CHILD, 1, timeout=300, data=data_root, logdir=tmp_path / "a",
-              steps=2, resume=0, min_size=MIN_SIZE)
+              steps=2, resume=0, min_size=MIN_SIZE, flags="--zero1,--tensor-parallel,1")
+    assert "mesh {'data': 1, 'tensor': 1} over 1 devices" in (
+        tmp_path / "r" / "rank0.log").read_text()
     cli.main(["--stage", "1", "--data-root", data_root, "--tiny", "--device", "cpu",
               "--max-steps", "2", "--grad-accum", "2", "--ckpt-every", "2", "--log-every", "1",
               "--no-tb", "--logdir", str(tmp_path / "b")])
@@ -684,6 +1061,104 @@ def test_cli_mesh_in_a_world_of_one_is_the_run_without_it(data_root, tmp_path):
     losses = [[json.loads(line)["loss"] for line in open(tmp_path / d / "metrics.jsonl")]
               for d in ("a", "b")]
     assert losses[0] == losses[1]
+
+
+def test_cli_tensor_parallel_in_two_ranks_saves_whole_and_resumes_without_mesh(
+        data_root, tmp_path, capsys):
+    """``--mesh --tensor-parallel 2 --zero1`` in two gloo ranks (a 1 x 2
+    grid, the tiny towers split at ``MIN_OUT``) prints the mesh, logs every
+    step and checkpoints the whole state in the single-process layout; the
+    command without ``--mesh`` resumes its step-4 checkpoint with the same
+    masters, EMA and moments, and trains on."""
+    (tmp_path / "r").mkdir()
+    logdir = tmp_path / "a"
+    run_ranks(tmp_path / "r", _CLI_CHILD, 2, timeout=300, data=data_root, logdir=logdir, steps=4,
+              resume=0, min_size=MIN_SIZE, min_out=MIN_OUT, flags="--zero1,--tensor-parallel,2")
+    for r in range(2):
+        log = (tmp_path / "r" / f"rank{r}.log").read_text()
+        assert "mesh {'data': 1, 'tensor': 2} over 2 devices, host 0/1" in log
+    assert [json.loads(line)["step"] for line in open(logdir / "metrics.jsonl")] == [1, 2, 3, 4]
+    saved = CheckpointManager(str(logdir / "ckpt")).restore(4)
+    argv = ["--stage", "1", "--data-root", data_root, "--tiny", "--device", "cpu",
+            "--grad-accum", "2", "--ckpt-every", "2", "--log-every", "1", "--no-tb",
+            "--logdir", str(logdir), "--resume"]
+    resumed = cli.stage1(cli.parse_args(argv + ["--max-steps", "4"]))
+    assert "resumed at step 4" in capsys.readouterr().out
+    for part in ("trainable", "ema"):
+        got = getattr(resumed, part)
+        assert set(got) == set(saved[part])
+        assert all(torch.equal(got[k], v) for k, v in saved[part].items()), part
+    for part in ("mu", "nu"):
+        assert all(torch.equal(resumed.opt_state[part][k], v)
+                   for k, v in saved["opt_state"][part].items()), part
+    cli.stage1(cli.parse_args(argv + ["--max-steps", "6"]))
+    assert CheckpointManager(str(logdir / "ckpt")).all_steps() == [2, 4, 6]
+
+
+_STAGE2_CLI_CHILD = r"""
+from mgldvsr_tpu_torch.cli import train as cli
+mesh.TENSOR_MIN_OUT = int(args["min_out"])
+cli.main(args["argv"].split(",") + ["--mesh", "--tensor-parallel", "2", "--zero1",
+                                    "--init-method", args["init"], "--no-tb"])
+"""
+
+
+def test_cli_stage2_on_a_one_by_two_grid_saves_and_exports_whole(roots, tmp_path):
+    """``--stage 2 --mesh --tensor-parallel 2 --zero1`` in two gloo ranks
+    (the tiny VAE, LPIPS and the discriminator split at ``MIN_OUT``): finite
+    metrics every step, a checkpoint in the single-process layout (every
+    tensor shaped as the run without ``--mesh`` shapes it) and an exported
+    VAE whose frozen parameters equal that run's bit for bit (gathered from
+    the ranks' rows)."""
+    (tmp_path / "r").mkdir()
+    grid_dir, plain_dir = tmp_path / "grid", tmp_path / "plain"
+    run_ranks(tmp_path / "r", _STAGE2_CLI_CHILD, 2, timeout=300, min_out=MIN_OUT,
+              argv=",".join(_stage2_argv(roots, grid_dir, 2)))
+    cli.main(_stage2_argv(roots, plain_dir, 2, "--no-tb"))
+    records = [json.loads(line) for line in open(grid_dir / "metrics.jsonl")]
+    assert [r["step"] for r in records] == [1, 2]
+    assert all(np.isfinite(r[k]) for r in records for k in ("loss_g", "loss_d", "d_weight"))
+    got, want = (CheckpointManager(str(d / "ckpt")).restore(2) for d in (grid_dir, plain_dir))
+
+    def shapes(tree):
+        if isinstance(tree, torch.Tensor):
+            return tuple(tree.shape)
+        return {k: shapes(v) for k, v in tree.items()} if isinstance(tree, dict) else None
+
+    for part in ("trainable", "disc", "opt_g", "opt_d"):
+        assert shapes(got[part]) == shapes(want[part]), part
+    vae = {d: _load(d / "export", "vqgan.pt")["state_dict"] for d in (grid_dir, plain_dir)}
+    assert vae[grid_dir].keys() == vae[plain_dir].keys()
+    frozen = [k for k in vae[plain_dir] if k not in want["trainable"]]
+    assert all(torch.equal(vae[grid_dir][k], vae[plain_dir][k]) for k in frozen)
+    assert "mesh {'data': 1, 'tensor': 2}" in (tmp_path / "r" / "rank0.log").read_text()
+
+
+def test_cli_three_ranks_degrade_tensor_parallel_2_to_1(data_root, tmp_path):
+    """Three ranks cannot hold a tensor axis of 2: the grid degrades to 3 x
+    1, as JAX's ``make_mesh`` does, every rank prints it, and the run trains
+    data-parallel."""
+    (tmp_path / "r").mkdir()
+    run_ranks(tmp_path / "r", _CLI_CHILD, 3, timeout=300, data=data_root, logdir=tmp_path / "a",
+              steps=2, resume=0, min_size=MIN_SIZE, flags="--tensor-parallel,2")
+    for r in range(3):
+        log = (tmp_path / "r" / f"rank{r}.log").read_text()
+        assert "mesh {'data': 3, 'tensor': 1} over 3 devices, host 0/1" in log, log[-2000:]
+    records = [json.loads(line) for line in open(tmp_path / "a" / "metrics.jsonl")]
+    assert [r["step"] for r in records] == [1, 2] and all(np.isfinite(r["loss"]) for r in records)
+
+
+def test_tensor_parallel_flag(data_root, capsys):
+    """``--tensor-parallel 1`` (JAX's default) is accepted with and without
+    ``--mesh``; a tensor axis above 1 needs ``--mesh``, and below 1 is
+    refused."""
+    base = ["--data-root", data_root, "--device", "cpu"]
+    assert cli.parse_args(base + ["--tensor-parallel", "1"]).tensor_parallel == 1
+    assert cli.parse_args(base + ["--mesh", "--tensor-parallel", "4"]).tensor_parallel == 4
+    for bad in (["--tensor-parallel", "2"], ["--mesh", "--tensor-parallel", "0"]):
+        with pytest.raises(SystemExit):
+            cli.parse_args(base + bad)
+        assert "--tensor-parallel" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags", [["--mesh"], ["--multihost"], ["--zero1", "--mesh"]])
