@@ -253,6 +253,41 @@ Phase 14 the soak tool on the card (``mgldvsr_tpu_torch.tools.soak_train
          micro-steps, SIGUSR1 at step 10, SIGKILL, ``--resume``; the step counter must
          continue from the checkpoint, the replayed step log the same loss,
          and the trainer's peak device memory appear in the summary.
+Phase 15 the device synthesis and the stock text-to-image path. (a)
+         Real-ESRGAN's two-stage synthesis (``train/synthesis.py``) on a
+         stage-1 clip's GT [8,512,512,3] float32 with a kernel set a frame
+         and draws from the card's generator: LQ [8,128,128,3] finite, in
+         [0, 1], on the 1/255 grid, ms a clip beside phase 8's host data
+         path; then at [2,128,128,3] card against CPU with the same draws,
+         step by step on the card's input to each step (the CPU tests'
+         limits: DiffJPEG's blocks apart only where a coefficient lies
+         within 1e-4 of a half-integer) and whole. (b) ``Text2ImgPipeline``
+         at full width in bf16 (SD 2.1's stock UNet, VAE ch 128, OpenCLIP
+         ViT-H text, seeded weights): a made-up-vocabulary prompt and the
+         empty one, CFG 7.5, 512x512, 50 DDIM steps, then DDIM inversion of
+         the image at 10 steps, in both configurations: finite, every gated
+         attention call (10 a UNet call) on the tensor-core kernel, the
+         GroupNorm kernels launched, and with MGLD_FUSED_GN_CONV=1 every
+         chain of more than 8 output channels on kernel 7's tensor-core
+         kernel; ms/step, peak memory and launches (``launches_txt2img``,
+         ``launches_txt2img_fused`` in the kernels line). (c) the tiny
+         pipeline card against CPU in both configurations: DDIM under
+         guidance, PLMS, inversion, within 1e-3. (d) the tiny alternate
+         encoders, the classifier's three pools and textual inversion
+         through the tiny text tower, card against CPU within 1e-4. (e)
+         Every kernel against its plain version at every shape that (b)'s
+         warm runs gave it (noted call by call; the notes must account for
+         every launch), on seeded inputs with phase 2's limits, timed beside
+         the plain version, the library call and the bound; the
+         ``txt2img_shapes`` of each kernel in the kernels line. (f), after
+         (b): one batch-2 CFG UNet call (the first DDIM timestep) and one
+         decode at full width, the kernels in both configurations against
+         the plain versions in bf16 and both against a float32 twin of the
+         weights on the plain versions: the kernels' distance from float32
+         within ``T2I_TO_F32`` times the plain bf16 run's. The raw decode of
+         seeded weights spans more than [-1, 1]: (b) prints its range and
+         inverts the image clamped to [-1, 1].
+         ``--only-txt2img`` builds the kernels and runs phase 15 alone.
 
 Prints one JSON line describing the kernels before the last line, and the
 result line ``{"ok": true, "device": {...}}`` last. Any failure raises and
@@ -918,7 +953,8 @@ def phase2(card: str):
         if not err <= tol:
             raise AssertionError(f"{name}: kernel disagrees with its plain version "
                                  f"({err:.3e} > {tol:.1e})")
-        # the JSON line carries each kernel's first shape; max_abs_err its worst
+        # the JSON line carries each kernel's first shape; max_abs_err its worst (with
+        # phase 15 (e)'s shapes folded in)
         first = results.setdefault(name, {
             "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
@@ -4365,6 +4401,756 @@ def phase14(card: str) -> dict:
     return dict(summary, wall_s=wall)
 
 
+# -- phase 15: the device synthesis and the stock text-to-image path ----------
+
+SYN_LEVEL = 1.0 / 255
+
+
+def synthesis_kernels(seed: int, n: int) -> dict:
+    """A kernel set a clip, stacked: [n, 21, 21] each."""
+    from mgldvsr_tpu_torch.train.synthesis import sample_degradation_kernels
+
+    sets = [sample_degradation_kernels(np.random.RandomState(seed + i)) for i in range(n)]
+    return {k: np.stack([s[k] for s in sets]) for k in sets[0]}
+
+
+def jpeg_blocks_apart(got, want, coefs_got, coefs_want, pix_atol: float = 1e-5) -> int:
+    """The CPU tests' DiffJPEG limits for one JPEG step of the same input
+    on two sides ([N,H,W,3] outputs, each side's scaled coefficients): the
+    coefficients within 1e-4; each block whose rounding differs holds a
+    coefficient within 1e-4 of a half-integer; at most 0.1% of the blocks
+    differ; every pixel outside them within ``pix_atol``. Returns the
+    number of blocks apart."""
+    import torch
+
+    got, want = got.float().cpu(), want.float().cpu()
+    apart = torch.zeros(got.shape[:3], dtype=torch.bool)
+    n_blocks = n_diff = 0
+    w = got.shape[2]
+    for plane, (cg, cw) in enumerate(zip(coefs_got, coefs_want)):
+        cg, cw = cg.float().cpu(), cw.float().cpu()
+        err = max_err(cg, cw)
+        if err > 1e-4:
+            raise AssertionError(f"DiffJPEG plane {plane}: coefficients {err:.3e} apart")
+        flipped = (cg.round() != cw.round()).flatten(2).any(dim=2)
+        half = ((cw - cw.floor()).sub(0.5).abs() < 1e-4).flatten(2).any(dim=2)
+        if bool((flipped & ~half).any()):
+            raise AssertionError(f"DiffJPEG plane {plane}: a block rounds apart without a "
+                                 f"coefficient at a half-integer")
+        n_blocks += flipped.numel()
+        n_diff += int(flipped.sum())
+        px = 8 if plane == 0 else 16
+        for i, b in flipped.nonzero().tolist():
+            r, c = divmod(b, w // px)
+            apart[i, r * px:(r + 1) * px, c * px:(c + 1) * px] = True
+    if n_diff > 1e-3 * n_blocks:
+        raise AssertionError(f"DiffJPEG: {n_diff} of {n_blocks} blocks apart")
+    d = (got - want).abs().amax(dim=-1)
+    if bool((d[~apart] > pix_atol).any()):
+        raise AssertionError(f"DiffJPEG: pixels outside the blocks apart "
+                             f"{float(d[~apart].max()):.3e}")
+    return n_diff
+
+
+def levels_apart(got, want) -> int:
+    """Pixels on the 1/255 grid: each within 1e-5 or one level, at most
+    0.1% a level apart. Returns how many are."""
+    d = (got.float().cpu() - want.float().cpu()).abs()
+    level = (d - SYN_LEVEL).abs() <= 1e-5
+    if not bool(((d <= 1e-5) | level).all()):
+        raise AssertionError(f"levels: {float(d.max()):.3e} apart")
+    if int(level.sum()) > 1e-3 * d.numel():
+        raise AssertionError(f"levels: {int(level.sum())} of {d.numel()} pixels a level apart")
+    return int(level.sum())
+
+
+def synthesis_card_vs_cpu(seed: int, card: str) -> dict:
+    """(a) card against CPU at [2,128,128,3] with the same draws (made on
+    the CPU): the sharpened GT within 1e-5; each step of the chain on the
+    card's input to it, card against CPU: the JPEG steps by
+    ``jpeg_blocks_apart``, the final levels by ``levels_apart``, every other
+    step within 1e-5; then the whole chain by ``levels_apart``, which a JPEG
+    block apart (found step by step, and explained there) may excuse."""
+    import torch
+
+    from mgldvsr_tpu_torch.ops.diffjpeg import scaled_coefficients
+    from mgldvsr_tpu_torch.ops.img_process import usm_sharp
+    from mgldvsr_tpu_torch.train import synthesis as syn
+
+    cfg = syn.SynthesisConfig()
+    gt = torch.from_numpy(lq_clip(seed + 40, 128, frames=2))
+    kern = {k: torch.from_numpy(v) for k, v in synthesis_kernels(seed + 40, 2).items()}
+    draws = syn.draw_synthesis(torch.Generator().manual_seed(seed + 41), 2, 128, 128, cfg, "cpu")
+    sharp_cpu, sharp_gpu = usm_sharp(gt), usm_sharp(gt.cuda())
+    usm_err = max_err(sharp_gpu.cpu(), sharp_cpu)
+    if usm_err > 1e-5:
+        raise AssertionError(f"phase 15 (a): usm_sharp card vs CPU {usm_err:.3e}")
+    steps = syn.synthesis_steps(kern, draws, 128, 128, cfg)
+    x, errs, blocks = sharp_gpu, {}, 0
+    for name, step in steps:
+        got, want = step(x), step(x.cpu())
+        if name.startswith("jpeg"):
+            q = (draws.stage1 if name == "jpeg1" else draws.stage2).quality
+            blocks += jpeg_blocks_apart(got, want,
+                                        scaled_coefficients(x.clamp(0, 1), q.cuda()),
+                                        scaled_coefficients(x.cpu().clamp(0, 1), q))
+        elif name == "levels":
+            levels_apart(got, want)
+        elif max_err(got.cpu(), want) > 1e-5:
+            raise AssertionError(f"phase 15 (a): step {name} card vs CPU "
+                                 f"{max_err(got.cpu(), want):.3e}")
+        errs[name] = max_err(got.cpu(), want)
+        x = got
+    lq_gpu, _ = syn.apply_synthesis(gt.cuda(), kern, draws, cfg)
+    lq_cpu, _ = syn.apply_synthesis(gt, kern, draws, cfg)
+    whole = max_err(lq_gpu.cpu(), lq_cpu)
+    try:
+        levels = levels_apart(lq_gpu, lq_cpu)
+    except AssertionError:
+        if not blocks:
+            raise
+        levels = None
+    log(f"[phase15] (a) synthesis card vs CPU at [2,128,128,3], the same draws: usm "
+        f"{usm_err:.3e}; steps {', '.join(f'{k} {v:.2e}' for k, v in errs.items())}; JPEG "
+        f"blocks apart {blocks}; the whole chain max |d| {whole:.3e} ({levels} pixels a "
+        f"level apart)  [{card}]")
+    return {"usm": usm_err, "steps": errs, "jpeg_blocks_apart": blocks, "whole": whole,
+            "levels_apart": levels}
+
+
+def synthesis_full(seed: int, card: str, host_s: float | None) -> dict:
+    """(a) a stage-1 clip's GT [8,512,512,3] float32 on the card, a kernel
+    set a frame, draws from the card's generator: LQ [8,128,128,3], finite,
+    in [0, 1], on the 1/255 grid; ms a clip (warm, synchronised, median of
+    3)."""
+    import torch
+
+    from mgldvsr_tpu_torch.train import synthesis as syn
+
+    cfg = syn.SynthesisConfig()
+    gt = torch.from_numpy(lq_clip(seed + 30, 512, frames=8)).cuda()
+    kern = {k: torch.from_numpy(v).cuda() for k, v in synthesis_kernels(seed + 30, 8).items()}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    times = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lq, sharp = syn.synthesize_lq(gen, gt, kern, cfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            first = lq
+    ms = 1000 * float(np.median(times[1:]))
+    if first.shape != (8, 128, 128, 3) or sharp.shape != gt.shape:
+        raise AssertionError(f"phase 15 (a): shapes {tuple(first.shape)}, {tuple(sharp.shape)}")
+    if not (bool(torch.isfinite(first).all()) and 0 <= float(first.min())
+            and float(first.max()) <= 1):
+        raise AssertionError("phase 15 (a): the LQ is not finite in [0, 1]")
+    if not torch.equal(torch.round(first * 255) / 255, first):
+        raise AssertionError("phase 15 (a): the LQ is off the 1/255 grid")
+    host = f"{host_s:.3f} s a clip" if host_s is not None else "not measured in this run"
+    log(f"[phase15] (a) synthesis on the card, GT [8,512,512,3] float32 -> LQ [8,128,128,3]: "
+        f"{ms:.2f} ms a clip (median of 3 warm calls; first call {1000 * times[0]:.2f} ms); "
+        f"the host data path (phase 8, one thread): {host}  [{card}]")
+    return {"ms_a_clip": ms, "first_ms": 1000 * times[0], "host_s_a_clip": host_s}
+
+
+def made_up_prompt(seed: int, tmp: str):
+    """(tokens [1, 77], empty tokens [1, 77]): a made-up vocabulary (a
+    merges file written from ``seed``) and a prompt of its words."""
+    import gzip
+
+    from mgldvsr_tpu_torch.data.tokenizer import SimpleTokenizer, tokenize
+
+    rs = np.random.RandomState(seed)
+    words = ["".join(rs.choice(list("abcdefghijklmnopqrstuvwxyz"), rs.randint(3, 9)))
+             for _ in range(12)]
+    lines, seen = ["#version: made up"], set()
+    for w in words:
+        parts = list(w[:-1]) + [w[-1] + "</w>"]
+        while len(parts) > 1:
+            if (parts[0], parts[1]) not in seen:
+                seen.add((parts[0], parts[1]))
+                lines.append(f"{parts[0]} {parts[1]}")
+            parts = [parts[0] + parts[1]] + parts[2:]
+    path = os.path.join(tmp, "bpe_made_up.txt.gz")
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    tok = SimpleTokenizer(path)
+    prompt = " ".join(words[:8])
+    return tokenize(prompt, 77, tokenizer=tok), tokenize("", 77, tokenizer=tok), prompt
+
+
+def gated_self_attentions(cfg, latent: int) -> int:
+    """The UNet's self-attention calls a forward that pass the kernel's
+    gate (N >= 1024 tokens): every transformer at a level with at least
+    1024 latent pixels, num_res_blocks of them going down and one more
+    coming up."""
+    from mgldvsr_tpu_torch.ops.attention import gated
+
+    count, ds = 0, 1
+    for level in range(len(cfg.channel_mult)):
+        n = (latent // ds) ** 2
+        if ds in cfg.attention_resolutions and gated(n, n, cfg.num_head_channels, 2):
+            count += 2 * cfg.num_res_blocks + 1
+        ds *= 2
+    return count
+
+
+# phase 15 (f): the kernels' distance from the float32 twin over the plain
+# versions' in bf16, at most (as phase 9 (e)'s S2_DEC_TO_F32)
+T2I_TO_F32 = 1.5
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Bind the attention dispatch's kernel entry to its plain version for
+    the enclosed calls; restore the wrapper after."""
+    from mgldvsr_tpu_torch.ops import attention as dispatch
+    from mgldvsr_tpu_torch.ops.kernels.attention import attention_bnhd_plain
+
+    before = dispatch.attention_bnhd
+    dispatch.attention_bnhd = attention_bnhd_plain
+    try:
+        yield
+    finally:
+        dispatch.attention_bnhd = before
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls(seen: dict):
+    """Bind the models' kernel entries (the attention dispatch's
+    ``attention_bnhd``; ``models.layers``' ``fused_group_norm``,
+    ``channel_sums`` and ``gn_silu_conv3x3``) to wrappers that count each
+    call in ``seen`` under its kernel's name and its operands' shapes,
+    dtypes, strides and arguments, then pass it on; restore them after."""
+    from mgldvsr_tpu_torch.models import layers
+    from mgldvsr_tpu_torch.ops import attention as dispatch
+
+    before = {"attention_bnhd": dispatch.attention_bnhd,
+              **{name: getattr(layers, name)
+                 for name in ("fused_group_norm", "channel_sums", "gn_silu_conv3x3")}}
+
+    def note(key):
+        seen[key] = seen.get(key, 0) + 1
+
+    def attention_bnhd(q, k, v):
+        note(("attention", tuple(q.shape), tuple(q.stride()), tuple(k.stride()),
+              tuple(v.stride()), q.dtype))
+        return before["attention_bnhd"](q, k, v)
+
+    def fused_group_norm(x, weight, bias, groups, eps):
+        note(("fused_group_norm", tuple(x.shape), x.dtype, groups, eps))
+        return before["fused_group_norm"](x, weight, bias, groups, eps)
+
+    def channel_sums(x):
+        note(("channel_sums", tuple(x.shape), x.dtype))
+        return before["channel_sums"](x)
+
+    def gn_silu_conv3x3(x, gn_weight, gn_bias, weight, bias, groups, eps):
+        note(("gn_silu_conv3x3", tuple(x.shape), x.dtype, weight.shape[0], bias.dtype, groups,
+              eps))
+        return before["gn_silu_conv3x3"](x, gn_weight, gn_bias, weight, bias, groups, eps)
+
+    dispatch.attention_bnhd = attention_bnhd
+    layers.fused_group_norm, layers.channel_sums = fused_group_norm, channel_sums
+    layers.gn_silu_conv3x3 = gn_silu_conv3x3
+    try:
+        yield
+    finally:
+        dispatch.attention_bnhd = before.pop("attention_bnhd")
+        for name, fn in before.items():
+            setattr(layers, name, fn)
+
+
+def strided_randn(shape, stride, dtype, dev, gen, mean: float = 0.0):
+    """N(mean, 1) values of ``dtype`` laid out with ``stride`` in a buffer
+    of their own (a view of it)."""
+    import torch
+
+    size = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+    return (torch.randn(size, device=dev, generator=gen) + mean).to(dtype).as_strided(shape,
+                                                                                   stride)
+
+
+def t2i_kernel_shapes(seen: dict, card: str) -> dict:
+    """(e) every kernel against its plain version at every shape (b) gave
+    it (``seen``, from ``recorded_kernel_calls``), on seeded inputs, with
+    phase 2's limits: attention in bf16 3 ulps at max |out| against the
+    plain version in bf16 and in float32 (q, k and v laid out with the
+    path's strides, read in place), the fused GroupNorm 2 ulps at max |y|
+    in bf16 (1e-5 in float32), the channel sums 1e-5 of the largest, the
+    fused chain 3 ulps at max |y| in bf16 (1e-4 of it in float32) and its
+    statistics 1e-5 of the largest, relative. Times (kernel, plain
+    version, the library call), bounds as phase 2's. Returns kernel ->
+    shape -> row."""
+    import torch
+    import torch.nn.functional as F
+
+    from mgldvsr_tpu_torch.ops import kernels
+    from mgldvsr_tpu_torch.ops.kernels import attention as attn_mod
+    from mgldvsr_tpu_torch.ops.kernels import gn_silu_conv as conv_mod
+    from mgldvsr_tpu_torch.ops.kernels import groupnorm as gn_mod
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1515)
+    bf16 = torch.bfloat16
+    out = {}
+
+    def kind(dtype):
+        return "bf16" if dtype == bf16 else "f32"
+
+    def row(name, label, calls, err, tol, fn, plain, library, bnd, **extra):
+        r = {"calls": calls, "max_abs_err": err, "limit": tol, "ms": cuda_ms(fn, iters=5),
+             "plain_ms": cuda_ms(plain, iters=5), "library_ms": cuda_ms(library, iters=5),
+             "bound_ms": bnd[0], "bound_by": bnd[1], **extra}
+        log(f"[phase15] (e) {name} {label} ({calls} calls in (b)'s warm run): max_abs_err "
+            f"{err:.3e} (limit {tol:.3e}) kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+            f"{''.join(f', {k} {v}' for k, v in extra.items())}  [{card}]")
+        if not (err <= tol):
+            raise AssertionError(f"phase 15 (e): {name} {label}: {err:.3e} > {tol:.3e}")
+        out.setdefault(name, {})[label] = r
+
+    for key, calls in sorted(seen.items(), key=str):
+        name = key[0]
+        if name == "attention":
+            _, shape, sq, sk, sv, dtype = key
+            q, k = (strided_randn(shape, st, dtype, dev, gen) for st in (sq, sk))
+            v = strided_randn(shape, sv, dtype, dev, gen, mean=1.0)
+            kernels.reset_launch_counts()
+            got = attn_mod.attention_bnhd(q, k, v)
+            c = kernels.launch_counts()
+            want32 = attn_mod.attention_bnhd_plain(q.float(), k.float(), v.float())
+            tol = bf16_ulps(3, want32) if dtype == bf16 else 1e-4
+            err = max(max_err(got, want32), max_err(got, attn_mod.attention_bnhd_plain(q, k, v)))
+            del want32
+            b, n, h, d = shape
+            if dtype == bf16 and d == 64 and c["attention_wgmma"] != 1:
+                raise AssertionError(f"phase 15 (e): attention {shape} did not take wgmma: {c}")
+            qh, kh, vh = (z.transpose(1, 2) for z in (q, k, v))
+            row("attention", f"[{b},{n},{h},{d}] {kind(dtype)} strides {list(sq)}", calls, err,
+                tol, lambda: attn_mod.attention_bnhd(q, k, v),
+                lambda: attn_mod.attention_bnhd_plain(q, k, v),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                bound(nbytes(q, k, v, got), 4.0 * b * h * n * n * d, kind(dtype)),
+                read_in_place=bool(c["attention_strided"]))
+        elif name == "fused_group_norm":
+            _, shape, dtype, groups, eps = key
+            x, w, b = group_norm_case(shape, dtype, dev, gen)
+            got = gn_mod.fused_group_norm(x, w, b, groups, eps)
+            want = gn_mod.fused_group_norm_plain(x, w, b, groups, eps)
+            wd, bd = w.to(dtype), b.to(dtype)
+            row(name, f"{list(shape)} {kind(dtype)} eps {eps:g}", calls, max_err(got, want),
+                group_norm_limit(want), lambda: gn_mod.fused_group_norm(x, w, b, groups, eps),
+                lambda: gn_mod.fused_group_norm_plain(x, w, b, groups, eps),
+                lambda: F.group_norm(x, groups, wd, bd, eps),
+                bound(nbytes(x, got, w, b), 8.0 * x.numel(), "f32"))
+        elif name == "channel_sums":
+            _, shape, dtype = key
+            x = torch.randn(shape, device=dev, generator=gen).to(dtype) + 0.5
+            got, want = gn_mod.channel_sums(x), gn_mod.channel_sums_plain(x)
+            row(name, f"{list(shape)} {kind(dtype)}", calls,
+                max(max_err(got[0], want[0]), max_err(got[1], want[1])),
+                1e-5 * float(want[1].abs().max()), lambda: gn_mod.channel_sums(x),
+                lambda: gn_mod.channel_sums_plain(x),
+                lambda: torch.var_mean(x, dim=(2, 3)),
+                bound(nbytes(x, *got), 3.0 * x.numel(), "f32"))
+        elif name == "gn_silu_conv3x3":
+            _, shape, dtype, co, bias_dtype, groups, eps = key
+            n, c, h, w_ = shape
+            x = (torch.randn(shape, device=dev, generator=gen) * 1.5 + 0.3).to(dtype)
+            gw = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+            gb = 0.1 * torch.randn(c, device=dev, generator=gen)
+            wt = (torch.randn(co, c, 3, 3, device=dev, generator=gen) * (9 * c) ** -0.5).to(dtype)
+            bias = (0.1 * torch.randn(co, device=dev, generator=gen)).to(bias_dtype)
+            kernels.reset_launch_counts()
+            got = conv_mod.gn_silu_conv3x3(x, gw, gb, wt, bias, groups, eps)
+            on_wgmma = kernels.launch_counts()["gn_silu_conv3x3_wgmma"]
+            want = conv_mod.gn_silu_conv3x3_plain(x, gw, gb, wt, bias, groups, eps)
+            tol = (bf16_ulps(3, want) if dtype == bf16
+                   else 1e-4 * float(want.float().abs().max()))
+            gwd, gbd, biasd = gw.to(dtype), gb.to(dtype), bias.to(dtype)
+            row(name, f"[{n},{c},{h},{w_}]->{co} {kind(dtype)}", calls, max_err(got, want), tol,
+                lambda: conv_mod.gn_silu_conv3x3(x, gw, gb, wt, bias, groups, eps),
+                lambda: conv_mod.gn_silu_conv3x3_plain(x, gw, gb, wt, bias, groups, eps),
+                lambda: F.conv2d(F.silu(F.group_norm(x, groups, gwd, gbd, eps)), wt, biasd,
+                                 padding=1),
+                bound(nbytes(x, wt, got, gw, gb, bias), 18.0 * c * co * n * h * w_, kind(dtype)),
+                variant=conv_mod.kernel_variant(dtype, co), on_wgmma=bool(on_wgmma))
+            # the chain's statistics, once a shape (chains of one input and
+            # several output widths share them)
+            label = f"{list(shape)} {kind(dtype)} eps {eps:g}"
+            if label in out.get("gn_scale_shift", {}):
+                out["gn_scale_shift"][label]["calls"] += calls
+                continue
+            sums = gn_mod.gn_scale_shift(x, gw, gb, groups, eps)
+            plain = gn_mod.gn_scale_shift_plain(x, gw, gb, groups, eps)
+            groups_view = x.view(n, groups, -1)
+            row("gn_scale_shift", label, calls,
+                max(max_err(a, p) / float(p.abs().max()) for a, p in zip(sums, plain)), 1e-5,
+                lambda: gn_mod.gn_scale_shift(x, gw, gb, groups, eps),
+                lambda: gn_mod.gn_scale_shift_plain(x, gw, gb, groups, eps),
+                lambda: torch.var_mean(groups_view, dim=2),
+                bound(nbytes(x, gw, gb, *sums), 3.0 * x.numel(), "f32"))
+        else:
+            raise AssertionError(f"phase 15 (e): no check for {key}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def t2i_against_plain(pipe, unet32, vae32, ctx, unc, x_T, card: str) -> dict:
+    """(f) one UNet call of (b)'s sampler (the batch-2 CFG call at its
+    first timestep) and one decode (of x_T, latents of the sampler's
+    scale), at full width in bf16: the kernels in each configuration
+    against the plain versions (``plain_group_norms``, ``plain_attention``)
+    in bf16 on the card, and each against the float32 twin (the same
+    seeded weights, never cast) on the plain versions. Distances are
+    ||a - b|| / ||b||; the kernels' distance from float32 must stay within
+    ``T2I_TO_F32`` times the plain bf16 run's (PERF.md section 6, written
+    before the first card run)."""
+    import torch
+
+    from mgldvsr_tpu_torch.core.samplers import make_ddim_timesteps
+    from mgldvsr_tpu_torch.infer.pipeline import _nchw, _nhwc
+    from mgldvsr_tpu_torch.ops import kernels
+
+    first = int(make_ddim_timesteps(pipe.sched.num_timesteps, 50)[-1])
+    tb = torch.full((2,), first, device="cuda", dtype=torch.int64)
+    x2 = _nchw(torch.cat([x_T, x_T], dim=0))
+    ctx2 = torch.cat([unc, ctx], dim=0)
+
+    def run(unet, vae):
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            eps = unet(x2, tb, ctx2, None).float()
+            img = _nhwc(vae.decode(_nchw(x_T / pipe.cfg.scale_factor))).float()
+        torch.cuda.synchronize()
+        return eps, img, {k: v for k, v in kernels.launch_counts().items() if v}
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    with plain_group_norms(), plain_attention():
+        want = run(unet32, vae32)
+        plain = run(pipe.unet, pipe.vae)
+    if want[2] or plain[2]:
+        raise AssertionError(f"phase 15 (f): the plain runs launched {want[2]}, {plain[2]}")
+    out = {"unet_plain_from_f32": rel(plain[0], want[0]),
+           "decode_plain_from_f32": rel(plain[1], want[1])}
+    for fused in (False, True):
+        with fused_switch(fused):
+            got = run(pipe.unet, pipe.vae)
+        tag = "fused" if fused else "default"
+        r = {"unet_from_plain": rel(got[0], plain[0]), "decode_from_plain": rel(got[1], plain[1]),
+             "unet_from_f32": rel(got[0], want[0]), "decode_from_f32": rel(got[1], want[1]),
+             "launches": got[2]}
+        r["unet_to_f32"] = r["unet_from_f32"] / out["unet_plain_from_f32"]
+        r["decode_to_f32"] = r["decode_from_f32"] / out["decode_plain_from_f32"]
+        out[tag] = r
+        log(f"[phase15] (f) {tag}: one batch-2 CFG UNet call at t={int(tb[0])} and one decode "
+            f"at 512x512, bf16 kernels against the plain versions in bf16: UNet "
+            f"{r['unet_from_plain']:.3e}, decode {r['decode_from_plain']:.3e} (||d|| / ||plain||);"
+            f" against the float32 twin: UNet {r['unet_from_f32']:.3e} (plain bf16 "
+            f"{out['unet_plain_from_f32']:.3e}, ratio {r['unet_to_f32']:.3f}), decode "
+            f"{r['decode_from_f32']:.3e} (plain bf16 {out['decode_plain_from_f32']:.3e}, ratio "
+            f"{r['decode_to_f32']:.3f}; limit {T2I_TO_F32} each); launches {got[2]}  [{card}]")
+        if not (r["unet_to_f32"] <= T2I_TO_F32 and r["decode_to_f32"] <= T2I_TO_F32):
+            raise AssertionError(f"phase 15 (f) {tag}: {r}")
+        needed = (("gn_silu_conv3x3", "gn_scale_shift", "fused_group_norm") if fused
+                  else ("channel_sums", "fused_group_norm"))
+        if (any(not got[2].get(k) for k in needed)
+                or got[2].get("attention_wgmma") != gated_self_attentions(pipe.cfg.unet, 64)):
+            raise AssertionError(f"phase 15 (f) {tag}: launches {got[2]}")
+    return out
+
+
+def t2i_full(seed: int, card: str, tmp: str) -> dict:
+    """(b) the stock SD 2.1 text-to-image path at full width in bf16, in
+    both configurations; after it (f) one of its UNet calls and a decode
+    against the plain versions and a float32 twin, and (e) every kernel at
+    every shape its warm runs gave it."""
+    import dataclasses
+
+    import torch
+
+    from mgldvsr_tpu_torch.infer.txt2img import Text2ImgConfig, Text2ImgPipeline
+    from mgldvsr_tpu_torch.infer.txt2img import text2img_unet_config
+    from mgldvsr_tpu_torch.io.init_weights import init_module_weights
+    from mgldvsr_tpu_torch.models.cliptext import CLIPTextConfig
+    from mgldvsr_tpu_torch.models.unet import InflatedUNetDualCond
+    from mgldvsr_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from mgldvsr_tpu_torch.ops import kernels
+
+    bf16 = torch.bfloat16
+    cfg = Text2ImgConfig(unet=text2img_unet_config(bf16),
+                         vae=VAEConfig(num_frames=1, enable_fusion=False, dtype=bf16),
+                         clip=CLIPTextConfig(dtype=bf16))
+    pipe = Text2ImgPipeline(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 50)
+    for tower in pipe.towers().values():
+        init_module_weights(tower, gen)
+    # (f)'s float32 twin: the weights before their cast, kept on the host
+    # until (b) has run
+    weights32 = {name: {k: v.cpu() for k, v in getattr(pipe, name).state_dict().items()}
+                 for name in ("unet", "vae")}
+    pipe.cast_to_compute_dtypes()
+    tokens, empty, prompt = made_up_prompt(seed + 50, tmp)
+    steps, inv_steps, scale = 50, 10, 7.5
+    per_call = gated_self_attentions(cfg.unet, 64)
+    calls = steps + inv_steps
+    out = {"prompt": prompt, "gated_attention_a_unet_call": per_call}
+    x_T = torch.randn(1, 64, 64, 4, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(seed + 51))
+    seen = {}
+    for fused in (False, True):
+        name = "fused" if fused else "default"
+        # warm (cuDNN's first calls, the re-laid weights), every kernel call
+        # noted: the guided sampler, the decode, the encode and the unguided
+        # inversion at (b)'s shapes
+        kernels.reset_launch_counts()
+        noted = {}
+        with fused_switch(fused), recorded_kernel_calls(noted):
+            ctx = pipe.embed_tokens(torch.from_numpy(tokens))
+            pipe.invert(pipe.decode(pipe.sample_latents(ctx, height=512, width=512, num_steps=2,
+                                                        cfg_scale=scale, uncond_context=ctx)),
+                        ctx, num_steps=1)
+        torch.cuda.synchronize()
+        warm = kernels.launch_counts()
+        for kernel in ("attention", "fused_group_norm", "channel_sums", "gn_silu_conv3x3"):
+            if sum(c for key, c in noted.items() if key[0] == kernel) != warm[kernel]:
+                raise AssertionError(f"phase 15 (b) {name}: {kernel} launched {warm[kernel]} "
+                                     f"times, {noted} noted")
+        for key, c in noted.items():
+            seen[key] = seen.get(key, 0) + c
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with fused_switch(fused):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            ctx = pipe.embed_tokens(torch.from_numpy(tokens))
+            unc = pipe.embed_tokens(torch.from_numpy(empty))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lat = pipe.sample_latents(ctx, height=512, width=512, num_steps=steps,
+                                      cfg_scale=scale, uncond_context=unc, x_T=x_T)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            raw = pipe.decode(lat)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            img = raw.clamp(-1, 1)
+            inv = pipe.invert(img, ctx, torch.Generator(device="cuda").manual_seed(seed + 52),
+                              num_steps=inv_steps)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if img.shape != (1, 512, 512, 3) or not bool(torch.isfinite(raw).all()):
+            raise AssertionError(f"phase 15 (b) {name}: image {tuple(img.shape)}, finite "
+                                 f"{bool(torch.isfinite(raw).all())}")
+        if inv.shape != (1, 64, 64, 4) or not bool(torch.isfinite(inv).all()):
+            raise AssertionError(f"phase 15 (b) {name}: the inversion is not finite")
+        if not counts["attention"] == counts["attention_wgmma"] == per_call * calls:
+            raise AssertionError(f"phase 15 (b) {name}: {counts['attention']} attention "
+                                 f"launches, {counts['attention_wgmma']} on wgmma, expected "
+                                 f"{per_call} a UNet call x {calls}")
+        if fused:
+            # all but the chains of 8 output channels or fewer: the UNet's output
+            # conv (a call), the decoder's (3) and the encoder's (8, once)
+            narrow = calls + 2
+            conv = counts["gn_silu_conv3x3"]
+            if not (conv > 0 and counts["gn_scale_shift"] == conv
+                    and counts["gn_silu_conv3x3_wgmma"] == conv - narrow
+                    and counts["channel_sums"] == 0 and counts["fused_group_norm"] > 0):
+                raise AssertionError(f"phase 15 (b) fused: launches {counts}")
+        elif not (counts["fused_group_norm"] > 0 and counts["channel_sums"] > 0
+                  and counts["gn_silu_conv3x3"] == 0):
+            raise AssertionError(f"phase 15 (b) default: launches {counts}")
+        row = {"clip_s": t1 - t0, "ms_a_step": 1000 * (t2 - t1) / steps, "decode_s": t3 - t2,
+               "invert_s": t4 - t3, "invert_ms_a_step_with_encode": 1000 * (t4 - t3) / inv_steps,
+               "peak_gib": peak / 2**30, "image_range": [float(raw.min()), float(raw.max())],
+               "counts": counts}
+        out[name] = row
+        log(f"[phase15] (b) text to image {name}: SD 2.1 stock UNet bf16, VAE ch 128, "
+            f"OpenCLIP ViT-H text, prompt {prompt!r} and the empty one, CFG {scale}, 512x512, "
+            f"{steps} DDIM steps: text {row['clip_s']:.3f} s, {row['ms_a_step']:.2f} ms/step "
+            f"(batch 2), decode {row['decode_s']:.3f} s, inversion {inv_steps} steps "
+            f"{row['invert_s']:.3f} s; peak {row['peak_gib']:.2f} GiB; image range "
+            f"[{row['image_range'][0]:.3g}, {row['image_range'][1]:.3g}] (raw; the inversion "
+            f"takes it clamped to [-1, 1]); attention {counts['attention']} ({per_call} a UNet call, all wgmma), "
+            f"launches {counts}  [{card}]")
+    with torch.device("cuda"):
+        unet32 = InflatedUNetDualCond(dataclasses.replace(cfg.unet, dtype=torch.float32)).eval()
+        vae32 = AutoencoderKL(dataclasses.replace(cfg.vae, dtype=torch.float32)).eval()
+    unet32.load_state_dict(weights32["unet"])
+    vae32.load_state_dict(weights32["vae"])
+    del weights32
+    out["against_plain"] = t2i_against_plain(
+        pipe, unet32, vae32, pipe.embed_tokens(torch.from_numpy(tokens)),
+        pipe.embed_tokens(torch.from_numpy(empty)), x_T, card)
+    del pipe, unet32, vae32
+    torch.cuda.empty_cache()
+    out["kernel_shapes"] = t2i_kernel_shapes(seen, card)
+    return out
+
+
+def tiny_t2i(device: str, seed: int):
+    """The tiny text-to-image pipeline (the CPU tests' widths, float32) with
+    seeded weights drawn on the CPU."""
+    import torch
+
+    from mgldvsr_tpu_torch.infer.txt2img import Text2ImgConfig, Text2ImgPipeline
+    from mgldvsr_tpu_torch.io.init_weights import init_module_weights
+    from mgldvsr_tpu_torch.models.cliptext import CLIPTextConfig
+    from mgldvsr_tpu_torch.models.unet import UNetConfig
+    from mgldvsr_tpu_torch.models.vae import VAEConfig
+
+    cfg = Text2ImgConfig(
+        timesteps=100,
+        unet=UNetConfig(model_channels=32, num_head_channels=16, context_dim=32, semb_channels=32,
+                        channel_mult=(1, 2), attention_resolutions=(1, 2), num_frames=1,
+                        use_temporal=False, use_spade=False),
+        vae=VAEConfig(ch=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1, num_frames=1,
+                      enable_fusion=False),
+        clip=CLIPTextConfig(width=32, heads=2, layers=2, context_length=8, vocab_size=64))
+    cpu = Text2ImgPipeline(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    for tower in cpu.towers().values():
+        init_module_weights(tower, gen)
+    if device == "cpu":
+        return cpu
+    pipe = Text2ImgPipeline(cfg, device=device)
+    for name, tower in pipe.towers().items():
+        tower.load_state_dict(cpu.towers()[name].state_dict())
+    return pipe
+
+
+def t2i_tiny_card_vs_cpu(seed: int, card: str, fused: bool) -> dict:
+    """(c) the tiny pipeline, card against CPU: DDIM under guidance 3.0 and
+    PLMS from the same x_T, 4 steps, then DDIM inversion of the DDIM image
+    (the same posterior noise), each within 1e-3."""
+    import torch
+
+    gpu, cpu = tiny_t2i("cuda", seed + 60), tiny_t2i("cpu", seed + 60)
+    gen = torch.Generator().manual_seed(seed + 61)
+    tokens = torch.randint(1, 64, (2, 8), generator=gen)
+    empty = torch.zeros(2, 8, dtype=torch.int64)
+    x_T = torch.randn(2, 8, 8, 4, generator=gen)
+    noise = torch.randn(2, 8, 8, 4, generator=gen)
+    out = {}
+    with fused_switch(fused):
+        for sampler in ("ddim", "plms"):
+            kw = dict(uncond_tokens=empty, cfg_scale=3.0, height=64, width=64, num_steps=4,
+                      sampler=sampler)
+            got = gpu.generate(tokens.cuda(), x_T=x_T.cuda(), **kw).cpu()
+            want = cpu.generate(tokens, x_T=x_T, **kw)
+            out[sampler] = max_err(got, want)
+            if sampler == "ddim":
+                img = want.clamp(-1, 1)
+        ctx = cpu.embed_tokens(tokens)
+        out["invert"] = max_err(gpu.invert(img.cuda(), ctx.cuda(), num_steps=4,
+                                           noise=noise.cuda()).cpu(),
+                                cpu.invert(img, ctx, num_steps=4, noise=noise))
+    log(f"[phase15] (c) tiny text to image {'fused' if fused else 'default'}, card vs CPU: "
+        f"DDIM {out['ddim']:.3e}, PLMS {out['plms']:.3e}, inversion {out['invert']:.3e} "
+        f"(limit 1e-3)  [{card}]")
+    if max(out.values()) > 1e-3:
+        raise AssertionError(f"phase 15 (c): {out}")
+    return out
+
+
+def tiny_encoders(seed: int) -> dict:
+    """The tiny alternate encoders, textual inversion's tower input and the
+    classifier in its three pools, seeded on the CPU: name -> (module,
+    inputs)."""
+    import torch
+
+    from mgldvsr_tpu_torch.io.init_weights import init_module_weights
+    from mgldvsr_tpu_torch.models import classifier as cls
+    from mgldvsr_tpu_torch.models import encoders as enc
+
+    gen = torch.Generator().manual_seed(seed)
+    img = torch.rand(2, 40, 36, 3, generator=gen) * 2 - 1
+    clip_cfg = enc.CLIPImageConfig(image_size=28, patch_size=14, width=32, heads=2, layers=2,
+                                   output_dim=16)
+    mods = {
+        "class_embedder": (enc.ClassEmbedder(16, 10), (torch.tensor([1, 7, 3]),)),
+        "transformer_text": (enc.TransformerTextEmbedder(enc.TransformerTextConfig(
+            vocab_size=100, width=32, depth=2, heads=2, max_seq_len=16)),
+            (torch.randint(0, 100, (2, 12), generator=gen),)),
+        "spatial_rescaler": (enc.SpatialRescaler(2, multiplier=0.5, in_channels=3,
+                                                 out_channels=8), (img,)),
+        "clip_image": (enc.FrozenClipImageEmbedder(clip_cfg, project_dim=8), (img,)),
+    }
+    x = torch.randn(2, 16, 16, 4, generator=gen)
+    t = torch.tensor([3, 77])
+    for pool in ("attention", "adaptive", "spatial"):
+        cfg = cls.ClassifierConfig(model_channels=32, num_classes=10, channel_mult=(1, 2),
+                                   num_res_blocks=1, attention_resolutions=(2,), pool=pool,
+                                   image_size=16)
+        mods[f"classifier_{pool}"] = (cls.NoisyLatentClassifier(cfg), (x, t))
+    for module, _ in mods.values():
+        init_module_weights(module.eval(), gen)
+    return mods
+
+
+def encoders_card_vs_cpu(seed: int, card: str) -> dict:
+    """(d) each tiny encoder and the classifier, card against CPU, within
+    1e-4 of max |output|; and textual inversion's substitution through the
+    tiny text tower of (c) with the gradient in the learned rows."""
+    import copy
+
+    import torch
+
+    from mgldvsr_tpu_torch.models import textual_inversion as ti
+
+    out = {}
+    with torch.no_grad():
+        for name, (module, inputs) in tiny_encoders(seed + 70).items():
+            want = module(*inputs)
+            got = copy.deepcopy(module).cuda()(*(i.cuda() for i in inputs)).cpu()
+            out[name] = max_err(got, want) / float(want.abs().max())
+    tower = tiny_t2i("cpu", seed + 71).clip
+    ph = {"*": 5}
+    tokens = torch.tensor([[1, 5, 2, 0, 0, 0, 0, 0], [5, 5, 3, 9, 0, 0, 0, 0]])
+    # a fixed random cotangent: the sum of squares of a LayerNorm's output
+    # (unit weights) is constant, and its gradient rounding noise
+    cot = torch.randn(2, 8, 32, generator=torch.Generator().manual_seed(seed + 72))
+    grads = []
+    for t, move in ((tower, lambda z: z), (copy.deepcopy(tower).cuda(), lambda z: z.cuda())):
+        rows = {k: move(v).requires_grad_(True)
+                for k, v in ti.init_placeholder_params(ph, 32, seed=seed).items()}
+        tk = move(tokens)
+        y = t(tk, ti.apply_single_vector(rows, ph, tk, t.token_embedding(tk)))
+        (y * move(cot)).sum().backward()
+        grads.append((y.detach().cpu(), rows["*"].grad.cpu()))
+    (y_cpu, g_cpu), (y_gpu, g_gpu) = grads
+    out["textual_inversion"] = max_err(y_gpu, y_cpu) / float(y_cpu.abs().max())
+    out["textual_inversion_grad"] = max_err(g_gpu, g_cpu) / float(g_cpu.abs().max())
+    log(f"[phase15] (d) tiny encoders and classifier, card vs CPU (of max |output|, limit "
+        f"1e-4): {', '.join(f'{k} {v:.2e}' for k, v in out.items())}  [{card}]")
+    if max(out.values()) > 1e-4 or not float(g_cpu.abs().max()) > 0:
+        raise AssertionError(f"phase 15 (d): {out}")
+    return out
+
+
+def phase15(seed: int, card: str, host_s: float | None = None) -> dict:
+    """The device synthesis and the stock text-to-image path."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"synthesis": synthesis_full(seed, card, host_s),
+           "synthesis_card_vs_cpu": synthesis_card_vs_cpu(seed, card)}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["txt2img"] = t2i_full(seed, card, tmp)
+    out["tiny_txt2img"] = {f: t2i_tiny_card_vs_cpu(seed, card, f) for f in (False, True)}
+    out["encoders"] = encoders_card_vs_cpu(seed, card)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[phase15] {out['wall_s']:.1f} s  [{card}]")
+    return out
+
+
 def straight_runs(seed: int, card: str, keep: dict) -> None:
     """Phases 8 (b) and 9 (b)'s straight runs alone, kept for phase 12."""
     import tempfile
@@ -4404,6 +5190,8 @@ def main() -> int:
                          "head-dim-512 kernels alone (no result line)")
     ap.add_argument("--only-fp32", action="store_true",
                     help="build the kernels and run phases 13 and 14 alone (no result line)")
+    ap.add_argument("--only-txt2img", action="store_true",
+                    help="build the kernels and run phase 15 alone (no result line)")
     args = ap.parse_args()
 
     import torch
@@ -4450,6 +5238,9 @@ def main() -> int:
         del pipe, frames
         log(json.dumps(phase14(card), default=str))
         return 0
+    if args.only_txt2img:
+        log(json.dumps(phase15(args.seed, card), default=str))
+        return 0
     if args.only_train_parallel:
         with tempfile.TemporaryDirectory() as tmp:
             keep = {"dir": tmp}
@@ -4482,6 +5273,7 @@ def main() -> int:
         ranked = phase12(args.seed, card, keep)
         del keep
     phase14(card)
+    t2i = phase15(args.seed, card, train["profile"]["host_s_per_clip"])["txt2img"]
 
     # launches: the count on the path that runs the kernel (the fused
     # configuration for the fused conv, the default one for the others)
@@ -4499,16 +5291,26 @@ def main() -> int:
                 "launches_window_parallel": parallel["counts"][name],
                 "launches_train_parallel": ranked["stage1"]["launches"][name],
                 "launches_fp32_256px": fp32["card_vs_cpu"]["counts"][name],
+                "launches_txt2img": t2i["default"]["counts"][name],
+                "launches_txt2img_fused": t2i["fused"]["counts"][name],
                 **results[name]}
                for name, (route, src, rep) in KERNELS.items()]
     for entry in kernels:
+        # phase 15 (e): the kernel at the text-to-image path's shapes
+        shapes = t2i["kernel_shapes"].get(entry["name"], {})
+        entry["txt2img_shapes"] = shapes
+        entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                   + [r["max_abs_err"] for r in shapes.values()])
         if entry["name"] == "attention":
             entry["wgmma_launches"] = counts4["attention_wgmma"]
             entry["strided_launches"] = counts4["attention_strided"]
             entry["wide_launches_fp32_256px"] = fp32["card_vs_cpu"]["counts"]["attention_wide"]
             entry["wide_launches_bf16_256px"] = fp32["bf16_256px"]["counts"]["attention_wide"]
+            entry["wgmma_launches_txt2img"] = t2i["default"]["counts"]["attention_wgmma"]
         if entry["name"] == "gn_silu_conv3x3":
             entry["wgmma_launches"] = counts5["gn_silu_conv3x3_wgmma"]
+            entry["wgmma_launches_txt2img_fused"] = t2i["fused"]["counts"][
+                "gn_silu_conv3x3_wgmma"]
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,11 @@ converter of that tower (``mgldvsr_tpu/io/ckpt_convert.py``):
 ``convert_unet``, ``convert_structcond``, ``convert_autoencoder(video=True,
 fusion=True)``, ``convert_openclip_text`` and ``convert_raft``, of the
 stage-2 loss networks ``convert_lpips``, ``convert_discriminator`` and
-``convert_spynet``, and of FID's ``convert_inception``. The input is
+``convert_spynet``, of FID's ``convert_inception`` and of the CLIP image
+tower's ``convert_clip_image``. The JAX package has no converter for the
+noisy-latent classifier and the other alternate encoders;
+:func:`classifier_state_dict` and :func:`encoders_state_dict` write the
+port's keys, which follow the reference's module names. The input is
 the tree as nested dicts of numpy arrays (with or without its top
 ``"params"`` level); the output loads into the port's module with
 ``load_state_dict(strict=True)``.
@@ -381,14 +385,113 @@ def clip_state_dict(tree: Tree, cfg: CLIPTextConfig = CLIPTextConfig()
     g.norm("ln_final", p["ln_final"])
     n_blocks = cfg.layers - (1 if cfg.layer == "penultimate" else 0)
     for i in range(n_blocks):
-        b, bp = g.scope(f"transformer.resblocks.{i}"), p[f"resblock_{i}"]
-        b.norm("ln_1", bp["ln_1"])
-        b.norm("ln_2", bp["ln_2"])
-        b.raw("attn.in_proj_weight", bp["attn_in_proj"]["kernel"], np.transpose, out_axis=0)
-        b.raw("attn.in_proj_bias", bp["attn_in_proj"]["bias"])
-        b.linear("attn.out_proj", bp["attn_out_proj"])
-        b.linear("mlp.c_fc", bp["mlp_c_fc"])
-        b.linear("mlp.c_proj", bp["mlp_c_proj"])
+        _clip_block(g.scope(f"transformer.resblocks.{i}"), p[f"resblock_{i}"])
+    return sd
+
+
+def _clip_block(b: _SD, bp: Tree) -> None:
+    """A text or image tower's ``ResidualAttentionBlock``."""
+    b.norm("ln_1", bp["ln_1"])
+    b.norm("ln_2", bp["ln_2"])
+    b.raw("attn.in_proj_weight", bp["attn_in_proj"]["kernel"], np.transpose, out_axis=0)
+    b.raw("attn.in_proj_bias", bp["attn_in_proj"]["bias"])
+    b.linear("attn.out_proj", bp["attn_out_proj"])
+    b.linear("mlp.c_fc", bp["mlp_c_fc"])
+    b.linear("mlp.c_proj", bp["mlp_c_proj"])
+
+
+def _blocks(p: Tree, stem: str) -> int:
+    return sum(1 for k in p if k.startswith(stem))
+
+
+def clip_image_state_dict(tree: Tree, prefix: str = "visual.") -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_clip_image`` (OpenAI ``clip.visual``'s keys,
+    under ``prefix``); its ``layers`` is the tree's count of blocks."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd, prefix)
+    g.raw("conv1.weight", p["patch_embed"]["kernel"], _conv_layout, out_axis=0)
+    g.raw("class_embedding", p["class_embedding"])
+    g.raw("positional_embedding", p["positional_embedding"])
+    g.norm("ln_pre", p["ln_pre"])
+    g.norm("ln_post", p["ln_post"])
+    if "proj" in p:
+        g.raw("proj", p["proj"])
+    for i in range(_blocks(p, "resblock_")):
+        _clip_block(g.scope(f"transformer.resblocks.{i}"), p[f"resblock_{i}"])
+    return sd
+
+
+def encoders_state_dict(tree: Tree, module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX tree of one of ``mgldvsr_tpu/models/encoders.py``'s modules
+    -> the state dict of ``module``, its port (the class picks the map)."""
+    from mgldvsr_tpu_torch.models import encoders as enc
+
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    if isinstance(module, enc.ClassEmbedder):
+        g.raw("embedding.weight", p["embedding"])
+    elif isinstance(module, enc.TransformerTextEmbedder):
+        g.raw("token_emb.weight", p["token_embedding"])
+        g.raw("pos_emb.emb.weight", p["positional_embedding"])
+        g.norm("norm", p["norm"])
+        for i in range(_blocks(p, "block_")):
+            _clip_block(g.scope(f"attn_layers.resblocks.{i}"), p[f"block_{i}"])
+    elif isinstance(module, enc.SpatialRescaler):
+        if "channel_mapper" in p:
+            g.conv("channel_mapper", p["channel_mapper"])
+    elif isinstance(module, enc.CLIPImageEncoder):
+        sd.update(clip_image_state_dict(p, prefix=""))
+    elif isinstance(module, enc.FrozenClipImageEmbedder):
+        sd.update(clip_image_state_dict(p["visual"]))
+        if "linear" in p:
+            g.linear("linear", p["linear"])
+    else:
+        raise TypeError(f"encoders_state_dict: no map for {type(module).__name__}")
+    return sd
+
+
+def classifier_state_dict(tree: Tree, cfg) -> Dict[str, torch.Tensor]:
+    """The JAX ``NoisyLatentClassifier``'s tree -> the port's state dict
+    (``cfg``: the port's ``ClassifierConfig``): the UNet's names for the
+    trunk (``time_embed``, ``input_blocks``, ``middle_block``; the
+    attention blocks' qkv in upstream's head-interleaved order) and
+    ``out`` for the head."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    mc = cfg.model_channels
+    _time_embed(g.scope("time_embed"), p["time_embed"])
+    g.conv("input_blocks.0.0", p["conv_in"])
+    idx, ds = 1, 1
+    for level, mult in enumerate(cfg.channel_mult):
+        for nr in range(cfg.num_res_blocks):
+            blk = g.scope(f"input_blocks.{idx}")
+            _resblock(blk.scope("0"), p[f"in_{level}_{nr}_res"], False)
+            if ds in cfg.attention_resolutions:
+                _qkv_legacy(blk.scope("1"), p[f"in_{level}_{nr}_attn"], mult * mc,
+                            cfg.num_heads)
+            idx += 1
+        if level != len(cfg.channel_mult) - 1:
+            g.conv(f"input_blocks.{idx}.0.op", p[f"in_{level}_down"]["op"])
+            idx += 1
+            ds *= 2
+    ch = cfg.channel_mult[-1] * mc
+    mid = g.scope("middle_block")
+    _resblock(mid.scope("0"), p["mid_res1"], False)
+    _qkv_legacy(mid.scope("1"), p["mid_attn"], ch, cfg.num_heads)
+    _resblock(mid.scope("2"), p["mid_res2"], False)
+    if cfg.pool == "attention":
+        o = g.scope("out")
+        o.raw("positional_embedding", p["pool"]["pos_embed"])
+        for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+            o.linear(name, p["pool"][name])
+    elif cfg.pool == "adaptive":
+        g.linear("out", p["head"])
+    else:
+        g.linear("out.0", p["head_fc1"])
+        g.linear("out.2", p["head_fc2"])
     return sd
 
 

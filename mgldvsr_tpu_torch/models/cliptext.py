@@ -121,9 +121,14 @@ class OpenCLIPTextEncoder(nn.Module):
         self.transformer = _Transformer(cfg, n_blocks)
         self.ln_final = LayerNorm(cfg.width, eps=1e-5)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, embedded: torch.Tensor | None = None) -> torch.Tensor:
+        """``embedded`` ([B, L, width]), where given, stands for the token
+        embedding's rows (textual inversion substitutes its learned rows
+        there: :mod:`mgldvsr_tpu_torch.models.textual_inversion`)."""
         cfg = self.cfg
-        x = (self.token_embedding(tokens) + self.positional_embedding[None]).to(cfg.dtype)
+        if embedded is None:
+            embedded = self.token_embedding(tokens)
+        x = (embedded + self.positional_embedding[None]).to(cfg.dtype)
         l = cfg.context_length
         causal = torch.ones(l, l, dtype=torch.bool, device=tokens.device).tril()[None, None]
         for block in self.transformer.resblocks:

@@ -69,21 +69,57 @@ def _resize_matrix(in_size: int, out_size: int, method: str, align_corners: bool
     return (m / s).astype(np.float32)
 
 
+def _resample(x: torch.Tensor, size: tuple[int, int], matrix) -> torch.Tensor:
+    """[..., H, W, C] images to ``size`` by two contractions with the
+    [out, in] matrices ``matrix(in, out)``, in float32; ``x``'s dtype back."""
+    out_h, out_w = size
+    h, w = x.shape[-3], x.shape[-2]
+    xf = x.to(torch.float32)
+    if h != out_h:
+        xf = torch.einsum("oh,...hwc->...owc", torch.from_numpy(matrix(h, out_h)).to(x.device), xf)
+    if w != out_w:
+        xf = torch.einsum("ow,...hwc->...hoc", torch.from_numpy(matrix(w, out_w)).to(x.device), xf)
+    return xf.to(x.dtype)
+
+
 def resize2d(x: torch.Tensor, size: tuple[int, int], method: str = "bicubic",
              align_corners: bool = False, antialias: bool = False) -> torch.Tensor:
     """Resize [..., H, W, C] images (leading axes are batch) to ``size``,
     computing in float32 and returning ``x``'s dtype."""
-    out_h, out_w = size
-    h, w = x.shape[-3], x.shape[-2]
-    if (h, w) == (out_h, out_w):
+    if tuple(x.shape[-3:-1]) == tuple(size):
         return x
-    xf = x.to(torch.float32)
-    if h != out_h:
-        mh = torch.from_numpy(_resize_matrix(h, out_h, method, align_corners,
-                                             antialias)).to(x.device)
-        xf = torch.einsum("oh,...hwc->...owc", mh, xf)
-    if w != out_w:
-        mw = torch.from_numpy(_resize_matrix(w, out_w, method, align_corners,
-                                             antialias)).to(x.device)
-        xf = torch.einsum("ow,...hwc->...hoc", mw, xf)
-    return xf.to(x.dtype)
+    return _resample(x, size, lambda i, o: _resize_matrix(i, o, method, align_corners,
+                                                          antialias))
+
+
+def _keys_cubic_half(x: np.ndarray) -> np.ndarray:
+    """The Keys cubic with a = -0.5 on |x|."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+@functools.lru_cache(maxsize=64)
+def _scale_matrix(in_size: int, out_size: int, method: str, antialias: bool) -> np.ndarray:
+    """[out_size, in_size] float32: ``jax.image.resize``'s weights (the
+    triangle or the a = -0.5 Keys cubic, widened by the scale when
+    shrinking with ``antialias``, each row's in-range taps renormalised)."""
+    kernel = {"bilinear": lambda x: np.maximum(0.0, 1.0 - x), "bicubic": _keys_cubic_half}[method]
+    inv_scale = in_size / out_size
+    kernel_scale = max(inv_scale, 1.0) if antialias else 1.0
+    sample = (np.arange(out_size) + 0.5) * inv_scale - 0.5
+    w = kernel(np.abs(sample[:, None] - np.arange(in_size)[None, :]) / kernel_scale)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[:, None], w, 0.0).astype(np.float32)
+
+
+def image_resize(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear",
+                 antialias: bool = True) -> torch.Tensor:
+    """``jax.image.resize`` of [..., H, W, C] images to ``size`` with
+    ``method`` "bilinear" or "bicubic" (what the JAX package's encoders
+    call; the CLIP image preprocessing passes ``antialias=False``). Computes
+    in float32 and returns ``x``'s dtype."""
+    return _resample(x, size, lambda i, o: _scale_matrix(i, o, method, antialias))

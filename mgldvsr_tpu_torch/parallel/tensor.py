@@ -11,10 +11,15 @@ over its tensor group (:func:`gather_columns`), so every module downstream
 sees the whole activation, the same on every rank of the group. Its input
 passes :func:`copy_to_group`, the identity forward and the sum over the
 group backward: each rank's rows of the weight give a part of the input's
-gradient. The gather's backward takes the rank's slice of the gradient,
-which is the same on every rank, with no collective. Biases stay whole, as
-JAX keeps 1-D leaves, and are added after the gather. Attention heads are
-never split: the gathered q, k and v reach the kernel with all their heads.
+gradient, and those parts are summed in float32 and rounded once. The
+gather's backward takes the rank's slice of the gradient, which is the same
+on every rank, with no collective. Biases stay whole, as JAX keeps 1-D
+leaves; each rank adds its rows of the bias inside its conv or linear,
+before the gather, so that each output channel is rounded as in one
+process, and the bias passes :func:`copy_to_group` with the input, so that
+its gradient (each rank's rows, zeros elsewhere) is whole on every rank.
+Attention heads are never split: the gathered q, k and v reach the kernel
+with all their heads.
 
 :func:`shard_module` swaps each layer a rule splits for its column-parallel
 form in place: the module path and the parameter names stay, so state-dict
@@ -38,7 +43,8 @@ from mgldvsr_tpu_torch.parallel import mesh
 
 class _CopyToGroup(torch.autograd.Function):
     """The identity forward; the backward sums each gradient over the
-    group (Megatron's ``f``)."""
+    group (Megatron's ``f``) in float32, each rounded back to its dtype
+    once."""
 
     @staticmethod
     def forward(ctx, group, *xs):
@@ -48,10 +54,10 @@ class _CopyToGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         live = [i for i, g in enumerate(grads) if g is not None]
-        summed = mesh.sum_over([grads[i] for i in live], ctx.group)
+        summed = mesh.sum_over([grads[i].float() for i in live], ctx.group)
         out = list(grads)
         for i, g in zip(live, summed):
-            out[i] = g
+            out[i] = g.to(grads[i].dtype)
         if copy_to_group.shapes is not None:
             copy_to_group.shapes += [(tuple(g.shape), g.dtype) for g in summed]
         return (None, *out)
@@ -66,6 +72,21 @@ def copy_to_group(grid: mesh.Grid, *xs: torch.Tensor):
 
 
 copy_to_group.shapes = None  # a list to record each summed gradient's (shape, dtype) in
+
+
+def copy_with_bias_rows(grid: mesh.Grid, x: torch.Tensor, bias: Optional[torch.Tensor],
+                        rows: int, dtype: torch.dtype):
+    """``x`` through :func:`copy_to_group`, and this rank's ``rows`` rows
+    of the whole ``bias`` in ``dtype`` (None for None). A bias that needs a
+    gradient passes :func:`copy_to_group` too, so its gradient, each rank's
+    rows and zeros elsewhere, is summed to the whole one on every rank."""
+    if bias is None:
+        return copy_to_group(grid, x), None
+    if bias.requires_grad:
+        x, bias = copy_to_group(grid, x, bias)
+    else:
+        x = copy_to_group(grid, x)
+    return x, bias.narrow(0, grid.tensor_index * rows, rows).to(dtype)
 
 
 class _GatherColumns(torch.autograd.Function):
@@ -106,25 +127,22 @@ def linear_columns(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.T
     x = x.to(weight.dtype)
     if grid is None:
         return F.linear(x, weight, None if bias is None else bias.to(weight.dtype))
-    y = gather_columns(F.linear(copy_to_group(grid, x), weight), -1, grid)
-    return y if bias is None else y + bias.to(y.dtype)
+    x, bias = copy_with_bias_rows(grid, x, bias, weight.shape[0], weight.dtype)
+    return gather_columns(F.linear(x, weight, bias), -1, grid)
 
 
 class ColumnParallel:
     """The column-parallel form of a layer (mixed in before its class by
     :func:`shard_module`): ``weight`` holds this rank's rows, ``bias`` is
-    whole, ``tensor_parallel`` is the grid."""
+    whole (the layer adds its rows), ``tensor_parallel`` is the grid."""
     tensor_parallel: Optional[mesh.Grid] = None
 
 
 class _ColumnConv(ColumnParallel):
     def forward(self, x):
         w, grid = self.weight, self.tensor_parallel
-        y = self._conv_forward(copy_to_group(grid, x.to(w.dtype)), w, None)
-        y = gather_columns(y, 1, grid)
-        if self.bias is None:
-            return y
-        return y + self.bias.to(y.dtype).reshape(1, -1, *([1] * (y.ndim - 2)))
+        x, bias = copy_with_bias_rows(grid, x.to(w.dtype), self.bias, w.shape[0], w.dtype)
+        return gather_columns(self._conv_forward(x, w, bias), 1, grid)
 
 
 class _ColumnLinear(ColumnParallel):

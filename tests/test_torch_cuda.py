@@ -1063,3 +1063,35 @@ def test_flax_batch_norm_with_a_group_of_one_equals_it_without(dev, tmp_path, mo
             assert torch.equal(a, b)
     finally:
         mesh.destroy()
+
+
+def test_synthesis_on_card_matches_cpu(dev):
+    """The two-stage synthesis at [2,128,128,3], card against CPU with the
+    same draws, step by step and whole, at the CPU tests' limits
+    (``chip_smoke`` phase 15 (a))."""
+    import chip_smoke
+
+    out = chip_smoke.synthesis_card_vs_cpu(0, "test")
+    assert set(out["steps"]) >= {"blur1", "rescale1", "noise1", "jpeg1", "jpeg2", "levels"}
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_tiny_text_to_image_on_card_matches_cpu(dev, fused):
+    """The tiny text-to-image pipeline, card against CPU: DDIM under
+    guidance, PLMS and the inversion within 1e-3, in the default
+    configuration and with MGLD_FUSED_GN_CONV=1 (``chip_smoke`` phase 15
+    (c)); the GroupNorm kernels (and, fused, the chain's) launched."""
+    import chip_smoke
+
+    kernels.reset_launch_counts()
+    chip_smoke.t2i_tiny_card_vs_cpu(0, "test", fused)
+    counts = kernels.launch_counts()
+    assert counts["fused_group_norm"] > 0
+    assert (counts["gn_silu_conv3x3"] > 0) == fused
+
+
+def test_tiny_encoders_on_card_match_cpu(dev):
+    import chip_smoke
+
+    out = chip_smoke.encoders_card_vs_cpu(0, "test")
+    assert {"classifier_attention", "clip_image", "textual_inversion_grad"} <= set(out)

@@ -1,7 +1,8 @@
 """The port imports without JAX: in a fresh interpreter where ``jax``,
 ``flax`` and the JAX package cannot be imported, every module of
 mgldvsr_tpu_torch (and chip_smoke.py) must import, and none may pull in a
-kernel build or Triton. The metrics also run with cv2 unimportable."""
+kernel build or Triton. The metrics, BSRGAN and the synthesis also run with
+cv2 unimportable."""
 import os
 import subprocess
 import sys
@@ -30,7 +31,10 @@ for m in ("cli.infer", "data.video_folder", "utils.config", "io.frames", "io.tor
           "metrics.niqe", "metrics.inception", "metrics.fid", "metrics.temporal",
           "tools.quality_eval", "tools.quality_smoke", "parallel.mesh", "parallel.tensor",
           "parallel.sharded_sampler", "tools.multicard_check", "tools.multicard_train_check",
-          "cli.prepare_data", "tools.soak_train"):
+          "cli.prepare_data", "tools.soak_train", "ops.img_process", "ops.diffjpeg",
+          "train.synthesis", "data.pair_queue", "data.bsrgan", "core.samplers",
+          "data.tokenizer", "infer.txt2img", "models.textual_inversion", "models.encoders",
+          "models.classifier"):
     assert "mgldvsr_tpu_torch." + m in mods, m
 assert "yaml" not in sys.modules, "yaml was imported at import time"
 for m in ("cv2", "av"):
@@ -48,7 +52,7 @@ def _run(code):
 def test_every_port_module_imports_without_jax():
     proc = _run(_CHECK)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 46
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 88
 
 
 _METRICS_WITHOUT_CV2 = r"""
@@ -77,6 +81,37 @@ def test_metrics_run_without_cv2(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _METRICS_WITHOUT_CV2, str(tmp_path / "n.npz")],
                           cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+_DEGRADATIONS_WITHOUT_CV2 = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "mgldvsr_tpu", "cv2"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import numpy as np
+import torch
+from mgldvsr_tpu_torch.data import bsrgan
+from mgldvsr_tpu_torch.train import synthesis
+img = np.random.default_rng(0).random((288, 288, 3)).astype(np.float32)
+for seed in range(3):
+    lq, hq = bsrgan.degradation_bsrgan(img, np.random.default_rng(seed), sf=4, lq_patchsize=64)
+    assert lq.shape == (64, 64, 3) and hq.shape == (256, 256, 3) and 0 <= lq.min() <= lq.max() <= 1
+lq, hq = bsrgan.degradation_bsrgan_light(img, np.random.default_rng(9), sf=4)
+assert lq.shape == (72, 72, 3) and hq.shape == (288, 288, 3)
+cfg = synthesis.SynthesisConfig(n_scale_buckets=3)
+kern = synthesis.sample_degradation_kernels(np.random.RandomState(0))
+gt = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(0))
+lq, _ = synthesis.synthesize_lq(torch.Generator().manual_seed(1), gt, kern, cfg)
+assert lq.shape == (2, 16, 16, 3) and torch.equal(torch.round(lq * 255) / 255, lq)
+print("ok")
+"""
+
+
+def test_bsrgan_and_synthesis_run_without_cv2():
+    """Both BSRGAN chains and the device synthesis run with cv2 (and JAX)
+    unimportable."""
+    proc = _run(_DEGRADATIONS_WITHOUT_CV2)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
 
