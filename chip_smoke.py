@@ -74,7 +74,7 @@ Phase 6  the tile protocol at full width (phase 4's weights) on a 5-frame
          180x320 clip restored to 720x1280: the device memory one more patch
          adds to a group (two steps, one and two patches a group, at both
          patch geometries); (a) the auto geometry (512/448 px, six patches)
-         at --steps steps with the patch batch the envelope allows; (b) the
+         at 10 steps with the patch batch the envelope allows; (b) the
          reference geometry (960/750 px: two 736x960 patches of six canvas
          tiles) at 5 steps. Each must give finite frames in [0, 1], launch
          kernels 1-6, the guidance pair once a step a patch group, and
@@ -110,8 +110,8 @@ Phase 8  stage-1 training. (a) one tiny fp32 micro-step at 256x256 with
          torch.profiler traces of the CLI loop's micro-steps 2-9: device
          time, the idle share, and the share in the backwards that replay a
          kernel's plain version; micro-steps on clips loaded in advance
-         with and without the data path's threads working beside them; one
-         clip of the host data path timed alone. (d) ``cli.train --stage 1
+         (two a condition) with and without the data path's threads working
+         beside them; two clips of the host data path timed alone. (d) ``cli.train --stage 1
          --tiny --max-steps 4`` on the card, then ``cli.infer`` restores a
          clip with the parameters it exported. Prints the loop's clips/s
          over steps 2-8 (data waits and checkpoint saves included), micro-step
@@ -172,12 +172,12 @@ Phase 10 the quality harness at full width, after phase 5, on phase 4's clip:
          and its bound. The card's Inception
          features against the CPU's within 1e-4 of the largest |feature|,
          E*warp against the plain warp and lookup on the card within 1e-5
-         relative. (b) the frames as PNGs and the three networks as torch
-         files through ``python -m mgldvsr_tpu_torch.tools.quality_eval``:
-         its row equals (a), the host metrics bit for bit, LPIPS, E*warp
-         and FID within 1e-5 relative. (c) ``python -m
-         mgldvsr_tpu_torch.tools.quality_smoke --preset tiny`` on the card:
-         ``ok``. (b) and (c) run beside the end of (a). Prints the phase's
+         relative. (b) the frames as PNGs and LPIPS and RAFT as torch
+         files through ``python -m mgldvsr_tpu_torch.tools.quality_eval``
+         (without FID and NIQE, which (a) computes): its row equals (a), the
+         host metrics bit for bit, LPIPS and E*warp within 1e-5 relative. (c) ``python -m
+         mgldvsr_tpu_torch.tools.quality_smoke --preset tiny --clips 1
+         --frames 3`` on the card: ``ok``. (b) and (c) run beside the end of (a). Prints the phase's
          seconds; ``launches_quality`` in the kernels line.
 
 Phase 11 the multi-device restore on one card (after phase 6, phase 4's
@@ -207,8 +207,12 @@ Phase 12 training over ranks on one card (after phase 9, on phases 8 (b) and
          ``--mesh`` for its 8 micro-steps: the masters, moments, accumulator,
          EMA, the metrics.jsonl losses and every micro-step's launches equal
          phase 8 (b)'s straight run by ``torch.equal``; then the same with
-         ``--mesh --zero1`` (``launches_train_parallel`` in the kernels line).
-         (b) the same for stage 2 (phase 9 (b)'s loop, ``--mesh``). (c)
+         ``--mesh --zero1`` for the first 4 micro-steps (one update), against
+         the straight run's state after micro-step 4
+         (``launches_train_parallel`` in the kernels line).
+         (b) the same for stage 2 (phase 9 (b)'s loop, ``--mesh``, its first
+         4 micro-steps against the straight run's state after micro-step 4).
+         (c)
          ``torchrun --standalone --nproc_per_node=1 -m
          mgldvsr_tpu_torch.cli.train --tiny --mesh --zero1 --tensor-parallel
          1`` for 4 micro-steps writes the metrics and the checkpoint of the
@@ -288,6 +292,26 @@ Phase 15 the device synthesis and the stock text-to-image path. (a)
          seeded weights spans more than [-1, 1]: (b) prints its range and
          inverts the image clamped to [-1, 1].
          ``--only-txt2img`` builds the kernels and runs phase 15 alone.
+Phase 16 MaskFlownet_S, the deformable conv and the BasicSR heritage (no
+         kernel of this repo runs here: the TPU package built these as plain
+         XLA, the port as plain PyTorch), float32 with TF32 off. (a) The
+         ops (``modulated_deform_conv2d`` at 4 deform groups with taps
+         outside the image, ``local_correlation``, ``upfirdn2d``) card
+         against CPU within 1e-5, and every ported architecture at the JAX
+         tests' tiny widths (seeded weights, MaskFlownet at its own widths on
+         a 96x128 pair, DFDNet at 64x64 with synthesised dictionaries,
+         StyleGAN2 with injected noise) within 1e-4 of max |output|. (b) At
+         published widths, seeded weights, each finite at its shape, warm
+         synchronised ms a frame and the peak memory: seven 180x320 PNG
+         frames through ``VideoRecurrentTestDataset``, SpyNet's flows and
+         BasicVSR++ (mid 64, 7 blocks, 16 groups) to 720x1280; EDVR M on
+         the centre window; RRDBNet as Real-ESRGAN x4plus on one frame;
+         SwinIR classical x4 (embed 180, 6x6) at 128x128; MaskFlownet_S on
+         a 512x512 pair; the StyleGAN2 generator at 512, channel multiplier
+         2. ``--only-heritage`` runs phase 16 alone (no kernel build).
+
+Every phase prints its own ``[phaseN] ... s of wall`` line, and a
+``[phases]`` line lists them all before the kernels line.
 
 Prints one JSON line describing the kernels before the last line, and the
 result line ``{"ok": true, "device": {...}}`` last. Any failure raises and
@@ -303,6 +327,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -374,6 +399,15 @@ def fused_switch(on: bool):
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def wall(phase: str, card: str, times: dict):
+    """Time the block: ``[phaseN] ... s of wall`` and ``times[phase]``."""
+    t0 = time.perf_counter()
+    yield
+    times[phase] = time.perf_counter() - t0
+    log(f"[{phase}] {times[phase]:.1f} s of wall  [{card}]")
 
 
 def card_line() -> str:
@@ -1710,7 +1744,12 @@ def tile_restore(pipe, lq, seed: int, geometry: str, patch_batch):
             torch.cuda.max_memory_allocated() - base)
 
 
-def phase6(pipe, seed: int, steps: int, card: str) -> dict:
+# phase 6 (a)'s steps: the tile protocol's checks do not depend on the count
+# (50 until the heritage phase was added, cut for the script's time)
+PHASE6_STEPS = 10
+
+
+def phase6(pipe, seed: int, card: str) -> dict:
     """The tile protocol at full width on a 180x320 clip restored to
     720x1280: the bytes a patch adds to a group, then both geometries."""
     import math
@@ -1738,7 +1777,7 @@ def phase6(pipe, seed: int, steps: int, card: str) -> dict:
     results = {}
     must = ("guidance_residual", "guidance_scatter", "attention", "corr_lookup", "channel_sums",
             "fused_group_norm")
-    for geometry, n_steps in (("auto", steps), ("reference", 5)):
+    for geometry, n_steps in (("auto", PHASE6_STEPS), ("reference", 5)):
         _, _, (ph, pw), n_patches = GEOMETRIES[geometry]
         allowed = pipe.patch_batch_envelope(ph, pw)
         k = min(allowed, n_patches)
@@ -2030,12 +2069,13 @@ def train_args(data_root: str, logdir: str, steps: int, *extra):
 
 
 def train_full(seed: int, card: str, data_root: str, logdir: str, steps: int, fused: bool,
-               extra=(), phase=None):
+               extra=(), phase=None, snapshot_at=None):
     """(b)/(c) the shipped widths through the command line's loop: bf16
     towers, float32 masters, seeded and jittered weights, the two-stage
     recipe (GT 512, LQ 128, 5 frames), grad_accum 4; ``extra`` flags added
     (phase 12: ``--mesh``). Checks every micro-step; returns (final state's
-    copies, stats, each micro-step's metrics.jsonl loss and launches)."""
+    copies, stats, each micro-step's metrics.jsonl loss and launches, and with
+    ``snapshot_at`` the state's host copy after that micro-step)."""
     import torch
 
     from mgldvsr_tpu_torch.cli import train as cli
@@ -2047,7 +2087,7 @@ def train_full(seed: int, card: str, data_root: str, logdir: str, steps: int, fu
     train, frozen = partition_params(pipe)
     before = {k: p.detach().clone() for k, p in train.items()}
     frozen_before = {k: p.detach().clone() for k, p in frozen.items()}
-    records = []
+    records, snap = [], {}
 
     def on_step(step, state, metrics):
         t_in = time.perf_counter()  # the loop's own work for this step is done
@@ -2058,6 +2098,8 @@ def train_full(seed: int, card: str, data_root: str, logdir: str, steps: int, fu
         if changed:
             for k in before:
                 before[k].copy_(state.trainable[k])
+        if step == snapshot_at:
+            snap.update(to_host(state_copies(state)))
         records.append({"step": step, "loss": metrics["loss"], "s": metrics["step_s"],
                         "wait_s": metrics["data_wait_s"], "changed": changed,
                         "counts": counts, "t_in": t_in, "t_out": time.perf_counter()})
@@ -2115,17 +2157,26 @@ def train_full(seed: int, card: str, data_root: str, logdir: str, steps: int, fu
         f"peak device "
         f"memory {peak / 2**30:.2f} GiB; {n_train / 1e6:.1f}M trainables; launches a micro-step "
         f"{ {k: n for k, n in per_step.items() if n} }  [{card}]")
-    final = {part: {k: v.detach().clone() for k, v in getattr(state, part).items()}
-             for part in ("trainable", "ema")}
-    final.update({part: {k: v.clone() for k, v in state.opt_state[part].items()}
-                  for part in ("mu", "nu", "acc")})
+    final = state_copies(state)
     del state, pipe, train, frozen, before, frozen_before
     torch.cuda.empty_cache()
     steps_seen = {"losses": logged, "counts": [r["counts"] for r in records]}
+    if snapshot_at is not None:
+        steps_seen["at"] = {"final": snap, "losses": logged[:snapshot_at],
+                            "counts": steps_seen["counts"][:snapshot_at]}
     return final, {"median_s": float(np.median(times)), "min_s": float(min(times)),
                    "max_s": float(max(times)), "window_s": window, "clips_per_s": clips_s,
                    "wait_s": sum(waits), "other_s": other, "peak_bytes": peak,
                    "launches": per_step}, steps_seen
+
+
+def state_copies(state) -> dict:
+    """Copies of a stage-1 state's trainables, EMA and optimizer fields."""
+    final = {part: {k: v.detach().clone() for k, v in getattr(state, part).items()}
+             for part in ("trainable", "ema")}
+    final.update({part: {k: v.clone() for k, v in state.opt_state[part].items()}
+                  for part in ("mu", "nu", "acc")})
+    return final
 
 
 def train_resume(seed: int, card: str, data_root: str, logdir: str, straight: dict) -> None:
@@ -2231,7 +2282,7 @@ def train_profile(seed: int, card: str, data_root: str, logdir: str) -> dict:
     ds = RealVSRRecurrentDataset(data_root, gt_size=512, degradation_1=deg1,
                                  degradation_2=deg2, seed=seed)
     t0 = time.perf_counter()
-    items = [ds[i % len(ds)] for i in range(4)]
+    items = [ds[i % len(ds)] for i in range(2)]
     host_s = (time.perf_counter() - t0) / len(items)
     trainer = Stage1Trainer(pipe, Stage1Config(grad_accum=4, learning_rate=TRAIN_LR))
     state = trainer.init_state()
@@ -2258,7 +2309,7 @@ def train_profile(seed: int, card: str, data_root: str, logdir: str) -> dict:
         worker = threading.Thread(target=work, args=(stop,))
         worker.start()
         time.sleep(2.0)  # the data path at work
-        out = steps(4)
+        out = steps(2)
         stop.set()
         worker.join()
         return out
@@ -2281,11 +2332,12 @@ def train_profile(seed: int, card: str, data_root: str, logdir: str) -> dict:
         for t in pool:
             t.join()
 
+    # two micro-steps a condition (four until the heritage phase was added)
     steps(1)  # warm
-    alone = steps(4)
+    alone = steps(2)
     with_procs = beside(in_processes)
     with_threads = beside(in_threads)
-    alone += steps(4)
+    alone += steps(2)
     med = {"alone": float(np.median(alone)), "processes": float(np.median(with_procs)),
            "threads": float(np.median(with_threads))}
     log(f"[phase8] the CLI loop under torch.profiler, data workers running: micro-steps 2-5 "
@@ -2360,7 +2412,8 @@ def phase8(seed: int, card: str, keep: dict | None = None) -> dict:
         data_root = os.path.join(tmp, "gt")
         train_clips(data_root, seed)
         straight, out["default"], seen = train_full(seed, card, data_root,
-                                                    os.path.join(tmp, "b"), 8, fused=False)
+                                                    os.path.join(tmp, "b"), 8, fused=False,
+                                                    snapshot_at=4)
         if keep is not None:
             keep["stage1"] = {"final": to_host(straight), **seen}
         train_resume(seed, card, data_root, os.path.join(tmp, "b"), straight)
@@ -2726,11 +2779,12 @@ def stage2_pipeline(args):
 
 
 def stage2_full(seed: int, card: str, roots: dict, logdir: str, steps: int, fused: bool,
-                extra=(), phase=None):
+                extra=(), phase=None, snapshot_at=None):
     """(b)/(d) the shipped stage-2 config through the command line's loop,
     ``extra`` flags added (phase 12: ``--mesh``): every micro-step checked;
     returns (final state's copies, stats, each micro-step's metrics.jsonl
-    losses and launches)."""
+    losses and launches, and with ``snapshot_at`` the state's host copy
+    after that micro-step)."""
     import torch
 
     from mgldvsr_tpu_torch.cli import train as cli
@@ -2740,7 +2794,7 @@ def stage2_full(seed: int, card: str, roots: dict, logdir: str, steps: int, fuse
     phase = phase or ("[phase9] (d)" if fused else "[phase9] (b)")
     args = stage2_args(roots, logdir, steps, seed, *extra)
     pipe = stage2_pipeline(args)
-    held, before, records = {}, {}, []
+    held, before, records, snap = {}, {}, [], {}
 
     def on_trainer(trainer):
         """Before the state is made: the VAE holds its float32 weights,
@@ -2763,6 +2817,8 @@ def stage2_full(seed: int, card: str, roots: dict, logdir: str, steps: int, fuse
         changed = [k for k in before if not torch.equal(now[k], before[k])]
         for k in changed:
             before[k].copy_(now[k])
+        if step == snapshot_at:
+            snap.update(to_host(snapshot(state)))
         records.append({"step": step, "m": metrics, "changed": len(changed),
                         "logvar": "logvar" in changed,
                         "counts": counts, "t_in": t_in, "t_out": time.perf_counter()})
@@ -2832,6 +2888,9 @@ def stage2_full(seed: int, card: str, roots: dict, logdir: str, steps: int, fuse
     logged = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
     steps_seen = {"losses": [{k: r[k] for k in STAGE2_METRICS} for r in logged],
                   "counts": [r["counts"] for r in records]}
+    if snapshot_at is not None:
+        steps_seen["at"] = {"final": snap, "losses": steps_seen["losses"][:snapshot_at],
+                            "counts": steps_seen["counts"][:snapshot_at]}
     return final, {"clips_per_s": clips_s, "clips_per_s_no_save": no_save,
                    "median_s": float(np.median(times)), "window_s": window, "saves_s": saves,
                    "peak_bytes": peak, "launches": per_step}, steps_seen
@@ -3303,7 +3362,7 @@ def phase9(seed: int, card: str, keep: dict | None = None) -> dict:
         # phase 12 trains on the same data: it lives in keep's directory
         roots = stage2_data(os.path.join(keep["dir"], "s2") if keep else tmp, seed)
         straight, out["default"], seen = stage2_full(seed, card, roots, os.path.join(tmp, "b"),
-                                                     8, fused=False)
+                                                     8, fused=False, snapshot_at=4)
         if keep is not None:
             keep["stage2"] = {"final": to_host(straight), "roots": roots, **seen}
         out["resume"] = stage2_resume(seed, card, roots, os.path.join(tmp, "b"), straight)
@@ -3318,7 +3377,6 @@ def phase9(seed: int, card: str, keep: dict | None = None) -> dict:
     out["warp"] = warp_alone(card, 6, "phase9")
     out["tiny"] = {f: phase9_tiny(seed, card, f) for f in (False, True)}
     out["wall_s"] = time.perf_counter() - t0
-    log(f"[phase9] stage-2 training phase: {out['wall_s']:.1f} s of wall  [{card}]")
     return out
 
 
@@ -3326,8 +3384,10 @@ def phase9(seed: int, card: str, keep: dict | None = None) -> dict:
 
 # the harness's keys; the host numpy ones must come out of the tool bit for
 # bit, the card's (and FID, on the card's features) within 1e-5 relative
-HOST_KEYS = ("psnr", "ssim", "niqe", "l1_vs_other", "max_vs_other")
-CARD_KEYS = ("lpips", "ewarp", "fid_vs_against")
+# (b) the tool's row against (a)'s (its run leaves out NIQE and FID): bit for
+# bit where the host computes, within TOOL_LIMIT where the card does
+HOST_KEYS = ("psnr", "ssim", "l1_vs_other", "max_vs_other")
+CARD_KEYS = ("lpips", "ewarp")
 # the Inception features on the card against the CPU, of the largest |feature|
 # (float32, TF32 off); E*warp with the kernels against their plain versions
 INCEPTION_LIMIT = 1e-4
@@ -3393,11 +3453,11 @@ def quality_metrics(clips: dict, nets: dict, niqe_npz: str, dev) -> tuple[dict, 
     return row, secs
 
 
-def quality_tool(tmp: str, clips: dict, nets: dict, niqe_npz: str):
-    """Write the clips as PNGs and the three networks as torch files (the
-    Inception one under pt_inception's names, its 1008-class head beside the
-    tower), and start ``python -m mgldvsr_tpu_torch.tools.quality_eval`` on
-    them on the card. Returns the running process."""
+def quality_tool(tmp: str, clips: dict, nets: dict):
+    """Write the clips as PNGs and LPIPS and RAFT as torch files, and start
+    ``python -m mgldvsr_tpu_torch.tools.quality_eval`` on them on the card
+    (without FID and NIQE, which (a) computes). Returns the running
+    process."""
     import torch
 
     from mgldvsr_tpu_torch.io.frames import write_frame
@@ -3407,17 +3467,13 @@ def quality_tool(tmp: str, clips: dict, nets: dict, niqe_npz: str):
         os.makedirs(os.path.join(dirs[k], "000"))
         for t, f in enumerate(frames):
             write_frame(os.path.join(dirs[k], "000", f"{t:08d}.png"), f.astype(np.uint8))
-    ckpt = {k: os.path.join(tmp, f"{k}.pth") for k in nets}
-    for k, net in nets.items():
-        sd = {n: v.detach().cpu() for n, v in net.state_dict().items()}
-        if k == "inception":
-            sd |= {"fc.weight": torch.zeros(1008, 2048), "fc.bias": torch.zeros(1008)}
-        torch.save(sd, ckpt[k])
+    ckpt = {k: os.path.join(tmp, f"{k}.pth") for k in ("lpips", "raft")}
+    for k, path in ckpt.items():
+        torch.save({n: v.detach().cpu() for n, v in nets[k].state_dict().items()}, path)
+    # FID and NIQE are left to (a): the tool's run repeated them (about 30 s)
     cmd = [sys.executable, "-m", "mgldvsr_tpu_torch.tools.quality_eval",
            "--restored", dirs["ours"], "--gt", dirs["gt"], "--other", dirs["other"],
-           "--lpips-ckpt", ckpt["lpips"], "--niqe-params", niqe_npz,
-           "--raft-ckpt", ckpt["raft"], "--fid-against", dirs["gt"],
-           "--inception-ckpt", ckpt["inception"], "--device", "cuda"]
+           "--lpips-ckpt", ckpt["lpips"], "--raft-ckpt", ckpt["raft"], "--device", "cuda"]
     return subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
@@ -3487,10 +3543,11 @@ def phase10(pipe, frames, out4, out5, card: str) -> dict:
             f"launches {counts}  [{card}]")
 
         # (b) and (c) run beside the rest of (a)'s checks
-        tool = quality_tool(tmp, u8, nets, niqe_npz)
+        tool = quality_tool(tmp, u8, nets)
         smoke = subprocess.Popen(
             [sys.executable, "-m", "mgldvsr_tpu_torch.tools.quality_smoke", "--preset", "tiny",
-             "--device", "cuda"], cwd=os.path.dirname(os.path.abspath(__file__)),
+             "--device", "cuda", "--clips", "1", "--frames", "3"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         try:
             # the card's Inception features against the CPU's
@@ -3519,11 +3576,11 @@ def phase10(pipe, frames, out4, out5, card: str) -> dict:
                     proc.communicate()
 
     # (b) the tool's row against (a)
-    got = {**rows[0], "fid_vs_against": rows[-1].get("fid_vs_against")}
+    got = rows[0]
     diff = {k: (got.get(k), row[k]) for k in HOST_KEYS if got.get(k) != row[k]}
     rel = {k: abs(got[k] - row[k]) / max(abs(row[k]), 1e-30) for k in CARD_KEYS}
-    log(f"[phase10] (b) quality_eval on the PNGs and the saved networks: {rows[0]}; FID "
-        f"{got['fid_vs_against']!r}; relative to (a) {rel}  [{card}]")
+    log(f"[phase10] (b) quality_eval on the PNGs and the saved networks: {rows[0]}; relative "
+        f"to (a) {rel}  [{card}]")
     if diff or any(v > TOOL_LIMIT for v in rel.values()) or rows[0]["tf32"] is not False:
         raise AssertionError(f"phase 10 (b): the tool's row differs from (a): {diff} {rel}")
     # (c) the tiny smoke
@@ -3533,7 +3590,6 @@ def phase10(pipe, frames, out4, out5, card: str) -> dict:
         raise AssertionError(f"phase 10 (c): {summary}")
     warp = warp_alone(card, n - 1, "phase10")
     wall = time.perf_counter() - t_start
-    log(f"[phase10] quality phase: {wall:.1f} s of wall  [{card}]")
     return {"row": row, "ms_a_frame": ms, "peak_bytes": peak, "counts": counts,
             "inception_err": inc_err, "ewarp_err": ewarp_err, "tool_rel": rel,
             "smoke": summary, "warp": warp, "wall_s": wall}
@@ -3542,6 +3598,34 @@ def phase10(pipe, frames, out4, out5, card: str) -> dict:
 # -- phase 11: the multi-device restore ---------------------------------------
 
 WINDOW_PARALLEL_STEPS = 10  # phase 11 (a) and (b) at full width
+
+
+class background:
+    """A command started in the background, its output sent to files beside
+    ``stem``; ``wait(timeout)`` -> (return code, stdout, stderr). As a
+    context manager it kills the command if the block leaves early."""
+
+    def __init__(self, cmd, cwd: str, env: dict, stem: str):
+        self.paths = (stem + ".out", stem + ".err")
+        with open(self.paths[0], "w") as out, open(self.paths[1], "w") as err:
+            self.proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=out, stderr=err,
+                                         text=True)
+
+    def wait(self, timeout: float):
+        code = self.proc.wait(timeout=timeout)
+        texts = []
+        for path in self.paths:
+            with open(path) as f:
+                texts.append(f.read())
+        return (code, *texts)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
 
 
 @contextlib.contextmanager
@@ -3724,44 +3808,50 @@ def phase11_cli(card: str) -> None:
         os.makedirs(os.path.join(lq, "clip0"))
         for i, frame in enumerate(clip):
             write_frame(os.path.join(lq, "clip0", f"{i:08d}.png"), frame)
-        for mode, flag in (("fixed", "--window-parallel"), ("tile", "--patch-parallel")):
-            argv = ["--seqs-path", lq, "--preset", "tiny", "--mode", mode, "--ddpm-steps", "2",
-                    "--seed", "1"]
-            ranked, alone = os.path.join(tmp, mode + "_ranked"), os.path.join(tmp, mode)
-            t0 = time.perf_counter()
-            proc = subprocess.run(
+        # both torchrun commands start at once and run beside the two
+        # commands without them, which run in this process
+        modes = (("fixed", "--window-parallel"), ("tile", "--patch-parallel"))
+        argvs = {mode: ["--seqs-path", lq, "--preset", "tiny", "--mode", mode, "--ddpm-steps",
+                        "2", "--seed", "1"] for mode, _ in modes}
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            procs = {mode: stack.enter_context(background(
                 [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                 "--nproc_per_node=1", "-m", "mgldvsr_tpu_torch.cli.infer", *argv, flag,
-                 "--out-path", ranked], cwd=repo, env=env, capture_output=True, text=True,
-                timeout=300)
-            wall = time.perf_counter() - t0
-            if proc.returncode:
-                raise AssertionError(f"phase 11 (d) {mode}: torchrun exited {proc.returncode}:\n"
-                                     f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-            cli.main([*argv, "--out-path", alone])
+                 "--nproc_per_node=1", "-m", "mgldvsr_tpu_torch.cli.infer", *argvs[mode], flag,
+                 "--out-path", os.path.join(tmp, mode + "_ranked")], repo, env,
+                os.path.join(tmp, mode + "_log"))) for mode, flag in modes}
+            for mode, _ in modes:
+                cli.main([*argvs[mode], "--out-path", os.path.join(tmp, mode)])
+            outs = {mode: proc.wait(300) for mode, proc in procs.items()}
+        wall = time.perf_counter() - t0
+        for mode, flag in modes:
+            ranked, alone = os.path.join(tmp, mode + "_ranked"), os.path.join(tmp, mode)
+            returncode, stdout, stderr = outs[mode]
+            if returncode:
+                raise AssertionError(f"phase 11 (d) {mode}: torchrun exited {returncode}:\n"
+                                     f"{stdout[-2000:]}\n{stderr[-3000:]}")
             names = sorted(os.listdir(os.path.join(alone, "clip0")))
             diff = [int(np.abs(read_frame(os.path.join(ranked, "clip0", n)).astype(int)
                                - read_frame(os.path.join(alone, "clip0", n))).max())
                     for n in names]
             log(f"[phase11] (d) torchrun --nproc_per_node=1 cli.infer --mode {mode} {flag}: "
                 f"{len(names)} frames, max |difference| to the run without it {max(diff)} "
-                f"(limit 0); {wall:.2f} s with torchrun's start  [{card}]")
+                f"(limit 0); {wall:.2f} s for both commands with torchrun and both without "
+                f"[{card}]")
             if names != [f"{i:08d}.png" for i in range(7)] or max(diff):
                 raise AssertionError(f"phase 11 (d) {mode}: frames {names}, differences {diff}")
-            if "rank 0 of 1" not in proc.stdout:
-                raise AssertionError(f"phase 11 (d) {mode}: no process group:\n{proc.stdout}")
+            if "rank 0 of 1" not in stdout:
+                raise AssertionError(f"phase 11 (d) {mode}: no process group:\n{stdout}")
 
 
 def phase11(pipe, frames, seed: int, card: str) -> dict:
     """The multi-device restore on one card: (a) a world of one NCCL rank,
     (b) two windows in lockstep at full width, (c) the same at tiny widths
     against the CPU, (d) the command line under torchrun."""
-    t0 = time.perf_counter()
     one = phase11_world_of_one(pipe, frames, card)
     pair = phase11_lockstep(pipe, card, seed)
     phase11_tiny(seed, card)
     phase11_cli(card)
-    log(f"[phase11] {time.perf_counter() - t0:.1f} s  [{card}]")
     return dict(counts=pair["counts"], world_of_one=one, pair_ms=pair["pair_ms"],
                 segments_ms=pair["segments_ms"])
 
@@ -3806,24 +3896,29 @@ def world_of_one(tmp: str):
 
 
 def phase12_stage1(seed: int, card: str, ref: dict, zero1: bool) -> dict:
-    """(a) phase 8 (b)'s full-width CLI loop (8 micro-steps, the same data)
-    with ``--mesh`` [``--zero1``] in a world of one NCCL rank: the masters,
-    moments, accumulator, EMA, the metrics.jsonl losses and every
-    micro-step's launches equal phase 8's straight run."""
+    """(a) phase 8 (b)'s full-width CLI loop (the same data) with ``--mesh``
+    for its 8 micro-steps, or ``--mesh --zero1`` for the first 4 (one
+    update): the masters, moments, accumulator, EMA, the metrics.jsonl
+    losses and every micro-step's launches equal phase 8's straight run at
+    the same micro-step."""
     import tempfile
 
     extra = ("--mesh", "--zero1") if zero1 else ("--mesh",)
+    steps = 4 if zero1 else 8
+    if zero1:
+        ref = ref["at"]
     with tempfile.TemporaryDirectory() as tmp:
         data_root = os.path.join(tmp, "gt")
         train_clips(data_root, seed)
         with world_of_one(tmp):
-            final, stats, seen = train_full(seed, card, data_root, os.path.join(tmp, "b"), 8,
+            final, stats, seen = train_full(seed, card, data_root, os.path.join(tmp, "b"), steps,
                                             fused=False, extra=extra, phase="[phase12] (a)")
     identical, total, worst = same_trees(final, ref["final"])
     same_losses = seen["losses"] == ref["losses"]
     same_counts = seen["counts"] == ref["counts"]
     log(f"[phase12] (a) {' '.join(extra)} in a world of one NCCL rank against phase 8 (b)'s "
-        f"straight run: {identical} of {total} tensors bit for bit (masters, EMA, both moments, "
+        f"straight run at micro-step {steps}: {identical} of {total} tensors "
+        f"bit for bit (masters, EMA, both moments, "
         f"the accumulator; max |d| {worst:.3e}); metrics.jsonl losses equal {same_losses}; "
         f"launches of every micro-step equal {same_counts}; peak "
         f"{stats['peak_bytes'] / 2**30:.2f} GiB; {stats['clips_per_s']:.4f} clips/s  [{card}]")
@@ -3837,20 +3932,23 @@ def phase12_stage1(seed: int, card: str, ref: dict, zero1: bool) -> dict:
 
 def phase12_stage2(seed: int, card: str, ref: dict) -> dict:
     """(b) phase 9 (b)'s CLI loop with ``--mesh`` in a world of one NCCL
-    rank: the whole state, the metrics.jsonl losses and the launches equal
-    phase 9's straight run."""
+    rank for its first 4 micro-steps (one update): the whole state, the
+    metrics.jsonl losses and the launches equal phase 9's straight run after
+    micro-step 4."""
     import tempfile
 
+    roots, ref = ref["roots"], ref["at"]
     with tempfile.TemporaryDirectory() as tmp:
         with world_of_one(tmp):
-            final, stats, seen = stage2_full(seed, card, ref["roots"], os.path.join(tmp, "b"), 8,
+            final, stats, seen = stage2_full(seed, card, roots, os.path.join(tmp, "b"), 4,
                                              fused=False, extra=("--mesh",),
                                              phase="[phase12] (b)")
     identical, total, worst = same_trees(final, ref["final"])
     same_losses = seen["losses"] == ref["losses"]
     same_counts = seen["counts"] == ref["counts"]
     log(f"[phase12] (b) stage 2 --mesh in a world of one NCCL rank against phase 9 (b)'s "
-        f"straight run: {identical} of {total} tensors bit for bit (trainables, logvar, the "
+        f"straight run at micro-step 4: {identical} of {total} tensors "
+        f"bit for bit (trainables, logvar, the "
         f"discriminator and its running statistics, both Adam states; max |d| {worst:.3e}); "
         f"metrics.jsonl metrics equal {same_losses}; launches equal {same_counts}  [{card}]")
     if identical != total or not same_losses or not same_counts:
@@ -3890,22 +3988,25 @@ def phase12_cli(card: str) -> dict:
                 "--grad-accum", "2", "--ckpt-every", "2", "--log-every", "1", "--no-tb"]
         runs = {name: os.path.join(tmp, name)
                 for name in ("plain", "ranked", "resumed", "degraded")}
-        cli.main([*base, "--logdir", runs["plain"]])
         mesh_line = "mesh {'data': 1, 'tensor': 1} over 1 devices, host 0/1"
+        # the torchrun command runs beside the plain and the degraded runs,
+        # which run in this process
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
-             "-m", "mgldvsr_tpu_torch.cli.train", *base, "--logdir", runs["ranked"], "--mesh",
-             "--zero1", "--tensor-parallel", "1"], cwd=repo, env=env, capture_output=True,
-            text=True, timeout=600)
+        with background(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node=1", "-m", "mgldvsr_tpu_torch.cli.train", *base, "--logdir",
+                 runs["ranked"], "--mesh", "--zero1", "--tensor-parallel", "1"], repo, env,
+                os.path.join(tmp, "ranked_log")) as proc:
+            cli.main([*base, "--logdir", runs["plain"]])
+            printed = io.StringIO()
+            with world_of_one(tmp), contextlib.redirect_stdout(printed):
+                cli.stage1(cli.parse_args([*base, "--logdir", runs["degraded"], "--mesh",
+                                           "--zero1", "--tensor-parallel", "2"]))
+            returncode, stdout, stderr = proc.wait(600)
         wall = time.perf_counter() - t0
-        if proc.returncode or "rank 0 of 1" not in proc.stdout or mesh_line not in proc.stdout:
-            raise AssertionError(f"phase 12 (c): torchrun exited {proc.returncode}:\n"
-                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-        printed = io.StringIO()
-        with world_of_one(tmp), contextlib.redirect_stdout(printed):
-            cli.stage1(cli.parse_args([*base, "--logdir", runs["degraded"], "--mesh", "--zero1",
-                                       "--tensor-parallel", "2"]))
+        if returncode or "rank 0 of 1" not in stdout or mesh_line not in stdout:
+            raise AssertionError(f"phase 12 (c): torchrun exited {returncode}:\n"
+                                 f"{stdout[-2000:]}\n{stderr[-3000:]}")
         if mesh_line not in printed.getvalue():
             raise AssertionError(f"phase 12 (c) --tensor-parallel 2: no mesh line in\n"
                                  f"{printed.getvalue()[-2000:]}")
@@ -3931,8 +4032,8 @@ def phase12_cli(card: str) -> dict:
         f"its step-4 checkpoint {checks['ranked'][0]} of {checks['ranked'][1]} tensors bit for "
         f"bit ({checks['degraded'][0]} with --tensor-parallel 2); resumed without --mesh from its "
         f"step-2 checkpoint: steps 3-4 logged the same {resumed_tail}, the step-4 checkpoint "
-        f"{checks['resumed'][0]} of {checks['resumed'][1]} tensors bit for bit; {wall:.2f} s with "
-        f"torchrun's start  [{card}]")
+        f"{checks['resumed'][0]} of {checks['resumed'][1]} tensors bit for bit; {wall:.2f} s for "
+        f"the torchrun command beside the plain and degraded runs  [{card}]")
     for name, (identical, total, worst) in checks.items():
         if identical != total:
             raise AssertionError(f"phase 12 (c) {name}: {total - identical} of {total} tensors "
@@ -3953,7 +4054,6 @@ def phase12(seed: int, card: str, keep: dict) -> dict:
            "stage2": phase12_stage2(seed, card, keep["stage2"]),
            "cli": phase12_cli(card)}
     out["wall_s"] = time.perf_counter() - t0
-    log(f"[phase12] {out['wall_s']:.1f} s  [{card}]")
     return out
 
 
@@ -4363,7 +4463,6 @@ def phase13(pipe16, frames, seed: int, steps: int, card: str) -> dict:
     del pipe32
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t0
-    log(f"[phase13] {out['wall_s']:.1f} s  [{card}]")
     return out
 
 
@@ -5147,7 +5246,299 @@ def phase15(seed: int, card: str, host_s: float | None = None) -> dict:
     out["tiny_txt2img"] = {f: t2i_tiny_card_vs_cpu(seed, card, f) for f in (False, True)}
     out["encoders"] = encoders_card_vs_cpu(seed, card)
     out["wall_s"] = time.perf_counter() - t0
-    log(f"[phase15] {out['wall_s']:.1f} s  [{card}]")
+    return out
+
+
+# -- phase 16: MaskFlownet, deformable convolution, the BasicSR heritage ---------
+
+# (a)'s limits, card against CPU in float32 with TF32 off: the ops, and each
+# architecture's outputs relative to their largest |value|
+HERITAGE_OP_LIMIT = 1e-5
+HERITAGE_ARCH_LIMIT = 1e-4
+
+
+def seeded_weights(module, seed: int):
+    """Fill every trainable parameter from a CPU generator: N(0, 1/fan_in)
+    where it has two or more axes, 0.05 N(0, 1) otherwise (fixed
+    parameters, ECB's edge masks, stay), so that no branch is zero."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            if not p.requires_grad:
+                continue
+            r = torch.randn(p.shape, generator=gen)
+            p.copy_(r / float(np.sqrt(p[0].numel())) if p.dim() >= 2 else 0.05 * r)
+    return module.eval()
+
+
+def heritage_tiny_cases(seed: int) -> dict:
+    """The JAX tests' tiny widths (MaskFlownet at its own, as the JAX test
+    runs it): name -> (module on the CPU, its inputs, its keyword inputs)."""
+    import torch
+
+    from mgldvsr_tpu_torch.flow.maskflownet import MaskFlownetS
+    from mgldvsr_tpu_torch.models.heritage import face_archs as fa
+    from mgldvsr_tpu_torch.models.heritage import misc_archs as mi
+    from mgldvsr_tpu_torch.models.heritage import sr_archs as sr
+    from mgldvsr_tpu_torch.models.heritage import stylegan2 as sg
+    from mgldvsr_tpu_torch.models.heritage import swinir as sw
+    from mgldvsr_tpu_torch.models.heritage import video_archs as va
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen)
+
+    def flows(t, h, w):
+        return tuple(1.5 * torch.randn((1, t - 1, h, w, 2), generator=gen) for _ in range(2))
+
+    dictionary = {str(fs): {p: torch.randn((3, 6, 8, ch), generator=gen) for p in fa.PARTS}
+                  for fs, ch in zip(fa.FEATURE_SIZES, fa.CHANNEL_SIZES)}
+    boxes = [[4, 8, 20, 24], [36, 8, 56, 24], [20, 24, 40, 44], [12, 44, 52, 60]]
+    img = rand(1, 8, 8, 3)
+    cases = {
+        "RRDBNet": (sr.RRDBNet(num_feat=16, num_block=2, num_grow_ch=8), (rand(1, 16, 16, 3),)),
+        "MSRResNet": (sr.MSRResNet(num_feat=16, num_block=2), (img,)),
+        "SRVGGNetCompact": (sr.SRVGGNetCompact(num_feat=16, num_conv=2), (img,)),
+        "RCAN": (mi.RCAN(num_feat=16, num_group=1, num_block=1), (img,)),
+        "UNetDiscriminatorSN": (sr.UNetDiscriminatorSN(num_feat=16), (rand(1, 32, 32, 3),)),
+        "BasicVSR": (va.BasicVSR(num_feat=8, num_block=1), (rand(1, 3, 8, 8, 3),) + flows(3, 8, 8)),
+        "BasicVSRPlusPlus": (va.BasicVSRPlusPlus(num_feat=8, num_block=1),
+                             (rand(1, 3, 8, 8, 3),) + flows(3, 8, 8)),
+        "EDVR": (va.EDVR(num_feat=8, num_frame=5, num_extract_block=1, num_reconstruct_block=1,
+                         deform_groups=2), (rand(1, 5, 16, 16, 3),)),
+        "CouplePropModule": (va.CouplePropModule(num_ch=4, num_feat=8, num_block=2),
+                             (rand(1, 4, 8, 8, 4),) + flows(4, 8, 8)),
+        "SwinIR": (sw.SwinIR(upscale=4, embed_dim=16, depths=(2,), num_heads=(2,)),
+                   (rand(1, 16, 16, 3),)),
+        "TOFlow": (mi.TOFlow(), (rand(1, 7, 32, 32, 3),)),
+        "DUF": (mi.DUF(scale=4, num_layer=16), (rand(1, 7, 8, 8, 3),)),
+        "ECBSR": (mi.ECBSR(num_feat=8, num_block=2), (img,)),
+        "RIDNet": (mi.RIDNet(num_feat=16, num_block=1), (img,)),
+        "DEResNet": (mi.DEResNet(), (rand(1, 32, 32, 3),)),
+        "StyleGAN2Generator": (sg.StyleGAN2Generator(out_size=16, num_style_feat=32, num_mlp=2,
+                                                     narrow=0.125),
+                               (torch.randn((2, 32), generator=gen),)),
+        "StyleGAN2Discriminator": (sg.StyleGAN2Discriminator(in_size=16, narrow=0.125),
+                                   (rand(2, 16, 16, 3),)),
+        "HiFaceGAN": (fa.HiFaceGAN(num_feat=8), (rand(1, 64, 64, 3) * 2 - 1,)),
+        "HiFaceGANDiscriminator": (fa.HiFaceGANDiscriminator(num_feat=8), (rand(1, 64, 64, 6),)),
+        "DFDNet": (fa.DFDNet(64, dictionary), (rand(1, 64, 64, 3) * 2 - 1, boxes)),
+        "MaskFlownetS": (MaskFlownetS(), (rand(1, 96, 128, 3), rand(1, 96, 128, 3))),
+    }
+    out = {}
+    for i, (name, (module, args)) in enumerate(cases.items()):
+        seeded_weights(module, seed + i)
+        kwargs = {}
+        if name == "StyleGAN2Generator":
+            kwargs["noises"] = [torch.randn((1, r, r, 1), generator=gen) for r in
+                                (2 ** ((k + 5) // 2) for k in range(module.num_layers))]
+        out[name] = (module, args, kwargs)
+    return out
+
+
+def heritage_ops_card_vs_cpu(seed: int, card: str) -> dict:
+    """(a) the three ops of the slice, card against CPU."""
+    import torch
+
+    from mgldvsr_tpu_torch.flow.maskflownet import local_correlation
+    from mgldvsr_tpu_torch.ops.dcn import modulated_deform_conv2d
+    from mgldvsr_tpu_torch.ops.stylegan_ops import upfirdn2d
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((2, 7, 9, 16), generator=gen)
+    offset = 3.0 * torch.randn((2, 7, 9, 2 * 4 * 9), generator=gen)
+    mask = torch.rand((2, 7, 9, 4 * 9), generator=gen)
+    weight = torch.randn((8, 16, 3, 3), generator=gen) / 12
+    bias = torch.randn((8,), generator=gen)
+    f1, f2 = torch.randn((2, 2, 12, 13, 32), generator=gen)
+    img, kern = torch.randn((2, 7, 9, 4), generator=gen), torch.rand((4, 4), generator=gen)
+    ops = {
+        "modulated_deform_conv2d": lambda *a: modulated_deform_conv2d(*a, deform_groups=4),
+        "local_correlation": lambda a, b: local_correlation(a, b, 4),
+        "upfirdn2d": lambda a, k: upfirdn2d(a, k, up=2, down=1, pad=(2, 1)),
+    }
+    inputs = {"modulated_deform_conv2d": (x, offset, mask, weight, bias),
+              "local_correlation": (f1, f2), "upfirdn2d": (img, kern)}
+    out = {}
+    for name, fn in ops.items():
+        want = fn(*inputs[name])
+        got = fn(*(t.cuda() for t in inputs[name])).cpu()
+        err = float((got - want).abs().max())
+        out[name] = err
+        if not err <= HERITAGE_OP_LIMIT:
+            raise AssertionError(f"phase 16 (a): {name} card vs CPU {err:.3e} > "
+                                 f"{HERITAGE_OP_LIMIT}")
+    log(f"[phase16] (a) ops card vs CPU, max |d| (limit {HERITAGE_OP_LIMIT}): "
+        f"{ {k: f'{v:.3e}' for k, v in out.items()} }  [{card}]")
+    return out
+
+
+def heritage_tiny_card_vs_cpu(seed: int, card: str) -> dict:
+    """(a) every ported architecture at tiny widths, card against CPU, fp32."""
+    import copy
+
+    import torch
+
+    def leaves(o):
+        if isinstance(o, torch.Tensor):
+            return [o]
+        if isinstance(o, dict):
+            return [t for k in sorted(o) for t in leaves(o[k])]
+        return [t for x in o for t in leaves(x)]
+
+    def move(a):
+        if isinstance(a, torch.Tensor):
+            return a.cuda()
+        if isinstance(a, (list, tuple)) and a and isinstance(a[0], torch.Tensor):
+            return type(a)(move(t) for t in a)
+        return a
+
+    out = {}
+    with torch.no_grad():
+        for name, (module, args, kwargs) in heritage_tiny_cases(seed).items():
+            want = leaves(module(*args, **kwargs))
+            card_mod = copy.deepcopy(module).cuda()
+            got = leaves(card_mod(*(move(a) for a in args),
+                                  **{k: move(v) for k, v in kwargs.items()}))
+            scale = max(float(w.abs().max()) for w in want)
+            err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want)) / scale
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            out[name] = err
+            if len(got) != len(want) or not finite or not err <= HERITAGE_ARCH_LIMIT:
+                raise AssertionError(f"phase 16 (a): {name} card vs CPU {err:.3e} of max "
+                                     f"|output| (limit {HERITAGE_ARCH_LIMIT}), finite {finite}")
+    log(f"[phase16] (a) {len(out)} architectures at tiny widths, card vs CPU in fp32, of max "
+        f"|output| (limit {HERITAGE_ARCH_LIMIT}): { {k: f'{v:.2e}' for k, v in out.items()} }  "
+        f"[{card}]")
+    return out
+
+
+def timed_run(fn, frames: int, card: str, what: str, reps: int = 2) -> tuple:
+    """fn() once to warm, then ``reps`` synchronised runs: (output, ms a
+    frame, peak bytes of the runs)."""
+    import torch
+
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (reps * frames)
+        peak = torch.cuda.max_memory_allocated()
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
+    log(f"[phase16] (b) {what}: {ms:.2f} ms a frame (warm, synchronised, {reps} runs), peak "
+        f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above the weights and inputs), "
+        f"finite {finite}  [{card}]")
+    if not finite:
+        raise AssertionError(f"phase 16 (b): {what} gave non-finite values")
+    return out, ms, peak
+
+
+def heritage_full(seed: int, card: str) -> dict:
+    """(b) the published widths on the card, seeded weights, fp32."""
+    import tempfile
+
+    import torch
+
+    from mgldvsr_tpu_torch.data.heritage_datasets import VideoRecurrentTestDataset
+    from mgldvsr_tpu_torch.flow.maskflownet import MaskFlownetS
+    from mgldvsr_tpu_torch.flow.spynet import SpyNet
+    from mgldvsr_tpu_torch.io.frames import encode_png
+    from mgldvsr_tpu_torch.models.heritage import sr_archs as sr
+    from mgldvsr_tpu_torch.models.heritage import stylegan2 as sg
+    from mgldvsr_tpu_torch.models.heritage import swinir as sw
+    from mgldvsr_tpu_torch.models.heritage import video_archs as va
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lq = lq_clip(seed + 60, 180, frames=7, width=320)
+        for side, clip in (("lq", lq), ("gt", np.repeat(np.repeat(lq, 4, 1), 4, 2))):
+            os.makedirs(os.path.join(tmp, side, "000"))
+            for i, frame in enumerate(clip):
+                with open(os.path.join(tmp, side, "000", f"{i:08d}.png"), "wb") as f:
+                    f.write(encode_png((frame * 255).round().astype(np.uint8)))
+        spynet = seeded_weights(SpyNet(), seed).to(dev)
+        # random weights give flows of hundreds of pixels: calm them as phase 9 does
+        calm_spynet(types.SimpleNamespace(spynet=spynet))
+        bvpp = seeded_weights(va.BasicVSRPlusPlus(num_feat=64, num_block=7, deform_groups=16),
+                              seed + 1).to(dev)
+
+        def video_path():
+            item = VideoRecurrentTestDataset(os.path.join(tmp, "gt"), os.path.join(tmp, "lq"))[0]
+            lqs = torch.from_numpy(item["lqs"]).to(dev)
+            flows_backward = spynet(lqs[:-1], lqs[1:])[None]
+            flows_forward = spynet(lqs[1:], lqs[:-1])[None]
+            return bvpp(lqs[None], flows_forward, flows_backward)
+
+        hr, out["basicvsrpp_ms"], out["basicvsrpp_peak"] = timed_run(
+            video_path, 7, card, "7 PNG frames 180x320 through VideoRecurrentTestDataset, "
+            "SpyNet flows and BasicVSR++ (mid 64, 7 blocks, 16 groups) -> 720x1280")
+        if tuple(hr.shape) != (1, 7, 720, 1280, 3):
+            raise AssertionError(f"phase 16 (b): BasicVSR++ gave {tuple(hr.shape)}")
+        del bvpp, spynet, hr
+        frames = torch.from_numpy(lq).to(dev)
+
+    edvr = seeded_weights(va.EDVR(num_feat=64, num_frame=5, num_extract_block=5,
+                                  num_reconstruct_block=10, deform_groups=8), seed + 2).to(dev)
+    y, out["edvr_ms"], out["edvr_peak"] = timed_run(
+        lambda: edvr(frames[None, 1:6]), 1, card,
+        "EDVR M (64 feat, 5 frames, 8 groups, 5 / 10 blocks), the centre window -> 720x1280")
+    assert tuple(y.shape) == (1, 720, 1280, 3), y.shape
+    del edvr
+    rrdb = seeded_weights(sr.RRDBNet(num_feat=64, num_block=23, num_grow_ch=32), seed + 3).to(dev)
+    y, out["rrdbnet_ms"], out["rrdbnet_peak"] = timed_run(
+        lambda: rrdb(frames[3:4]), 1, card, "RRDBNet as Real-ESRGAN x4plus (64, 23, 32), "
+        "180x320 -> 720x1280")
+    assert tuple(y.shape) == (1, 720, 1280, 3), y.shape
+    del rrdb
+    swin = seeded_weights(sw.SwinIR(upscale=4, embed_dim=180, depths=(6,) * 6,
+                                    num_heads=(6,) * 6, window_size=8), seed + 4).to(dev)
+    y, out["swinir_ms"], out["swinir_peak"] = timed_run(
+        lambda: swin(frames[3:4, :128, :128]), 1, card,
+        "SwinIR classical x4 (embed 180, depths and heads 6x6, window 8, mlp 2), 128x128 -> "
+        "512x512")
+    assert tuple(y.shape) == (1, 512, 512, 3), y.shape
+    del swin
+    mfn = seeded_weights(MaskFlownetS(), seed + 5).to(dev)
+    pair = torch.rand((2, 1, 512, 512, 3), generator=gen, device=dev)
+    y, out["maskflownet_ms"], out["maskflownet_peak"] = timed_run(
+        lambda: mfn(pair[0], pair[1]), 1, card, "MaskFlownet_S, a 512x512 pair")
+    assert tuple(y.shape) == (1, 512, 512, 2), y.shape
+    del mfn
+    g = seeded_weights(sg.StyleGAN2Generator(out_size=512, num_style_feat=512, num_mlp=8,
+                                             channel_multiplier=2), seed + 6).to(dev)
+    z = torch.randn((1, 512), generator=gen, device=dev)
+    noises = [torch.randn((1, r, r, 1), generator=gen, device=dev)
+              for r in (2 ** ((k + 5) // 2) for k in range(g.num_layers))]
+    y, out["stylegan2_ms"], out["stylegan2_peak"] = timed_run(
+        lambda: g(z, noises=noises), 1, card,
+        "StyleGAN2 generator, out 512, channel multiplier 2, injected noise")
+    assert tuple(y.shape) == (1, 512, 512, 3), y.shape
+    del g
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase16(seed: int, card: str) -> dict:
+    """MaskFlownet, the deformable conv and the BasicSR heritage."""
+    from mgldvsr_tpu_torch.utils.precision import tf32_off
+
+    t0 = time.perf_counter()
+    with tf32_off():
+        out = {"ops": heritage_ops_card_vs_cpu(seed, card),
+               "tiny": heritage_tiny_card_vs_cpu(seed, card),
+               "full": heritage_full(seed, card)}
+    out["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -5159,11 +5550,12 @@ def straight_runs(seed: int, card: str, keep: dict) -> None:
         data_root = os.path.join(tmp, "gt")
         train_clips(data_root, seed)
         final, _, seen = train_full(seed, card, data_root, os.path.join(tmp, "b"), 8,
-                                    fused=False)
+                                    fused=False, snapshot_at=4)
         keep["stage1"] = {"final": to_host(final), **seen}
         del final
         roots = stage2_data(os.path.join(keep["dir"], "s2"), seed)
-        final, _, seen = stage2_full(seed, card, roots, os.path.join(tmp, "s2b"), 8, fused=False)
+        final, _, seen = stage2_full(seed, card, roots, os.path.join(tmp, "s2b"), 8, fused=False,
+                                     snapshot_at=4)
         keep["stage2"] = {"final": to_host(final), "roots": roots, **seen}
 
 
@@ -5192,6 +5584,9 @@ def main() -> int:
                     help="build the kernels and run phases 13 and 14 alone (no result line)")
     ap.add_argument("--only-txt2img", action="store_true",
                     help="build the kernels and run phase 15 alone (no result line)")
+    ap.add_argument("--only-heritage", action="store_true",
+                    help="run phase 16 alone: MaskFlownet, the deformable conv and the "
+                         "BasicSR heritage (no kernel build, no result line)")
     args = ap.parse_args()
 
     import torch
@@ -5208,23 +5603,32 @@ def main() -> int:
     log(f"[phase0] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}; tf32 off for matmul and cuDNN")
 
+    times: dict = {}
+    if args.only_heritage:
+        with wall("phase16", card, times):
+            log(json.dumps(phase16(args.seed, card), default=str))
+        return 0
     so, secs = _build.build()
     _build.library()
     log(f"[phase1] built {so.name} in {secs:.2f} s (nvcc, sm_90a)")
     if args.only_train or args.only_stage2:
         if args.only_train:
-            log(json.dumps(phase8(args.seed, card), default=str))
-        log(json.dumps(phase9(args.seed, card), default=str))
+            with wall("phase8", card, times):
+                log(json.dumps(phase8(args.seed, card), default=str))
+        with wall("phase9", card, times):
+            log(json.dumps(phase9(args.seed, card), default=str))
         return 0
     if args.only_quality:
         pipe, frames = full_pipeline(args.seed, args.steps)
         out4, _ = full_restore(pipe, frames, args.seed, args.steps, card, fused=False)
         out5, _ = full_restore(pipe, frames, args.seed, args.steps, card, fused=True)
-        log(json.dumps(phase10(pipe, frames, out4, out5, card), default=str))
+        with wall("phase10", card, times):
+            log(json.dumps(phase10(pipe, frames, out4, out5, card), default=str))
         return 0
     if args.only_parallel:
         pipe, frames = full_pipeline(args.seed, args.steps)
-        log(json.dumps(phase11(pipe, frames, args.seed, card), default=str))
+        with wall("phase11", card, times):
+            log(json.dumps(phase11(pipe, frames, args.seed, card), default=str))
         return 0
     if args.only_attention:
         dev = torch.device("cuda")
@@ -5234,46 +5638,69 @@ def main() -> int:
         return 0
     if args.only_fp32:
         pipe, frames = full_pipeline(args.seed, args.steps)
-        log(json.dumps(phase13(pipe, frames, args.seed, args.steps, card), default=str))
+        with wall("phase13", card, times):
+            log(json.dumps(phase13(pipe, frames, args.seed, args.steps, card), default=str))
         del pipe, frames
-        log(json.dumps(phase14(card), default=str))
+        with wall("phase14", card, times):
+            log(json.dumps(phase14(card), default=str))
         return 0
     if args.only_txt2img:
-        log(json.dumps(phase15(args.seed, card), default=str))
+        with wall("phase15", card, times):
+            log(json.dumps(phase15(args.seed, card), default=str))
         return 0
     if args.only_train_parallel:
         with tempfile.TemporaryDirectory() as tmp:
             keep = {"dir": tmp}
             straight_runs(args.seed, card, keep)
-            log(json.dumps(phase12(args.seed, card, keep), default=str))
+            with wall("phase12", card, times):
+                log(json.dumps(phase12(args.seed, card, keep), default=str))
         return 0
 
-    results = phase2(card)
-    for fused in (False, True):
-        phase3(args.seed, card, fused=fused)
-        phase3_tile(args.seed, card, fused=fused)
-    pipe, frames = full_pipeline(args.seed, args.steps)
-    out4, counts4 = full_restore(pipe, frames, args.seed, args.steps, card, fused=False)
-    guidance_check(pipe, frames, args.seed)
-    counts_latent = full_latent_restore(pipe, frames, args.seed, args.steps, card)
-    out5, counts5 = full_restore(pipe, frames, args.seed, args.steps, card, fused=True)
-    log(f"[phase5] mean |fused - default| over the frames {float((out5 - out4).abs().mean()):.4e} "
-        f"(bf16 rounds at other places in the two configurations; no limit)")
-    quality = phase10(pipe, frames, out4, out5, card)
+    with wall("phase2", card, times):
+        results = phase2(card)
+    with wall("phase3", card, times):
+        for fused in (False, True):
+            phase3(args.seed, card, fused=fused)
+            phase3_tile(args.seed, card, fused=fused)
+    with wall("phase4", card, times):
+        pipe, frames = full_pipeline(args.seed, args.steps)
+        out4, counts4 = full_restore(pipe, frames, args.seed, args.steps, card, fused=False)
+        guidance_check(pipe, frames, args.seed)
+        counts_latent = full_latent_restore(pipe, frames, args.seed, args.steps, card)
+    with wall("phase5", card, times):
+        out5, counts5 = full_restore(pipe, frames, args.seed, args.steps, card, fused=True)
+        log(f"[phase5] mean |fused - default| over the frames "
+            f"{float((out5 - out4).abs().mean()):.4e} (bf16 rounds at other places in the two "
+            f"configurations; no limit)")
+    with wall("phase10", card, times):
+        quality = phase10(pipe, frames, out4, out5, card)
     del out4, out5
-    tile = phase6(pipe, args.seed, args.steps, card)
-    parallel = phase11(pipe, frames, args.seed, card)
-    fp32 = phase13(pipe, frames, args.seed, args.steps, card)
+    with wall("phase6", card, times):
+        tile = phase6(pipe, args.seed, card)
+    with wall("phase11", card, times):
+        parallel = phase11(pipe, frames, args.seed, card)
+    with wall("phase13", card, times):
+        fp32 = phase13(pipe, frames, args.seed, args.steps, card)
     del pipe, frames
-    phase7(card)
+    with wall("phase7", card, times):
+        phase7(card)
     with tempfile.TemporaryDirectory() as tmp:
         keep = {"dir": tmp}
-        train = phase8(args.seed, card, keep)
-        stage2 = phase9(args.seed, card, keep)
-        ranked = phase12(args.seed, card, keep)
+        with wall("phase8", card, times):
+            train = phase8(args.seed, card, keep)
+        with wall("phase9", card, times):
+            stage2 = phase9(args.seed, card, keep)
+        with wall("phase12", card, times):
+            ranked = phase12(args.seed, card, keep)
         del keep
-    phase14(card)
-    t2i = phase15(args.seed, card, train["profile"]["host_s_per_clip"])["txt2img"]
+    with wall("phase14", card, times):
+        phase14(card)
+    with wall("phase15", card, times):
+        t2i = phase15(args.seed, card, train["profile"]["host_s_per_clip"])["txt2img"]
+    with wall("phase16", card, times):
+        heritage = phase16(args.seed, card)
+    log(f"[phases] s of wall: { {k: round(v, 1) for k, v in times.items()} }; heritage "
+        f"(phase 16): {json.dumps(heritage, default=str)}  [{card}]")
 
     # launches: the count on the path that runs the kernel (the fused
     # configuration for the fused conv, the default one for the others)

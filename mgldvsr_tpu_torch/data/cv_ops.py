@@ -7,7 +7,8 @@ or uint8 for the JPEG round trip), with OpenCV's argument order and BGR
 channel order:
 
 - :func:`filter2D`: correlation with the kernel centred, border
-  ``BORDER_REFLECT_101`` (OpenCV's default) or ``BORDER_REPLICATE``. A
+  ``BORDER_REFLECT_101`` (OpenCV's default), ``BORDER_REPLICATE`` or
+  ``BORDER_CONSTANT`` (zeros). A
   float64 image under OpenCV's DFT threshold of 50 taps is summed directly,
   tap by tap in the kernel's row-major order, as OpenCV's own loop does: bit
   for bit. Every other call goes through an FFT in float64, rounded to the
@@ -34,7 +35,9 @@ channel order:
   reciprocal quantisation, the islow inverse DCT and fancy (triangle)
   upsampling. Entropy coding is lossless, so it is skipped: the "encoded
   buffer" holds the quantised coefficients.
-- :func:`imread`: a PNG through :mod:`mgldvsr_tpu_torch.io.frames`, in BGR.
+- :func:`imread`: a PNG through :mod:`mgldvsr_tpu_torch.io.frames`, in BGR,
+  or with ``IMREAD_GRAYSCALE`` one channel: libpng's RGB-to-gray as OpenCV
+  asks for it, (9797 R + 19234 G + 3737 B) >> 15, truncated.
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ from mgldvsr_tpu_torch.io.frames import decode_png, read_frame
 # OpenCV's enum values, so a call written for cv2 reads the same here
 INTER_NEAREST, INTER_LINEAR, INTER_CUBIC, INTER_AREA, INTER_LANCZOS4 = 0, 1, 2, 3, 4
 COLOR_BGR2GRAY, COLOR_RGB2GRAY = 6, 7
-BORDER_REPLICATE, BORDER_REFLECT_101 = 1, 4
+BORDER_CONSTANT, BORDER_REPLICATE, BORDER_REFLECT_101 = 0, 1, 4
 IMREAD_UNCHANGED, IMREAD_GRAYSCALE, IMREAD_COLOR = -1, 0, 1
 IMWRITE_JPEG_QUALITY = 1
 
@@ -64,10 +67,11 @@ def filter2D(img: np.ndarray, ddepth: int, kernel: np.ndarray,
     channel with ``kernel`` (odd sizes, anchor at the centre)."""
     if ddepth != -1:
         raise ValueError("only ddepth=-1 (the input's depth) is supported")
-    pad_mode = {BORDER_REFLECT_101: "reflect", BORDER_REPLICATE: "edge"}.get(borderType)
+    pad_mode = {BORDER_REFLECT_101: "reflect", BORDER_REPLICATE: "edge",
+                BORDER_CONSTANT: "constant"}.get(borderType)
     if pad_mode is None:
-        raise ValueError(f"borderType {borderType} is not supported (BORDER_REFLECT_101 or "
-                         f"BORDER_REPLICATE)")
+        raise ValueError(f"borderType {borderType} is not supported (BORDER_REFLECT_101, "
+                         f"BORDER_REPLICATE or BORDER_CONSTANT)")
     kernel = np.asarray(kernel, np.float64)
     kh, kw = kernel.shape
     if kh % 2 == 0 or kw % 2 == 0:
@@ -545,10 +549,16 @@ def imdecode(buf, flags: int = IMREAD_COLOR) -> np.ndarray:
 
 
 def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
-    """``cv2.imread(path, IMREAD_COLOR)``: [H, W, 3] uint8 BGR, or None when
-    the file is missing."""
+    """``cv2.imread(path, IMREAD_COLOR)``: [H, W, 3] uint8 BGR, or with
+    ``IMREAD_GRAYSCALE`` [H, W] uint8; None when the file is missing."""
+    if flags not in (IMREAD_COLOR, IMREAD_GRAYSCALE):
+        raise ValueError(f"only IMREAD_COLOR or IMREAD_GRAYSCALE is supported, got {flags}")
     try:
         rgb = read_frame(path)
     except FileNotFoundError:
         return None
+    if flags == IMREAD_GRAYSCALE:
+        # a gray file comes back as R = G = B, which this leaves as it is
+        r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+        return ((9797 * r + 19234 * g + 3737 * b) >> 15).astype(np.uint8)
     return np.ascontiguousarray(rgb[..., ::-1])

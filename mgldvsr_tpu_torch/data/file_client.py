@@ -2,10 +2,10 @@
 
 Counterpart of ``mgldvsr_tpu/data/file_client.py``: the disk backend and
 the packed-record backend (one data file + a JSON index of [offset,
-length] per key) with its maker, and ``imfrombytes``, which decodes PNG
-bytes through :mod:`mgldvsr_tpu_torch.io.frames` (other formats need PIL).
-The lmdb and memcached backends and the ``FileClient`` dispatch over them
-are not ported.
+length] per key) with its maker, ``FileClient`` (the dispatch over the
+two), and ``imfrombytes``, which decodes PNG bytes through
+:mod:`mgldvsr_tpu_torch.io.frames` (other formats need PIL). The lmdb and
+memcached backends are not ported: ``FileClient`` refuses them by name.
 """
 from __future__ import annotations
 
@@ -74,6 +74,24 @@ class PackedMaker:
         self._file.close()
         with open(self._root + ".index.json", "w") as f:
             json.dump(self._index, f)
+
+
+class FileClient:
+    """Backend dispatch: ``"disk"`` (default) or ``"packed"`` (``root=``)."""
+
+    def __init__(self, backend: str = "disk", **kwargs):
+        if backend == "disk":
+            self._b = DiskBackend()
+        elif backend == "packed":
+            self._b = PackedBackend(**kwargs)
+        elif backend in ("lmdb", "memcached"):
+            raise ValueError(f"the {backend} backend is not ported; use 'disk' or 'packed'")
+        else:
+            raise ValueError(f"unknown io backend {backend!r}")
+        self.backend = backend
+
+    def get(self, key: str) -> bytes:
+        return self._b.get(key)
 
 
 def imfrombytes(content: bytes, flag: str = "color", float32: bool = False) -> np.ndarray:

@@ -5,11 +5,14 @@ converter of that tower (``mgldvsr_tpu/io/ckpt_convert.py``):
 ``convert_unet``, ``convert_structcond``, ``convert_autoencoder(video=True,
 fusion=True)``, ``convert_openclip_text`` and ``convert_raft``, of the
 stage-2 loss networks ``convert_lpips``, ``convert_discriminator`` and
-``convert_spynet``, of FID's ``convert_inception`` and of the CLIP image
-tower's ``convert_clip_image``. The JAX package has no converter for the
-noisy-latent classifier and the other alternate encoders;
-:func:`classifier_state_dict` and :func:`encoders_state_dict` write the
-port's keys, which follow the reference's module names. The input is
+``convert_spynet``, of FID's ``convert_inception``, of the CLIP image
+tower's ``convert_clip_image``, and of the 21 converters of MaskFlownet and
+the BasicSR heritage (``convert_maskflownet``, ``convert_rrdbnet`` ...
+``convert_stylegan2_discriminator``; the section at the end). The JAX
+package has no converter for the noisy-latent classifier, the other
+alternate encoders and the U-Net discriminator: :func:`classifier_state_dict`,
+:func:`encoders_state_dict` and :func:`unet_discriminator_sn_state_dict`
+write the port's keys, which follow the reference's module names. The input is
 the tree as nested dicts of numpy arrays (with or without its top
 ``"params"`` level); the output loads into the port's module with
 ``load_state_dict(strict=True)``.
@@ -32,6 +35,11 @@ import torch
 
 from mgldvsr_tpu_torch.flow.raft import RAFTConfig
 from mgldvsr_tpu_torch.models.cliptext import CLIPTextConfig
+from mgldvsr_tpu_torch.models.heritage.misc_archs import (
+    ECB_DEPTH_MULTIPLIER,
+    EDGE_KINDS,
+    edge_mask,
+)
 from mgldvsr_tpu_torch.models.unet import StructCondConfig, UNetConfig
 from mgldvsr_tpu_torch.models.vae import VAEConfig
 
@@ -802,3 +810,575 @@ def stage2_state_from_jax(jax_state, trainer):
         step=int(np.asarray(jax_state.step)))
     trainer.load_vae(state)
     return state
+
+
+# -- the BasicSR-heritage architectures and MaskFlownet ------------------------
+# Each is the exact inverse of its ``mgldvsr_tpu/io/ckpt_convert.py``
+# converter, in basicsr's key layout, and loads into the port's module of
+# ``models/heritage`` (or ``flow/maskflownet``) with a plain
+# ``load_state_dict``. ``unet_discriminator_sn_state_dict`` has no converter
+# to invert and writes the port's keys, after the reference's modules.
+
+
+def _frozen_bn_sd(g: _SD, key: str, p: Tree) -> None:
+    g.raw(f"{key}.weight", p["scale"])
+    g.raw(f"{key}.bias", p["bias"])
+    g.raw(f"{key}.running_mean", p["mean"])
+    g.raw(f"{key}.running_var", p["var"])
+
+
+def _conv_res_blocks(g: _SD, p: Tree, num_block: int) -> None:
+    g.conv("main.0", p["conv_in"])
+    for i in range(num_block):
+        g.conv(f"main.2.{i}.conv1", p[f"block_{i}"]["conv1"])
+        g.conv(f"main.2.{i}.conv2", p[f"block_{i}"]["conv2"])
+
+
+def _upsample_convs(g: _SD, p: Tree, upscale: int, name: str) -> None:
+    idx, up = 0, upscale
+    while up > 1:
+        g.conv(f"upsample.{idx}", p[name.format(up)])
+        idx += 2
+        up //= 3 if up % 3 == 0 else 2
+
+
+def deresnet_state_dict(tree: Tree, num_degradation: int = 2,
+                        num_feats=(64, 128, 256, 512), num_blocks=(2, 2, 2, 2),
+                        downscales=(2, 2, 2, 1)) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_deresnet`` (``conv_first.{d}``, ``body.{d}.{k}``,
+    ``fc_degree.{d}.{0,2}``)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    n_stage = len(num_feats)
+    for d in range(num_degradation):
+        g.conv(f"conv_first.{d}", p[f"first_{d}"])
+        seq = 0
+        for stage in range(n_stage):
+            for b in range(num_blocks[stage]):
+                blk = g.scope(f"body.{d}.{seq}")
+                blk.conv("conv1", p[f"body_{d}_{stage}_{b}"]["conv1"])
+                blk.conv("conv2", p[f"body_{d}_{stage}_{b}"]["conv2"])
+                seq += 1
+            if downscales[stage] == 2 or (stage < n_stage - 1
+                                          and num_feats[stage] != num_feats[stage + 1]):
+                g.conv(f"body.{d}.{seq}", p[f"down_{d}_{stage}"])
+                seq += 1
+        g.linear(f"fc_degree.{d}.0", p[f"fc1_{d}"])
+        g.linear(f"fc_degree.{d}.2", p[f"fc2_{d}"])
+    return sd
+
+
+def vgg_face_state_dict(tree: Tree, prefix: str = "vgg_extractor."
+                        ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_vgg_face`` (``{prefix}vgg_net.convN_M``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd, f"{prefix}vgg_net.")
+    for name, p in _params(tree).items():
+        g.conv(name, p)
+    return sd
+
+
+def dfdnet_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_dfdnet`` (its spectral norm already folded)."""
+    sd = vgg_face_state_dict(tree["vgg"])
+    g = _SD(sd)
+    for key, node in tree.items():
+        if key not in ("vgg", "decoder"):
+            g.conv(f"attn_blocks.{key}.0", node["params"]["conv1"])
+            g.conv(f"attn_blocks.{key}.2", node["params"]["conv2"])
+    dec = _params(tree["decoder"])
+    ms = g.scope("multi_scale_dilation")
+    ms.conv("conv_fusion", dec["msdilate"]["fusion"])
+    for i in range(4):
+        ms.conv(f"conv_blocks.{i}.0", dec["msdilate"][f"b{i}_conv1"])
+        ms.conv(f"conv_blocks.{i}.2", dec["msdilate"][f"b{i}_conv2"])
+    for i in range(4):
+        u, up = g.scope(f"upsample{i}"), dec[f"up{i}"]
+        for key, name in (("conv1.1", "conv1"), ("convup.1", "convup"),
+                          ("scale_block.0", "scale1"), ("scale_block.2", "scale2"),
+                          ("shift_block.0", "shift1"), ("shift_block.2", "shift2")):
+            u.conv(key, up[name])
+    u4 = g.scope("upsample4")
+    u4.conv("0", dec["out_conv"])
+    for idx, name in ((2, "out_res1"), (3, "out_res2")):
+        u4.conv(f"{idx}.body.0", dec[name]["conv1"])
+        u4.conv(f"{idx}.body.2", dec[name]["conv2"])
+    u4.conv("4", dec["out_rgb"])
+    return sd
+
+
+def _hfg_spade_sd(g: _SD, p: Tree) -> None:
+    g.conv("mlp_shared.0", p["mlp_shared"])
+    g.conv("mlp_gamma", p["mlp_gamma"])
+    g.conv("mlp_beta", p["mlp_beta"])
+
+
+def _hfg_block_sd(g: _SD, p: Tree) -> None:
+    g.conv("conv_0", p["conv_0"])
+    g.conv("conv_1", p["conv_1"])
+    _hfg_spade_sd(g.scope("norm_0"), p["norm_0"])
+    _hfg_spade_sd(g.scope("norm_1"), p["norm_1"])
+    if "conv_s" in p:
+        g.conv("conv_s", p["conv_s"])
+        _hfg_spade_sd(g.scope("norm_s"), p["norm_s"])
+
+
+def hifacegan_state_dict(tree: Tree, n_2xdown: int = 5,
+                         n_up_stages: int = 4) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_hifacegan`` (``lip_encoder.model.{k}``,
+    ``head_0``, ``g_middle_{0,1}``, ``ups.{i}``, ``to_rgbs.{n-1}``)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    if "encoder" in p:
+        enc = p["encoder"]
+        g.conv("lip_encoder.model.0", enc["stem"])
+        seq = 3
+        for i in range(n_2xdown):
+            lip = g.scope(f"lip_encoder.model.{seq}")
+            lip.conv("logit.0", enc[f"lip_{i}"]["logit_conv"])
+            lip.raw("logit.1.weight", enc[f"lip_{i}"]["in_scale"])
+            lip.raw("logit.1.bias", enc[f"lip_{i}"]["in_bias"])
+            g.conv(f"lip_encoder.model.{seq + 1}", enc[f"conv_{i}"])
+            seq += 4 if i < n_2xdown - 1 else 3
+    else:
+        g.conv("fc", p["fc"])
+    for name in ("head_0", "g_middle_0", "g_middle_1"):
+        _hfg_block_sd(g.scope(name), p[name])
+    for i in range(n_up_stages):
+        _hfg_block_sd(g.scope(f"ups.{i}"), p[f"ups_{i}"])
+    g.conv(f"to_rgbs.{n_up_stages - 1}", p[f"to_rgb_{n_up_stages - 1}"])
+    return sd
+
+
+def hifacegan_discriminator_state_dict(tree: Tree, num_d: int = 2,
+                                       n_layers: int = 4) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_hifacegan_discriminator``."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    for i in range(num_d):
+        d, dp = g.scope(f"discriminator_{i}"), p[f"d_{i}"]
+        d.conv("model0.0", dp["conv0"])
+        for n in range(1, n_layers):
+            d.conv(f"model{n}.0.0", dp[f"conv{n}"])
+        d.conv(f"model{n_layers}.0", dp["conv_out"])
+    return sd
+
+
+def rrdbnet_state_dict(tree: Tree, num_block: int = 23) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_rrdbnet``."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    for name in ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr", "conv_last"):
+        g.conv(name, p[name])
+    for i in range(num_block):
+        for j in (1, 2, 3):
+            for k in range(1, 6):
+                g.conv(f"body.{i}.rdb{j}.conv{k}", p[f"body_{i}"][f"rdb{j}"][f"conv{k}"])
+    return sd
+
+
+def msrresnet_state_dict(tree: Tree, num_block: int = 16, upscale: int = 4
+                         ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_msrresnet``."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    names = ["conv_first", "upconv1", "conv_hr", "conv_last"] + (["upconv2"] if upscale == 4
+                                                                  else [])
+    for name in names:
+        g.conv(name, p[name])
+    for i in range(num_block):
+        g.conv(f"body.{i}.conv1", p[f"body_{i}"]["conv1"])
+        g.conv(f"body.{i}.conv2", p[f"body_{i}"]["conv2"])
+    return sd
+
+
+def srvgg_state_dict(tree: Tree, num_conv: int = 16) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_srvgg`` (the PReLU form)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    g.conv("body.0", p["conv_first"])
+    g.raw("body.1.weight", p["act0_alpha"])
+    for i in range(num_conv):
+        g.conv(f"body.{2 * (i + 1)}", p[f"body_{i}"])
+        g.raw(f"body.{2 * (i + 1) + 1}.weight", p[f"act{i + 1}_alpha"])
+    g.conv(f"body.{2 * (num_conv + 1)}", p["conv_last"])
+    return sd
+
+
+def rcan_state_dict(tree: Tree, num_group: int = 10, num_block: int = 16,
+                    upscale: int = 4) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_rcan``."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    for name in ("conv_first", "conv_after_body", "conv_last"):
+        g.conv(name, p[name])
+    for gi in range(num_group):
+        grp = p[f"group_{gi}"]
+        g.conv(f"body.{gi}.conv", grp["conv"])
+        for bi in range(num_block):
+            r, rp = g.scope(f"body.{gi}.residual_group.{bi}"), grp[f"rcab_{bi}"]
+            r.conv("rcab.0", rp["conv1"])
+            r.conv("rcab.2", rp["conv2"])
+            r.conv("rcab.3.attention.1", rp["ca"]["down"])
+            r.conv("rcab.3.attention.3", rp["ca"]["up"])
+    _upsample_convs(g, p, upscale, "up_x{}")
+    return sd
+
+
+def basicvsr_state_dict(tree: Tree, num_block: int = 15) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_basicvsr`` (its SpyNet is ``spynet_state_dict``)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    _conv_res_blocks(g.scope("backward_trunk"), p["backward_trunk"], num_block)
+    _conv_res_blocks(g.scope("forward_trunk"), p["forward_trunk"], num_block)
+    for name in ("fusion", "upconv1", "upconv2", "conv_hr", "conv_last"):
+        g.conv(name, p[name])
+    return sd
+
+
+_TSA_CONVS = ("temporal_attn1", "temporal_attn2", "feat_fusion", "spatial_attn1",
+              "spatial_attn2", "spatial_attn3", "spatial_attn4", "spatial_attn5",
+              "spatial_attn_l1", "spatial_attn_l2", "spatial_attn_l3", "spatial_attn_add1",
+              "spatial_attn_add2")
+
+
+def edvr_state_dict(tree: Tree, num_extract_block: int = 5, num_reconstruct_block: int = 10
+                    ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_edvr`` (TSA, no pre-deblur)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    for name in ("conv_first", "conv_l2_1", "conv_l2_2", "conv_l3_1", "conv_l3_2", "upconv1",
+                 "upconv2", "conv_hr", "conv_last"):
+        g.conv(name, p[name])
+    for i in range(num_extract_block):
+        g.conv(f"feature_extraction.{i}.conv1", p[f"extract_{i}"]["conv1"])
+        g.conv(f"feature_extraction.{i}.conv2", p[f"extract_{i}"]["conv2"])
+    for i in range(num_reconstruct_block):
+        g.conv(f"reconstruction.{i}.conv1", p[f"recon_{i}"]["conv1"])
+        g.conv(f"reconstruction.{i}.conv2", p[f"recon_{i}"]["conv2"])
+    a, pcd = g.scope("pcd_align"), p["pcd"]
+    for lvl in (3, 2, 1):
+        names = ["offset_conv1", "offset_conv2"] + (["offset_conv3", "feat_conv"] if lvl < 3
+                                                    else [])
+        for name in names:
+            a.conv(f"{name}.l{lvl}", pcd[f"{name}_l{lvl}"])
+        a.conv(f"dcn_pack.l{lvl}.conv_offset", pcd[f"dcn_offset_l{lvl}"])
+        a.raw(f"dcn_pack.l{lvl}.weight", pcd[f"dcn_weight_l{lvl}"], _conv_layout)
+        a.raw(f"dcn_pack.l{lvl}.bias", pcd[f"dcn_bias_l{lvl}"])
+    a.conv("cas_offset_conv1", pcd["cas_offset_conv1"])
+    a.conv("cas_offset_conv2", pcd["cas_offset_conv2"])
+    a.conv("cas_dcnpack.conv_offset", pcd["cas_dcn_offset"])
+    a.raw("cas_dcnpack.weight", pcd["cas_dcn_weight"], _conv_layout)
+    a.raw("cas_dcnpack.bias", pcd["cas_dcn_bias"])
+    for name in _TSA_CONVS:
+        g.conv(f"fusion.{name}", p["fusion"][name])
+    return sd
+
+
+def swinir_state_dict(tree: Tree, depths=(2, 2), upscale: int = 4) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_swinir`` (the relative position index and the
+    shift masks are not stored)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    g.conv("conv_first", p["conv_first"])
+    g.norm("patch_embed.norm", p["norm_embed"])
+    g.norm("norm", p["norm_body"])
+    g.conv("conv_after_body", p["conv_after_body"])
+    g.conv("conv_before_upsample.0", p["conv_before_upsample"])
+    g.conv("conv_last", p["conv_last"])
+    for li, depth in enumerate(depths):
+        lay = p[f"layer_{li}"]
+        g.conv(f"layers.{li}.conv", lay["conv"])
+        for bi in range(depth):
+            b, bp = g.scope(f"layers.{li}.residual_group.blocks.{bi}"), lay[f"block_{bi}"]
+            b.norm("norm1", bp["norm1"])
+            b.norm("norm2", bp["norm2"])
+            b.linear("attn.qkv", bp["attn"]["qkv"])
+            b.linear("attn.proj", bp["attn"]["proj"])
+            b.raw("attn.relative_position_bias_table", bp["attn"]["relative_position_bias_table"])
+            b.linear("mlp.fc1", bp["mlp_fc1"])
+            b.linear("mlp.fc2", bp["mlp_fc2"])
+    _upsample_convs(g, p, upscale, "upsample_conv_x{}")
+    return sd
+
+
+def basicvsrpp_state_dict(tree: Tree, num_block: int = 7) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_basicvsrpp`` (its SpyNet is ``spynet_state_dict``)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    _conv_res_blocks(g.scope("feat_extract"), p["feat_extract"], 5)
+    _conv_res_blocks(g.scope("reconstruction"), p["reconstruction"], 5)
+    for name in ("upconv1", "upconv2", "conv_hr", "conv_last"):
+        g.conv(name, p[name])
+    for name in ("backward_1", "forward_1", "backward_2", "forward_2"):
+        d, dp = g.scope(f"deform_align.{name}"), p[f"deform_align_{name}"]
+        for i in range(4):
+            d.conv(f"conv_offset.{2 * i}", dp[f"offset_conv{i + 1}"])
+        d.raw("weight", dp["dcn_weight"], _conv_layout)
+        d.raw("bias", dp["dcn_bias"])
+        _conv_res_blocks(g.scope(f"backbone.{name}"), p[f"backbone_{name}"], num_block)
+    return sd
+
+
+def toflow_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_toflow`` (the batch norms without
+    ``num_batches_tracked``)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    for i in (1, 2, 3, 4):
+        g.conv(f"conv_{i}", p[f"conv_{i}"])
+    for i in range(4):
+        b, mp = g.scope(f"spynet.basic_module.{i}.basic_module"), p["spynet"][f"basic_module_{i}"]
+        for k in range(4):
+            b.conv(str(3 * k), mp[f"conv{k}"])
+            _frozen_bn_sd(b, str(3 * k + 1), mp[f"bn{k}"])
+        b.conv("12", mp["conv4"])
+    return sd
+
+
+def duf_state_dict(tree: Tree, num_layer: int = 52) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_duf``."""
+    num_block = {16: 3, 28: 9, 52: 21}[num_layer]
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+
+    def unit(b: _SD, up: Tree) -> None:
+        _frozen_bn_sd(b, "0", up["bn0"])
+        b.conv("2", up["conv0"])
+        _frozen_bn_sd(b, "3", up["bn1"])
+        b.conv("5", up["conv1"])
+
+    for name in ("conv3d1", "conv3d2", "conv3d_r1", "conv3d_r2", "conv3d_f1", "conv3d_f2"):
+        g.conv(name, p[name])
+    _frozen_bn_sd(g, "bn3d2", p["bn3d2"])
+    for i in range(num_block):
+        unit(g.scope(f"dense_block1.dense_blocks.{i}"), p[f"dense_{i}"])
+    for i in range(3):
+        unit(g.scope(f"dense_block2.temporal_reduce{i + 1}"), p[f"reduce_{i}"])
+    return sd
+
+
+def ridnet_state_dict(tree: Tree, num_block: int = 4, img_range: float = 255.0,
+                      rgb_mean=(0.4488, 0.4371, 0.4040), rgb_std=(1.0, 1.0, 1.0)
+                      ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_ridnet``; ``sub_mean`` / ``add_mean`` hold the
+    reference's MeanShift constants (the converter only consumes them)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    std = np.asarray(rgb_std, np.float32)
+    mean = np.asarray(rgb_mean, np.float32)
+    for name, sign in (("sub_mean", -1), ("add_mean", 1)):
+        g.raw(f"{name}.weight", np.eye(3, dtype=np.float32).reshape(3, 3, 1, 1)
+              / std.reshape(3, 1, 1, 1))
+        g.raw(f"{name}.bias", sign * img_range * mean / std)
+    g.conv("head", p["head"])
+    g.conv("tail", p["tail"])
+    for i in range(num_block):
+        b, e = g.scope(f"body.{i}"), p[f"eam_{i}"]
+        for key, name in (("merge.dilation1.0", "mr_d1_conv1"),
+                          ("merge.dilation1.2", "mr_d1_conv2"),
+                          ("merge.dilation2.0", "mr_d2_conv1"),
+                          ("merge.dilation2.2", "mr_d2_conv2"),
+                          ("merge.aggregation.0", "mr_agg"), ("block2.body.0", "er_conv1"),
+                          ("block2.body.2", "er_conv2"), ("block2.body.4", "er_conv3"),
+                          ("ca.attention.1", "ca_down"), ("ca.attention.3", "ca_up")):
+            b.conv(key, e[name])
+        b.conv("block1.conv1", e["block1"]["conv1"])
+        b.conv("block1.conv2", e["block1"]["conv2"])
+    return sd
+
+
+def ecbsr_state_dict(tree: Tree, num_block: int = 4, with_idt: bool = False
+                     ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_ecbsr``: each folded 3x3 conv becomes the
+    training form's ``conv3x3`` with every other branch zero (and the fixed
+    edge masks), which the converter folds back to it bit for bit (with
+    ``with_idt`` the identity is taken off first, which can round)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    names = ["ecb_in"] + [f"ecb_{i}" for i in range(num_block)] + ["conv_out"]
+    for idx, name in enumerate(names):
+        node = p[name]
+        rep = node["conv"] if "conv" in node else node
+        w = np.asarray(rep["kernel"]).transpose(3, 2, 0, 1).astype(np.float32)
+        cout, cin = w.shape[:2]
+        if with_idt and cout == cin:
+            w = w.copy()
+            w[np.arange(cout), np.arange(cout), 1, 1] -= 1.0
+        b = g.scope(f"backbone.{idx}")
+        b.raw("conv3x3.weight", w)
+        b.raw("conv3x3.bias", rep["bias"])
+        mid = ECB_DEPTH_MULTIPLIER * cout
+        zeros = lambda *s: np.zeros(s, np.float32)  # noqa: E731
+        b.raw("conv1x1_3x3.k0", zeros(mid, cin, 1, 1))
+        b.raw("conv1x1_3x3.b0", zeros(mid))
+        b.raw("conv1x1_3x3.k1", zeros(cout, mid, 3, 3))
+        b.raw("conv1x1_3x3.b1", zeros(cout))
+        for kind in EDGE_KINDS:
+            e = b.scope(f"conv1x1_{kind}")
+            e.raw("k0", zeros(cout, cin, 1, 1))
+            e.raw("b0", zeros(cout))
+            e.raw("scale", zeros(cout, 1, 1, 1))
+            e.raw("bias", zeros(cout))
+            e.raw("mask", edge_mask(kind, cout).numpy())
+        if "prelu_alpha" in node:
+            b.raw("act.weight", node["prelu_alpha"])
+    return sd
+
+
+def _sg2_modconv_sd(g: _SD, p: Tree) -> None:
+    g.raw("weight", p["weight"], lambda k: _conv_layout(k)[None])
+    g.raw("modulation.weight", p["modulation"]["weight"], np.transpose)
+    g.raw("modulation.bias", p["modulation"]["bias"])
+
+
+def _sg2_styleconv_sd(g: _SD, p: Tree) -> None:
+    _sg2_modconv_sd(g.scope("modulated_conv"), p["modulated_conv"])
+    g.raw("weight", p["noise_weight"], lambda a: a.reshape(1))
+    g.raw("activate.bias", p["bias"])
+
+
+def _sg2_torgb_sd(g: _SD, p: Tree) -> None:
+    _sg2_modconv_sd(g.scope("modulated_conv"), p["modulated_conv"])
+    g.raw("bias", p["bias"], lambda a: a.reshape(1, 3, 1, 1))
+
+
+def stylegan2_state_dict(tree: Tree, out_size: int = 64, num_mlp: int = 8
+                         ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_stylegan2``: ``{"params", "_noises"}`` (the
+    noise maps NHWC) -> basicsr's generator keys with ``noises.noise{i}``."""
+    import math
+
+    p = tree["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    g.raw("constant_input.weight", p["constant_input"], lambda a: a.transpose(0, 3, 1, 2))
+    _sg2_styleconv_sd(g.scope("style_conv1"), p["style_conv1"])
+    _sg2_torgb_sd(g.scope("to_rgb1"), p["to_rgb1"])
+    for i in range(num_mlp):
+        g.raw(f"style_mlp.{i + 1}.weight", p[f"mlp_{i}"]["weight"], np.transpose)
+        g.raw(f"style_mlp.{i + 1}.bias", p[f"mlp_{i}"]["bias"])
+    log_size = int(math.log2(out_size))
+    for j in range(2 * (log_size - 2)):
+        _sg2_styleconv_sd(g.scope(f"style_convs.{j}"), p[f"style_convs_{j}"])
+    for i in range(log_size - 2):
+        _sg2_torgb_sd(g.scope(f"to_rgbs.{i}"), p[f"to_rgbs_{i}"])
+    for i, noise in enumerate(tree["_noises"]):
+        g.raw(f"noises.noise{i}", noise, lambda a: a.transpose(0, 3, 1, 2))
+    return sd
+
+
+def stylegan2_discriminator_state_dict(tree: Tree, in_size: int = 64
+                                       ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_stylegan2_discriminator``."""
+    import math
+
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+
+    def convlayer(s: _SD, lp: Tree, conv_idx: int) -> None:
+        s.raw(f"{conv_idx}.weight", lp["conv"]["weight"], _conv_layout)
+        if "bias" in lp:
+            s.raw(f"{conv_idx + 1}.bias", lp["bias"])
+
+    convlayer(g.scope("conv_body.0"), p["conv_body_0"], 0)
+    for li in range(1, int(math.log2(in_size)) - 1):
+        b, bp = g.scope(f"conv_body.{li}"), p[f"conv_body_{li}"]
+        convlayer(b.scope("conv1"), bp["conv1"], 0)
+        convlayer(b.scope("conv2"), bp["conv2"], 1)
+        convlayer(b.scope("skip"), bp["skip"], 1)
+    convlayer(g.scope("final_conv"), p["final_conv"], 0)
+    for i in (0, 1):
+        g.raw(f"final_linear.{i}.weight", p[f"final_linear_{i}"]["weight"], np.transpose)
+        g.raw(f"final_linear.{i}.bias", p[f"final_linear_{i}"]["bias"])
+    return sd
+
+
+def coupleprop_state_dict(tree: Tree, num_block: int = 5) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_coupleprop``."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    _conv_res_blocks(g.scope("backward_trunk"), p["backward_trunk"], num_block)
+    _conv_res_blocks(g.scope("forward_trunk"), p["forward_trunk"], num_block)
+    for name in ("backward_fusion", "forward_fusion", "conv_last"):
+        g.conv(name, p[name])
+    return sd
+
+
+def _deconv_layout(k: np.ndarray) -> np.ndarray:
+    """flax ConvTranspose [kh, kw, in, out] (spatially flipped) -> torch
+    ConvTranspose2d [in, out, kh, kw]: the inverse of ``deconv_kernel``."""
+    return k[::-1, ::-1].transpose(2, 3, 0, 1)
+
+
+def maskflownet_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_maskflownet``."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    for i in range(1, 7):
+        for s in "abc":
+            g.conv(f"conv{i}{s}.0", p[f"enc{i - 1}{s}"]["conv"])
+
+    def head(ref: str, name: str) -> None:
+        for j in range(5):
+            g.conv(f"{ref}_{j}.0", p[name][f"conv_{j}"]["conv"])
+
+    head("conv6", "head6")
+    g.conv("pred_flow6", p["pred_flow6"])
+    g.conv("pred_mask6", p["pred_mask6"])
+    for k in (5, 4, 3, 2):
+        o = k - 1
+        g.raw(f"upfeat{k}.weight", p[f"upfeat{o}"]["deconv"]["kernel"], _deconv_layout)
+        g.raw(f"upfeat{k}.bias", p[f"upfeat{o}"]["deconv"]["bias"])
+        g.raw(f"deform{k}.weight", p[f"deform{o}"]["weight"], _conv_layout)
+        g.raw(f"deform{k}.bias", p[f"deform{o}"]["bias"])
+        g.conv(f"conv{k}f.0", p[f"convf{o}"])
+        head(f"conv{k}", f"head{o}")
+        g.conv(f"pred_flow{k}", p[f"pred_flow{o}"])
+        if k != 2:
+            g.conv(f"pred_mask{k}", p[f"pred_mask{o}"])
+    for i in range(1, 7):
+        g.conv(f"dc_conv{i}.0", p[f"dc{i - 1}"]["conv"])
+    g.conv("dc_conv7", p["dc_flow"])
+    return sd
+
+
+def unet_discriminator_sn_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
+    """Real-ESRGAN's U-Net discriminator from the JAX module's
+    ``{"params", "spectral"}``: ``conv0`` / ``conv9`` plain, ``conv1``-``8``
+    as torch's spectral-norm triple (``weight_orig``, ``bias``, ``weight_u``
+    = the JAX ``u``, ``weight_v`` the power step's ``v`` in torch's
+    flattening; the port's forward recomputes ``v`` and does not read it)."""
+    p, spec = tree["params"], tree["spectral"]
+    sd: Dict[str, torch.Tensor] = {}
+    g = _SD(sd)
+    g.conv("conv0", p["conv0"])
+    g.conv("conv9", p["conv9"])
+    for i in range(1, 9):
+        k = np.asarray(p[f"conv{i}"]["kernel"], np.float32)
+        u = np.asarray(spec[f"conv{i}"]["u"], np.float32)
+        v = k.reshape(-1, k.shape[-1]) @ u
+        v = (v / (np.linalg.norm(v) + 1e-12)).reshape(k.shape[:3]).transpose(2, 0, 1)
+        g.raw(f"conv{i}.weight_orig", k, _conv_layout)
+        g.raw(f"conv{i}.bias", p[f"conv{i}"]["bias"])
+        g.raw(f"conv{i}.weight_u", u)
+        g.raw(f"conv{i}.weight_v", v.reshape(-1))
+    return sd

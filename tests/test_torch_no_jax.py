@@ -1,8 +1,8 @@
 """The port imports without JAX: in a fresh interpreter where ``jax``,
 ``flax`` and the JAX package cannot be imported, every module of
 mgldvsr_tpu_torch (and chip_smoke.py) must import, and none may pull in a
-kernel build or Triton. The metrics, BSRGAN and the synthesis also run with
-cv2 unimportable."""
+kernel build or Triton (or cv2, av or torchvision). The metrics, BSRGAN,
+the synthesis and the heritage path also run with cv2 unimportable."""
 import os
 import subprocess
 import sys
@@ -34,10 +34,13 @@ for m in ("cli.infer", "data.video_folder", "utils.config", "io.frames", "io.tor
           "cli.prepare_data", "tools.soak_train", "ops.img_process", "ops.diffjpeg",
           "train.synthesis", "data.pair_queue", "data.bsrgan", "core.samplers",
           "data.tokenizer", "infer.txt2img", "models.textual_inversion", "models.encoders",
-          "models.classifier"):
+          "models.classifier", "ops.dcn", "ops.stylegan_ops", "flow.maskflownet",
+          "models.heritage", "models.heritage.sr_archs", "models.heritage.video_archs",
+          "models.heritage.swinir", "models.heritage.stylegan2", "models.heritage.misc_archs",
+          "models.heritage.face_archs", "data.heritage_datasets"):
     assert "mgldvsr_tpu_torch." + m in mods, m
 assert "yaml" not in sys.modules, "yaml was imported at import time"
-for m in ("cv2", "av"):
+for m in ("cv2", "av", "torchvision"):
     assert m not in sys.modules, m + " was imported at import time"
 print(len(mods))
 """
@@ -52,7 +55,7 @@ def _run(code):
 def test_every_port_module_imports_without_jax():
     proc = _run(_CHECK)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 88
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 99
 
 
 _METRICS_WITHOUT_CV2 = r"""
@@ -128,3 +131,39 @@ def test_port_does_not_import(module):
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "False"
+
+
+_HERITAGE_WITHOUT_CV2 = r"""
+import os, sys
+for name in ("jax", "jaxlib", "flax", "optax", "mgldvsr_tpu", "cv2", "torchvision"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import numpy as np
+import torch
+from mgldvsr_tpu_torch.data.heritage_datasets import VideoRecurrentTestDataset
+from mgldvsr_tpu_torch.io.frames import write_frame
+from mgldvsr_tpu_torch.models.heritage.video_archs import BasicVSRPlusPlus
+root = sys.argv[1]
+rs = np.random.RandomState(0)
+for side, size in (("gt", 32), ("lq", 8)):
+    os.makedirs(os.path.join(root, side, "clip"))
+    for i in range(3):
+        write_frame(os.path.join(root, side, "clip", f"{i:08d}.png"),
+                    rs.randint(0, 256, (size, size, 3), np.uint8))
+item = VideoRecurrentTestDataset(os.path.join(root, "gt"), os.path.join(root, "lq"))[0]
+lqs = torch.from_numpy(item["lqs"])[None]
+flows = torch.zeros(1, 2, 8, 8, 2)
+with torch.no_grad():
+    out = BasicVSRPlusPlus(num_feat=8, num_block=1, deform_groups=2)(lqs, flows, flows)
+assert out.shape == (1, 3, 32, 32, 3) and torch.isfinite(out).all()
+print("ok")
+"""
+
+
+def test_heritage_path_runs_without_cv2_or_torchvision(tmp_path):
+    """A clip through the heritage test dataset and BasicVSR++ (deformable
+    convs) with cv2, torchvision and JAX unimportable."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _HERITAGE_WITHOUT_CV2, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
