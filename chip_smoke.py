@@ -256,7 +256,10 @@ Phase 14 the soak tool on the card (``mgldvsr_tpu_torch.tools.soak_train
          --tiny``): the training command line as a subprocess for 40
          micro-steps, SIGUSR1 at step 10, SIGKILL, ``--resume``; the step counter must
          continue from the checkpoint, the replayed step log the same loss,
-         and the trainer's peak device memory appear in the summary.
+         and the trainer's peak device memory appear in the summary. In the
+         whole script it runs beside phase 12 (its own processes, a tiny
+         model), so both phases' rates are taken sharing the card; its
+         ``[phase14]`` wall is the soak's own, from its start to its exit.
 Phase 15 the device synthesis and the stock text-to-image path. (a)
          Real-ESRGAN's two-stage synthesis (``train/synthesis.py``) on a
          stage-1 clip's GT [8,512,512,3] float32 with a kernel set a frame
@@ -309,6 +312,33 @@ Phase 16 MaskFlownet_S, the deformable conv and the BasicSR heritage (no
          SwinIR classical x4 (embed 180, 6x6) at 128x128; MaskFlownet_S on
          a 512x512 pair; the StyleGAN2 generator at 512, channel multiplier
          2. ``--only-heritage`` runs phase 16 alone (no kernel build).
+Phase 17 the native clip loader (``native/src/clip_loader.cpp``, host C++,
+         no kernel of its own) and the runtime extras. (a) The library built
+         with g++ from the checkout: its codecs (each compiled in where the
+         compiler finds its header) beside the codec headers under
+         /usr/include and the libraries ldconfig lists. (b) Each frame's
+         decode against the Python path (``imfrombytes``) bit for bit; 16
+         clips of 4 frames (each flip, the transpose) fetched in reverse, bit for
+         bit. Without the PNG codec, (b) checks that a PNG record raises by
+         name. (c) ``RealVSRRecurrentDataset(packed_root=, io_threads=2)``:
+         ``read_path`` must be ``native`` (``python`` without the PNG
+         codec); four samples through ``prefetch_iterator``'s two spawned
+         workers against the disk path within 1e-6. (d) ``cli.train --stage 1
+         --tiny --max-steps 2 --set data.packed_root=... --set
+         data.io_threads=2`` on the card: finite losses, the read path it
+         prints, the kernels it launches (``launches_loader_train`` in the
+         kernels line; the fused GroupNorm must be among them). (e)
+         ``StepTimer`` over a ~50 ms ``torch.cuda._sleep`` reads at least 40
+         ms; ``device_memory_stats``' peak covers a 256 MiB allocation; a
+         ``trace`` of one ``fused_group_norm`` call in a fresh interpreter
+         must name its CUDA kernel. Five such traces (with a torch op beside
+         the kernel) in the script's process, after every earlier phase's
+         profiler sessions, are logged, not held: there they come back
+         without kernels, an open fault (ROADMAP §3).
+         (f) ``tools/loader_bench`` at its defaults (5 frames, 360 px source,
+         128 crop, 40 clips, 4 threads), the busy main thread a CUDA matmul
+         loop: clips/s of the disk path, the native pool alone and beside
+         it. ``--only-loader`` builds the kernels and runs phase 17 alone.
 
 Every phase prints its own ``[phaseN] ... s of wall`` line, and a
 ``[phases]`` line lists them all before the kernels line.
@@ -3602,14 +3632,23 @@ WINDOW_PARALLEL_STEPS = 10  # phase 11 (a) and (b) at full width
 
 class background:
     """A command started in the background, its output sent to files beside
-    ``stem``; ``wait(timeout)`` -> (return code, stdout, stderr). As a
-    context manager it kills the command if the block leaves early."""
+    ``stem``; ``wait(timeout)`` -> (return code, stdout, stderr); ``ended``
+    the ``time.perf_counter()`` at which it exited. As a context manager it
+    kills the command if the block leaves early."""
 
     def __init__(self, cmd, cwd: str, env: dict, stem: str):
+        import threading
+
         self.paths = (stem + ".out", stem + ".err")
+        self.ended = None
         with open(self.paths[0], "w") as out, open(self.paths[1], "w") as err:
             self.proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=out, stderr=err,
                                          text=True)
+        threading.Thread(target=self._reap, daemon=True).start()
+
+    def _reap(self):
+        self.proc.wait()
+        self.ended = time.perf_counter()
 
     def wait(self, timeout: float):
         code = self.proc.wait(timeout=timeout)
@@ -4469,35 +4508,52 @@ def phase13(pipe16, frames, seed: int, steps: int, card: str) -> dict:
 # -- phase 14: the soak tool ---------------------------------------------------
 
 
-def phase14(card: str) -> dict:
-    """The soak tool at tiny widths on the card, as a user runs it."""
-    import tempfile
+def soak_start(tmp: str) -> tuple:
+    """Start the soak tool at tiny widths on the card, as a user runs it, in
+    the background: its own processes and ~0.15 GiB of the card, so it can
+    run beside another phase. Returns (the run, its work folder, its start)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    workdir = os.path.join(tmp, "soak")
+    run = background(
+        [sys.executable, "-m", "mgldvsr_tpu_torch.tools.soak_train", "--tiny", "--steps", "40",
+         "--sig-frac", "0.25", "--log-every", "1", "--clips", "2", "--frames-per-clip", "6",
+         "--startup-timeout", "240", "--workdir", workdir],
+        os.path.dirname(os.path.abspath(__file__)), env, os.path.join(tmp, "soak_log"))
+    return run, workdir, time.perf_counter()
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "mgldvsr_tpu_torch.tools.soak_train", "--tiny", "--steps",
-             "40", "--sig-frac", "0.25", "--log-every", "1", "--clips", "2",
-             "--frames-per-clip", "6", "--startup-timeout", "240", "--workdir",
-             os.path.join(tmp, "soak")],
-            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
-            timeout=600)
-        wall = time.perf_counter() - t0
-        path = os.path.join(tmp, "soak", "soak_summary.json")
-        if proc.returncode or not os.path.isfile(path):
-            raise AssertionError(f"phase 14: the soak tool exited {proc.returncode}: "
-                                 f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
-        with open(path) as f:
-            summary = json.load(f)
+
+def soak_finish(card: str, started: tuple) -> dict:
+    """Wait for the soak run and hold its summary; ``wall_s`` is the run's
+    own, from its start to its exit."""
+    run, workdir, t0 = started
+    returncode, stdout, stderr = run.wait(600)
+    while run.ended is None:
+        time.sleep(0.01)
+    wall = run.ended - t0
+    path = os.path.join(workdir, "soak_summary.json")
+    if returncode or not os.path.isfile(path):
+        raise AssertionError(f"phase 14: the soak tool exited {returncode}: "
+                             f"{stdout[-2000:]} {stderr[-2000:]}")
+    with open(path) as f:
+        summary = json.load(f)
     log(f"[phase14] soak_train --tiny on the card, 40 micro-steps: checkpoint at step "
         f"{summary['ckpt_step']}, killed at {summary['killed_at_step']}, resumed at "
         f"{summary['resumed_first_step']}, replayed steps {summary['seam_replayed_steps']} "
         f"(loss difference {summary['seam_difference']:.3e}), "
         f"{summary['steps_per_sec_median']:.3f} steps/s, peak "
-        f"{summary['peak_mem_last_gb']} GiB; {wall:.1f} s  [{card}]")
+        f"{summary['peak_mem_last_gb']} GiB; {wall:.1f} s from its start to its exit  [{card}]")
     if not (summary["ok"] and summary["resume_exact"] and summary["peak_mem_last_gb"]):
         raise AssertionError(f"phase 14: {summary}")
     return dict(summary, wall_s=wall)
+
+
+def phase14(card: str) -> dict:
+    """The soak tool at tiny widths on the card, alone."""
+    with tempfile.TemporaryDirectory() as tmp:
+        started = soak_start(tmp)
+        with started[0]:
+            return soak_finish(card, started)
 
 
 # -- phase 15: the device synthesis and the stock text-to-image path ----------
@@ -5542,6 +5598,296 @@ def phase16(seed: int, card: str) -> dict:
     return out
 
 
+# -- phase 17: the native clip loader and the runtime extras ------------------
+
+
+
+def header_check() -> dict:
+    """The codec headers under /usr/include and the codec libraries the
+    dynamic linker knows."""
+    import re
+    import shutil
+
+    headers = {h: os.path.isfile(os.path.join("/usr/include", h))
+               for h in ("png.h", "jpeglib.h", "zlib.h")}
+    ldconfig = shutil.which("ldconfig") or "/sbin/ldconfig"
+    try:
+        out = subprocess.run([ldconfig, "-p"], capture_output=True, text=True,
+                             timeout=60).stdout
+    except OSError as e:
+        out = f"({e})"
+    libs = sorted({line.split()[0] for line in out.splitlines()
+                   if re.search(r"libpng|libjpeg|libz\.", line)})
+    return {"headers": headers, "libraries": libs}
+
+
+def loader_build(card: str) -> dict:
+    """(a) The library built from the checkout; its codecs and the header
+    check."""
+    from mgldvsr_tpu_torch import native
+
+    check = header_check()
+    t0 = time.perf_counter()
+    path = native.build_native()
+    secs = time.perf_counter() - t0
+    out = {"library": os.path.basename(path), "build_s": secs, "found": native.found_codecs(),
+           "codecs": native.codecs(), **check}
+    log(f"[phase17] (a) native loader built with g++ in {secs:.2f} s: {out['library']}, codecs "
+        f"{out['codecs']} (headers found by the compiler {out['found']}); /usr/include "
+        f"{check['headers']}; ldconfig {check['libraries']}  [{card}]")
+    if tuple(out["codecs"]) != tuple(out["found"]):
+        raise AssertionError(f"phase 17 (a): codecs {out['codecs']} but headers {out['found']}")
+    return out
+
+
+def loader_against_python(card: str, tmp: str, codecs) -> dict:
+    """(b) Every frame's decode and clips (each flip, the transpose, tickets
+    fetched out of order) against the Python path, bit for bit."""
+    from mgldvsr_tpu_torch.data.file_client import PackedBackend, imfrombytes
+    from mgldvsr_tpu_torch.native.loader import NativeClipLoader, pack_image_dir
+
+    root, pk = os.path.join(tmp, "b_gt"), os.path.join(tmp, "b_pk")
+    train_clips(root, 50, clips=2, frames=4, size=96)
+    pack_image_dir(root, pk)
+    backend = PackedBackend(pk)
+    keys = sorted(backend.keys())
+    if "png" not in codecs:
+        try:
+            NativeClipLoader(pk).decode(keys[0])
+        except IOError as e:
+            log(f"[phase17] (b) no PNG codec: decode raises {e}  [{card}]")
+            return {"skipped": "no png codec"}
+        raise AssertionError("phase 17 (b): a PNG record decoded without the PNG codec")
+    want = {k: imfrombytes(backend.get(k), float32=True) for k in keys}
+    loader = NativeClipLoader(pk, 3)
+    same = all(np.array_equal(loader.decode(k), want[k]) for k in keys)
+    window = keys[:4]
+    cases = [(t % 5, t % 7, 40 + t % 9, 48, bool(t & 1), bool(t & 2), bool(t & 4))
+             for t in range(16)]
+    tickets = [loader.submit_clip(window, top, left, ch, cw, hflip=hf, vflip=vf, transpose=tr)
+               for top, left, ch, cw, hf, vf, tr in cases]
+    clips_same = True
+    for (top, left, ch, cw, hf, vf, tr), ticket in reversed(list(zip(cases, tickets))):
+        ref = np.stack([want[k][top:top + ch, left:left + cw] for k in window])
+        ref = ref[:, :, ::-1] if hf else ref
+        ref = ref[:, ::-1] if vf else ref
+        ref = ref.transpose(0, 2, 1, 3) if tr else ref
+        clips_same &= bool(np.array_equal(loader.fetch(ticket), ref))
+    loader.close()
+    log(f"[phase17] (b) {len(keys)} frames against the Python decode, bit for bit {same}; "
+        f"{len(cases)} clips of 4 frames (flips, transpose, fetched in reverse) bit for bit "
+        f"{clips_same}  [{card}]")
+    if not (same and clips_same):
+        raise AssertionError("phase 17 (b): the native loader disagrees with the Python path")
+    return {"decode_equal": same, "clips_equal": clips_same}
+
+
+def loader_dataset(card: str, tmp: str, codecs) -> dict:
+    """(c) RealVSRRecurrentDataset on the packed frames through
+    prefetch_iterator's spawned workers against the disk path."""
+    from mgldvsr_tpu_torch.data.datasets import RealVSRRecurrentDataset, prefetch_iterator
+    from mgldvsr_tpu_torch.native.loader import pack_image_dir
+
+    root, pk = os.path.join(tmp, "c_gt"), os.path.join(tmp, "c_pk")
+    train_clips(root, 60, clips=2, frames=6, size=96)
+    pack_image_dir(root, pk)
+    deg = {"random_blur": {"params": {"prob": 1.0, "kernel_size": [3], "kernel_list": ["iso"],
+                                      "kernel_prob": [1.0], "sigma_x": [0.4, 1.0],
+                                      "sigma_y": [0.4, 1.0], "rotate_angle": [-3.14, 3.14]}}}
+    kw = dict(num_frame=3, gt_size=64, use_hflip=True, use_rot=True, val_partition="none",
+              degradation_1=deg, seed=5)
+    disk = RealVSRRecurrentDataset(root, **kw)
+    packed = RealVSRRecurrentDataset(root, packed_root=pk, io_threads=2, **kw)
+    want = "native" if "png" in codecs else "python"
+    order = [3, 0, 2, 1]
+    t0 = time.perf_counter()
+    items = list(prefetch_iterator(packed, order, num_workers=2))
+    secs = time.perf_counter() - t0
+    err = max(float(np.abs(item[k] - disk[i][k]).max())
+              for i, item in zip(order, items) for k in ("lqs", "gts"))
+    log(f"[phase17] (c) dataset read path {packed.read_path} (want {want}); {len(order)} "
+        f"samples through 2 spawned workers in {secs:.2f} s, max |d| against the disk path "
+        f"{err:.3e} (limit 1e-6)  [{card}]")
+    if packed.read_path != want or err > 1e-6:
+        raise AssertionError("phase 17 (c): the packed dataset disagrees with the disk path")
+    return {"read_path": packed.read_path, "max_abs_err": err, "prefetch_s": secs}
+
+
+def loader_train_cli(card: str, tmp: str) -> dict:
+    """(d) The training command line, stage 1 --tiny, on packed frames read
+    by the native pool of 2 threads; the kernels it launches."""
+    import io
+
+    import torch
+
+    from mgldvsr_tpu_torch.cli import train as cli
+    from mgldvsr_tpu_torch.native.loader import pack_image_dir
+    from mgldvsr_tpu_torch.ops import kernels
+
+    root, pk = os.path.join(tmp, "d_gt"), os.path.join(tmp, "d_pk")
+    train_clips(root, 40, clips=2, frames=6, size=48)
+    pack_image_dir(root, pk)
+    logdir = os.path.join(tmp, "d_run")
+    said = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        cli.main(["--stage", "1", "--data-root", root, "--tiny", "--max-steps", "2",
+                  "--grad-accum", "1", "--ckpt-every", "2", "--log-every", "1", "--no-tb",
+                  "--logdir", logdir, "--set", f"data.packed_root={pk}",
+                  "--set", "data.io_threads=2"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    records = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
+    path_line = [ln for ln in said.getvalue().splitlines() if ln.startswith("data:")]
+    log(f"[phase17] (d) training CLI --tiny, 2 micro-steps on packed frames: {path_line}; "
+        f"losses {[round(r['loss'], 4) for r in records]}; launches {counts}; {secs:.2f} s  "
+        f"[{card}]")
+    if [r["step"] for r in records] != [1, 2] or not all(np.isfinite(r["loss"])
+                                                          for r in records):
+        raise AssertionError(f"phase 17 (d): metrics {records}")
+    if not path_line or not counts.get("fused_group_norm"):
+        raise AssertionError(f"phase 17 (d): read path {path_line}, launches {counts}")
+    return {"counts": kernels.launch_counts(), "read_path_line": path_line[0], "wall_s": secs}
+
+
+TRACE_REPEATS = 5  # (e)'s traces in this process, logged
+
+
+TRACE_ONE_CALL = r"""
+import json, os, sys
+import torch
+import chip_smoke
+from mgldvsr_tpu_torch.ops.kernels.groupnorm import fused_group_norm
+from mgldvsr_tpu_torch.utils.profiling import trace
+args = chip_smoke.trace_gn_args(torch)
+fused_group_norm(*args)
+with trace(sys.argv[1]):
+    fused_group_norm(*args)
+with open(os.path.join(sys.argv[1], "trace.json")) as f:
+    events = json.load(f)["traceEvents"]
+print(json.dumps(sorted({e["name"] for e in events if e.get("cat") == "kernel"})))
+"""
+
+
+def start_trace_run(logdir: str) -> subprocess.Popen:
+    """(e)'s held trace of one fused_group_norm call in a fresh interpreter,
+    started early: its start-up runs beside (b)-(d)."""
+    return subprocess.Popen([sys.executable, "-c", TRACE_ONE_CALL, logdir],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def trace_gn_args(torch):
+    """One fused_group_norm call's arguments: [2,128,64,64] f32, 32 groups."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(2, 128, 64, 64, device="cuda", generator=gen)
+    return x, torch.ones(128, device="cuda"), torch.zeros(128, device="cuda"), 32, 1e-6
+
+
+def profiling_checks(card: str, tmp: str, trace_run: subprocess.Popen) -> dict:
+    """(e) StepTimer over a device sleep, device_memory_stats' peak over an
+    allocation, and a trace of one fused_group_norm call in a fresh
+    interpreter (``trace_run``'s), held. The same trace in this process,
+    after every earlier phase's profiler sessions, as a user's long training
+    process would take it, is logged and not held: it comes back without
+    the kernel there, an open fault (ROADMAP §3)."""
+    import torch
+
+    from mgldvsr_tpu_torch.ops.kernels.groupnorm import fused_group_norm
+    from mgldvsr_tpu_torch.utils.profiling import (TRACE_MARGIN_S, StepTimer,
+                                                   device_memory_stats, trace)
+
+    args = trace_gn_args(torch)
+    fused_group_norm(*args)  # warm
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    cycles = int(10_000_000 * 50 / start.elapsed_time(end))  # ~50 ms
+    timer = StepTimer()
+    marker = torch.zeros(1, device="cuda")
+    timer.start()
+    torch.cuda._sleep(cycles)
+    marker += 1
+    timer.stop(marker)
+    timed_ms = 1000 * timer.best
+
+    torch.cuda.reset_peak_memory_stats()
+    block = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    stats = device_memory_stats()
+    del block
+
+    names, skews, launch_calls = [], [], []
+    for i in range(TRACE_REPEATS):
+        logdir = os.path.join(tmp, f"e_trace{i}")
+        with trace(logdir):
+            fused_group_norm(*args)
+            args[0].mul_(1.0)  # one of torch's own kernels beside it
+        with open(os.path.join(logdir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        names.append(sorted({e["name"][:60] for e in kernels}))
+        launch_calls.append(sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                                and "Launch" in e.get("name", "")))
+        # the kernel's start less its launch call's, in µs: a few µs in
+        # truth, so the rest is the device clock's offset from the host's
+        launches = {e["args"]["correlation"]: e["ts"] for e in events
+                    if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+        skews += [round(e["ts"] - launches[e["args"]["correlation"]], 1) for e in kernels
+                  if e.get("args", {}).get("correlation") in launches]
+    out, err = trace_run.communicate(timeout=300)
+    if trace_run.returncode:
+        raise AssertionError(f"phase 17 (e): the trace run exited {trace_run.returncode}: "
+                             f"{err[-2000:]}")
+    fresh = json.loads(out.strip().splitlines()[-1])
+    log(f"[phase17] (e) StepTimer over a ~50 ms device sleep: {timed_ms:.1f} ms (at least 40); "
+        f"device_memory_stats after a 256 MiB allocation {stats}; a fresh interpreter's trace: "
+        f"{fresh}; in this process (not held: ROADMAP §3) {TRACE_REPEATS} traces of a "
+        f"fused_group_norm call and a torch mul_, kernels {names}, launch calls "
+        f"{launch_calls}; kernel start less launch, us: {skews} (the window keeps "
+        f"{1000 * TRACE_MARGIN_S:.0f} ms each end)  [{card}]")
+    if timed_ms < 40 or stats["peak_bytes_in_use"] < 256 * 2**20 or not stats["bytes_limit"]:
+        raise AssertionError(f"phase 17 (e): timer {timed_ms} ms, memory {stats}")
+    if not any("group_norm_kernel" in n for n in fresh):
+        raise AssertionError(f"phase 17 (e): the fresh trace names no GroupNorm kernel: {fresh}")
+    # open fault (ROADMAP §3): in this process, after the earlier phases'
+    # profiler sessions, the traces can come back without the kernel
+    return {"timer_ms": timed_ms, "memory": stats, "trace_kernels": fresh,
+            "trace_kernels_in_process": names, "trace_launch_calls": launch_calls,
+            "trace_skew_us": skews}
+
+
+def phase17(card: str) -> dict:
+    """The native clip loader, the dataset and training CLI on it, the
+    profiling hooks and the loader benchmark."""
+    from mgldvsr_tpu_torch.tools import loader_bench
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"build": loader_build(card)}
+        trace_run = start_trace_run(os.path.join(tmp, "e_trace"))
+        try:
+            codecs = out["build"]["codecs"]
+            out["loader"] = loader_against_python(card, tmp, codecs)
+            out["dataset"] = loader_dataset(card, tmp, codecs)
+            out["train"] = loader_train_cli(card, tmp)
+            out["profiling"] = profiling_checks(card, tmp, trace_run)
+        finally:
+            if trace_run.poll() is None:
+                trace_run.kill()
+                trace_run.wait()
+    out["bench"] = loader_bench.run(loader_bench.parse_args(["--busy", "cuda"]))
+    log(f"[phase17] (f) loader_bench (5 frames, 360 px source, 128 crop, 40 clips, 4 threads; "
+        f"the busy main thread a CUDA matmul loop): {json.dumps(out['bench'])}  [{card}]")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def straight_runs(seed: int, card: str, keep: dict) -> None:
     """Phases 8 (b) and 9 (b)'s straight runs alone, kept for phase 12."""
     import tempfile
@@ -5584,6 +5930,9 @@ def main() -> int:
                     help="build the kernels and run phases 13 and 14 alone (no result line)")
     ap.add_argument("--only-txt2img", action="store_true",
                     help="build the kernels and run phase 15 alone (no result line)")
+    ap.add_argument("--only-loader", action="store_true",
+                    help="build the kernels and run phase 17 alone: the native clip loader, "
+                         "the profiling hooks and the loader benchmark (no result line)")
     ap.add_argument("--only-heritage", action="store_true",
                     help="run phase 16 alone: MaskFlownet, the deformable conv and the "
                          "BasicSR heritage (no kernel build, no result line)")
@@ -5611,6 +5960,10 @@ def main() -> int:
     so, secs = _build.build()
     _build.library()
     log(f"[phase1] built {so.name} in {secs:.2f} s (nvcc, sm_90a)")
+    if args.only_loader:
+        with wall("phase17", card, times):
+            log(json.dumps(phase17(card), default=str))
+        return 0
     if args.only_train or args.only_stage2:
         if args.only_train:
             with wall("phase8", card, times):
@@ -5690,17 +6043,25 @@ def main() -> int:
             train = phase8(args.seed, card, keep)
         with wall("phase9", card, times):
             stage2 = phase9(args.seed, card, keep)
-        with wall("phase12", card, times):
-            ranked = phase12(args.seed, card, keep)
+        # phase 14's soak runs beside phase 12 (its own processes, a tiny
+        # model; both phases' rates are taken sharing the card): phase 14's
+        # wall is the soak's own, from its start to its exit
+        soak = soak_start(tmp)
+        with soak[0]:
+            with wall("phase12", card, times):
+                ranked = phase12(args.seed, card, keep)
+            times["phase14"] = soak_finish(card, soak)["wall_s"]
+        log(f"[phase14] {times['phase14']:.1f} s of wall, beside phase 12  [{card}]")
         del keep
-    with wall("phase14", card, times):
-        phase14(card)
     with wall("phase15", card, times):
         t2i = phase15(args.seed, card, train["profile"]["host_s_per_clip"])["txt2img"]
     with wall("phase16", card, times):
         heritage = phase16(args.seed, card)
+    with wall("phase17", card, times):
+        loader = phase17(card)
     log(f"[phases] s of wall: { {k: round(v, 1) for k, v in times.items()} }; heritage "
-        f"(phase 16): {json.dumps(heritage, default=str)}  [{card}]")
+        f"(phase 16): {json.dumps(heritage, default=str)}; loader (phase 17): "
+        f"{json.dumps(loader, default=str)}  [{card}]")
 
     # launches: the count on the path that runs the kernel (the fused
     # configuration for the fused conv, the default one for the others)
@@ -5720,6 +6081,7 @@ def main() -> int:
                 "launches_fp32_256px": fp32["card_vs_cpu"]["counts"][name],
                 "launches_txt2img": t2i["default"]["counts"][name],
                 "launches_txt2img_fused": t2i["fused"]["counts"][name],
+                "launches_loader_train": loader["train"]["counts"][name],
                 **results[name]}
                for name, (route, src, rep) in KERNELS.items()]
     for entry in kernels:

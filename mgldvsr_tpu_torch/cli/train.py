@@ -547,6 +547,8 @@ def stage1(args, pipe=None, on_step=None):
     ds = RealVSRRecurrentDataset(args.data_root, num_frame=args.num_frames, gt_size=gt_size,
                                  degradation_1=deg1, degradation_2=deg2, seed=args.seed,
                                  **data_cfg)
+    if rank == 0:
+        print(f"data: {len(ds)} clips, frames read by the {ds.read_path} path", flush=True)
     trainer = Stage1Trainer(pipe, Stage1Config(learning_rate=args.lr,
                                                grad_accum=args.grad_accum,
                                                adam_mu_dtype=args.mu_dtype,

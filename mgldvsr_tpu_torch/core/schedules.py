@@ -209,6 +209,19 @@ def predict_start_from_noise(sched: DiffusionSchedule, x_t: torch.Tensor, t,
             - extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * noise)
 
 
+def predict_start_from_z_and_v(sched: DiffusionSchedule, x_t: torch.Tensor, t,
+                               v: torch.Tensor) -> torch.Tensor:
+    """x_0 from x_t and the v-prediction."""
+    return (extract(sched.sqrt_alphas_cumprod, t, x_t.ndim) * x_t
+            - extract(sched.sqrt_one_minus_alphas_cumprod, t, x_t.ndim) * v)
+
+
+def get_v(sched: DiffusionSchedule, x: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
+    """The v-prediction target of x_0 = ``x`` noised by ``noise`` at t."""
+    return (extract(sched.sqrt_alphas_cumprod, t, x.ndim) * noise
+            - extract(sched.sqrt_one_minus_alphas_cumprod, t, x.ndim) * x)
+
+
 def q_posterior(sched: DiffusionSchedule, x_start: torch.Tensor, x_t: torch.Tensor, t):
     """Posterior q(x_{t-1} | x_t, x_0): (mean, variance, log_variance)."""
     mean = (extract(sched.posterior_mean_coef1, t, x_t.ndim) * x_start

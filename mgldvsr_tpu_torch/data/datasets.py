@@ -5,7 +5,9 @@ Counterpart of ``mgldvsr_tpu/data/datasets.py`` (``RealVSRRecurrentDataset``,
 ``REDSAutoencoderDataset``, ``paired_random_crop``, ``augment``,
 ``REDS4_CLIPS``, ``ShardedSampler``, ``prefetch_iterator``) without
 OpenCV: frames are read through :mod:`mgldvsr_tpu_torch.data.cv_ops` (PNG),
-``packed_root`` through
+``packed_root`` through the native clip loader
+(:class:`~mgldvsr_tpu_torch.native.loader.NativeClipLoader`) where it builds
+with its PNG codec, else through
 :class:`~mgldvsr_tpu_torch.data.file_client.PackedBackend`. Every draw is
 made from the same per-(seed, index) ``RandomState`` in the same order as
 the JAX package's. Samples are float32 [T, H, W, 3] RGB in [0, 1].
@@ -72,7 +74,14 @@ class RealVSRRecurrentDataset:
     ``meta_info_file`` lists ``clip frame_count`` lines); ``packed_root``
     reads the frames from a packed record file instead (keys
     ``clip/%08d.png``). The REDS4 or official validation clips are left
-    out, or kept alone with ``test_mode``."""
+    out, or kept alone with ``test_mode``.
+
+    ``read_path`` says how frames are read, chosen once here: ``"disk"``
+    (no ``packed_root``), ``"native"`` (the C++ pool of ``io_threads``
+    threads decodes, crops and flips; taken where the native library builds
+    with its PNG codec) or ``"python"`` (PackedBackend and the Python
+    decoder). The three give the same samples bit for bit: the same draws in
+    the same order, and the native loader divides by 255 as numpy does."""
 
     def __init__(
         self,
@@ -90,13 +99,24 @@ class RealVSRRecurrentDataset:
         usm_gt: bool = True,
         seed: int = 0,
         packed_root: Optional[str] = None,
+        io_threads: int = 4,
     ):
         self.root = dataroot_gt
         self.packed = None
+        self.read_path = "disk"
         if packed_root is not None:
-            from mgldvsr_tpu_torch.data.file_client import PackedBackend
+            from mgldvsr_tpu_torch import native
 
-            self.packed = PackedBackend(packed_root)
+            if native.native_available() and "png" in native.codecs():
+                from mgldvsr_tpu_torch.native.loader import NativeClipLoader
+
+                self.packed = NativeClipLoader(packed_root, num_threads=io_threads)
+                self.read_path = "native"
+            else:
+                from mgldvsr_tpu_torch.data.file_client import PackedBackend
+
+                self.packed = PackedBackend(packed_root)
+                self.read_path = "python"
         self.num_frame = num_frame
         self.gt_size = gt_size
         self.interval_list = list(interval_list)
@@ -142,15 +162,29 @@ class RealVSRRecurrentDataset:
         span = (self.num_frame - 1) * interval
         start = rng.randint(0, max(n_frames - span, 1))
         idxs = [start + i * interval for i in range(self.num_frame)]
-        if self.packed is not None:
-            from mgldvsr_tpu_torch.data.file_client import imfrombytes
-
-            gts = [imfrombytes(self.packed.get(f"{clip}/{i:08d}.png"), float32=True)
-                   for i in idxs]
+        keys = [f"{clip}/{i:08d}.png" for i in idxs]
+        if self.read_path == "native":
+            # paired_random_crop's and augment's draws, in their order
+            h, w = self.packed.probe(keys[0])
+            size = self.gt_size
+            if h < size or w < size:
+                raise ValueError(f"clip {h}x{w} smaller than crop {size}")
+            top = rng.randint(0, h - size + 1)
+            left = rng.randint(0, w - size + 1)
+            do_h = self.use_hflip and rng.uniform() < 0.5
+            do_v = self.use_rot and rng.uniform() < 0.5
+            do_t = self.use_rot and rng.uniform() < 0.5
+            gts = list(self.packed.load_clip(keys, top, left, size, size, hflip=do_h,
+                                             vflip=do_v, transpose=do_t))
         else:
-            gts = [_imread(os.path.join(self.root, clip, f"{i:08d}.png")) for i in idxs]
-        gts = paired_random_crop(gts, self.gt_size, rng)
-        gts = augment(gts, self.use_hflip, self.use_rot, rng)
+            if self.read_path == "python":
+                from mgldvsr_tpu_torch.data.file_client import imfrombytes
+
+                gts = [imfrombytes(self.packed.get(k), float32=True) for k in keys]
+            else:
+                gts = [_imread(os.path.join(self.root, k)) for k in keys]
+            gts = paired_random_crop(gts, self.gt_size, rng)
+            gts = augment(gts, self.use_hflip, self.use_rot, rng)
 
         results = {"gts": gts, "lqs": [g.copy() for g in gts]}
         if self.usm is not None:

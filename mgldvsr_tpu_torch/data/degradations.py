@@ -314,3 +314,51 @@ class DegradationStage:
         for t in self.transforms:
             results = t(results, rng)
         return results
+
+
+_DEGRADATION_TYPES = {
+    "RandomBlur": RandomBlur,
+    "RandomResize": RandomResize,
+    "RandomNoise": RandomNoise,
+    "RandomJPEGCompression": RandomJPEGCompression,
+    "RandomVideoCompression": RandomVideoCompression,
+}
+
+
+class DegradationsWithShuffle:
+    """Degradations applied in a partly shuffled order (BasicSR's
+    DegradationsWithShuffle).
+
+    ``degradations`` is a list of ``{"type": name, "params": {...}}`` dicts,
+    where an entry may itself be a list: a group that keeps its inner order.
+    Each call permutes the entries at ``shuffle_idx`` (default: all) with one
+    ``rng.shuffle``, the JAX package's draw."""
+
+    def __init__(self, degradations, keys: Sequence[str] = ("lqs",), shuffle_idx=None):
+        self.keys = tuple(keys)
+        self.degradations = self._build(list(degradations))
+        if shuffle_idx is None:
+            self.shuffle_idx = list(range(len(self.degradations)))
+        else:
+            self.shuffle_idx = list(shuffle_idx)
+
+    def _build(self, degradations):
+        built = []
+        for d in degradations:
+            if isinstance(d, (list, tuple)):
+                built.append(self._build(list(d)))
+            else:
+                built.append(_DEGRADATION_TYPES[d["type"]](d["params"], self.keys))
+        return built
+
+    def __call__(self, results: Dict, rng: np.random.RandomState) -> Dict:
+        order = list(self.degradations)
+        if self.shuffle_idx:
+            picked = [order[i] for i in self.shuffle_idx]
+            rng.shuffle(picked)
+            for i, idx in enumerate(self.shuffle_idx):
+                order[idx] = picked[i]
+        for d in order:
+            for sub in (d if isinstance(d, list) else [d]):
+                results = sub(results, rng)
+        return results

@@ -137,10 +137,46 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def encode_png(rgb: np.ndarray, level: int = 6) -> bytes:
+def encode_png(rgb: np.ndarray, level: int = 6, opencv: bool = False) -> bytes:
     """[H, W, 3] uint8 -> an 8-bit RGB PNG, every row unfiltered, deflated
-    at zlib ``level``."""
+    at zlib ``level``. With ``opencv`` the bytes are those OpenCV's
+    ``imwrite`` writes at its default settings for the BGR image
+    ``rgb[..., ::-1]`` (``level`` unused): every row Sub-filtered (none
+    in a one-pixel-wide image, where libpng drops the filter), deflated
+    at level 1 with the run-length strategy, the stream's window field
+    narrowed as libpng narrows it, IDAT chunks of 8192 bytes."""
     h, w, _ = rgb.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
+    rows = rgb.reshape(h, w * 3)
+    if opencv:
+        sub = rows.copy()
+        sub[:, 3:] = rows[:, 3:] - rows[:, :-3]  # uint8: modulo 256
+        kind = np.full((h, 1), 1 if w > 1 else 0, np.uint8)
+        raw = np.concatenate([kind, sub], axis=1).tobytes()
+        deflate = zlib.compressobj(1, zlib.DEFLATED, 15, 8, zlib.Z_RLE)
+        stream = _narrow_window(deflate.compress(raw) + deflate.flush(), len(raw))
+        idat = [stream[i:i + 8192] for i in range(0, len(stream), 8192)]
+    else:
+        raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+        idat = [zlib.compress(raw, level)]
     return (_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _chunk(b"IEND", b""))
+            + b"".join(_chunk(b"IDAT", part) for part in idat) + _chunk(b"IEND", b""))
+
+
+def _narrow_window(stream: bytes, size: int) -> bytes:
+    """libpng's rewrite of a zlib header for ``size`` bytes of input up to
+    16 KiB: the smallest window (CINFO) whose half is below ``size``, and
+    the check bits (FCHECK) that go with it."""
+    cmf, flg = stream[0], stream[1]
+    cinfo = cmf >> 4
+    half = 1 << (cinfo + 7)
+    if size > 16384 or size > half:
+        return stream
+    while True:
+        half >>= 1
+        cinfo -= 1
+        if not (cinfo > 0 and size <= half):
+            break
+    cmf = (cmf & 0x0F) | (cinfo << 4)
+    flg &= 0xE0
+    flg += 0x1F - ((cmf << 8) + flg) % 0x1F
+    return bytes([cmf, flg]) + stream[2:]

@@ -20,6 +20,7 @@ fusion.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Sequence
 
 import torch
@@ -258,21 +259,48 @@ class Decoder(nn.Module):
 
 class DiagonalGaussian:
     """Posterior from moments = [mean | logvar] on the channel axis
-    (``dim``: -1 for NHWC, 1 for NCHW)."""
+    (``dim``: -1 for NHWC, 1 for NCHW). ``deterministic``: ``sample`` gives
+    the mean, and ``kl`` and ``nll`` a 0-d zero."""
 
-    def __init__(self, moments: torch.Tensor, dim: int = -1):
+    def __init__(self, moments: torch.Tensor, dim: int = -1, deterministic: bool = False):
         self.mean, logvar = moments.chunk(2, dim=dim)
         self.logvar = logvar.clamp(-30.0, 20.0)
         self.std = torch.exp(0.5 * self.logvar)
         self.var = torch.exp(self.logvar)
+        self.deterministic = deterministic
 
     def sample(self, generator: Optional[torch.Generator]) -> torch.Tensor:
+        if self.deterministic:
+            return self.mean
         eps = torch.randn(self.mean.shape, generator=generator, dtype=self.mean.dtype,
                           device=self.mean.device)
         return self.mean + self.std * eps
 
     def mode(self) -> torch.Tensor:
         return self.mean
+
+    def _zero(self) -> torch.Tensor:
+        return torch.zeros((), dtype=self.mean.dtype, device=self.mean.device)
+
+    def kl(self, other: Optional["DiagonalGaussian"] = None) -> torch.Tensor:
+        """KL(self || other), other N(0, I) by default: one value a sample,
+        summed over every axis but the first."""
+        if self.deterministic:
+            return self._zero()
+        dims = tuple(range(1, self.mean.ndim))
+        if other is None:
+            return 0.5 * torch.sum(self.mean ** 2 + self.var - 1.0 - self.logvar, dim=dims)
+        return 0.5 * torch.sum((self.mean - other.mean) ** 2 / other.var + self.var / other.var
+                               - 1.0 - self.logvar + other.logvar, dim=dims)
+
+    def nll(self, sample: torch.Tensor) -> torch.Tensor:
+        """Negative log-likelihood of ``sample``, summed over every axis but
+        the first."""
+        if self.deterministic:
+            return self._zero()
+        return 0.5 * torch.sum(math.log(2.0 * math.pi) + self.logvar
+                               + (sample - self.mean) ** 2 / self.var,
+                               dim=tuple(range(1, sample.ndim)))
 
 
 def is_temporal_or_fusion(name: str) -> bool:

@@ -87,16 +87,9 @@ def pack_frames(root: str, packed: str) -> int:
     """Every ``clip/%08d.png`` under ``root`` into one record file (the
     keys ``RealVSRRecurrentDataset(packed_root=)`` reads); returns the
     count."""
-    from mgldvsr_tpu_torch.data.file_client import PackedMaker
+    from mgldvsr_tpu_torch.native.loader import pack_image_dir
 
-    maker, n = PackedMaker(packed), 0
-    for clip in sorted(os.listdir(root)):
-        for name in sorted(os.listdir(os.path.join(root, clip))):
-            with open(os.path.join(root, clip, name), "rb") as f:
-                maker.put(f"{clip}/{name}", f.read())
-            n += 1
-    maker.close()
-    return n
+    return pack_image_dir(root, packed)
 
 
 def read_metrics(path: str) -> list:

@@ -1,19 +1,33 @@
 """Configs: YAML files merged left to right, ``key.path=value`` overrides,
-and dicts applied onto dataclasses.
+dicts applied onto dataclasses, and a registry of named constructors.
 
-Counterpart of ``mgldvsr_tpu/utils/config.py`` without its registry (the
-training side's). ``yaml`` is imported only when a file is loaded.
+Counterpart of ``mgldvsr_tpu/utils/config.py``. ``instantiate`` builds a
+``{"target": name, "params": {...}}`` node through ``REGISTRY``, which holds
+the three datasets, RAFT and SpyNet under the JAX package's names; a target
+name that is not registered fails with the registered ones listed. ``yaml``
+is imported only when a file is loaded.
 """
 from __future__ import annotations
 
 import ast
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 _BOOLS = {"true": True, "false": False}
+
+REGISTRY: Dict[str, Callable] = {}
+
+
+def register(name: str):
+    """Decorator: register ``fn`` under ``name`` for :func:`instantiate`."""
+    def deco(fn):
+        REGISTRY[name] = fn
+        return fn
+
+    return deco
 
 
 def load_yaml(path: str) -> Dict:
@@ -60,6 +74,19 @@ def load_config(paths: List[str], overrides: Optional[List[str]] = None) -> Dict
     if overrides:
         apply_dotlist(cfg, overrides)
     return cfg
+
+
+def instantiate(spec: Dict, **extra) -> Any:
+    """``{"target": name, "params": {...}}`` -> ``REGISTRY[name](**params,
+    **extra)``."""
+    if "target" not in spec:
+        raise KeyError(f"config node missing 'target': {list(spec)}")
+    name = spec["target"]
+    if name not in REGISTRY:
+        raise KeyError(f"unknown target {name!r}; registered: {sorted(REGISTRY)}")
+    params = dict(spec.get("params") or {})
+    params.update(extra)
+    return REGISTRY[name](**params)
 
 
 def apply_to_dataclass(instance, cfg: Optional[Dict]):
@@ -119,3 +146,19 @@ def pipeline_config_from_dict(cfg: Optional[Dict]):
                 pc = dataclasses.replace(
                     pc, **{name: dataclasses.replace(getattr(pc, name), num_frames=t)})
     return pc
+
+
+def _register_defaults():
+    from mgldvsr_tpu_torch.data.datasets import REDSAutoencoderDataset, RealVSRRecurrentDataset
+    from mgldvsr_tpu_torch.data.video_folder import VideoFolderDataset
+    from mgldvsr_tpu_torch.flow.raft import RAFT, RAFTConfig
+    from mgldvsr_tpu_torch.flow.spynet import SpyNet
+
+    REGISTRY.setdefault("data.realvsr_recurrent", RealVSRRecurrentDataset)
+    REGISTRY.setdefault("data.reds_autoencoder", REDSAutoencoderDataset)
+    REGISTRY.setdefault("data.video_folder", VideoFolderDataset)
+    REGISTRY.setdefault("flow.raft", lambda **kw: RAFT(RAFTConfig(**kw)))
+    REGISTRY.setdefault("flow.spynet", lambda **kw: SpyNet(**kw))
+
+
+_register_defaults()

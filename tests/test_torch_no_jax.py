@@ -37,7 +37,8 @@ for m in ("cli.infer", "data.video_folder", "utils.config", "io.frames", "io.tor
           "models.classifier", "ops.dcn", "ops.stylegan_ops", "flow.maskflownet",
           "models.heritage", "models.heritage.sr_archs", "models.heritage.video_archs",
           "models.heritage.swinir", "models.heritage.stylegan2", "models.heritage.misc_archs",
-          "models.heritage.face_archs", "data.heritage_datasets"):
+          "models.heritage.face_archs", "data.heritage_datasets", "native", "native.loader",
+          "utils.profiling", "tools.loader_bench"):
     assert "mgldvsr_tpu_torch." + m in mods, m
 assert "yaml" not in sys.modules, "yaml was imported at import time"
 for m in ("cv2", "av", "torchvision"):
@@ -55,7 +56,7 @@ def _run(code):
 def test_every_port_module_imports_without_jax():
     proc = _run(_CHECK)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 99
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 103
 
 
 _METRICS_WITHOUT_CV2 = r"""
@@ -164,6 +165,33 @@ def test_heritage_path_runs_without_cv2_or_torchvision(tmp_path):
     convs) with cv2, torchvision and JAX unimportable."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _HERITAGE_WITHOUT_CV2, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+_LOADER_WITHOUT_CV2 = r"""
+import os, sys
+for name in ("jax", "jaxlib", "flax", "optax", "mgldvsr_tpu", "cv2", "torchvision"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import numpy as np
+from mgldvsr_tpu_torch.tools import loader_bench
+from mgldvsr_tpu_torch.utils.profiling import dump_pca_features
+out = loader_bench.run(loader_bench.parse_args(["--iters", "3", "--src-size", "48", "--size",
+                                                "16", "--frames", "2"]))
+assert out["disk_clips_per_s"] > 0, out
+rs = np.random.RandomState(0)
+dump_pca_features([{"64": rs.randn(1, 8, 8, 4).astype(np.float32)}], sys.argv[1])
+assert os.path.isfile(os.path.join(sys.argv[1], "fea_64", "step_1.png"))
+print("ok")
+"""
+
+
+def test_loader_bench_and_pca_dump_run_without_cv2(tmp_path):
+    """The loader benchmark (the native pool where it builds) and the PCA
+    dump run with cv2, torchvision and JAX unimportable."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _LOADER_WITHOUT_CV2, str(tmp_path)],
                           cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
