@@ -44,7 +44,11 @@ Phase 2  hold each kernel (the seven that replace a TPU kernel, the
          512x512 frames, 4 and 1 of them, under a scattered, a smooth and a
          large flow, each equal to the plain warp bit for bit, with host
          microseconds a call beside F.grid_sample's; the statistics kernel's
-         host time beside torch.var_mean's.
+         host time beside torch.var_mean's. The channel sums at the
+         restore's [5,128,512,512] and text to image's batch-1
+         [1,256,128,128] and [1,256,256,256]: ms, device ms, host us and the
+         threads a block beside torch.var_mean's ms, device ms and host us,
+         and two calls bit for bit.
 Phase 3  tiny config at 256x256, float32, 2 steps, deterministic: the same
          weights on the card (kernels) and on the CPU (plain versions) must
          give the same frames, once in the default configuration and once
@@ -329,12 +333,11 @@ Phase 17 the native clip loader (``native/src/clip_loader.cpp``, host C++,
          prints, the kernels it launches (``launches_loader_train`` in the
          kernels line; the fused GroupNorm must be among them). (e)
          ``StepTimer`` over a ~50 ms ``torch.cuda._sleep`` reads at least 40
-         ms; ``device_memory_stats``' peak covers a 256 MiB allocation; a
-         ``trace`` of one ``fused_group_norm`` call in a fresh interpreter
-         must name its CUDA kernel. Five such traces (with a torch op beside
-         the kernel) in the script's process, after every earlier phase's
-         profiler sessions, are logged, not held: there they come back
-         without kernels, an open fault (ROADMAP §3).
+         ms; ``device_memory_stats``' peak covers a 256 MiB allocation; five
+         ``trace``s of one ``fused_group_norm`` call with torch's ``mul_``
+         beside it, in the script's process after every earlier phase's
+         profiler sessions, must each name both kernels, and the same trace
+         in a fresh interpreter the GroupNorm kernel.
          (f) ``tools/loader_bench`` at its defaults (5 frames, 360 px source,
          128 crop, 40 clips, 4 threads), the busy main thread a CUDA matmul
          loop: clips/s of the disk path, the native pool alone and beside
@@ -376,7 +379,7 @@ KERNELS = {
                   "mgldvsr_tpu/ops/pallas/attention.py:76"),
     "corr_lookup": ("cuda", "mgldvsr_tpu_torch/csrc/corr_lookup.cu",
                     "mgldvsr_tpu/ops/pallas/corr_lookup.py:94"),
-    "channel_sums": ("triton", "mgldvsr_tpu_torch/ops/kernels/groupnorm.py",
+    "channel_sums": ("cuda", "mgldvsr_tpu_torch/csrc/groupnorm.cu",
                      "mgldvsr_tpu/ops/pallas/groupnorm.py:55"),
     "fused_group_norm": ("cuda", "mgldvsr_tpu_torch/csrc/groupnorm.cu",
                          "mgldvsr_tpu/ops/pallas/groupnorm.py:139"),
@@ -503,20 +506,25 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def device_activity(fn, calls: int = 10) -> tuple[float, float]:
+def device_activity(fn, where: str, calls: int = 10) -> tuple[float, float]:
     """(device activities a warm ``fn()``: kernels, memsets and copies; their
     summed device ms a call), from a ``torch.profiler`` CUDA trace of
     ``calls`` calls. The trace can miss the window's first activity, so one
-    call alone may read one launch short."""
+    call alone may read one launch short. Raises, naming ``where``, on a
+    trace without kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from mgldvsr_tpu_torch.utils.profiling import check_kernels, reattach_cupti
+
     fn()
     torch.cuda.synchronize()
+    reattach_cupti()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    check_kernels(prof, where, launched=True)
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     return (sum(e.count for e in events) / calls,
             sum(e.self_device_time_total for e in events) / 1000 / calls)
@@ -707,8 +715,8 @@ def guidance_phase2(dev, gen, card: str, record) -> dict:
     if counts != {"warp_forward": 1, "warp_dx": 1} or not err_old <= tol:
         raise AssertionError(f"guidance: the autograd step launched {counts}, differs by "
                              f"{err_old:.3e} (limit {tol:.3e})")
-    n_old, dev_old = device_activity(autograd_step)
-    n_new, dev_new = device_activity(pair)
+    n_old, dev_old = device_activity(autograd_step, "phase 2: the autograd guidance step")
+    n_new, dev_new = device_activity(pair, "phase 2: the guidance pair")
     # launch A, the accumulator's zero fill, launch B and its finishing kernel
     if round(n_new) != 4:
         raise AssertionError(f"guidance: the pair made {n_new} device launches a call, "
@@ -1166,23 +1174,34 @@ def phase2(card: str):
     lookup_checks(dev, gen)
     del f1, f2, pyr, got
 
-    # GroupNorm sums: the VAE's 512^2 level, 5 frames x 128 channels, bf16;
-    # float32 sums of 262144 terms: the limit is relative to the sums' size
-    xb = torch.randn(5, 128, 512, 512, device=dev, generator=gen).to(torch.bfloat16) + 0.5
-    t0 = time.perf_counter()
-    s = gn_mod.channel_sums(xb)
-    torch.cuda.synchronize()
-    log(f"[phase2] channel_sums first call (Triton compile + run) "
-        f"{time.perf_counter() - t0:.2f} s")
-    p = gn_mod.channel_sums_plain(xb)
-    err = max(max_err(s[0], p[0]), max_err(s[1], p[1]))
-    record("channel_sums", err, 1e-5 * float(p[1].abs().max()),
-           cuda_ms(lambda: gn_mod.channel_sums(xb)),
-           cuda_ms(lambda: gn_mod.channel_sums_plain(xb)), "[5,128,512,512] bf16",
-           *bound(nbytes(xb, *s), 3.0 * xb.numel(), "f32"),
-           cuda_ms(lambda: torch.var_mean(xb, dim=(2, 3))),
-           graph_ms(lambda: gn_mod.channel_sums(xb)))
-    del xb, s, p
+    # channel sums: the VAE's 512^2 level of the restore (5 frames x 128
+    # channels) and text to image's batch-1 decode at 128^2 and 256^2 (256
+    # rows), bf16; float32 sums of up to 262144 terms: the limit is relative
+    # to the sums' size. Two calls give the same bits (no atomics).
+    for shp in ((5, 128, 512, 512), (1, 256, 128, 128), (1, 256, 256, 256)):
+        xb = torch.randn(shp, device=dev, generator=gen).to(torch.bfloat16) + 0.5
+        s = gn_mod.channel_sums(xb)
+        p = gn_mod.channel_sums_plain(xb)
+        err = max(max_err(s[0], p[0]), max_err(s[1], p[1]))
+        if not all(torch.equal(a, b) for a, b in zip(s, gn_mod.channel_sums(xb))):
+            raise AssertionError(f"channel_sums {list(shp)}: two calls differ")
+        label = f"{list(shp)} bf16"
+        r = {"ms": cuda_ms(lambda: gn_mod.channel_sums(xb)),
+             "device_ms": graph_ms(lambda: gn_mod.channel_sums(xb)),
+             "host_us": host_us(lambda: gn_mod.channel_sums(xb)),
+             "plain_ms": cuda_ms(lambda: gn_mod.channel_sums_plain(xb)),
+             "library_ms": cuda_ms(lambda: torch.var_mean(xb, dim=(2, 3))),
+             "library_device_ms": graph_ms(lambda: torch.var_mean(xb, dim=(2, 3))),
+             "library_host_us": host_us(lambda: torch.var_mean(xb, dim=(2, 3))),
+             "threads": gn_mod.channel_sums_plan(shp[0] * shp[1], shp[2] * shp[3], 2)}
+        r["bound_ms"], r["bound_by"] = bound(nbytes(xb, *s), 3.0 * xb.numel(), "f32")
+        record("channel_sums", err, 1e-5 * float(p[1].abs().max()), r["ms"], r["plain_ms"],
+               label, r["bound_ms"], r["bound_by"], r["library_ms"], r["device_ms"])
+        results["channel_sums"].setdefault("shapes", {})[label] = r
+        log(f"[phase2]   threads a block {r['threads']}; the host's share of a call: "
+            f"{r['host_us']:.1f} us to return; torch.var_mean {r['library_host_us']:.1f} us, on "
+            f"the device {r['library_device_ms']:.4f} ms")
+        del xb, s, p
 
     # fused GroupNorm: the UNet's levels, the 960-channel skip concat (the
     # longest slab, 240 KB: a cluster of 8), a 5-D temporal input, and float32.
@@ -2264,6 +2283,7 @@ def train_profile(seed: int, card: str, data_root: str, logdir: str) -> dict:
     from mgldvsr_tpu_torch.data.datasets import RealVSRRecurrentDataset, prefetch_iterator
     from mgldvsr_tpu_torch.infer.pipeline import upscale_frames
     from mgldvsr_tpu_torch.train.trainer import Stage1Config, Stage1Trainer
+    from mgldvsr_tpu_torch.utils.profiling import check_kernels, reattach_cupti
 
     pipe = full_train_pipeline(seed)
     # two traces of the loop, four micro-steps each (one update in four, as
@@ -2285,6 +2305,7 @@ def train_profile(seed: int, card: str, data_root: str, logdir: str) -> dict:
                 prof.stop()
             if step in traces:
                 name, prof = traces[step]
+                reattach_cupti()
                 prof.start()
                 marks[name] = time.perf_counter()
 
@@ -2296,6 +2317,8 @@ def train_profile(seed: int, card: str, data_root: str, logdir: str) -> dict:
         return sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == cuda) / 1000 / 4
 
+    for name, prof in traces.values():
+        check_kernels(prof, f"phase 8: the {name} trace of the CLI loop", launched=True)
     wall, device = marks["idle"], device_ms(traces[1][1])
     nodes = traces[5][1]
     by_node: dict = {}
@@ -3200,18 +3223,23 @@ def stage2_decoder(seed: int, card: str, roots: dict) -> dict:
     return out
 
 
-def kernel_device_ms(fn, reps: int = 2) -> float:
+def kernel_device_ms(fn, where: str, reps: int = 2) -> float:
     """Device ms a call of ``fn``: the kernels' summed time in a
-    torch.profiler trace of ``reps`` warm calls."""
+    torch.profiler trace of ``reps`` warm calls. Raises, naming ``where``,
+    on a trace without kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from mgldvsr_tpu_torch.utils.profiling import check_kernels, reattach_cupti
+
     fn()
     torch.cuda.synchronize()
+    reattach_cupti()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    check_kernels(prof, where, launched=True)
     cuda = torch.autograd.DeviceType.CUDA
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == cuda) / 1000 / reps
@@ -3233,6 +3261,7 @@ def stage2_profile(seed: int, card: str, roots: dict, logdir: str) -> dict:
 
     from mgldvsr_tpu_torch.cli import train as cli
     from mgldvsr_tpu_torch.train.stage2 import partition_vae_params
+    from mgldvsr_tpu_torch.utils.profiling import check_kernels, reattach_cupti
 
     args = stage2_args(roots, logdir, 5, seed, "--ckpt-every", "1000000")
     pipe = stage2_pipeline(args)
@@ -3247,6 +3276,7 @@ def stage2_profile(seed: int, card: str, roots: dict, logdir: str) -> dict:
         if step in (1, 5):
             torch.cuda.synchronize()
             if step == 1:
+                reattach_cupti()
                 prof.start()
                 marks["t0"] = time.perf_counter()
             else:
@@ -3255,6 +3285,7 @@ def stage2_profile(seed: int, card: str, roots: dict, logdir: str) -> dict:
         held["state"] = state
 
     cli.stage2(args, pipe=pipe, on_step=on_step, on_trainer=on_trainer)
+    check_kernels(prof, "phase 9: the trace of the CLI loop", launched=True)
     cuda = torch.autograd.DeviceType.CUDA
     device = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == cuda) / 1000 / 4
@@ -3304,7 +3335,8 @@ def stage2_profile(seed: int, card: str, roots: dict, logdir: str) -> dict:
     parts = {"flows (SpyNet + occlusion)": flows, "LQ encode": encode,
              "decoder forward": decode_fwd, "decoder forward + backward": decode_fwd_bwd,
              "LPIPS forward + backward": lpips, "discriminator (both passes)": disc}
-    part_ms = {name: kernel_device_ms(fn) for name, fn in parts.items()}
+    part_ms = {name: kernel_device_ms(fn, f"phase 9: {name} traced alone")
+               for name, fn in parts.items()}
     part_ms["decoder backward"] = (part_ms["decoder forward + backward"]
                                    - part_ms["decoder forward"])
     log(f"[phase9] the CLI loop under torch.profiler (kernels only, micro-steps 2-5, data "
@@ -4910,7 +4942,10 @@ def t2i_kernel_shapes(seen: dict, card: str) -> dict:
                 1e-5 * float(want[1].abs().max()), lambda: gn_mod.channel_sums(x),
                 lambda: gn_mod.channel_sums_plain(x),
                 lambda: torch.var_mean(x, dim=(2, 3)),
-                bound(nbytes(x, *got), 3.0 * x.numel(), "f32"))
+                bound(nbytes(x, *got), 3.0 * x.numel(), "f32"),
+                kernel="channel_sums_kernel (csrc/groupnorm.cu)",
+                threads=gn_mod.channel_sums_plan(shape[0] * shape[1], shape[2] * shape[3],
+                                                 x.element_size()))
         elif name == "gn_silu_conv3x3":
             _, shape, dtype, co, bias_dtype, groups, eps = key
             n, c, h, w_ = shape
@@ -5752,7 +5787,7 @@ def loader_train_cli(card: str, tmp: str) -> dict:
     return {"counts": kernels.launch_counts(), "read_path_line": path_line[0], "wall_s": secs}
 
 
-TRACE_REPEATS = 5  # (e)'s traces in this process, logged
+TRACE_REPEATS = 5  # (e)'s traces in this process, each held
 
 
 TRACE_ONE_CALL = r"""
@@ -5788,16 +5823,15 @@ def trace_gn_args(torch):
 
 def profiling_checks(card: str, tmp: str, trace_run: subprocess.Popen) -> dict:
     """(e) StepTimer over a device sleep, device_memory_stats' peak over an
-    allocation, and a trace of one fused_group_norm call in a fresh
-    interpreter (``trace_run``'s), held. The same trace in this process,
-    after every earlier phase's profiler sessions, as a user's long training
-    process would take it, is logged and not held: it comes back without
-    the kernel there, an open fault (ROADMAP §3)."""
+    allocation, and ``TRACE_REPEATS`` traces of one fused_group_norm call
+    with torch's own ``mul_`` beside it in this process, after every earlier
+    phase's profiler sessions, CUDA graph captures and process groups, as a
+    user's long training process would take them: each must name both
+    kernels. The same trace in a fresh interpreter (``trace_run``'s) too."""
     import torch
 
     from mgldvsr_tpu_torch.ops.kernels.groupnorm import fused_group_norm
-    from mgldvsr_tpu_torch.utils.profiling import (TRACE_MARGIN_S, StepTimer,
-                                                   device_memory_stats, trace)
+    from mgldvsr_tpu_torch.utils.profiling import StepTimer, device_memory_stats, trace
 
     args = trace_gn_args(torch)
     fused_group_norm(*args)  # warm
@@ -5825,40 +5859,42 @@ def profiling_checks(card: str, tmp: str, trace_run: subprocess.Popen) -> dict:
     names, skews, launch_calls = [], [], []
     for i in range(TRACE_REPEATS):
         logdir = os.path.join(tmp, f"e_trace{i}")
-        with trace(logdir):
+        with trace(logdir):  # raises where the session holds launch calls and no kernel
             fused_group_norm(*args)
             args[0].mul_(1.0)  # one of torch's own kernels beside it
         with open(os.path.join(logdir, "trace.json")) as f:
             events = json.load(f)["traceEvents"]
         kernels = [e for e in events if e.get("cat") == "kernel"]
-        names.append(sorted({e["name"][:60] for e in kernels}))
+        names.append(sorted({e["name"] for e in kernels}))
         launch_calls.append(sum(1 for e in events if e.get("cat") == "cuda_runtime"
                                 and "Launch" in e.get("name", "")))
-        # the kernel's start less its launch call's, in µs: a few µs in
-        # truth, so the rest is the device clock's offset from the host's
+        # the kernel's start less its launch call's, in µs
         launches = {e["args"]["correlation"]: e["ts"] for e in events
                     if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
-        skews += [round(e["ts"] - launches[e["args"]["correlation"]], 1) for e in kernels
-                  if e.get("args", {}).get("correlation") in launches]
+        skews.append([round(e["ts"] - launches[e["args"]["correlation"]], 1) for e in kernels
+                      if e.get("args", {}).get("correlation") in launches])
     out, err = trace_run.communicate(timeout=300)
     if trace_run.returncode:
         raise AssertionError(f"phase 17 (e): the trace run exited {trace_run.returncode}: "
                              f"{err[-2000:]}")
     fresh = json.loads(out.strip().splitlines()[-1])
+    short = [[n[:60] for n in trace_names] for trace_names in names]
     log(f"[phase17] (e) StepTimer over a ~50 ms device sleep: {timed_ms:.1f} ms (at least 40); "
         f"device_memory_stats after a 256 MiB allocation {stats}; a fresh interpreter's trace: "
-        f"{fresh}; in this process (not held: ROADMAP §3) {TRACE_REPEATS} traces of a "
-        f"fused_group_norm call and a torch mul_, kernels {names}, launch calls "
-        f"{launch_calls}; kernel start less launch, us: {skews} (the window keeps "
-        f"{1000 * TRACE_MARGIN_S:.0f} ms each end)  [{card}]")
+        f"{fresh}; in this process {TRACE_REPEATS} traces of a fused_group_norm call and a "
+        f"torch mul_: kernels {short}, launch calls {launch_calls}; kernel start less launch, "
+        f"us: {skews}  [{card}]")
     if timed_ms < 40 or stats["peak_bytes_in_use"] < 256 * 2**20 or not stats["bytes_limit"]:
         raise AssertionError(f"phase 17 (e): timer {timed_ms} ms, memory {stats}")
     if not any("group_norm_kernel" in n for n in fresh):
         raise AssertionError(f"phase 17 (e): the fresh trace names no GroupNorm kernel: {fresh}")
-    # open fault (ROADMAP §3): in this process, after the earlier phases'
-    # profiler sessions, the traces can come back without the kernel
+    for i, trace_names in enumerate(names):
+        if not (any("group_norm_kernel" in n for n in trace_names)
+                and any("MulFunctor" in n for n in trace_names)):
+            raise AssertionError(f"phase 17 (e): in-process trace {i} names {short[i]}, not the "
+                                 f"GroupNorm kernel and torch's mul_ kernel")
     return {"timer_ms": timed_ms, "memory": stats, "trace_kernels": fresh,
-            "trace_kernels_in_process": names, "trace_launch_calls": launch_calls,
+            "trace_kernels_in_process": short, "trace_launch_calls": launch_calls,
             "trace_skew_us": skews}
 
 

@@ -1,3 +1,8 @@
+// The GroupNorm kernels of the default configuration, both bound on the H100
+// by device-memory traffic: the fused GroupNorm (group_norm_kernel) and the
+// channel sums that the VAE's low-precision GroupNorms of 128^2 pixels and
+// more take (channel_sums_kernel, at the end of the file).
+//
 // GroupNorm of a contiguous [N, C, *spatial] tensor in one kernel: one read of
 // x, one write of y. Replaces the TPU kernel
 // mgldvsr_tpu/ops/pallas/groupnorm.py (fused_group_norm -> _fused_gn_kernel).
@@ -260,4 +265,122 @@ extern "C" int mgld_group_norm_f32(const void* x, const void* weight, const void
                                    int split, int stage_bytes, void* stream) {
   return launch_group_norm<float>(x, weight, bias, y, slabs, cg, s, groups, eps, split,
                                   stage_bytes, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// Channel sums: the fp32 sum and sum of squares of each (n, c) row of H*W
+// elements of a contiguous [N, C, H, W] tensor. Replaces the TPU kernel
+// mgldvsr_tpu/ops/pallas/groupnorm.py (channel_sums -> _channel_sums_impl).
+//
+// Bound on the H100: one read of x (8 bytes of output a row). The text-to-
+// image decode gives it 128-512 rows of 32-512 KB at batch 1, the restore
+// 640-2560 rows at batch 5. The Triton kernel it replaced, one program a
+// row, was as fast on the device; its launcher took 34-41 us of host a
+// call, so at batch 1 the host set the pace. So this is one ctypes launch,
+// and the design is about keeping bytes in flight to the end:
+//
+//  * One block a row: at every shape the port runs (128 rows and more) it
+//    was faster than a row split over a thread block cluster of 2-8 blocks.
+//  * Each thread issues four 16-byte loads (8 bf16 or f16, 4 f32) before it
+//    adds the first, and sums in fp32. Blocks of 256, 512 or 1024 threads:
+//    the wrapper's plan (ops/kernels/groupnorm.channel_sums_plan) takes the
+//    fewest threads with which the last wave of blocks still keeps 8 MB in
+//    flight (at 640 rows of 512 KB all blocks fit the card at once; at 1280
+//    a fifth wave of 1024-thread blocks is the one that keeps the memory
+//    busy).
+//  * The elements before the row's first 16-byte boundary (a row of odd H*W
+//    starts off it) and after its last whole vector are summed one at a
+//    time.
+//  * No atomics: two calls on the same input give the same bits.
+
+namespace {
+
+constexpr int SUMS_MAX_THREADS = 1024;
+static_assert(INFLIGHT == 4, "channel_sums_kernel folds four accumulators");
+
+// x: rows of hw elements; s1, s2: fp32 [rows] (sums, sums of squares). The
+// grid is one block a row.
+template <typename T>
+__global__ void __launch_bounds__(SUMS_MAX_THREADS)
+channel_sums_kernel(const T* __restrict__ x, float* __restrict__ s1_out,
+                    float* __restrict__ s2_out, uint32_t hw) {
+  constexpr int VEC = 16 / sizeof(T);
+  __shared__ float part[2][SUMS_MAX_THREADS / 32];
+  const int tid = threadIdx.x;
+  const int threads = blockDim.x;
+  const uint32_t row = blockIdx.x;
+  const T* xs = x + (int64_t)row * hw;
+  // elements before the first 16-byte boundary of the row, whole vectors after it
+  uint32_t head = ((16u - (uint32_t)(reinterpret_cast<uintptr_t>(xs) & 15u)) & 15u) / sizeof(T);
+  head = head < hw ? head : hw;
+  const uint32_t nvec = (hw - head) / VEC;
+  const uint4* src = reinterpret_cast<const uint4*>(xs + head);
+
+  float a1[INFLIGHT], a2[INFLIGHT];
+#pragma unroll
+  for (int k = 0; k < INFLIGHT; ++k) a1[k] = a2[k] = 0.f;
+  for (uint32_t v0 = tid; v0 < nvec; v0 += INFLIGHT * threads) {
+    uint4 raw[INFLIGHT];
+#pragma unroll
+    for (int k = 0; k < INFLIGHT; ++k)
+      raw[k] = v0 + k * threads < nvec ? src[v0 + k * threads] : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int k = 0; k < INFLIGHT; ++k) accumulate<T>(raw[k], a1[k], a2[k]);
+  }
+  float s1 = (a1[0] + a1[1]) + (a1[2] + a1[3]);
+  float s2 = (a2[0] + a2[1]) + (a2[2] + a2[3]);
+  // the head and the ragged end, under VEC elements each
+  const uint32_t tail = head + nvec * VEC;
+  const uint32_t loose = head + (hw - tail);
+  for (uint32_t i = tid; i < loose; i += threads) {
+    const float v = to_f(xs[i < head ? i : tail + (i - head)]);
+    s1 += v;
+    s2 = fmaf(v, v, s2);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+  }
+  if ((tid & 31) == 0) {
+    part[0][tid >> 5] = s1;
+    part[1][tid >> 5] = s2;
+  }
+  __syncthreads();
+  if (tid < 2) {
+    float t = 0.f;
+    for (int w = 0; w < threads / 32; ++w) t += part[tid][w];
+    (tid == 0 ? s1_out : s2_out)[row] = t;
+  }
+}
+
+template <typename T>
+int launch_channel_sums(const void* x, void* s1, void* s2, long long rows, long long hw,
+                        int threads, cudaStream_t stream) {
+  if (rows <= 0 || hw <= 0 || hw >= (1LL << 31) || rows >= (1LL << 31) || threads < 32 ||
+      threads > SUMS_MAX_THREADS || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  channel_sums_kernel<T><<<(unsigned)rows, threads, 0, stream>>>(
+      (const T*)x, (float*)s1, (float*)s2, (uint32_t)hw);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// (sum, sum of squares) in fp32 of each of the rows of hw contiguous
+// elements of x into s1 and s2: fp32 [rows] each. One block of threads a
+// row, a multiple of 32 up to 1024.
+extern "C" int mgld_channel_sums_bf16(const void* x, void* s1, void* s2, long long rows,
+                                      long long hw, int threads, void* stream) {
+  return launch_channel_sums<__nv_bfloat16>(x, s1, s2, rows, hw, threads, (cudaStream_t)stream);
+}
+
+extern "C" int mgld_channel_sums_f16(const void* x, void* s1, void* s2, long long rows,
+                                     long long hw, int threads, void* stream) {
+  return launch_channel_sums<__half>(x, s1, s2, rows, hw, threads, (cudaStream_t)stream);
+}
+
+extern "C" int mgld_channel_sums_f32(const void* x, void* s1, void* s2, long long rows,
+                                     long long hw, int threads, void* stream) {
+  return launch_channel_sums<float>(x, s1, s2, rows, hw, threads, (cudaStream_t)stream);
 }

@@ -76,6 +76,11 @@ SIGNATURES = {
     "mgld_gn_scale_shift_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "mgld_gn_scale_shift_f16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "mgld_gn_scale_shift_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # x, sums fp32 [rows], sums of squares fp32 [rows], rows, elements a row, threads a
+    # block (one block a row), stream
+    "mgld_channel_sums_bf16": (_P, _P, _P, _L, _L, _I, _P),
+    "mgld_channel_sums_f16": (_P, _P, _P, _L, _L, _I, _P),
+    "mgld_channel_sums_f32": (_P, _P, _P, _L, _L, _I, _P),
     # x, GroupNorm weight, GroupNorm bias, y, samples * groups, channels a group, spatial
     # elements a channel, groups, eps, blocks a slab, shared-memory bytes of a share, stream
     "mgld_group_norm_bf16": (_P, _P, _P, _P, _L, _I, _L, _I, _F, _I, _I, _P),

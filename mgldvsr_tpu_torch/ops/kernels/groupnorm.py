@@ -1,17 +1,19 @@
-"""GroupNorm kernels, each beside its plain version: the one-pass channel sums
-in Triton; in CUDA C++ the fully fused GroupNorm, and the folded scale and
+"""GroupNorm kernels, each beside its plain version, all in CUDA C++: the
+one-pass channel sums, the fully fused GroupNorm, and the folded scale and
 shift that the fused GroupNorm+SiLU+conv kernel takes.
 
 ``channel_sums`` replaces ``mgldvsr_tpu/ops/pallas/groupnorm.py``
 ``channel_sums`` (kernel ``_stats_kernel``). It is bound by device-memory
 bandwidth: one read of a bf16 [N, C, H, W] activation (the VAE's 128^2 to
-512^2 levels). Each program reduces one contiguous H*W row of one (n, c) in
-fp32 and writes both sums, so the activation is read once and no fp32 copy
-of it is ever materialised; the group fold and scale-shift stay in PyTorch
-on [N, C] data. Its gradient is the JAX package's formula in plain tensor
-code (the JAX backward is plain ``jnp`` too). It is the one Triton kernel of
-the port, and ``triton`` is imported only inside its launching function, so
-this module imports where Triton is absent.
+512^2 levels). The kernel (``csrc/groupnorm.cu`` ``channel_sums_kernel``)
+reads each contiguous H*W row of one (n, c) in 16-byte vectors and sums it
+in fp32, so the activation is read once and no fp32 copy of it is
+materialised; no atomics, so two calls give the same bits. One ``ctypes``
+launch a call. A row is one block, with the threads (``channel_sums_plan``)
+that keep the memory busy to the last wave of blocks. The group fold
+and scale-shift stay in PyTorch on [N, C] data. Its gradient is the JAX
+package's formula in plain tensor code (the JAX backward is plain ``jnp``
+too).
 
 ``fused_group_norm`` replaces ``fused_group_norm`` of the same JAX file
 (kernel ``_fused_gn_kernel``). It is bound by device-memory bandwidth too:
@@ -60,36 +62,54 @@ def channel_sums_plain(x: torch.Tensor):
     return xf.sum(dim=(2, 3)), (xf * xf).sum(dim=(2, 3))
 
 
-@functools.cache
-def _channel_sums_kernel():
-    import triton
-    import triton.language as tl
+SM_COUNT = 132              # of an H100; only the plans of blocks and waves read it
+SM_THREADS = 2048           # threads an SM holds (the channel-sums kernel takes 32 registers)
+SUMS_IN_FLIGHT = 8 * 2**20  # bytes the last wave of channel-sums blocks keeps in flight
+SUMS_LOADS = 4              # 16-byte loads a thread keeps in flight: INFLIGHT of groupnorm.cu
 
-    @triton.jit
-    def channel_sums_kernel(x_ptr, s1_ptr, s2_ptr, hw, BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        base = x_ptr + row.to(tl.int64) * hw
-        acc1 = tl.zeros([BLOCK], dtype=tl.float32)
-        acc2 = tl.zeros([BLOCK], dtype=tl.float32)
-        for start in range(0, hw, BLOCK):
-            offs = start + tl.arange(0, BLOCK)
-            v = tl.load(base + offs, mask=offs < hw, other=0.0).to(tl.float32)
-            acc1 += v
-            acc2 += v * v
-        tl.store(s1_ptr + row, tl.sum(acc1, axis=0))
-        tl.store(s2_ptr + row, tl.sum(acc2, axis=0))
+_SUMS_ENTRY = {torch.bfloat16: "mgld_channel_sums_bf16",
+               torch.float16: "mgld_channel_sums_f16",
+               torch.float32: "mgld_channel_sums_f32"}
 
-    return channel_sums_kernel
+
+@functools.lru_cache(maxsize=None)
+def channel_sums_plan(rows: int, hw: int, itemsize: int) -> int:
+    """The threads a block of the channel-sums kernel, which gives each of
+    ``rows`` rows of ``hw`` elements of ``itemsize`` bytes one block: the
+    fewest of 256, 512 and 1024 with which the last wave of blocks (all of
+    them, where they fit the card at once) keeps 8 MB in flight, and none
+    with fewer than four vectors of its own to read."""
+    nbytes = hw * itemsize
+    most = max(256, min(1024, nbytes // (16 * SUMS_LOADS)))
+    threads = 256
+    while threads < most:
+        resident = SM_COUNT * (SM_THREADS // threads)
+        last = rows if rows <= resident else rows % resident or resident
+        if last * threads * 16 * SUMS_LOADS >= SUMS_IN_FLIGHT:
+            break
+        threads *= 2
+    return threads
+
+
+@functools.lru_cache(maxsize=None)
+def _sums_entry(dtype: torch.dtype):
+    """(C entry, stream getter) of the channel-sums kernel for ``dtype``."""
+    return _build.bind(_SUMS_ENTRY[dtype])
 
 
 def _launch_channel_sums(x: torch.Tensor):
+    """The launch without the checks (``channel_sums`` made them). The two
+    sums are the rows of one [2, N, C] tensor."""
     n, c, h, w = x.shape
-    s1 = torch.empty(n, c, dtype=torch.float32, device=x.device)
-    s2 = torch.empty(n, c, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _channel_sums_kernel()[(n * c,)](x, s1, s2, h * w, BLOCK=2048, num_warps=8)
+    out = torch.empty(2, n, c, dtype=torch.float32, device=x.device)
+    fn, stream = _sums_entry(x.dtype)
+    s1 = out.data_ptr()
+    err = fn(x.data_ptr(), s1, s1 + 4 * n * c, n * c, h * w,
+             channel_sums_plan(n * c, h * w, x.element_size()), stream(x.get_device()))
+    if err:
+        _build.check(err, _SUMS_ENTRY[x.dtype])
     channel_sums.launches += 1
-    return s1, s2
+    return out.unbind()
 
 
 class _ChannelSums(torch.autograd.Function):
@@ -112,19 +132,27 @@ def channel_sums(x: torch.Tensor):
     """(sum, sum of squares), each [N, C] float32, of a contiguous
     [N, C, H, W] tensor, reduced over H and W in one read. Differentiable:
     dx = g1 + 2 x g2."""
-    if x.device.type == "cpu":
+    if not x.is_cuda and x.device.type == "cpu":
         return channel_sums_plain(x)
-    if x.ndim != 4 or not x.is_contiguous() or x.device.type != "cuda":
-        raise ValueError(f"channel_sums: need a contiguous CUDA [N,C,H,W] tensor, got "
-                         f"{tuple(x.shape)} on {x.device}")
-    if x.dtype not in _FLOATS:
-        raise TypeError(f"channel_sums: floating input only, got {x.dtype}")
-    if torch.is_grad_enabled() and x.requires_grad:
+    if not (x.is_cuda and x.ndim == 4 and x.is_contiguous() and x.dtype in _SUMS_ENTRY
+            and 0 < x.numel() and x.shape[2] * x.shape[3] < 2 ** 31):
+        _check_sums(x)
+    if x.requires_grad and torch.is_grad_enabled():
         return _ChannelSums.apply(x)
     return _launch_channel_sums(x)
 
 
 channel_sums.launches = 0
+
+
+def _check_sums(x: torch.Tensor) -> None:
+    """Raise with the reason where ``channel_sums`` refuses its input."""
+    if x.ndim != 4 or not x.is_contiguous() or x.device.type != "cuda" or x.numel() == 0:
+        raise ValueError(f"channel_sums: need a contiguous non-empty CUDA [N,C,H,W] tensor, got "
+                         f"{tuple(x.shape)} (contiguous={x.is_contiguous()}) on {x.device}")
+    if x.dtype not in _FLOATS:
+        raise TypeError(f"channel_sums: floating input only, got {x.dtype}")
+    raise ValueError(f"channel_sums: a row of {x.shape[2] * x.shape[3]} elements exceeds 2^31")
 
 
 def group_scale_shift(s1: torch.Tensor, s2: torch.Tensor, count: float, weight: torch.Tensor,
@@ -251,7 +279,6 @@ def group_norm_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
     return (y * weight.float().reshape(shape) + bias.float().reshape(shape)).to(x.dtype)
 
 
-SM_COUNT = 132                  # of an H100; only the split of slabs among blocks looks at it
 GN_SHARE_TARGET = 32 * 1024     # bytes of a share at which several blocks fit an SM
 GN_MIN_SHARE = 8 * 1024         # no split leaves a block less than this to read
 GN_STAGE_LIMIT = 100 * 1024     # the longest share kept in shared memory: two blocks to an SM

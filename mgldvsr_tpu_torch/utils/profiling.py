@@ -3,7 +3,10 @@
 Counterpart of ``mgldvsr_tpu/utils/profiling.py``:
 
 - ``trace``: a ``torch.profiler`` trace of the CPU and, where there is one,
-  the CUDA device, written as a Chrome trace into a folder;
+  the CUDA device, written as a Chrome trace into a folder, on a CUPTI
+  attached anew (``reattach_cupti``);
+- ``check_kernels``: the device kernels of a finished profiler session, or
+  an error where a launch call of it has no kernel;
 - ``StepTimer``: wall-clock step times, fenced by synchronising the CUDA
   device of each tensor handed to ``stop``;
 - ``device_memory_stats``: the device's live, peak and total bytes;
@@ -20,41 +23,120 @@ from typing import Dict, List, Optional
 import numpy as np
 
 
-# Seconds of idle device kept at each end of a traced block. After a
-# process's first profiler session, CUPTI's device timestamps sit up to a
-# few milliseconds off the host clock that bounds the profiler's window (on
-# an H100), and kineto drops every device activity outside the window.
-TRACE_MARGIN_S = 0.02
-
-
 @contextlib.contextmanager
 def trace(logdir: str):
     """Profile the enclosed block; writes ``trace.json`` (Chrome trace
     format: chrome://tracing, Perfetto) into ``logdir``. Yields the
-    profiler. With a CUDA device, the block's device work is kept
-    ``TRACE_MARGIN_S`` inside each end of the profiler's window.
-
-    Sets ``TEARDOWN_CUPTI=0`` unless it is set: kineto then keeps CUPTI
-    attached between sessions for the rest of the process (as torch does
-    where it captures CUDA graphs). With the teardown, every later session
-    in a process could lose all its kernels: a trace of one kernel named none
-    after earlier profiler sessions and CUDA graph captures."""
+    profiler. With a CUDA device, CUPTI is attached anew for the session
+    (``reattach_cupti``), the device is synchronised at both ends of the
+    block, and a session with a launch call whose kernel it did not record
+    raises ``EmptyTraceError`` (after the file is written). Leaves
+    ``TEARDOWN_CUPTI=0``: kineto keeps CUPTI attached after the session."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(logdir, exist_ok=True)
-    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     cuda = torch.cuda.is_available()
+    if cuda:
+        reattach_cupti()
+    os.environ["TEARDOWN_CUPTI"] = "0"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=activities) as prof:
         if cuda:
             torch.cuda.synchronize()
-            time.sleep(TRACE_MARGIN_S)
         yield prof
         if cuda:
             torch.cuda.synchronize()
-            time.sleep(TRACE_MARGIN_S)
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    if cuda:
+        check_kernels(prof, f"trace({logdir})")
+
+
+# seconds given kineto's teardown thread on each side of the CUDA call it
+# finalises CUPTI in, and the verifying sessions reattach_cupti may take
+REATTACH_WAIT_S = 0.05
+REATTACH_TRIES = 5
+
+
+def reattach_cupti() -> None:
+    """Make the next ``torch.profiler`` session run on a CUPTI attached
+    anew, and leave ``TEARDOWN_CUPTI=0``.
+
+    With ``TEARDOWN_CUPTI=0`` kineto keeps CUPTI attached between sessions,
+    and in a long process CUPTI goes stale: later sessions record the launch
+    calls but lose some or all of the kernels (on an H100: after sessions
+    and graph captures, two minutes of device work, or traced training
+    steps). With ``TEARDOWN_CUPTI=1``,
+    kineto tears CUPTI down after a session from a thread of its own, which
+    finalises CUPTI in the exit of the next CUDA call, whichever session
+    that falls in; that session then records nothing, launch calls
+    included. So: one session that ends with ``TEARDOWN_CUPTI=1``, a CUDA
+    call outside any session for the finalise to land in, then sessions that
+    end with ``TEARDOWN_CUPTI=0`` until one records its launch: CUPTI is
+    attached anew and nothing is left to fire later."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def session(teardown: str) -> int:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda")  # a launch for the session to record
+            torch.cuda.synchronize()
+            os.environ["TEARDOWN_CUPTI"] = teardown  # kineto reads it as the session stops
+        os.environ["TEARDOWN_CUPTI"] = "0"
+        return _kernels_and_launches(prof)[0]
+
+    session("1")
+    for _ in range(REATTACH_TRIES):
+        time.sleep(REATTACH_WAIT_S)
+        torch.cuda.synchronize()  # the call the finalise lands in, outside any session
+        time.sleep(REATTACH_WAIT_S)
+        if session("0"):
+            return
+    raise EmptyTraceError(f"reattach_cupti: {REATTACH_TRIES} sessions after CUPTI's teardown "
+                          f"recorded no kernel")
+
+
+# substrings of the names of the CUDA API calls that launch device work
+LAUNCH_CALLS = ("LaunchKernel", "GraphLaunch")
+
+
+class EmptyTraceError(RuntimeError):
+    """A profiler session recorded launch calls without their device kernels."""
+
+
+def _kernels_and_launches(prof) -> tuple[int, int, int]:
+    """(device kernels, kernel launch calls, launch calls with no device
+    activity of their correlation id) of a finished session."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = 0
+    on_device, launches = set(), []
+    for e in prof.events():
+        if e.device_type == cuda:
+            kernels += not e.name.startswith(("Memcpy", "Memset"))
+            on_device.add(e.id)
+        elif any(k in e.name for k in LAUNCH_CALLS):
+            launches.append(e.id)
+    return kernels, len(launches), sum(i not in on_device for i in launches)
+
+
+def check_kernels(prof, where: str, launched: bool = False) -> int:
+    """The number of device kernels in a finished ``torch.profiler`` session
+    (memsets and copies not counted). Raises ``EmptyTraceError``, naming
+    ``where``, when a kernel launch call of the session has no device
+    activity of its correlation id (CUPTI lost that kernel), or when the
+    session holds no device kernel and launch calls (or the caller says it
+    ``launched`` some): a device time read from the session would be short
+    in silence."""
+    kernels, launches, lost = _kernels_and_launches(prof)
+    if lost:
+        raise EmptyTraceError(f"{where}: {lost} of the profiler session's {launches} launch "
+                              f"calls have no device kernel: CUPTI lost their kernel activity")
+    if not kernels and (launches or launched):
+        raise EmptyTraceError(f"{where}: the profiler session holds no device kernel: CUPTI "
+                              f"recorded no kernel activity")
+    return kernels
 
 
 class StepTimer:

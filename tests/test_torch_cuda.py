@@ -1,4 +1,4 @@
-"""The port's kernels on the card: each CUDA/Triton kernel against its plain
+"""The port's kernels on the card: each CUDA kernel against its plain
 PyTorch version, and the tiny restore on the card against the CPU.
 
 Every test here needs a CUDA device, carries the ``cuda`` marker and skips
@@ -306,11 +306,33 @@ def test_corr_lookup_raises_on_what_it_does_not_take(dev):
         lookup_corr([level.double()], coords, 4)
 
 
-def test_channel_sums_kernel_matches_plain(dev):
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 64, 130, 129), torch.bfloat16),   # odd H*W: rows start off the 16-byte boundary
+    ((1, 256, 128, 128), torch.bfloat16),  # text to image's batch-1 decode
+    ((1, 256, 256, 256), torch.bfloat16),
+    ((5, 128, 512, 512), torch.bfloat16),  # the restore's 512^2 level
+    ((1, 7, 13, 11), torch.bfloat16),      # rows shorter than a block's threads
+    ((1, 16, 256, 256), torch.bfloat16),   # few rows of 1024-thread blocks
+    ((1, 40, 181, 179), torch.float32),    # f32 rows off the boundary
+    ((1, 96, 127, 129), torch.float16),
+    ((1, 64, 131, 127), torch.float32),
+])
+def test_channel_sums_kernel_matches_plain(dev, shape, dtype):
+    """One launch a call; each sum within 1e-5 of its own max |sum| of the
+    plain version (fp32 sums in another order; phase 2's limit for the sum
+    of squares); two calls on the same input give the same bits (no
+    atomics)."""
     gen = _gen(dev)
-    xb = (torch.randn(2, 64, 130, 129, device=dev, generator=gen) + 0.5).to(torch.bfloat16)
-    for a, b in zip(channel_sums(xb), channel_sums_plain(xb)):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-2)
+    x = (torch.randn(shape, device=dev, generator=gen) + 0.5).to(dtype)
+    kernels.reset_launch_counts()
+    got = channel_sums(x)
+    assert kernels.launch_counts()["channel_sums"] == 1
+    want = channel_sums_plain(x)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape == shape[:2] and a.dtype == torch.float32
+        torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()), rtol=0)
+    again = channel_sums(x)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_channel_sums_gradient_on_card(dev):
@@ -407,8 +429,8 @@ def test_fused_group_norm_of_a_constant_clips_the_variance(dev, dtype):
 
 
 def test_fused_group_norm_is_one_ctypes_launch_without_triton():
-    """In a fresh process: one call is one launch, and it does not bring
-    Triton in (``channel_sums`` is the one kernel that does)."""
+    """In a fresh process: a call of either GroupNorm kernel is one launch,
+    and neither brings Triton in (every kernel of the port is CUDA C++)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the port's kernels run only on the card")
     code = (
@@ -421,12 +443,76 @@ def test_fused_group_norm_is_one_ctypes_launch_without_triton():
         "y = fused_group_norm(x, w, b)\n"
         "torch.cuda.synchronize()\n"
         "assert kernels.launch_counts()['fused_group_norm'] == 1\n"
-        "assert ('triton' in sys.modules) == before, 'fused_group_norm imported triton'\n"
         "channel_sums(x)\n"
-        "assert 'triton' in sys.modules\n"
+        "torch.cuda.synchronize()\n"
+        "assert kernels.launch_counts()['channel_sums'] == 1\n"
+        "assert ('triton' in sys.modules) == before, 'a GroupNorm kernel imported triton'\n"
         "print('ok', before)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600)
     assert out.returncode == 0 and out.stdout.startswith("ok"), out.stdout + out.stderr
+
+
+TRACE_AFTER_A_LONG_PROCESS = """
+import json, os, sys, time
+import torch
+from torch.profiler import ProfilerActivity, profile
+from mgldvsr_tpu_torch.ops.kernels.groupnorm import fused_group_norm
+from mgldvsr_tpu_torch.utils.profiling import trace
+
+x = torch.randn(2, 128, 64, 64, device="cuda")
+w, b = torch.ones(128, device="cuda"), torch.zeros(128, device="cuda")
+fused_group_norm(x, w, b, 32, 1e-6)
+# what a long process leaves: CUPTI kept attached through sessions, a CUDA
+# graph capture and a minute of device work
+os.environ["TEARDOWN_CUPTI"] = "0"
+for _ in range(3):
+    with profile(activities=[ProfilerActivity.CUDA]):
+        fused_group_norm(x, w, b, 32, 1e-6)
+        torch.cuda.synchronize()
+graph = torch.cuda.CUDAGraph()
+with torch.cuda.graph(graph):
+    fused_group_norm(x, w, b, 32, 1e-6)
+graph.replay()
+a = torch.randn(2048, 2048, device="cuda")
+end = time.time() + float(sys.argv[2])
+while time.time() < end:
+    for _ in range(20):
+        a = torch.tanh(a @ a * 1e-3)
+    torch.cuda.synchronize()
+# then a session that asks kineto to tear CUPTI down, which it does at the
+# next launch, inside whatever session holds it
+os.environ["TEARDOWN_CUPTI"] = "1"
+with profile(activities=[ProfilerActivity.CUDA]):
+    torch.cuda.synchronize()
+names = []
+for i in range(5):
+    with trace(os.path.join(sys.argv[1], str(i))):
+        fused_group_norm(x, w, b, 32, 1e-6)
+        x.mul_(1.0)
+    with open(os.path.join(sys.argv[1], str(i), "trace.json")) as f:
+        names.append(sorted({e["name"] for e in json.load(f)["traceEvents"]
+                             if e.get("cat") == "kernel"}))
+print(json.dumps(names))
+"""
+
+
+def test_trace_names_the_kernels_late_in_a_long_process(tmp_path):
+    """In a process that kept CUPTI attached through earlier sessions, a
+    CUDA graph capture and a minute of device work, and then had a session
+    ask for CUPTI's teardown (which kineto makes at the next launch, emptying
+    the session that holds it), five ``trace``s of one ``fused_group_norm``
+    call with torch's ``mul_`` beside it each name both kernels."""
+    import json
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels run only on the card")
+    out = subprocess.run([sys.executable, "-c", TRACE_AFTER_A_LONG_PROCESS, str(tmp_path), "60"],
+                         capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    for kernels in names:
+        assert any("group_norm_kernel" in k for k in kernels), names
+        assert any("MulFunctor" in k for k in kernels), names
 
 
 @pytest.mark.parametrize("n,c,h,w,co,dtype", [

@@ -241,16 +241,65 @@ def test_corr_lookup_plain_matches_pallas(radius):
 
 def test_channel_sums_plain_matches_pallas():
     """bf16 input, float32 sums: both widen each element to float32 first;
-    rtol 1e-5 covers the summation order."""
+    rtol 1e-5 covers the summation order. Also batch 1 with an odd H*W (rows
+    that start off the kernel's 16-byte boundary), as text to image decodes."""
     from mgldvsr_tpu.ops.pallas.groupnorm import channel_sums as jax_sums
 
     rs = np.random.RandomState(0)
-    x = jnp.asarray(rs.randn(2, 12, 8, 32) * 3 + 1, jnp.bfloat16)  # NHWC
-    s1, s2 = jax_sums(x, interpret=True)
-    xt = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).permute(0, 3, 1, 2)
-    g1, g2 = channel_sums_plain(xt.contiguous())
-    np.testing.assert_allclose(g1.numpy(), np.asarray(s1), rtol=1e-5, atol=1e-3)
-    np.testing.assert_allclose(g2.numpy(), np.asarray(s2), rtol=1e-5, atol=1e-3)
+    for shape in ((2, 12, 8, 32), (1, 13, 11, 24)):  # NHWC
+        x = jnp.asarray(rs.randn(*shape) * 3 + 1, jnp.bfloat16)
+        s1, s2 = jax_sums(x, interpret=True)
+        xt = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).permute(0, 3, 1, 2)
+        g1, g2 = channel_sums_plain(xt.contiguous())
+        np.testing.assert_allclose(g1.numpy(), np.asarray(s1), rtol=1e-5, atol=1e-3)
+        np.testing.assert_allclose(g2.numpy(), np.asarray(s2), rtol=1e-5, atol=1e-3)
+
+
+def _sums_parts(hw: int, itemsize: int, offset: int) -> list:
+    """The elements of one row that ``channel_sums_kernel``
+    (``csrc/groupnorm.cu``) sums, in its arithmetic, for a row that starts
+    ``offset`` bytes past a 16-byte boundary: the head before the first
+    boundary, the whole vectors from it, and the ragged end."""
+    vec = 16 // itemsize
+    head = min(hw, (16 - offset % 16) % 16 // itemsize)
+    nvec = (hw - head) // vec
+    return [range(0, head), range(head, head + nvec * vec), range(head + nvec * vec, hw)]
+
+
+@pytest.mark.parametrize("hw", [63, 13 * 11, 16380, 16384, 65536, 262144])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_channel_sums_plan_covers_each_element_once(hw, itemsize):
+    """For rows from 1 to 1280, the plan's block shape is in the kernel's
+    range, and the kernel's parts of every row (each row starting where a
+    contiguous [N, C, H, W] tensor puts it) cover each element exactly once.
+    The port's shapes (128 rows and more) take the threads that keep 8 MB in
+    flight in the last wave of blocks."""
+    from mgldvsr_tpu_torch.ops.kernels.groupnorm import channel_sums_plan
+
+    for rows in (1, 3, 16, 64, 128, 255, 256, 512, 640, 1280):
+        assert channel_sums_plan(rows, hw, itemsize) in (256, 512, 1024)
+        for offset in sorted({(r * hw * itemsize) % 16 for r in range(min(rows, 16))}):
+            seen = np.zeros(hw, np.int64)
+            for part in _sums_parts(hw, itemsize, offset):
+                seen[part.start:part.stop] += 1
+            assert (seen == 1).all(), (rows, hw, itemsize, offset)
+    assert channel_sums_plan(256, 16384, 2) == 512     # text to image, [1,256,128,128]
+    assert channel_sums_plan(128, 262144, 2) == 1024   # [1,128,512,512]: 128 rows
+    assert channel_sums_plan(640, 262144, 2) == 256    # the restore, [5,128,512,512]
+    assert channel_sums_plan(1280, 262144, 2) == 1024  # [5,256,512,512]: a fifth wave
+    assert channel_sums_plan(16, 63, 2) == 256         # rows shorter than a block's threads
+
+
+def test_channel_sums_loads_match_the_kernel():
+    """The plan's loads in flight a thread are the kernel's ``INFLIGHT``."""
+    import re
+    from pathlib import Path
+
+    from mgldvsr_tpu_torch.ops.kernels import groupnorm as gn_mod
+
+    src = Path(gn_mod.__file__).resolve().parents[2] / "csrc" / "groupnorm.cu"
+    found = re.findall(r"constexpr int INFLIGHT = (\d+);", src.read_text())
+    assert found == [str(gn_mod.SUMS_LOADS)], found
 
 
 def _nchw(a):

@@ -345,6 +345,89 @@ def test_encode_png_opencv_bytes(shape):
         np.testing.assert_array_equal(decode_png(got), rgb)
 
 
+def _session(*events):
+    """A finished profiler session's stand-in: ``events()`` as ``(name,
+    device, correlation id)``, device "cuda" or "cpu"."""
+    kind = torch.autograd.DeviceType
+    return types.SimpleNamespace(events=lambda: [
+        types.SimpleNamespace(name=n, device_type=kind.CUDA if d == "cuda" else kind.CPU, id=i)
+        for n, d, i in events])
+
+
+@pytest.mark.parametrize("events,launched,want", [
+    ((("cudaLaunchKernel", "cpu", 1),), False, None),
+    ((("cudaLaunchKernelExC_v11060", "cpu", 1), ("Memset (Device)", "cuda", 2)), False, None),
+    ((("cudaGraphLaunch", "cpu", 1),), False, None),
+    ((("aten::mm", "cpu", 1),), True, None),
+    ((("cudaLaunchKernel", "cpu", 1), ("void group_norm_kernel<float>", "cuda", 1),
+      ("Memcpy HtoD", "cuda", 2)), False, 1),
+    ((("aten::mm", "cpu", 1),), False, 0),
+    # one launch of two lost its kernel: the device time would read short
+    ((("cudaLaunchKernel", "cpu", 1), ("void group_norm_kernel<float>", "cuda", 1),
+      ("cudaLaunchKernel", "cpu", 2)), True, None),
+    ((("cudaGraphLaunch", "cpu", 1), ("void group_norm_kernel<float>", "cuda", 1),
+      ("MulFunctor", "cuda", 1), ("cudaLaunchKernel", "cpu", 2), ("MulFunctor", "cuda", 2)),
+     True, 3),
+])
+def test_check_kernels_raises_on_launches_without_kernels(events, launched, want):
+    """A session with a launch call whose kernel it did not record (matched
+    by correlation id), or with launch calls (or one the caller says
+    launched work) and no device kernel, raises, naming the caller's phase;
+    memsets and copies are not kernels; a graph launch's kernels share its
+    id; a session of host work alone reads 0."""
+    if want is None:
+        with pytest.raises(pprof.EmptyTraceError, match="phase 9: the loop"):
+            pprof.check_kernels(_session(*events), "phase 9: the loop", launched=launched)
+    else:
+        assert pprof.check_kernels(_session(*events), "phase 9: the loop",
+                                   launched=launched) == want
+
+
+@pytest.mark.parametrize("empty", [0, 1, 2, 5])
+def test_reattach_cupti_tears_down_then_verifies(monkeypatch, empty):
+    """One session that stops with ``TEARDOWN_CUPTI=1``; then, each after a
+    CUDA call outside any session, sessions that stop with it 0 until one
+    records its launch (``empty`` of them record nothing: kineto's finalise
+    fell in them); it raises after ``REATTACH_TRIES`` empty ones, and leaves
+    ``TEARDOWN_CUPTI=0``."""
+    import torch.profiler
+
+    seen = []
+    kind = torch.autograd.DeviceType
+
+    class Session:
+        def __init__(self, activities):
+            assert tuple(activities) == (torch.profiler.ProfilerActivity.CUDA,)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            seen.append(("stop", os.environ.get("TEARDOWN_CUPTI")))
+
+        def events(self):
+            stops = sum(1 for e in seen if e[0] == "stop")
+            if 1 < stops <= 1 + empty:
+                return []
+            return [types.SimpleNamespace(name="fill_kernel", device_type=kind.CUDA, id=1)]
+
+    monkeypatch.setattr(torch.profiler, "profile", Session)
+    monkeypatch.setattr(torch, "ones", lambda *a, **k: seen.append(("launch",)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: seen.append(("sync",)))
+    monkeypatch.setattr(pprof, "REATTACH_WAIT_S", 0.0)
+    monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
+    if empty >= pprof.REATTACH_TRIES:
+        with pytest.raises(pprof.EmptyTraceError, match="reattach_cupti"):
+            pprof.reattach_cupti()
+    else:
+        pprof.reattach_cupti()
+    tries = min(empty + 1, pprof.REATTACH_TRIES)
+    session = [("launch",), ("sync",)]
+    assert seen == (session + [("stop", "1")]
+                    + ([("sync",)] + session + [("stop", "0")]) * tries)
+    assert os.environ["TEARDOWN_CUPTI"] == "0"
+
+
 def test_timer_memory_and_trace_on_the_cpu(tmp_path, monkeypatch):
     timer = pprof.StepTimer()
     assert timer.mean == timer.best == 0.0

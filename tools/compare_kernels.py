@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time the port's standalone warp, the fused chain's statistics kernel, the
-whole fused chain and the head-dim-512 attention in two trees on one GPU, in
-turns.
+whole fused chain, the head-dim-512 attention and the channel sums in two
+trees on one GPU, in turns.
 
-    python3 tools/compare_kernels.py --parent PARENT_TREE
-    python3 tools/compare_kernels.py --root TREE
+    python3 tools/compare_kernels.py --parent PARENT_TREE [--only sums]
+    python3 tools/compare_kernels.py --root TREE [--only sums]
 
 ``--parent`` takes an unpacked tree of another commit (for example ``git
 archive <commit> | tar -x -C DIR`` under the ignored ``_chipcheck/``) and
@@ -21,7 +21,11 @@ loss's stack [6,512,512,3]; ``gn_scale_shift`` at [5,320,64,64],
 the whole chain, at the full-width towers' main shapes; ``attention`` at head
 dim 512 (the VAE's mid attention, whichever kernel the tree has for it) on
 [5,1024,512] and [5,3249,512] bf16 and [5,1024,512] float32 (frames of 256
-and 456 px). For each: CUDA-event
+and 456 px); ``channel_sums`` at every shape of ``SUMS`` (the VAE's
+GroupNorms of 128^2 pixels and more: batch 1 as text to image decodes,
+batch 5 as the restore encodes and decodes) in bf16, each beside
+``torch.var_mean`` over the same dimensions. ``--only`` keeps one group
+(``warp``, ``stats``, ``chain``, ``wide``, ``sums``). For each: CUDA-event
 ms over repeated calls (``ms``), the device ms of the calls replayed from a
 CUDA graph (``device_ms``) and the host microseconds a call takes to return
 (``host_us``). The last line is one JSON object with every run.
@@ -40,6 +44,11 @@ CHAINS = ((5, 320, 64, 64, 320), (5, 960, 64, 64, 320), (5, 2560, 8, 8, 1280),
           (5, 320, 64, 64, 4), (5, 128, 512, 512, 128))
 STATS = ((5, 320, 64, 64), (5, 960, 64, 64), (5, 1280, 8, 8), (5, 128, 512, 512))
 WIDE = ((1024, "bf16"), (3249, "bf16"), (1024, "f32"))
+SUMS = ((1, 256, 128, 128), (1, 512, 128, 128), (1, 256, 256, 256), (1, 512, 256, 256),
+        (1, 128, 512, 512), (1, 256, 512, 512), (5, 128, 512, 512), (5, 256, 512, 512),
+        (5, 128, 256, 256), (5, 256, 256, 256), (5, 512, 256, 256), (5, 256, 128, 128),
+        (5, 512, 128, 128))
+GROUPS = ("warp", "stats", "chain", "wide", "sums")
 
 
 def _timers():
@@ -51,7 +60,7 @@ def _timers():
     return mod
 
 
-def run_one(root: str) -> dict:
+def run_one(root: str, only: str | None = None) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -74,21 +83,28 @@ def run_one(root: str) -> dict:
                       "host_us": t.host_us(fn, 4 * iters)}
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    for n, kinds in ((4, t.WARP_FLOWS), (1, t.WARP_FLOWS), (6, ("scattered",))):
+    bf16 = torch.bfloat16
+    for shp in SUMS if only in (None, "sums") else ():
+        x = (torch.randn(shp, device="cuda", generator=gen) + 0.5).to(bf16)
+        iters = 10 if shp[0] * shp[2] * shp[3] >= 5 * 256 * 256 else 50
+        time(f"channel_sums {list(shp)}", lambda: gn_mod.channel_sums(x), iters)
+        time(f"torch.var_mean {list(shp)}", lambda: torch.var_mean(x, dim=(2, 3)), iters)
+        del x
+    for n, kinds in ((4, t.WARP_FLOWS), (1, t.WARP_FLOWS), (6, ("scattered",))) \
+            if only in (None, "warp") else ():
         for kind in kinds:
             x = torch.rand(n, 512, 512, 3, device="cuda", generator=gen)
             flow = t.warp_flow(kind, n, 512, 512, gen)
             if not torch.equal(warp_mod.warp_forward(x, flow), warp_mod.warp_plain(x, flow)):
                 rows[f"warp_forward [{n},512,512,3] {kind} differs from plain"] = True
             time(f"warp_forward [{n},512,512,3] {kind}", lambda: warp_mod.warp_forward(x, flow))
-    bf16 = torch.bfloat16
-    for shp in STATS:
+    for shp in STATS if only in (None, "stats") else ():
         x = (torch.randn(shp, device="cuda", generator=gen) * 2 + 0.5).to(bf16)
         w = torch.randn(shp[1], device="cuda", generator=gen)
         b = torch.randn(shp[1], device="cuda", generator=gen)
         time(f"gn_scale_shift {list(shp)}", lambda: gn_mod.gn_scale_shift(x, w, b, 32, 1e-5),
              5 if shp[2] >= 512 else 50)
-    for n, c, h, w_, co in CHAINS:
+    for n, c, h, w_, co in CHAINS if only in (None, "chain") else ():
         x = (torch.randn(n, c, h, w_, device="cuda", generator=gen) * 1.5 + 0.3).to(bf16)
         gw = 1 + 0.1 * torch.randn(c, device="cuda", generator=gen)
         gb = 0.1 * torch.randn(c, device="cuda", generator=gen)
@@ -98,7 +114,7 @@ def run_one(root: str) -> dict:
              lambda: conv_mod.gn_silu_conv3x3(x, gw, gb, wt, bias, 32, 1e-5),
              5 if h >= 512 else 50)
         del x, wt
-    for n, kind in WIDE:
+    for n, kind in WIDE if only in (None, "wide") else ():
         dtype = torch.bfloat16 if kind == "bf16" else torch.float32
         q, k, v = t.attention_inputs(5, n, 512, dtype, "cuda", gen)
         time(f"attention [5,{n},512] {kind}", lambda: attn_mod.attention(q, k, v), 5)
@@ -106,12 +122,12 @@ def run_one(root: str) -> dict:
     return {"root": os.path.abspath(root), "card": t.card_line(), "rows": rows}
 
 
-def compare(parent: str) -> int:
+def compare(parent: str, only: str | None = None) -> int:
     runs = []
     for name, root in (("parent", parent), ("change", HERE), ("change", HERE),
                        ("parent", parent)):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--root", root],
-                             capture_output=True, text=True)
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--root", root]
+                             + (["--only", only] if only else []), capture_output=True, text=True)
         if out.returncode != 0:
             print(out.stdout + out.stderr)
             return out.returncode
@@ -119,7 +135,7 @@ def compare(parent: str) -> int:
     print(runs[0]["card"])
     print(f"{'kernel and shape':48} " + "  ".join(f"{r['name']:>26}" for r in runs))
     print(f"{'':48} " + "  ".join(f"{'ms / device ms / host us':>26}" for _ in runs))
-    for key in runs[0]["rows"]:
+    for key in dict.fromkeys(k for r in runs for k in r["rows"]):
         cells = []
         for r in runs:
             v = r["rows"].get(key)
@@ -135,10 +151,11 @@ def main() -> int:
     ap.add_argument("--parent", metavar="PARENT_TREE",
                     help="time PARENT_TREE and this checkout in turns")
     ap.add_argument("--root", default=HERE, help="the tree whose package is timed")
+    ap.add_argument("--only", choices=GROUPS, help="time one group of kernels")
     args = ap.parse_args()
     if args.parent:
-        return compare(args.parent)
-    print(json.dumps(run_one(args.root)))
+        return compare(args.parent, args.only)
+    print(json.dumps(run_one(args.root, args.only)))
     return 0
 
 

@@ -64,6 +64,7 @@ def profile_one(args) -> int:
     import chip_smoke
     from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline, upscale_frames
     from mgldvsr_tpu_torch.io.init_weights import init_pipeline_weights
+    from mgldvsr_tpu_torch.utils.profiling import check_kernels, reattach_cupti
 
     card = chip_smoke.card_line()
     pipe = MGLDVSRPipeline(chip_smoke.full_config(args.steps))
@@ -72,7 +73,7 @@ def profile_one(args) -> int:
     pipe.cast_to_compute_dtypes()
     frames = upscale_frames(torch.from_numpy(chip_smoke.lq_clip(args.seed + 2, 128)).cuda(), 4)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    pipe.restore_segment(frames, gen)  # warm-up: cuDNN heuristics, Triton, allocator
+    pipe.restore_segment(frames, gen)  # warm-up: cuDNN heuristics, the allocator
 
     stages: dict = {}
     t0 = time.perf_counter()
@@ -87,11 +88,13 @@ def profile_one(args) -> int:
     prof_stages: dict = {}
     # device activity only: recording the host's ~10^6 operator events as well
     # doubles the profiled wall time and takes a minute to summarise
+    reattach_cupti()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         pipe.restore_segment(frames, gen, stage_seconds=prof_stages)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
+    check_kernels(prof, "profile_torch_restore: the traced restore", launched=True)
     averages = prof.key_averages()
     events = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
     device_s = sum(e.self_device_time_total for e in events) / 1e6
