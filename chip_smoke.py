@@ -109,13 +109,16 @@ Phase 8  stage-1 training. (a) one tiny fp32 micro-step at 256x256 with
          attention (all on the tensor-core kernel), the channel sums and the
          fused GroupNorm launched in every micro-step; then a fresh pipeline
          resumes the step-4 checkpoint and replays steps 5-8, which must
-         equal the straight run bit for bit. (c) (b) for 4 micro-steps in the
-         fused configuration (the chain's two kernels in every micro-step).
-         torch.profiler traces of the CLI loop's micro-steps 2-9: device
-         time, the idle share, and the share in the backwards that replay a
-         kernel's plain version; micro-steps on clips loaded in advance
-         (two a condition) with and without the data path's threads working
-         beside them; two clips of the host data path timed alone. (d) ``cli.train --stage 1
+         equal the straight run bit for bit. (c) a fresh run of the CLI
+         loop for 10 micro-steps without saves: torch.profiler traces of
+         micro-steps 2-5 for device time and the idle share, and of
+         micro-step 6 with host ops for the share in the backwards that
+         replay a kernel's plain version; micro-steps 7-10 in the fused
+         configuration, checked as (b)'s (the chain's two kernels in every
+         micro-step, one update); then four micro-steps on clips loaded in
+         advance, alone, and two clips of the host data path timed alone,
+         with the video-codec branch they took (``pyav``, ``cv2:<fourcc>``
+         or ``identity (<why>)``; none fails). (d) ``cli.train --stage 1
          --tiny --max-steps 4`` on the card, then ``cli.infer`` restores a
          clip with the parameters it exported. Prints the loop's clips/s
          over steps 2-8 (data waits and checkpoint saves included), micro-step
@@ -199,7 +202,8 @@ Phase 11 the multi-device restore on one card (after phase 6, phase 4's
          of the default configuration launched by window 0 (its counts are
          ``launches_window_parallel`` in the kernels line); the pair's sampler
          ms/step in turns with two ``restore_segment`` calls'. (c) the lockstep
-         at phase 3's tiny configuration, card against CPU within 1e-3. (d)
+         at phase 3's tiny configuration, card against CPU within 1e-3, and
+         window 0 moved by the boundary term on the card. (d)
          ``torchrun --nproc_per_node=1 -m mgldvsr_tpu_torch.cli.infer`` with
          ``--window-parallel`` (fixed) and ``--patch-parallel`` (tile) on phase
          7's clip: the same PNGs as the command without them.
@@ -208,12 +212,11 @@ Phase 11 the multi-device restore on one card (after phase 6, phase 4's
 Phase 12 training over ranks on one card (after phase 9, on phases 8 (b) and
          9 (b)'s data). (a) a world of one NCCL rank (``rank_env``, a file://
          store) runs phase 8 (b)'s full-width stage-1 CLI loop with
-         ``--mesh`` for its 8 micro-steps: the masters, moments, accumulator,
-         EMA, the metrics.jsonl losses and every micro-step's launches equal
-         phase 8 (b)'s straight run by ``torch.equal``; then the same with
-         ``--mesh --zero1`` for the first 4 micro-steps (one update), against
-         the straight run's state after micro-step 4
-         (``launches_train_parallel`` in the kernels line).
+         ``--mesh`` for its first 4 micro-steps (one update): the masters,
+         moments, accumulator, EMA, the metrics.jsonl losses and every
+         micro-step's launches equal phase 8 (b)'s straight run after
+         micro-step 4 by ``torch.equal``; then the same with ``--mesh
+         --zero1`` (``launches_train_parallel`` in the kernels line).
          (b) the same for stage 2 (phase 9 (b)'s loop, ``--mesh``, its first
          4 micro-steps against the straight run's state after micro-step 4).
          (c)
@@ -233,12 +236,13 @@ Phase 13 full width against float32 (after phase 11, phase 4's seed and
          same port on this machine's CPU, within the limit that
          ``tests/test_torch_full_width.py`` holds the port to against the JAX
          package (``FP32_RESTORE_LIMIT``), and without guidance within
-         ``UNGUIDED_LIMIT``. The guided comparison replays on the CPU the
-         card's sign of every guidance residual (a residual within rounding
-         of 0 can take either sign on the two sides, and one flip moves a
-         patch of the frames by up to ~1e-2): flips must be rare and within
-         the sides' latent distance of 0, and the replay must agree within
-         the limit. fp32 towers take the FMA attention kernel (the VAE's mid
+         ``UNGUIDED_LIMIT``. The guided comparison restores on the CPU with
+         the card's sign of every guidance residual (a residual within
+         rounding of 0 can take either sign on the two sides, and one flip
+         moves a patch of the frames by up to ~1e-2): flips must be rare and
+         within the sides' latent distance of 0, and the replay must agree
+         within the limit (without a flip the replay is the CPU's own
+         restore, so that one is not run). fp32 towers take the FMA attention kernel (the VAE's mid
          attention the wide kernel, twice) and the fp32 GroupNorm route,
          whose launches are checked.
          (b) Phase 4's 512 px, 50-step restore, deterministic, in bf16
@@ -434,13 +438,30 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# seconds of wall of the phases' parts ("phase8 (b)": ...), summed over
+# repeats; each phase's wall line lists its own
+PARTS: dict = {}
+
+
+@contextlib.contextmanager
+def part(name: str):
+    """Time the block into ``PARTS[name]``; ``name`` starts with its phase."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PARTS[name] = PARTS.get(name, 0.0) + time.perf_counter() - t0
+
+
 @contextlib.contextmanager
 def wall(phase: str, card: str, times: dict):
-    """Time the block: ``[phaseN] ... s of wall`` and ``times[phase]``."""
+    """Time the block: ``[phaseN] ... s of wall``, with the seconds of its
+    parts, and ``times[phase]``."""
     t0 = time.perf_counter()
     yield
     times[phase] = time.perf_counter() - t0
-    log(f"[{phase}] {times[phase]:.1f} s of wall  [{card}]")
+    mine = {k: round(v, 1) for k, v in PARTS.items() if k.split()[0] == phase}
+    log(f"[{phase}] {times[phase]:.1f} s of wall{f'; parts {mine}' if mine else ''}  [{card}]")
 
 
 def card_line() -> str:
@@ -1809,7 +1830,7 @@ def phase6(pipe, seed: int, card: str) -> dict:
 
     lq = torch.from_numpy(lq_clip(seed + 5, 180, width=320)).cuda()
     per_px = {}
-    with sampler_steps(pipe, 2):
+    with part("phase6 bytes a patch"), sampler_steps(pipe, 2):
         for geometry, (_, _, (ph, pw), _) in GEOMETRIES.items():
             peaks = [tile_restore(pipe, lq, seed, geometry, k)[4] for k in (1, 2)]
             per_px[geometry] = (peaks[1] - peaks[0]) / (ph * pw)
@@ -1831,7 +1852,7 @@ def phase6(pipe, seed: int, card: str) -> dict:
         allowed = pipe.patch_batch_envelope(ph, pw)
         k = min(allowed, n_patches)
         groups = math.ceil(n_patches / k)
-        with sampler_steps(pipe, n_steps):
+        with part(f"phase6 {geometry}"), sampler_steps(pipe, n_steps):
             out, counts, stages, wall, peak = tile_restore(pipe, lq, seed, geometry, None)
         stage_txt = ", ".join(f"{name} {sec:.3f} s" for name, sec in stages.items())
         log(f"[phase6] ({'a' if geometry == 'auto' else 'b'}) {geometry} geometry: 180x320 -> "
@@ -1859,7 +1880,8 @@ def phase6(pipe, seed: int, card: str) -> dict:
                              "frames_per_s": 5 / wall, "peak_bytes": peak, "patch_batch": k,
                              "steps": n_steps}
     results["bytes_per_pixel"] = per_px
-    results["envelope"] = envelope_group(pipe, seed, card)
+    with part("phase6 (c)"):
+        results["envelope"] = envelope_group(pipe, seed, card)
     return results
 
 
@@ -2117,21 +2139,44 @@ def train_args(data_root: str, logdir: str, steps: int, *extra):
                            "--lr", str(TRAIN_LR), *extra])
 
 
-def train_full(seed: int, card: str, data_root: str, logdir: str, steps: int, fused: bool,
-               extra=(), phase=None, snapshot_at=None):
-    """(b)/(c) the shipped widths through the command line's loop: bf16
-    towers, float32 masters, seeded and jittered weights, the two-stage
-    recipe (GT 512, LQ 128, 5 frames), grad_accum 4; ``extra`` flags added
-    (phase 12: ``--mesh``). Checks every micro-step; returns (final state's
-    copies, stats, each micro-step's metrics.jsonl loss and launches, and with
-    ``snapshot_at`` the state's host copy after that micro-step)."""
+def check_micro_steps(records: list, every: tuple, fused: bool, phase: str) -> None:
+    """Each micro-step's record: a finite loss, the trainables changed at
+    the accumulation boundaries (grad_accum 4) only, every kernel of
+    ``every`` launched, attention all on the tensor-core kernel, and the
+    fused chain's kernels launched only in the fused configuration."""
+    accum = 4
+    for r in records:
+        if not np.isfinite(r["loss"]):
+            raise AssertionError(f"{phase}: loss {r['loss']} at step {r['step']}")
+        if r["changed"] != (r["step"] % accum == 0):
+            raise AssertionError(f"{phase}: trainables changed={r['changed']} at "
+                                 f"micro-step {r['step']} (grad_accum {accum})")
+        for name in every:
+            if r["counts"][name] == 0:
+                raise AssertionError(f"{phase}: kernel {name} not launched in "
+                                     f"micro-step {r['step']}")
+        if r["counts"]["attention_wgmma"] != r["counts"]["attention"]:
+            raise AssertionError(f"{phase}: attention {r['counts']['attention']} "
+                                 f"launches, {r['counts']['attention_wgmma']} on wgmma")
+        if not fused and any(r["counts"][name] for name in FUSED_ONLY):
+            raise AssertionError(f"{phase}: {FUSED_ONLY} launched with the switch off")
+
+
+def train_full(seed: int, card: str, data_root: str, logdir: str, steps: int, extra=(),
+               phase="[phase8] (b)", snapshot_at=None):
+    """(b) the shipped widths through the command line's loop in the
+    default configuration: bf16 towers, float32 masters, seeded and
+    jittered weights, the two-stage recipe (GT 512, LQ 128, 5 frames),
+    grad_accum 4; ``extra`` flags added (phase 12: ``--mesh``). Checks every
+    micro-step; returns (final state's copies, stats, each micro-step's
+    metrics.jsonl loss and launches, and with ``snapshot_at`` the state's
+    host copy after that micro-step)."""
     import torch
 
     from mgldvsr_tpu_torch.cli import train as cli
     from mgldvsr_tpu_torch.ops import kernels
     from mgldvsr_tpu_torch.train.trainer import partition_params
 
-    phase = phase or ("[phase8] (c)" if fused else "[phase8] (b)")
     pipe = full_train_pipeline(seed)
     train, frozen = partition_params(pipe)
     before = {k: p.detach().clone() for k, p in train.items()}
@@ -2155,28 +2200,13 @@ def train_full(seed: int, card: str, data_root: str, logdir: str, steps: int, fu
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    with fused_switch(fused):
+    with fused_switch(False):
         state = cli.stage1(train_args(data_root, logdir, steps, *extra), pipe=pipe,
                            on_step=on_step)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     accum = 4
-    every = TRAIN_EVERY_STEP_FUSED if fused else TRAIN_EVERY_STEP
-    for r in records:
-        if not np.isfinite(r["loss"]):
-            raise AssertionError(f"{phase}: loss {r['loss']} at step {r['step']}")
-        if r["changed"] != (r["step"] % accum == 0):
-            raise AssertionError(f"{phase}: trainables changed={r['changed']} at "
-                                 f"micro-step {r['step']} (grad_accum {accum})")
-        for name in every:
-            if r["counts"][name] == 0:
-                raise AssertionError(f"{phase}: kernel {name} not launched in "
-                                     f"micro-step {r['step']}")
-        if r["counts"]["attention_wgmma"] != r["counts"]["attention"]:
-            raise AssertionError(f"{phase}: attention {r['counts']['attention']} "
-                                 f"launches, {r['counts']['attention_wgmma']} on wgmma")
-        if not fused and any(r["counts"][name] for name in FUSED_ONLY):
-            raise AssertionError(f"{phase}: {FUSED_ONLY} launched with the switch off")
+    check_micro_steps(records, TRAIN_EVERY_STEP, False, phase)
     for k, p in frozen.items():
         if not torch.equal(p, frozen_before[k].to(p.dtype)):
             raise AssertionError(f"{phase}: frozen {k} changed")
@@ -2195,8 +2225,8 @@ def train_full(seed: int, card: str, data_root: str, logdir: str, steps: int, fu
     other = [span - r["s"] - r["wait_s"] for span, r in zip(spans, records[1:])]
     per_step = {name: records[-1]["counts"][name] for name in KERNELS}
     n_train = sum(v.numel() for v in state.trainable.values())
-    log(f"{phase} full width{''.join(' ' + e for e in extra)}, fused conv "
-        f"{'on' if fused else 'off'}, {steps} micro-steps at grad_accum {accum}: losses {[round(r['loss'], 4) for r in records]}; "
+    log(f"{phase} full width{''.join(' ' + e for e in extra)}, fused conv off, {steps} "
+        f"micro-steps at grad_accum {accum}: losses {[round(r['loss'], 4) for r in records]}; "
         f"updates at {[r['step'] for r in records if r['changed']]}; the loop's wall over steps "
         f"2-{steps} {window:.4f} s = {clips_s:.4f} clips/s (checkpoint saves at steps "
         f"{[r['step'] for r in records[1:] if r['step'] % 4 == 0]} included); micro-step s "
@@ -2268,66 +2298,105 @@ def train_profile(seed: int, card: str, data_root: str, logdir: str) -> dict:
     idle share of the traced wall (a trace of kernels only; the profiler
     still adds host time to every launch, so the share is an upper bound),
     and the share of the device time in the backwards that replay a
-    kernel's plain version. Then, on the same pipeline and clips loaded in advance,
-    micro-steps alone, with the data path working beside them in worker
-    processes (the CLI's) and in threads of this process, and alone again:
-    what each costs the launching thread. And the data path's host seconds
-    a clip on one thread."""
-    import itertools
-    import threading
-
+    kernel's plain version. The same loop then takes micro-steps 7-10 in the
+    fused configuration (read at call time), checked as (b) checks its own.
+    Then, on the same pipeline and clips loaded in advance, micro-steps
+    alone; and the data path's host seconds a clip on one thread, with the
+    video-codec branch it took."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from mgldvsr_tpu_torch.cli import train as cli
-    from mgldvsr_tpu_torch.data.datasets import RealVSRRecurrentDataset, prefetch_iterator
+    from mgldvsr_tpu_torch.data.datasets import RealVSRRecurrentDataset
+    from mgldvsr_tpu_torch.data.degradations import RandomVideoCompression
     from mgldvsr_tpu_torch.infer.pipeline import upscale_frames
-    from mgldvsr_tpu_torch.train.trainer import Stage1Config, Stage1Trainer
+    from mgldvsr_tpu_torch.ops import kernels
+    from mgldvsr_tpu_torch.train.trainer import Stage1Config, Stage1Trainer, partition_params
     from mgldvsr_tpu_torch.utils.profiling import check_kernels, reattach_cupti
 
     pipe = full_train_pipeline(seed)
-    # two traces of the loop, four micro-steps each (one update in four, as
-    # at grad_accum 4): kernels only over steps 2-5, for the idle share (the
-    # least overhead a launch), and kernels with host ops over steps 6-9, to
-    # put the kernels under their autograd nodes
-    traces = {1: ("idle", profile(activities=[ProfilerActivity.CUDA])),
-              5: ("nodes", profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))}
+    fused_from, steps_in_all = 6, 10  # (c): the fused configuration after step 6
+    train, frozen = partition_params(pipe)
+    before = {k: p.detach().clone() for k, p in train.items()}
+    frozen_before = {k: p.detach().clone() for k, p in frozen.items()}
+    fused = []
+    # two traces of the loop, each from the end of micro-step ``first`` to
+    # the end of ``last``: kernels only over steps 2-5 (one update in four,
+    # as at grad_accum 4), for the idle share (the least overhead a launch),
+    # and kernels with host ops over step 6, to put the kernels under their
+    # autograd nodes (one step: a trace with host ops is slow to read)
+    windows = {"idle": (1, 5, profile(activities=[ProfilerActivity.CUDA])),
+               "nodes": (5, 6, profile(activities=[ProfilerActivity.CPU,
+                                                   ProfilerActivity.CUDA]))}
     marks = {}
 
     def on_step(step, state, metrics):
-        # the window runs from a started trace to the last step's end; the
+        # the window runs from a started trace to its last step's end; the
         # profiler's own start and stop stay outside it
-        if step in (1, 5, 9):
-            torch.cuda.synchronize()
-            if step - 4 in traces:
-                name, prof = traces[step - 4]
-                marks[name] = (time.perf_counter() - marks[name]) * 1000 / 4
+        for name, (first, last, prof) in windows.items():
+            if step == last:
+                torch.cuda.synchronize()
+                marks[name] = (time.perf_counter() - marks[name]) * 1000 / (last - first)
                 prof.stop()
-            if step in traces:
-                name, prof = traces[step]
+        for name, (first, last, prof) in windows.items():
+            if step == first:
+                torch.cuda.synchronize()
                 reattach_cupti()
                 prof.start()
                 marks[name] = time.perf_counter()
+        if step > fused_from:
+            torch.cuda.synchronize()
+            changed = any(not torch.equal(state.trainable[k], before[k]) for k in before)
+            fused.append({"step": step, "loss": metrics["loss"], "s": metrics["step_s"],
+                          "changed": changed, "counts": kernels.launch_counts()})
+        if step >= fused_from:
+            for k in before:
+                before[k].copy_(state.trainable[k])
+            kernels.reset_launch_counts()
+        if step == fused_from:
+            os.environ["MGLD_FUSED_GN_CONV"] = "1"
+            torch.cuda.reset_peak_memory_stats()
 
-    cli.stage1(train_args(data_root, logdir, 9, "--ckpt-every", "1000000"), pipe=pipe,
-               on_step=on_step)
+    with part("phase8 (c) loop"), fused_switch(False):
+        state = cli.stage1(train_args(data_root, logdir, steps_in_all, "--ckpt-every",
+                                      "1000000"), pipe=pipe, on_step=on_step)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check_micro_steps(fused, TRAIN_EVERY_STEP_FUSED, True, "[phase8] (c)")
+    for k, p in frozen.items():
+        if not torch.equal(p, frozen_before[k].to(p.dtype)):
+            raise AssertionError(f"[phase8] (c): frozen {k} changed")
+    if all(torch.equal(state.ema[k], v) for k, v in state.trainable.items()):
+        raise AssertionError("[phase8] (c): EMA equals the trainables")
+    per_step = {name: fused[-1]["counts"][name] for name in KERNELS}
+    log(f"[phase8] (c) full width, fused conv on, the same CLI loop's micro-steps "
+        f"{fused_from + 1}-{steps_in_all} at grad_accum 4: losses "
+        f"{[round(r['loss'], 4) for r in fused]}; updates at "
+        f"{[r['step'] for r in fused if r['changed']]}; micro-step s (step_s) "
+        f"{[round(r['s'], 4) for r in fused]}; peak device memory {peak / 2**30:.2f} GiB; "
+        f"launches a micro-step { {k: n for k, n in per_step.items() if n} }  [{card}]")
+    del before, frozen_before, state
+    t_read = time.perf_counter()
     cuda = torch.autograd.DeviceType.CUDA
 
-    def device_ms(prof):
+    def device_ms(name):
+        first, last, prof = windows[name]
         return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == cuda) / 1000 / 4
+                   if e.device_type == cuda) / 1000 / (last - first)
 
-    for name, prof in traces.values():
+    for name, (_, _, prof) in windows.items():
         check_kernels(prof, f"phase 8: the {name} trace of the CLI loop", launched=True)
-    wall, device = marks["idle"], device_ms(traces[1][1])
-    nodes = traces[5][1]
+    wall, device = marks["idle"], device_ms("idle")
+    first, last, nodes = windows["nodes"]
     by_node: dict = {}
     for e in nodes.events():
         if e.name.startswith("autograd::engine::evaluate_function:"):
             node = e.name.split(":")[-1].strip()
             if node in PLAIN_BACKWARDS:
-                by_node[node] = by_node.get(node, 0.0) + e.device_time_total / 1000 / 4
-    plain, device_nodes = sum(by_node.values()), device_ms(nodes)
+                ms = e.device_time_total / 1000 / (last - first)
+                by_node[node] = by_node.get(node, 0.0) + ms
+    plain, device_nodes = sum(by_node.values()), device_ms("nodes")
+    PARTS["phase8 (c) traces read"] = time.perf_counter() - t_read
     if device <= 0 or device_nodes <= 0:
         raise AssertionError("phase 8: the profiler saw no device time")
 
@@ -2337,6 +2406,12 @@ def train_profile(seed: int, card: str, data_root: str, logdir: str) -> dict:
     t0 = time.perf_counter()
     items = [ds[i % len(ds)] for i in range(2)]
     host_s = (time.perf_counter() - t0) / len(items)
+    # what the video compression of the two stages took on this machine:
+    # "pyav", "cv2:<fourcc>" or "identity (<why>)"; none of them fails
+    codec = sorted({t.branch for stage in (ds.stage1, ds.stage2)
+                    for t in stage.transforms if isinstance(t, RandomVideoCompression)})
+    log(f"[phase8] the stage-1 dataset's video compression on this machine: "
+        f"{', '.join(map(str, codec))}  [{card}]")
     trainer = Stage1Trainer(pipe, Stage1Config(grad_accum=4, learning_rate=TRAIN_LR))
     state = trainer.init_state()
     clips = [(upscale_frames(torch.from_numpy(it["lqs"]).cuda(), 4),
@@ -2356,60 +2431,28 @@ def train_profile(seed: int, card: str, data_root: str, logdir: str) -> dict:
             out.append(time.perf_counter() - t)
         return out
 
-    def beside(work):
-        """Micro-steps while ``work(stop)`` runs in a background thread."""
-        stop = threading.Event()
-        worker = threading.Thread(target=work, args=(stop,))
-        worker.start()
-        time.sleep(2.0)  # the data path at work
-        out = steps(2)
-        stop.set()
-        worker.join()
-        return out
-
-    def in_processes(stop):
-        """The CLI's data path: prefetch_iterator's worker processes."""
-        for _ in prefetch_iterator(ds, itertools.cycle(range(len(ds)))):
-            if stop.is_set():
-                break
-
-    def in_threads(stop):
-        """The same degradations in four threads of this process."""
-        def loop(k):
-            while not stop.is_set():
-                ds[k % len(ds)]
-
-        pool = [threading.Thread(target=loop, args=(k,)) for k in range(4)]
-        for t in pool:
-            t.start()
-        for t in pool:
-            t.join()
-
-    # two micro-steps a condition (four until the heritage phase was added)
-    steps(1)  # warm
-    alone = steps(2)
-    with_procs = beside(in_processes)
-    with_threads = beside(in_threads)
-    alone += steps(2)
-    med = {"alone": float(np.median(alone)), "processes": float(np.median(with_procs)),
-           "threads": float(np.median(with_threads))}
+    # micro-steps alone, against the traced loop's with the workers beside
+    # them
+    with part("phase8 (c) micro-steps alone"):
+        steps(1)  # warm
+        alone = steps(4)
+    med = {"alone": float(np.median(alone))}
     log(f"[phase8] the CLI loop under torch.profiler, data workers running: micro-steps 2-5 "
         f"traced for kernels only, {wall:.2f} ms of wall a micro-step, {device:.2f} ms of device "
-        f"time, idle share {1 - device / wall:.4f}; micro-steps 6-9 traced with host ops too "
-        f"({marks['nodes']:.2f} ms of wall a micro-step), {device_nodes:.2f} ms of device time, "
-        f"of it the plain backwards {plain:.2f} ms = {100 * plain / device_nodes:.1f}% "
+        f"time, idle share {1 - device / wall:.4f}; micro-step 6 traced with host ops too "
+        f"({marks['nodes']:.2f} ms of wall), {device_nodes:.2f} ms of device time, of it the "
+        f"plain backwards {plain:.2f} ms = {100 * plain / device_nodes:.1f}% "
         f"({ {k: round(v, 2) for k, v in by_node.items()} }). Micro-steps on clips loaded in "
-        f"advance, s: alone {[round(t, 4) for t in alone]} (median {med['alone']:.4f}); with "
-        f"the data path working beside them in prefetch_iterator's four worker processes "
-        f"{[round(t, 4) for t in with_procs]} (median {med['processes']:.4f}), in four "
-        f"threads of this process {[round(t, 4) for t in with_threads]} (median "
-        f"{med['threads']:.4f}). Host data path {host_s:.3f} s a clip (one thread, GT 512 "
-        f"from 544x544 PNGs, two stages)  [{card}]")
+        f"advance, alone, s: {[round(t, 4) for t in alone]} (median {med['alone']:.4f}). Host "
+        f"data path {host_s:.3f} s a clip (one thread, GT 512 from 544x544 PNGs, two stages)"
+        f"  [{card}]")
     del state, trainer, pipe, clips
     torch.cuda.empty_cache()
     return {"wall_ms": wall, "device_ms": device, "idle_share": 1 - device / wall,
             "plain_backward_ms": plain, "plain_backward_share": plain / device_nodes,
-            "by_node_ms": by_node, "step_s": med, "host_s_per_clip": host_s}
+            "by_node_ms": by_node, "step_s": med, "host_s_per_clip": host_s, "codec": codec,
+            "fused": {"launches": per_step, "peak_bytes": peak,
+                      "median_s": float(np.median([r["s"] for r in fused]))}}
 
 
 def train_cli_tiny(card: str, tmp: str) -> None:
@@ -2460,23 +2503,27 @@ def phase8(seed: int, card: str, keep: dict | None = None) -> dict:
     import shutil
     import tempfile
 
-    out = {"tiny": {f: phase8_tiny(seed, card, f) for f in (False, True)}}
+    with part("phase8 (a)"):
+        out = {"tiny": {f: phase8_tiny(seed, card, f) for f in (False, True)}}
     with tempfile.TemporaryDirectory() as tmp:
         data_root = os.path.join(tmp, "gt")
         train_clips(data_root, seed)
-        straight, out["default"], seen = train_full(seed, card, data_root,
-                                                    os.path.join(tmp, "b"), 8, fused=False,
-                                                    snapshot_at=4)
+        with part("phase8 (b)"):
+            straight, out["default"], seen = train_full(seed, card, data_root,
+                                                        os.path.join(tmp, "b"), 8,
+                                                        snapshot_at=4)
         if keep is not None:
             keep["stage1"] = {"final": to_host(straight), **seen}
-        train_resume(seed, card, data_root, os.path.join(tmp, "b"), straight)
+        with part("phase8 (b) resume"):
+            train_resume(seed, card, data_root, os.path.join(tmp, "b"), straight)
         del straight
         shutil.rmtree(os.path.join(tmp, "b"))
         shutil.rmtree(os.path.join(tmp, "b_resumed"))
-        _, out["fused"], _ = train_full(seed, card, data_root, os.path.join(tmp, "c"), 4,
-                                        fused=True)
-        out["profile"] = train_profile(seed, card, data_root, os.path.join(tmp, "p"))
-        train_cli_tiny(card, tmp)
+        with part("phase8 (c)"):
+            out["profile"] = train_profile(seed, card, data_root, os.path.join(tmp, "p"))
+        out["fused"] = out["profile"].pop("fused")
+        with part("phase8 (d)"):
+            train_cli_tiny(card, tmp)
     return out
 
 
@@ -3223,10 +3270,10 @@ def stage2_decoder(seed: int, card: str, roots: dict) -> dict:
     return out
 
 
-def kernel_device_ms(fn, where: str, reps: int = 2) -> float:
+def kernel_device_ms(fn, where: str) -> float:
     """Device ms a call of ``fn``: the kernels' summed time in a
-    torch.profiler trace of ``reps`` warm calls. Raises, naming ``where``,
-    on a trace without kernels."""
+    torch.profiler trace of one warm call. Raises, naming ``where``, on a
+    trace without kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3236,13 +3283,12 @@ def kernel_device_ms(fn, where: str, reps: int = 2) -> float:
     torch.cuda.synchronize()
     reattach_cupti()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        fn()
         torch.cuda.synchronize()
     check_kernels(prof, where, launched=True)
     cuda = torch.autograd.DeviceType.CUDA
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == cuda) / 1000 / reps
+               if e.device_type == cuda) / 1000
 
 
 def stage2_profile(seed: int, card: str, roots: dict, logdir: str) -> dict:
@@ -3284,7 +3330,8 @@ def stage2_profile(seed: int, card: str, roots: dict, logdir: str) -> dict:
                 prof.stop()
         held["state"] = state
 
-    cli.stage2(args, pipe=pipe, on_step=on_step, on_trainer=on_trainer)
+    with part("phase9 (d) profile loop"):
+        cli.stage2(args, pipe=pipe, on_step=on_step, on_trainer=on_trainer)
     check_kernels(prof, "phase 9: the trace of the CLI loop", launched=True)
     cuda = torch.autograd.DeviceType.CUDA
     device = sum(e.self_device_time_total for e in prof.key_averages()
@@ -3422,22 +3469,31 @@ def phase9(seed: int, card: str, keep: dict | None = None) -> dict:
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         # phase 12 trains on the same data: it lives in keep's directory
-        roots = stage2_data(os.path.join(keep["dir"], "s2") if keep else tmp, seed)
-        straight, out["default"], seen = stage2_full(seed, card, roots, os.path.join(tmp, "b"),
-                                                     8, fused=False, snapshot_at=4)
+        with part("phase9 data"):
+            roots = stage2_data(os.path.join(keep["dir"], "s2") if keep else tmp, seed)
+        with part("phase9 (b)"):
+            straight, out["default"], seen = stage2_full(seed, card, roots,
+                                                         os.path.join(tmp, "b"), 8, fused=False,
+                                                         snapshot_at=4)
         if keep is not None:
             keep["stage2"] = {"final": to_host(straight), "roots": roots, **seen}
-        out["resume"] = stage2_resume(seed, card, roots, os.path.join(tmp, "b"), straight)
+        with part("phase9 (b) resume"):
+            out["resume"] = stage2_resume(seed, card, roots, os.path.join(tmp, "b"), straight)
         del straight
         shutil.rmtree(os.path.join(tmp, "b"))
         shutil.rmtree(os.path.join(tmp, "b_resumed"))
-        out["adversarial"] = stage2_adversarial(seed, card, roots)
-        out["decoder"] = stage2_decoder(seed, card, roots)
-        _, out["fused"], _ = stage2_full(seed, card, roots, os.path.join(tmp, "d"), 4,
-                                         fused=True)
-        out["profile"] = stage2_profile(seed, card, roots, os.path.join(tmp, "p"))
+        with part("phase9 (c)"):
+            out["adversarial"] = stage2_adversarial(seed, card, roots)
+        with part("phase9 (e)"):
+            out["decoder"] = stage2_decoder(seed, card, roots)
+        with part("phase9 (d)"):
+            _, out["fused"], _ = stage2_full(seed, card, roots, os.path.join(tmp, "d"), 4,
+                                             fused=True)
+        with part("phase9 (d) profile"):
+            out["profile"] = stage2_profile(seed, card, roots, os.path.join(tmp, "p"))
     out["warp"] = warp_alone(card, 6, "phase9")
-    out["tiny"] = {f: phase9_tiny(seed, card, f) for f in (False, True)}
+    with part("phase9 (a)"):
+        out["tiny"] = {f: phase9_tiny(seed, card, f) for f in (False, True)}
     out["wall_s"] = time.perf_counter() - t0
     return out
 
@@ -3577,14 +3633,17 @@ def phase10(pipe, frames, out4, out5, card: str) -> dict:
             "inception": qe.build_inception("random", dev)}
     with tempfile.TemporaryDirectory() as tmp:
         niqe_npz = os.path.join(tmp, "niqe.npz")
-        fit_niqe_params([gray255(f) for f in u8["gt"]], out_path=niqe_npz)
+        with part("phase10 NIQE fit"):
+            fit_niqe_params([gray255(f) for f in u8["gt"]], out_path=niqe_npz)
 
         # (a) cold: the launches of the whole row; then warm, timed
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        row, _ = quality_metrics(clips, nets, niqe_npz, dev)
+        with part("phase10 (a) cold"):
+            row, _ = quality_metrics(clips, nets, niqe_npz, dev)
         counts = kernels.launch_counts()
-        _, secs = quality_metrics(clips, nets, niqe_npz, dev)
+        with part("phase10 (a) warm"):
+            _, secs = quality_metrics(clips, nets, niqe_npz, dev)
         peak = torch.cuda.max_memory_allocated()
         feats_ours, feats_gt = row.pop("fid_features")
         t0 = time.perf_counter()
@@ -3605,6 +3664,7 @@ def phase10(pipe, frames, out4, out5, card: str) -> dict:
             f"launches {counts}  [{card}]")
 
         # (b) and (c) run beside the rest of (a)'s checks
+        t_tools = time.perf_counter()
         tool = quality_tool(tmp, u8, nets)
         smoke = subprocess.Popen(
             [sys.executable, "-m", "mgldvsr_tpu_torch.tools.quality_smoke", "--preset", "tiny",
@@ -3613,9 +3673,11 @@ def phase10(pipe, frames, out4, out5, card: str) -> dict:
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         try:
             # the card's Inception features against the CPU's
-            cpu_model = copy.deepcopy(nets["inception"]).cpu()
-            with torch.no_grad():
-                cpu_feats = cpu_model(torch.from_numpy(clips["ours"] / 255.0) * 2 - 1).numpy()
+            with part("phase10 (a) CPU Inception"):
+                cpu_model = copy.deepcopy(nets["inception"]).cpu()
+                with torch.no_grad():
+                    cpu_feats = cpu_model(torch.from_numpy(clips["ours"] / 255.0) * 2
+                                          - 1).numpy()
             inc_err = float(np.abs(feats_ours - cpu_feats).max() / np.abs(cpu_feats).max())
             # E*warp with the kernels against their plain versions, on the card
             with plain_flow_kernels():
@@ -3629,8 +3691,11 @@ def phase10(pipe, frames, out4, out5, card: str) -> dict:
             if inc_err > INCEPTION_LIMIT or ewarp_err > EWARP_LIMIT or any(plain_counts.values()):
                 raise AssertionError(f"phase 10 (a): Inception {inc_err:.3e}, E*warp "
                                      f"{ewarp_err:.3e}, plain launches {plain_counts}")
-            rows = finish(tool, "quality_eval")
-            lines = finish(smoke, "quality_smoke")
+            with part("phase10 (b), (c) waited for"):
+                rows = finish(tool, "quality_eval")
+                PARTS["phase10 (b) done after"] = time.perf_counter() - t_tools
+                lines = finish(smoke, "quality_smoke")
+                PARTS["phase10 (c) done after"] = time.perf_counter() - t_tools
         finally:
             for proc in (tool, smoke):
                 if proc.poll() is None:
@@ -3848,10 +3913,10 @@ def phase11_tiny(seed: int, card: str) -> float:
     want = lockstep(cpu, frames, 1.0)
     got = lockstep(gpu, frames.cuda(), 1.0)
     err = max(max_err(g.cpu(), w) for g, w in zip(got["outs"], want["outs"]))
-    moved = max_err(want["outs"][0], cpu.restore_segment(frames[:5], deterministic=True))
+    moved = max_err(got["outs"][0], gpu.restore_segment(frames[:5].cuda(), deterministic=True))
     log(f"[phase11] (c) tiny 256x256 fp32 {cpu.cfg.ddpm_steps} steps, two windows in lockstep "
         f"at weight 1: card vs CPU max_abs_err {err:.3e} (limit 1e-3); the boundary term moved "
-        f"window 0 by {moved:.3e} on the CPU; warp_forward launches "
+        f"window 0 by {moved:.3e} on the card; warp_forward launches "
         f"{[c['warp_forward'] for c in got['counts']]}  [{card}]")
     if not err <= 1e-3 or not moved > 0:
         raise AssertionError(f"phase 11 (c): card vs CPU {err:.3e}, moved {moved:.3e}")
@@ -3919,10 +3984,14 @@ def phase11(pipe, frames, seed: int, card: str) -> dict:
     """The multi-device restore on one card: (a) a world of one NCCL rank,
     (b) two windows in lockstep at full width, (c) the same at tiny widths
     against the CPU, (d) the command line under torchrun."""
-    one = phase11_world_of_one(pipe, frames, card)
-    pair = phase11_lockstep(pipe, card, seed)
-    phase11_tiny(seed, card)
-    phase11_cli(card)
+    with part("phase11 (a)"):
+        one = phase11_world_of_one(pipe, frames, card)
+    with part("phase11 (b)"):
+        pair = phase11_lockstep(pipe, card, seed)
+    with part("phase11 (c)"):
+        phase11_tiny(seed, card)
+    with part("phase11 (d)"):
+        phase11_cli(card)
     return dict(counts=pair["counts"], world_of_one=one, pair_ms=pair["pair_ms"],
                 segments_ms=pair["segments_ms"])
 
@@ -3968,22 +4037,20 @@ def world_of_one(tmp: str):
 
 def phase12_stage1(seed: int, card: str, ref: dict, zero1: bool) -> dict:
     """(a) phase 8 (b)'s full-width CLI loop (the same data) with ``--mesh``
-    for its 8 micro-steps, or ``--mesh --zero1`` for the first 4 (one
-    update): the masters, moments, accumulator, EMA, the metrics.jsonl
-    losses and every micro-step's launches equal phase 8's straight run at
-    the same micro-step."""
+    or ``--mesh --zero1`` for its first 4 micro-steps (one update): the
+    masters, moments, accumulator, EMA, the metrics.jsonl losses and every
+    micro-step's launches equal phase 8's straight run after micro-step 4."""
     import tempfile
 
     extra = ("--mesh", "--zero1") if zero1 else ("--mesh",)
-    steps = 4 if zero1 else 8
-    if zero1:
-        ref = ref["at"]
+    steps = 4
+    ref = ref["at"]
     with tempfile.TemporaryDirectory() as tmp:
         data_root = os.path.join(tmp, "gt")
         train_clips(data_root, seed)
         with world_of_one(tmp):
             final, stats, seen = train_full(seed, card, data_root, os.path.join(tmp, "b"), steps,
-                                            fused=False, extra=extra, phase="[phase12] (a)")
+                                            extra=extra, phase="[phase12] (a)")
     identical, total, worst = same_trees(final, ref["final"])
     same_losses = seen["losses"] == ref["losses"]
     same_counts = seen["counts"] == ref["counts"]
@@ -4120,10 +4187,15 @@ def phase12(seed: int, card: str, keep: dict) -> dict:
     one NCCL rank against phases 8 and 9's straight runs, (c) the command
     line under torchrun."""
     t0 = time.perf_counter()
-    out = {"stage1": phase12_stage1(seed, card, keep["stage1"], zero1=False),
-           "stage1_zero1": phase12_stage1(seed, card, keep["stage1"], zero1=True),
-           "stage2": phase12_stage2(seed, card, keep["stage2"]),
-           "cli": phase12_cli(card)}
+    out = {}
+    with part("phase12 (a)"):
+        out["stage1"] = phase12_stage1(seed, card, keep["stage1"], zero1=False)
+    with part("phase12 (a) zero1"):
+        out["stage1_zero1"] = phase12_stage1(seed, card, keep["stage1"], zero1=True)
+    with part("phase12 (b)"):
+        out["stage2"] = phase12_stage2(seed, card, keep["stage2"])
+    with part("phase12 (c)"):
+        out["cli"] = phase12_cli(card)
     out["wall_s"] = time.perf_counter() - t0
     return out
 
@@ -4261,13 +4333,14 @@ def guided_card_vs_cpu(gpu, cpu, frames, limit: float, what: str, card: str) -> 
     amplify the sides' rounding ~15x a step, so one such flip moves the
     frames by up to ~1e-2 over a patch where the rest agree to ~1e-5.
     So: every guidance gradient of the card's restore equals its plain
-    version on its inputs; the CPU restore is run as it is and again with
-    the card's residual signs (``replayed_guidance``); the replay must agree
-    with the card within ``limit``, and flips must be rare (at most 1e-3 of
-    the live residuals) and each lie within 4x the two sides' latent
-    distance of 0, where rounding can put it on either side. Without a flip
-    the replay is the CPU's own restore, up to the order of the gradient's
-    sums."""
+    version on its inputs; the CPU restores with the card's residual signs
+    (``replayed_guidance``, which counts where the CPU's own signs differ);
+    the replay must agree with the card within ``limit``, and flips must be
+    rare (at most 1e-3 of the live residuals) and each lie within 4x the two
+    sides' latent distance of 0, where rounding can put it on either side.
+    Without a flip the replay is the CPU's own restore, up to the order of
+    the gradient's sums, so the CPU's restore with its own signs is not
+    run."""
     import torch
 
     from mgldvsr_tpu_torch.ops import kernels
@@ -4282,19 +4355,18 @@ def guided_card_vs_cpu(gpu, cpu, frames, limit: float, what: str, card: str) -> 
     counts = kernels.launch_counts()
     got = got.cpu()
     t0 = time.perf_counter()
-    direct = got - cpu.restore_segment(frames, deterministic=True)
-    cpu_s = time.perf_counter() - t0
     with replayed_guidance(calls, stats):
         replayed = cpu.restore_segment(frames, deterministic=True)
-    out = {"max_abs_err": float(direct.abs().max()), "mean_abs_err": float(direct.abs().mean()),
-           "replayed_max_abs_err": max_err(got, replayed), "limit": limit, "card_s": card_s,
-           "cpu_s": cpu_s, **stats}
-    log(f"[phase13] {what}, card vs CPU: max_abs_err {out['max_abs_err']:.3e}, mean "
-        f"{out['mean_abs_err']:.3e}; {stats['flips']} of {stats['live']} residual signs "
+    cpu_s = time.perf_counter() - t0
+    d = (got - replayed).abs()
+    out = {"replayed_max_abs_err": float(d.max()), "replayed_mean_abs_err": float(d.mean()),
+           "limit": limit, "card_s": card_s, "cpu_s": cpu_s, **stats}
+    log(f"[phase13] {what}, card vs CPU: {stats['flips']} of {stats['live']} residual signs "
         f"flipped (largest |residual| flipped {stats['flip_residual']:.3e}, of all "
         f"{stats['residual']:.3e}; latents {stats['latents']:.3e} apart, {stats['masks']} "
-        f"mask elements differ); with the card's signs {out['replayed_max_abs_err']:.3e} "
-        f"(limit {limit:.1e}); card {card_s:.2f} s, CPU {cpu_s:.2f} s  [{card}]")
+        f"mask elements differ); with the card's signs max_abs_err "
+        f"{out['replayed_max_abs_err']:.3e} (limit {limit:.1e}), mean "
+        f"{out['replayed_mean_abs_err']:.3e}; card {card_s:.2f} s, CPU {cpu_s:.2f} s  [{card}]")
     if got.shape != frames.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{what}: output {tuple(got.shape)} is not finite")
     if stats["calls"] != len(calls):
@@ -4361,9 +4433,11 @@ def phase13_card_vs_cpu(pipe32, seed: int, card: str) -> dict:
     for name, tower in cpu.towers().items():
         tower.load_state_dict({k: v.cpu() for k, v in pipe32.towers()[name].state_dict().items()},
                               strict=True)
-    unguided = max_err(gpu.restore_segment(frames.cuda(), deterministic=True,
-                                           use_guidance=False).cpu(),
-                       cpu.restore_segment(frames, deterministic=True, use_guidance=False))
+    with part("phase13 (a) unguided card"):
+        got = gpu.restore_segment(frames.cuda(), deterministic=True, use_guidance=False).cpu()
+    with part("phase13 (a) unguided CPU"):
+        unguided = max_err(got, cpu.restore_segment(frames, deterministic=True,
+                                                    use_guidance=False))
     log(f"[phase13] (a) fp32 full width, 256x256, {steps} steps, deterministic, without "
         f"guidance: card vs CPU max_abs_err {unguided:.3e} (limit {UNGUIDED_LIMIT:.0e}; "
         f"{torch.get_num_threads()} CPU threads)  [{card}]")
@@ -4518,19 +4592,25 @@ def phase13(pipe16, frames, seed: int, steps: int, card: str) -> dict:
     from mgldvsr_tpu_torch.io.init_weights import init_pipeline_weights
 
     t0 = time.perf_counter()
-    pipe32 = MGLDVSRPipeline(fp32_config(steps))
-    init_pipeline_weights(pipe32, seed)
-    calm_raft(pipe32)
+    with part("phase13 fp32 twin"):
+        pipe32 = MGLDVSRPipeline(fp32_config(steps))
+        init_pipeline_weights(pipe32, seed)
+        calm_raft(pipe32)
     # the twin holds phase 4's weights before their cast
     for name in ("unet", "clip", "vae"):
         sd16 = pipe16.towers()[name].state_dict()
         for k, v in pipe32.towers()[name].state_dict().items():
             if not torch.equal(v.to(sd16[k].dtype), sd16[k]):
                 raise AssertionError(f"phase 13: the fp32 twin's {name}.{k} is not phase 4's")
-    out = {"card_vs_cpu": phase13_card_vs_cpu(pipe32, seed, card),
-           "bf16_256px": phase13_bf16_256(pipe16, pipe32, seed, card),
-           "bf16_vs_fp32": phase13_bf16_vs_fp32(pipe16, pipe32, frames, steps, card),
-           "stock_unet": phase13_stock_unet(seed, card)}
+    out = {}
+    with part("phase13 (a)"):
+        out["card_vs_cpu"] = phase13_card_vs_cpu(pipe32, seed, card)
+    with part("phase13 (d)"):
+        out["bf16_256px"] = phase13_bf16_256(pipe16, pipe32, seed, card)
+    with part("phase13 (b)"):
+        out["bf16_vs_fp32"] = phase13_bf16_vs_fp32(pipe16, pipe32, frames, steps, card)
+    with part("phase13 (c)"):
+        out["stock_unet"] = phase13_stock_unet(seed, card)
     del pipe32
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t0
@@ -5330,12 +5410,15 @@ def phase15(seed: int, card: str, host_s: float | None = None) -> dict:
     import tempfile
 
     t0 = time.perf_counter()
-    out = {"synthesis": synthesis_full(seed, card, host_s),
-           "synthesis_card_vs_cpu": synthesis_card_vs_cpu(seed, card)}
-    with tempfile.TemporaryDirectory() as tmp:
+    with part("phase15 (a)"):
+        out = {"synthesis": synthesis_full(seed, card, host_s),
+               "synthesis_card_vs_cpu": synthesis_card_vs_cpu(seed, card)}
+    with part("phase15 (b), (e), (f)"), tempfile.TemporaryDirectory() as tmp:
         out["txt2img"] = t2i_full(seed, card, tmp)
-    out["tiny_txt2img"] = {f: t2i_tiny_card_vs_cpu(seed, card, f) for f in (False, True)}
-    out["encoders"] = encoders_card_vs_cpu(seed, card)
+    with part("phase15 (c)"):
+        out["tiny_txt2img"] = {f: t2i_tiny_card_vs_cpu(seed, card, f) for f in (False, True)}
+    with part("phase15 (d)"):
+        out["encoders"] = encoders_card_vs_cpu(seed, card)
     out["wall_s"] = time.perf_counter() - t0
     return out
 
@@ -5626,9 +5709,11 @@ def phase16(seed: int, card: str) -> dict:
 
     t0 = time.perf_counter()
     with tf32_off():
-        out = {"ops": heritage_ops_card_vs_cpu(seed, card),
-               "tiny": heritage_tiny_card_vs_cpu(seed, card),
-               "full": heritage_full(seed, card)}
+        with part("phase16 (a)"):
+            out = {"ops": heritage_ops_card_vs_cpu(seed, card),
+                   "tiny": heritage_tiny_card_vs_cpu(seed, card)}
+        with part("phase16 (b)"):
+            out["full"] = heritage_full(seed, card)
     out["wall_s"] = time.perf_counter() - t0
     return out
 
@@ -5909,15 +5994,19 @@ def phase17(card: str) -> dict:
         trace_run = start_trace_run(os.path.join(tmp, "e_trace"))
         try:
             codecs = out["build"]["codecs"]
-            out["loader"] = loader_against_python(card, tmp, codecs)
-            out["dataset"] = loader_dataset(card, tmp, codecs)
-            out["train"] = loader_train_cli(card, tmp)
-            out["profiling"] = profiling_checks(card, tmp, trace_run)
+            with part("phase17 (b), (c)"):
+                out["loader"] = loader_against_python(card, tmp, codecs)
+                out["dataset"] = loader_dataset(card, tmp, codecs)
+            with part("phase17 (d)"):
+                out["train"] = loader_train_cli(card, tmp)
+            with part("phase17 (e)"):
+                out["profiling"] = profiling_checks(card, tmp, trace_run)
         finally:
             if trace_run.poll() is None:
                 trace_run.kill()
                 trace_run.wait()
-    out["bench"] = loader_bench.run(loader_bench.parse_args(["--busy", "cuda"]))
+    with part("phase17 (f)"):
+        out["bench"] = loader_bench.run(loader_bench.parse_args(["--busy", "cuda"]))
     log(f"[phase17] (f) loader_bench (5 frames, 360 px source, 128 crop, 40 clips, 4 threads; "
         f"the busy main thread a CUDA matmul loop): {json.dumps(out['bench'])}  [{card}]")
     out["wall_s"] = time.perf_counter() - t0
@@ -5932,7 +6021,7 @@ def straight_runs(seed: int, card: str, keep: dict) -> None:
         data_root = os.path.join(tmp, "gt")
         train_clips(data_root, seed)
         final, _, seen = train_full(seed, card, data_root, os.path.join(tmp, "b"), 8,
-                                    fused=False, snapshot_at=4)
+                                    snapshot_at=4)
         keep["stage1"] = {"final": to_host(final), **seen}
         del final
         roots = stage2_data(os.path.join(keep["dir"], "s2"), seed)

@@ -8,18 +8,23 @@ resize + sinc, USM sharpening of the GT, and the clip. Every transform makes
 the same ``RandomState`` draws in the same order as the JAX package's, so a
 (seed, clip) gives the same sample wherever the primitives agree.
 
-Video compression has no codec to run (the port uses neither PyAV nor
-OpenCV): it draws the codec and bitrate as the JAX package does and returns
-the clip unchanged, with a one-time warning: the JAX package's own no-codec
-branch.
+Video compression is the one transform that needs a codec. It takes the JAX
+package's three branches in its order: PyAV where ``av`` imports, else
+OpenCV's ``VideoWriter`` where ``cv2`` imports and opens a fourcc, else the
+clip unchanged with a one-time warning that says why. Both are imported
+inside the call, never at module import, and used nowhere else in the data
+path.
 
 Clips are lists of float32 HWC arrays in [0, 1], in BGR channel order (the
 datasets flip to RGB at their return, where the reference does).
 """
 from __future__ import annotations
 
+import io
 import logging
-from typing import Dict, List, Sequence
+import os
+import tempfile
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -225,29 +230,182 @@ class RandomJPEGCompression:
         return results
 
 
+# fourcc candidates for each codec name of the recipe, for cv2's writer
+_CV2_FOURCC = {
+    "libx264": ("avc1", "h264", "X264", "mp4v"),
+    "h264": ("avc1", "h264", "X264", "mp4v"),
+    "mpeg4": ("mp4v",),
+    "mp4v": ("mp4v",),
+}
+# codec name -> the first fourcc that opened in this process (None: none did)
+_FOURCC_CACHE: Dict[str, Optional[str]] = {}
+
+
+def _import_av():
+    """PyAV, or None where it does not import; libav's own log silenced."""
+    try:
+        import av
+    except ImportError:
+        return None
+    logging.getLogger("libav").setLevel(logging.CRITICAL)
+    return av
+
+
+def _import_cv2():
+    """OpenCV, or None where it does not import."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2
+
+
+def _temp_mp4() -> str:
+    """A fresh empty .mp4 path of this process's own (``mkstemp``), so that
+    the dataset's worker processes never write to one path."""
+    fd, path = tempfile.mkstemp(suffix=".mp4")
+    os.close(fd)
+    return path
+
+
+def _probe_fourcc(cv2, codec: str) -> Optional[str]:
+    """The first of ``codec``'s fourccs that ``cv2.VideoWriter`` opens."""
+    if codec in _FOURCC_CACHE:
+        return _FOURCC_CACHE[codec]
+    found = None
+    for fourcc in _CV2_FOURCC.get(codec, ("mp4v",)):
+        path = _temp_mp4()
+        try:
+            writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), 25, (32, 32))
+            ok = writer.isOpened()
+            writer.release()
+        except cv2.error:
+            ok = False
+        finally:
+            os.remove(path)
+        if ok:
+            found = fourcc
+            break
+    _FOURCC_CACHE[codec] = found
+    return found
+
+
+def _pyav_roundtrip(av, u8_frames: List[np.ndarray], codec: str,
+                    bitrate: int) -> Optional[List[np.ndarray]]:
+    """The reference's in-memory mp4: ``codec`` at ``bitrate``, yuv420p,
+    frames labelled rgb24."""
+    buf = io.BytesIO()
+    with av.open(buf, "w", "mp4") as container:
+        stream = container.add_stream(codec, rate=1)
+        stream.height = u8_frames[0].shape[0]
+        stream.width = u8_frames[0].shape[1]
+        stream.pix_fmt = "yuv420p"
+        stream.bit_rate = bitrate
+        for img in u8_frames:
+            frame = av.VideoFrame.from_ndarray(img, format="rgb24")
+            frame.pict_type = "NONE"
+            for packet in stream.encode(frame):
+                container.mux(packet)
+        for packet in stream.encode():
+            container.mux(packet)
+    out = []
+    with av.open(buf, "r", "mp4") as container:
+        if container.streams.video:
+            for frame in container.decode(**{"video": 0}):
+                out.append(frame.to_rgb().to_ndarray())
+    return out or None
+
+
+def _cv2_roundtrip(cv2, u8_frames: List[np.ndarray],
+                   fourcc: str) -> Optional[List[np.ndarray]]:
+    """Write the frames at 25 fps with ``fourcc`` and read them back; None
+    where fewer come back. cv2 maps input channel 0 to the encoder's B and
+    the reference's rgb24 label maps it to R, so the channels are reversed
+    before the write and after the read."""
+    h, w = u8_frames[0].shape[:2]
+    path = _temp_mp4()
+    try:
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), 25, (w, h))
+        for img in u8_frames:
+            writer.write(np.ascontiguousarray(img[:, :, ::-1]))
+        writer.release()
+        cap = cv2.VideoCapture(path)
+        out = []
+        for _ in u8_frames:
+            ok, img = cap.read()
+            if not ok:
+                break
+            out.append(np.ascontiguousarray(img[:, :, ::-1]))
+        cap.release()
+    finally:
+        os.remove(path)
+    return out if len(out) == len(u8_frames) else None
+
+
 class RandomVideoCompression:
-    """The video-codec round trip of the reference
-    (random_degradations.py:455-525), without a codec to run: the codec and
-    bitrate are drawn as the JAX package draws them, and the clip is
-    returned unchanged, with a one-time warning (the JAX package's
-    no-codec branch)."""
+    """Lossy video-codec round trip of the clip (the reference's
+    random_degradations.py:455-525), as the JAX package's class does it.
+
+    The codec is drawn from ``params['codec']`` / ``params['codec_prob']``
+    and the bitrate from U{bitrate[0]..bitrate[1]}; then the first branch
+    that the machine has runs:
+
+    - PyAV: the reference's in-memory mp4 (codec, bitrate, yuv420p, rate 1,
+      a flush), frames labelled rgb24. The clips are BGR here, as the
+      reference's are at this point, so the label runs the YUV matrix with
+      R and B swapped, as the reference does.
+    - cv2: ``VideoWriter`` with the first of the codec's fourccs that opens
+      (``_CV2_FOURCC``), 25 fps, the channels reversed around the round trip
+      to keep that R/B-swapped mapping. cv2 has no bitrate control: the
+      bitrate is drawn but unused.
+    - neither, or a branch that gives fewer frames back: the clip unchanged,
+      with a one-time warning that says why.
+
+    ``branch`` names what the last clip took: ``"pyav"``, ``"cv2:<fourcc>"``
+    or ``"identity (<why>)"``.
+    """
 
     def __init__(self, params: Dict, keys: Sequence[str] = ("lqs",)):
         self.params = params
         self.keys = keys
+        self.branch: Optional[str] = None
         self._warned = False
+
+    @staticmethod
+    def _roundtrip(u8_frames: List[np.ndarray], codec: str,
+                   bitrate: int) -> Tuple[Optional[List[np.ndarray]], str]:
+        av = _import_av()
+        if av is not None:
+            out = _pyav_roundtrip(av, u8_frames, codec, bitrate)
+            return out, "pyav" if out is not None else f"identity (PyAV decoded no {codec} frames)"
+        cv2 = _import_cv2()
+        if cv2 is None:
+            return None, "identity (neither PyAV nor cv2 imports)"
+        fourcc = _probe_fourcc(cv2, codec)
+        if fourcc is None:
+            return None, f"identity (no PyAV; cv2.VideoWriter opens no fourcc for {codec})"
+        out = _cv2_roundtrip(cv2, u8_frames, fourcc)
+        if out is None:
+            return None, f"identity (no PyAV; cv2's {fourcc} round trip gave back too few frames)"
+        return out, f"cv2:{fourcc}"
 
     def __call__(self, results: Dict, rng: np.random.RandomState) -> Dict:
         if rng.uniform() > self.params.get("prob", 1):
             return results
-        for _ in self.keys:
-            rng.choice(self.params["codec"], p=self.params.get("codec_prob"))
+        for key in self.keys:
+            codec = str(rng.choice(self.params["codec"], p=self.params.get("codec_prob")))
             lo, hi = self.params["bitrate"]
-            rng.randint(int(lo), int(hi) + 1)
-            if not self._warned:
-                self._warned = True
-                logger.warning("no video codec on this machine; RandomVideoCompression "
-                               "returns the clip unchanged")
+            bitrate = int(rng.randint(int(lo), int(hi) + 1))
+            u8 = [np.clip(np.asarray(f, np.float32) * 255.0, 0, 255).astype(np.uint8)
+                  for f in results[key]]
+            out, self.branch = self._roundtrip(u8, codec, bitrate)
+            if out is None:
+                if not self._warned:
+                    self._warned = True
+                    logger.warning("RandomVideoCompression returns the clip unchanged: %s",
+                                   self.branch)
+                continue
+            results[key] = [o.astype(np.float32) / 255.0 for o in out]
         return results
 
 

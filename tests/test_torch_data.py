@@ -3,10 +3,14 @@
 against the JAX package's on the same PNG folder and seed.
 
 For the byte-for-byte comparison the JAX modules' ``cv2`` attribute is
-replaced by a shim built from ``cv_ops`` and their ``_av`` by None (no
-codec), so both sides run the same primitives and the comparison holds the
+replaced by a shim built from ``cv_ops`` and their ``_av`` by None, and the
+port's video compression gets the same shim and no PyAV: both sides run the
+same primitives and take the no-codec branch, and the comparison holds the
 logic and the order of the random draws; the primitives are held against
-cv2 on their own. The JAX package itself is not edited.
+cv2 on their own. The JAX package itself is not edited. A whole item is not
+compared with the real codec: the primitives' differences of up to 1e-5
+become whole uint8 steps through its quantisation (up to 0.0604 measured;
+``tests/test_torch_video_codec.py`` holds the codec's round trip alone).
 
 cv2 routes some calls to Intel IPP, whose float32 resize and gray
 conversion differ from OpenCV's own kernels (resize by up to 2e-5, gray by
@@ -210,6 +214,10 @@ def shimmed(monkeypatch):
     monkeypatch.setattr(jds, "cv2", shim)
     monkeypatch.setattr(jdeg, "_av", None)
     monkeypatch.setattr(jdeg, "_FOURCC_CACHE", {})
+    # the port imports its codecs inside the call: the same shim and no PyAV
+    monkeypatch.setattr(pdeg, "_import_cv2", lambda: shim)
+    monkeypatch.setattr(pdeg, "_import_av", lambda: None)
+    monkeypatch.setattr(pdeg, "_FOURCC_CACHE", {})
 
 
 def test_recipe_is_the_jax_one():

@@ -2,7 +2,8 @@
 ``flax`` and the JAX package cannot be imported, every module of
 mgldvsr_tpu_torch (and chip_smoke.py) must import, and none may pull in a
 kernel build or Triton (or cv2, av or torchvision). The metrics, BSRGAN,
-the synthesis and the heritage path also run with cv2 unimportable."""
+the synthesis, a stage-1 degradation stage and the heritage path also run
+with cv2 unimportable."""
 import os
 import subprocess
 import sys
@@ -108,13 +109,21 @@ kern = synthesis.sample_degradation_kernels(np.random.RandomState(0))
 gt = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(0))
 lq, _ = synthesis.synthesize_lq(torch.Generator().manual_seed(1), gt, kern, cfg)
 assert lq.shape == (2, 16, 16, 3) and torch.equal(torch.round(lq * 255) / 255, lq)
+sys.modules["av"] = None
+from mgldvsr_tpu_torch.cli.train import default_degradation_cfg
+from mgldvsr_tpu_torch.data.degradations import DegradationStage, RandomVideoCompression
+stage = DegradationStage(default_degradation_cfg()[0])
+out = stage({"lqs": [img[:64, :48].copy() for _ in range(3)]}, np.random.RandomState(0))["lqs"]
+mpeg = [t for t in stage.transforms if isinstance(t, RandomVideoCompression)]
+assert len(out) == 3 and all(f.ndim == 3 and np.isfinite(f).all() for f in out)
+assert mpeg[0].branch == "identity (neither PyAV nor cv2 imports)", mpeg[0].branch
 print("ok")
 """
 
 
 def test_bsrgan_and_synthesis_run_without_cv2():
-    """Both BSRGAN chains and the device synthesis run with cv2 (and JAX)
-    unimportable."""
+    """Both BSRGAN chains, the device synthesis and a stage-1 degradation
+    stage with its video compression run with cv2 (and JAX) unimportable."""
     proc = _run(_DEGRADATIONS_WITHOUT_CV2)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
