@@ -347,6 +347,28 @@ Phase 17 the native clip loader (``native/src/clip_loader.cpp``, host C++,
          loop: clips/s of the disk path, the native pool alone and beside
          it. ``--only-loader`` builds the kernels and runs phase 17 alone.
 
+Phase 18 ``MGLD_INT8_CONV=1`` (after phase 13, phase 4's seed and clip): phase
+         4's weights built under the switch (every ``conv3x3()`` site of the
+         JAX package an ``Int8Conv3x3``, its levels taken from the float32
+         weights by the cast to bf16), 10 guided steps at 512 px: finite
+         frames in [0, 1]; every int8 site run once a UNet or struct-cond
+         call and once in the encode or decode, each call one launch of
+         ``int8_absmax`` and ``int8_conv3x3``, and no site without levels
+         from float32; the sampler's ms/step beside phase 4's pipeline at
+         the same 10 steps, and mean |int8 - phase 4| (no limit). Then the
+         kernels at the shapes that restore gave them (the largest of each
+         tower, Cin 3 and 4, stride 2, the RDB's 32-channel growth convs,
+         at most 8 output channels, frames up to 8 pixels wide), seeded:
+         the output, max|x|, the levels (an identity kernel) and the int32
+         sums (the conv kernel alone with both scales 1) equal to the plain
+         version bit for bit; the chain's ms and CUDA-graph device ms, each
+         kernel's ms alone, the bound (int8 operations at 1,979 TOPS or the
+         bytes), the plain version's ms, and the yardsticks: ``x.abs().amax()``
+         for the absmax, ``torch._int_mm`` of the im2col'd levels and
+         cuDNN's bf16 conv for the conv. ``launches_int8`` in the kernels
+         line. ``--only-int8`` builds the kernels and runs phase 4's
+         pipeline and phase 18 alone (no result line).
+
 Every phase prints its own ``[phaseN] ... s of wall`` line, and a
 ``[phases]`` line lists them all before the kernels line.
 
@@ -392,6 +414,11 @@ KERNELS = {
     # the statistics of the same TPU function, which it left to XLA
     "gn_scale_shift": ("cuda", "mgldvsr_tpu_torch/csrc/gn_silu_conv.cu",
                        "mgldvsr_tpu/ops/pallas/gn_silu_conv.py:161"),
+    # MGLD_INT8_CONV's Int8Conv3x3: no Pallas kernel (XLA's int8 conv there)
+    "int8_absmax": ("cuda", "mgldvsr_tpu_torch/csrc/int8_conv.cu",
+                    "mgldvsr_tpu/models/layers.py:163"),
+    "int8_conv3x3": ("cuda", "mgldvsr_tpu_torch/csrc/int8_conv.cu",
+                     "mgldvsr_tpu/models/layers.py:163"),
 }
 FUSED_ONLY = ("gn_silu_conv3x3", "gn_scale_shift")  # launched by the fused configuration alone
 # launched by the default configuration alone: its GroupNorms of 128^2 pixels
@@ -401,11 +428,13 @@ DEFAULT_ONLY = ("channel_sums",)
 # the guidance pair; warp_forward alone runs in the window-parallel boundary term
 # (phase 11), stage-2 training's swc loss (phase 9) and E*warp (phase 10)
 STANDALONE = ("warp_forward", "warp_dx")
+# launched only by towers built under MGLD_INT8_CONV=1 (phase 18)
+INT8_ONLY = ("int8_absmax", "int8_conv3x3")
 
 # NVIDIA H100 SXM data sheet, dense: device memory bytes/s, tensor-core
-# flop/s for bf16 and fp16, fp32 flop/s outside the tensor cores
+# flop/s for bf16 and fp16 (int8 operations/s), fp32 flop/s outside the tensor cores
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 
 def bound(nbytes: float, flops: float, kind: str):
@@ -1680,7 +1709,7 @@ def full_restore(pipe, frames, seed: int, steps: int, card: str, fused: bool):
     if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
         raise AssertionError(f"{phase} output is not finite in [0, 1]")
     for name in KERNELS:
-        idle = (DEFAULT_ONLY if fused else FUSED_ONLY) + STANDALONE
+        idle = (DEFAULT_ONLY if fused else FUSED_ONLY) + STANDALONE + INT8_ONLY
         if (counts[name] == 0) != (name in idle):
             raise AssertionError(f"{phase}: kernel {name} was launched {counts[name]} times")
     # the guidance gradient: launch A and launch B once a step, nothing else
@@ -1763,7 +1792,7 @@ def full_latent_restore(pipe, frames, seed: int, steps: int, card: str) -> dict:
             and out.min() >= 0 and out.max() <= 1):
         raise AssertionError("phase 4 latent: frames not finite in [0, 1] or latents not finite")
     for name in KERNELS:
-        if (counts[name] == 0) != (name in FUSED_ONLY + STANDALONE):
+        if (counts[name] == 0) != (name in FUSED_ONLY + STANDALONE + INT8_ONLY):
             raise AssertionError(f"phase 4 latent: kernel {name} was launched {counts[name]} "
                                  f"times")
     if not counts["guidance_residual"] == counts["guidance_scatter"] == steps:
@@ -1988,7 +2017,7 @@ def phase7(card: str) -> None:
         if pngs != [f"{i:08d}.png" for i in range(5)] or shapes != {(512, 512, 3)}:
             raise AssertionError(f"phase 7 full: frames {pngs}, shapes {shapes}")
         for name in KERNELS:
-            if (counts[name] == 0) != (name in FUSED_ONLY + STANDALONE):
+            if (counts[name] == 0) != (name in FUSED_ONLY + STANDALONE + INT8_ONLY):
                 raise AssertionError(f"phase 7 full: kernel {name} was launched {counts[name]} "
                                      f"times")
         if not (counts["guidance_residual"] == counts["guidance_scatter"] == 3
@@ -3892,7 +3921,7 @@ def phase11_lockstep(pipe, card: str, seed: int) -> dict:
         raise AssertionError(f"phase 11 (b): warp_forward launches "
                              f"{[c['warp_forward'] for c in counts]}, expected [{steps}, 0]")
     for name in KERNELS:
-        if (counts[0][name] == 0) != (name in FUSED_ONLY + ("warp_dx",)):
+        if (counts[0][name] == 0) != (name in FUSED_ONLY + INT8_ONLY + ("warp_dx",)):
             raise AssertionError(f"phase 11 (b): kernel {name} was launched {counts[0][name]} "
                                  f"times by window 0")
     if not (counts[0]["guidance_residual"] == counts[0]["guidance_scatter"] == steps
@@ -6013,6 +6042,277 @@ def phase17(card: str) -> dict:
     return out
 
 
+# -- phase 18: MGLD_INT8_CONV ----------------------------------------------------
+
+
+def int8_pipeline(seed: int, steps: int):
+    """Phase 4's pipeline built under MGLD_INT8_CONV=1 (the switch is read
+    when a conv is built): the same seeded float32 weights, each int8 site's
+    levels taken from them by the cast to bf16."""
+    from mgldvsr_tpu_torch.infer.pipeline import MGLDVSRPipeline
+    from mgldvsr_tpu_torch.io.init_weights import init_pipeline_weights
+
+    before = os.environ.get("MGLD_INT8_CONV")
+    os.environ["MGLD_INT8_CONV"] = "1"
+    try:
+        pipe = MGLDVSRPipeline(full_config(steps))
+    finally:
+        if before is None:
+            del os.environ["MGLD_INT8_CONV"]
+        else:
+            os.environ["MGLD_INT8_CONV"] = before
+    init_pipeline_weights(pipe, seed)
+    calm_raft(pipe)
+    pipe.cast_to_compute_dtypes()
+    return pipe
+
+
+def int8_restore(pipe, frames, seed: int, card: str, what: str):
+    """One restore (the pipeline's steps) in the default configuration:
+    (frames, launch counts, stage seconds, the int8 modules' calls by
+    tower and module, the shapes each int8 conv was given)."""
+    import torch
+
+    from mgldvsr_tpu_torch.models.layers import Int8Conv3x3
+    from mgldvsr_tpu_torch.ops import kernels
+
+    calls, shapes, hooks = {}, set(), []
+    for tower in ("unet", "structcond", "vae"):
+        for name, m in pipe.towers()[tower].named_modules():
+            if isinstance(m, Int8Conv3x3):
+                def hook(mod, args, key=(tower, name)):
+                    calls[key] = calls.get(key, 0) + 1
+                    x = args[0]
+                    shapes.add((key[0], tuple(x.shape), str(x.dtype).replace("torch.", ""),
+                                mod.out_channels, mod.stride[0]))
+                hooks.append(m.register_forward_pre_hook(hook))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    stages: dict = {}
+    try:
+        with fused_switch(False):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = pipe.restore_segment(frames, gen, stage_seconds=stages)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+    finally:
+        for h in hooks:
+            h.remove()
+    log(f"[phase18] {what}: 512x512, 5 frames: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+        + f"; total {wall:.3f} s  [{card}]")
+    return out, counts, stages, calls, shapes
+
+
+def int8_case(x, wt, bias, stride: int, out_dtype) -> dict:
+    """One int8 conv shape on the card: the chain, the absmax and the conv
+    kernel alone against the plain version bit for bit (y; the levels,
+    through an identity kernel on the first channels; the int32 sums,
+    through the conv kernel alone on the levels with sx = sw = 1), timed
+    beside the plain version, the bound and the yardsticks (``torch._int_mm``
+    of the im2col'd levels, cuDNN's bf16 conv)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mgldvsr_tpu_torch.ops.kernels import int8_conv as K
+
+    dev = x.device
+    n, c, h, w = x.shape
+    co = wt.shape[0]
+    kq, sw = K.quantize_weight(wt)
+    ho, wo = K.output_size(h, w, stride)
+    want = K.int8_conv3x3_plain(x, kq, sw, bias, stride, out_dtype)
+    got = K.int8_conv3x3(x, kq, sw, bias, stride, out_dtype)
+    amax = K.int8_absmax(x)
+    xq, sx = K.quantize_activation(x)
+    kq_cpu, sw_cpu = K.quantize_weight(wt.cpu())
+    checks = {"y": torch.equal(got, want),
+              "absmax": torch.equal(amax, x.abs().amax().float().reshape(1)),
+              "weight_levels_as_cpu": torch.equal(kq.cpu(), kq_cpu) and torch.equal(sw.cpu(),
+                                                                                     sw_cpu)}
+    # the int32 sums: the levels as x, sx = 1 (max|x| taken as 127), sw = 1, no bias
+    one = torch.tensor([127.0], device=dev).view(torch.int32)
+    acc = K.conv_alone(xq.to(x.dtype).contiguous(), one, kq, torch.ones_like(sw),
+                       torch.zeros_like(bias), stride, torch.float32)
+    checks["acc"] = torch.equal(acc, K.int8_accumulate(xq, kq, stride).float())
+    # the levels: an identity kernel on the first channels gives xq * sx
+    m = min(c, 32)
+    ident = torch.zeros(m, c, 3, 3, dtype=torch.int8, device=dev)
+    ident[torch.arange(m), torch.arange(m), 1, 1] = 1
+    lv = K.int8_conv3x3(x, ident, torch.ones(m, device=dev), torch.zeros(m, device=dev), stride,
+                        torch.float32)
+    checks["levels"] = torch.equal(torch.round(lv / sx).to(torch.int8),
+                                   xq[:, :m, ::stride, ::stride])
+    r = {"shape": f"[{n},{c},{h},{w}]->{co}" + (f" s{stride}" if stride > 1 else ""),
+         "dtype": f"{str(x.dtype)[6:]}->{str(out_dtype)[6:]}", "bit_for_bit": checks,
+         "max_abs_err": max_err(got, want)}
+    ops = 2 * 9 * c * co * n * ho * wo
+    conv_bytes = nbytes(x, kq, sw, bias, got)
+    r["bound_ms"], r["bound_by"] = bound(conv_bytes, ops, "int8")
+    r["absmax_bound_ms"], _ = bound(nbytes(x), n * c * h * w, "bf16")
+    iters = 10 if ops > 1e11 else 20
+    r["ms"] = cuda_ms(lambda: K.int8_conv3x3(x, kq, sw, bias, stride, out_dtype), iters=iters)
+    r["device_ms"] = graph_ms(lambda: K.int8_conv3x3(x, kq, sw, bias, stride, out_dtype),
+                              iters=iters)
+    r["absmax_ms"] = cuda_ms(lambda: K.int8_absmax(x), iters=iters)
+    r["absmax_device_ms"] = graph_ms(lambda: K.int8_absmax(x), iters=iters)
+    r["conv_alone_ms"] = cuda_ms(lambda: K.conv_alone(x, amax.view(torch.int32), kq, sw, bias,
+                                                      stride, out_dtype), iters=iters)
+    r["tops"] = ops / r["device_ms"] / 1e9
+    r["plain_ms"] = cuda_ms(lambda: K.int8_conv3x3_plain(x, kq, sw, bias, stride, out_dtype),
+                            iters=2, warmup=1)
+    r["absmax_library_ms"] = cuda_ms(lambda: x.abs().amax(), iters=iters)
+    # yardsticks: torch._int_mm on the im2col'd levels ([M, K] x [K, Co], K and
+    # Co padded to multiples of 8), cuDNN's bf16 conv at the same shape
+    k_pad, co_pad = -(-9 * c // 8) * 8, -(-co // 8) * 8
+    cols = F.unfold(xq.to(torch.float16), 3, padding=1, stride=stride)  # [n, 9c, L]
+    a = torch.zeros(n * ho * wo, k_pad, dtype=torch.int8, device=dev)
+    a[:, :9 * c] = cols.transpose(1, 2).reshape(-1, 9 * c).to(torch.int8)
+    del cols
+    b = torch.zeros(k_pad, co_pad, dtype=torch.int8, device=dev)
+    b[:9 * c, :co] = kq.reshape(co, 9 * c).t()
+    try:  # a yardstick only: a shape torch._int_mm refuses is recorded, not a failure
+        r["int_mm_ms"] = round(cuda_ms(lambda: torch._int_mm(a, b), iters=iters), 4)
+    except RuntimeError as err:
+        r["int_mm_ms"] = f"refused: {str(err).splitlines()[0]}"
+    del a, b
+    xb, wb = x.to(torch.bfloat16), wt.to(torch.bfloat16)
+    bb = bias.to(torch.bfloat16)
+    r["cudnn_bf16_ms"] = cuda_ms(lambda: F.conv2d(xb, wb, bb, stride=stride, padding=1),
+                                 iters=iters)
+    return r
+
+
+def int8_shapes(shapes: set) -> list:
+    """The conv shapes phase 18 holds: the largest by work of each tower, the
+    Cin 3 and 4 convs, the largest at stride 2, the 32-channel output convs
+    (the RDB's growth convs) of most and least work, the largest of at most 8
+    output channels and the largest on frames up to 8 pixels wide."""
+    def work(sh):
+        _, (n, c, h, w), _, co, st = sh
+        return n * c * h * w * co / st / st
+
+    picked = []
+
+    def pick(cands, most=True):
+        cands = sorted(cands, key=work)
+        if cands:
+            sh = cands[-1] if most else cands[0]
+            if sh not in picked:
+                picked.append(sh)
+
+    for tower in ("vae", "unet", "structcond"):
+        pick([sh for sh in shapes if sh[0] == tower])
+    for cin in (3, 4):
+        pick([sh for sh in shapes if sh[1][1] == cin])
+    pick([sh for sh in shapes if sh[4] == 2])
+    grow = [sh for sh in shapes if sh[3] == 32]
+    pick(grow)
+    pick(grow, most=False)
+    pick([sh for sh in shapes if sh[3] <= 8])
+    pick([sh for sh in shapes if (sh[1][3] - 1) // sh[4] + 1 <= 8])
+    return picked
+
+
+def phase18(pipe16, frames, seed: int, card: str) -> dict:
+    """MGLD_INT8_CONV=1 at full width (docstring, Phase 18)."""
+    import torch
+
+    from mgldvsr_tpu_torch.models.layers import Int8Conv3x3
+
+    steps = 10
+    out = {}
+    with part("phase18 pipeline"):
+        pipe = int8_pipeline(seed, steps)
+    mods = {(tower, name): m for tower in ("unet", "structcond", "vae")
+            for name, m in pipe.towers()[tower].named_modules() if isinstance(m, Int8Conv3x3)}
+    # nothing quantized from bf16: every site holds levels taken from its float32
+    # weight before the cast, valid for the bf16 weight it holds now
+    for key, m in mods.items():
+        if m.weight.dtype != torch.bfloat16 or m._levels is None:
+            raise AssertionError(f"phase 18: {key} holds no levels from float32 weights")
+        m.levels()
+    with part("phase18 restores"), sampler_steps(pipe16, steps):
+        ref, ref_counts, ref_stages, _, _ = int8_restore(pipe16, frames, seed, card,
+                                                            f"phase 4's pipeline, {steps} steps")
+        got, counts, stages, calls, shapes = int8_restore(pipe, frames, seed, card,
+                                                             f"int8 convs, {steps} steps")
+    if got.shape != (5, 512, 512, 3) or not torch.isfinite(got).all() or got.min() < 0 \
+            or got.max() > 1:
+        raise AssertionError("phase 18: the int8 restore is not finite [5,512,512,3] in [0, 1]")
+    # every mapped site: once a UNet (and struct-cond) call, once in the encode or decode
+    for (tower, name), m in mods.items():
+        want = steps if tower in ("unet", "structcond") else 1
+        if calls.get((tower, name), 0) != want:
+            raise AssertionError(f"phase 18: {tower}.{name} ran {calls.get((tower, name), 0)} "
+                                 f"times, expected {want}")
+    total = sum(calls.values())
+    if not counts["int8_conv3x3"] == counts["int8_absmax"] == total:
+        raise AssertionError(f"phase 18: int8 launches {counts['int8_absmax']} / "
+                             f"{counts['int8_conv3x3']}, expected one each for the {total} calls")
+    for name in KERNELS:
+        if (counts[name] == 0) != (name in FUSED_ONLY + STANDALONE):
+            raise AssertionError(f"phase 18: kernel {name} was launched {counts[name]} times")
+    if any(ref_counts[name] for name in INT8_ONLY):
+        raise AssertionError("phase 18: phase 4's pipeline launched an int8 kernel")
+    diff = (got - ref).abs()
+    out.update(counts=counts, sites=len(mods), calls=total, launches_a_step=sum(
+        n for (tower, _), n in calls.items() if tower != "vae") // steps,
+        sampler_ms_per_step=1000 * stages["sampler"] / steps,
+        phase4_sampler_ms_per_step=1000 * ref_stages["sampler"] / steps,
+        mean_abs_vs_phase4=float(diff.mean()), max_abs_vs_phase4=float(diff.max()))
+    log(f"[phase18] {len(mods)} int8 sites, {total} calls, every one on the kernel "
+        f"({counts['int8_conv3x3']} conv and {counts['int8_absmax']} absmax launches; "
+        f"{out['launches_a_step']} a sampler step); sampler {out['sampler_ms_per_step']:.2f} "
+        f"ms/step against phase 4's pipeline {out['phase4_sampler_ms_per_step']:.2f} at the "
+        f"same {steps} steps; |int8 - phase 4| mean {out['mean_abs_vs_phase4']:.4e} max "
+        f"{out['max_abs_vs_phase4']:.4e} (no limit)  [{card}]")
+    del pipe, mods, got, ref
+    torch.cuda.empty_cache()
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cases = {}
+    with part("phase18 kernels"):
+        for tower, shape, dtype, co, stride in int8_shapes(shapes):
+            n, c, h, w = shape
+            x = torch.randn(shape, device=dev, generator=gen).to(getattr(torch, dtype))
+            wt = torch.randn(co, c, 3, 3, device=dev, generator=gen) / (9 * c) ** 0.5
+            bias = 0.1 * torch.randn(co, device=dev, generator=gen)
+            r = int8_case(x, wt, bias, stride, torch.bfloat16)
+            r["tower"] = tower
+            cases[r["shape"]] = r
+            log(f"[phase18] {tower} {r['shape']} {r['dtype']}: bit for bit {r['bit_for_bit']}; "
+                f"chain {r['ms']:.4f} ms (device {r['device_ms']:.4f}, {r['tops']:.1f} TOPS), "
+                f"absmax {r['absmax_ms']:.4f} (device {r['absmax_device_ms']:.4f}, bound "
+                f"{r['absmax_bound_ms']:.4f}, x.abs().amax() {r['absmax_library_ms']:.4f}), "
+                f"conv alone {r['conv_alone_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                f"({r['bound_by']}), plain {r['plain_ms']:.4f}; yardsticks torch._int_mm "
+                f"{r['int_mm_ms']}, cuDNN bf16 {r['cudnn_bf16_ms']:.4f}  [{card}]")
+            if not all(r["bit_for_bit"].values()):
+                raise AssertionError(f"phase 18: {r['shape']} differs from the plain version: "
+                                     f"{r['bit_for_bit']}")
+            del x, wt
+    out["cases"] = cases
+    first = next(r for r in cases.values() if r["tower"] == "vae")
+    worst = max(r["max_abs_err"] for r in cases.values())
+    out["results"] = {
+        "int8_conv3x3": {"shape": first["shape"], "max_abs_err": worst, "ms": first["ms"],
+                         "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+                         "bound_by": first["bound_by"], "library_ms": None,
+                         "device_ms": first["device_ms"], "int_mm_ms": first["int_mm_ms"],
+                         "cudnn_bf16_ms": first["cudnn_bf16_ms"], "shapes": cases},
+        "int8_absmax": {"shape": first["shape"].split("->")[0], "max_abs_err": 0.0,
+                        "ms": first["absmax_ms"], "plain_ms": first["absmax_library_ms"],
+                        "bound_ms": first["absmax_bound_ms"], "bound_by": "bytes",
+                        "library_ms": first["absmax_library_ms"],
+                        "device_ms": first["absmax_device_ms"]},
+    }
+    return out
+
+
+
 def straight_runs(seed: int, card: str, keep: dict) -> None:
     """Phases 8 (b) and 9 (b)'s straight runs alone, kept for phase 12."""
     import tempfile
@@ -6058,6 +6358,9 @@ def main() -> int:
     ap.add_argument("--only-loader", action="store_true",
                     help="build the kernels and run phase 17 alone: the native clip loader, "
                          "the profiling hooks and the loader benchmark (no result line)")
+    ap.add_argument("--only-int8", action="store_true",
+                    help="build the kernels and run phase 18 alone on phase 4's weights (no "
+                         "result line)")
     ap.add_argument("--only-heritage", action="store_true",
                     help="run phase 16 alone: MaskFlownet, the deformable conv and the "
                          "BasicSR heritage (no kernel build, no result line)")
@@ -6126,6 +6429,11 @@ def main() -> int:
         with wall("phase15", card, times):
             log(json.dumps(phase15(args.seed, card), default=str))
         return 0
+    if args.only_int8:
+        pipe, frames = full_pipeline(args.seed, args.steps)
+        with wall("phase18", card, times):
+            log(json.dumps(phase18(pipe, frames, args.seed, card), default=str))
+        return 0
     if args.only_train_parallel:
         with tempfile.TemporaryDirectory() as tmp:
             keep = {"dir": tmp}
@@ -6159,6 +6467,9 @@ def main() -> int:
         parallel = phase11(pipe, frames, args.seed, card)
     with wall("phase13", card, times):
         fp32 = phase13(pipe, frames, args.seed, args.steps, card)
+    with wall("phase18", card, times):
+        int8 = phase18(pipe, frames, args.seed, card)
+    results.update(int8.pop("results"))
     del pipe, frames
     with wall("phase7", card, times):
         phase7(card)
@@ -6189,9 +6500,11 @@ def main() -> int:
         f"{json.dumps(loader, default=str)}  [{card}]")
 
     # launches: the count on the path that runs the kernel (the fused
-    # configuration for the fused conv, the default one for the others)
+    # configuration for the fused conv, phase 18's restore for the int8 convs,
+    # the default one for the others)
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
-                "launches": (counts5 if name in FUSED_ONLY else counts4)[name],
+                "launches": (counts5 if name in FUSED_ONLY else
+                             int8["counts"] if name in INT8_ONLY else counts4)[name],
                 "launches_default": counts4[name], "launches_fused": counts5[name],
                 "launches_latent": counts_latent[name],
                 "launches_tile": tile["auto"]["counts"][name],
@@ -6207,6 +6520,7 @@ def main() -> int:
                 "launches_txt2img": t2i["default"]["counts"][name],
                 "launches_txt2img_fused": t2i["fused"]["counts"][name],
                 "launches_loader_train": loader["train"]["counts"][name],
+                "launches_int8": int8["counts"][name],
                 **results[name]}
                for name, (route, src, rep) in KERNELS.items()]
     for entry in kernels:

@@ -16,6 +16,7 @@ latents and flows are NHWC at this boundary; the towers inside are NCHW
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -493,7 +494,11 @@ class MGLDVSRPipeline:
         ``patch_batch`` gives the same frames up to the towers' rounding
         (bf16 kernels may sum in another order at another batch). ``patch_batch=None`` takes
         :meth:`patch_batch_envelope`. ``stage_seconds``, when given, gets
-        the seconds of ``upscale``, ``flows``, ``patches`` and ``gather``.
+        the seconds of ``upscale``, ``flows``, ``patches`` and ``gather``;
+        with ``MGLD_PROGRESS`` set (read at the call) the JAX package's stage
+        lines are printed: ``[restore_video] <stage> <s>s`` for
+        ``pre-upscale+pad``, ``flows`` (with guidance) and the patch loop
+        with the gather (the gather's seconds as its ``drain``).
         ``patch_group`` (a process group; every rank calls with the same
         frames and generator state) splits the patch groups over its ranks
         (:meth:`_restore_patches`): the same frames on every rank."""
@@ -504,7 +509,8 @@ class MGLDVSRPipeline:
         if lq_frames_01.shape[0] != t:
             raise ValueError(f"restore_video takes one window of {t} frames, got "
                              f"{tuple(lq_frames_01.shape)}")
-        clock = _StageClock(self.device, stage_seconds)
+        clock = _StageClock(self.device, stage_seconds,
+                            "restore_video" if os.environ.get("MGLD_PROGRESS") else None)
         size_auto = pch_size <= 0
         if size_auto:
             pch_size = 8 * tile
@@ -516,7 +522,7 @@ class MGLDVSRPipeline:
         work_h, work_w = int(h0 * upsample_scale), int(w0 * upsample_scale)
         frames = torch.clamp(resize2d(lq_frames_01, (work_h, work_w), method="bicubic"), 0.0, 1.0)
         frames = reflect_pad(frames, (-work_h) % 32, (-work_w) % 32)
-        clock.lap("upscale")
+        clock.show("pre-upscale+pad", clock.lap("upscale"))
 
         spliter = ImageSpliter(tuple(frames.shape), pch_size, pch_stride)
         patches = [patch for patch, _ in spliter.split(frames)]
@@ -538,7 +544,9 @@ class MGLDVSRPipeline:
             for i, (oy, ox) in enumerate(fsplit.positions[:len(patches)]):
                 flow_patches[i] = tuple(tuple(a[:, :, oy:oy + ph, ox:ox + pw] for a in pair)
                                       for pair in ((ff, fb), (of, ob)))
-        clock.lap("flows")
+        secs = clock.lap("flows")
+        if use_guidance:
+            clock.show("flows", secs)
 
         if patch_batch is None:
             patch_batch = self.patch_batch_envelope(*patches[0].shape[1:3])
@@ -561,7 +569,7 @@ class MGLDVSRPipeline:
             return [o[j * t:(j + 1) * t] for j in range(len(group))]
 
         outs = self._restore_patches(len(patches), restore_group, patch_batch, patch_group)
-        clock.lap("patches")
+        secs = clock.lap("patches")
 
         full = torch.clamp((spliter.gather(outs) + 1.0) / 2.0, 0.0, 1.0)
         if upsample_scale > cfg.sf:
@@ -571,7 +579,14 @@ class MGLDVSRPipeline:
             out_w = int(frames.shape[2] * cfg.sf / upsample_scale)
             full = torch.clamp(resize2d(full, (out_h, out_w), method="bicubic"), 0.0, 1.0)
         full = full[:, :work_h, :work_w]
-        clock.lap("gather")
+        drain = clock.lap("gather")
+        if patch_group is None:
+            clock.show(f"patch loop ({len(patches)}) + device gather (drain {drain:.2f}s)",
+                       secs + drain)
+        else:
+            clock.show(f"patch loop sharded ({len(patches)} over "
+                       f"{dist.get_world_size(patch_group)} devices) + device gather",
+                       secs + drain)
         return full
 
     def _restore_patches(self, n_patches: int, restore_group: Callable, patch_batch: int,
@@ -648,22 +663,33 @@ def reflect_pad(frames: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
 
 
 class _StageClock:
-    """Wall seconds per stage, synchronising the device at each lap; does
-    nothing when no dict is given."""
+    """Wall seconds per stage, synchronising the device at each lap, into
+    ``out``; with ``progress`` (a method's name) :meth:`show` prints a stage
+    line ``[progress] <stage> <s>s``. Does nothing without either."""
 
-    def __init__(self, device: torch.device, out: Optional[Dict[str, float]]):
+    def __init__(self, device: torch.device, out: Optional[Dict[str, float]],
+                 progress: Optional[str] = None):
         self.device = device
         self.out = out
-        self.t = time.perf_counter() if out is not None else 0.0
+        self.progress = progress
+        self.on = out is not None or progress is not None
+        self.t = time.perf_counter() if self.on else 0.0
 
-    def lap(self, name: str) -> None:
-        if self.out is None:
-            return
+    def lap(self, name: str) -> float:
+        """The seconds since the last lap (0.0 when off)."""
+        if not self.on:
+            return 0.0
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
-        self.out[name] = now - self.t
-        self.t = now
+        secs, self.t = now - self.t, now
+        if self.out is not None:
+            self.out[name] = secs
+        return secs
+
+    def show(self, stage: str, secs: float) -> None:
+        if self.progress is not None:
+            print(f"[{self.progress}] {stage} {secs:.2f}s", flush=True)
 
 
 def upscale_frames(frames_01: torch.Tensor, sf: int = 4) -> torch.Tensor:

@@ -21,6 +21,18 @@ the TPU program slower; eager PyTorch has no such fusion to lose, and the
 plain form is about eight small launches per call. On a CPU tensor both
 keep their plain code.
 
+``MGLD_INT8_CONV=1`` (read when a conv is built, by :func:`conv3x3`) makes
+every 3x3 conv that the JAX package builds with its ``conv3x3()`` an
+:class:`Int8Conv3x3` (the JAX name): the towers' convs, res-block convs,
+``Downsample.op``, SPADE's three, the RDB's five and the ``conv_in`` of
+each tower. ``Upsample.conv`` (the JAX package's phase-decomposed conv),
+``VAEDownsample``, the temporal and the 1x1 convs stay as they are, and so
+does a chain that ``MGLD_FUSED_GN_CONV`` sends to the fused kernel. The JAX
+package reads the switch while tracing; the port reads it once, when the
+module is built, so a tower built under it runs int8 whatever the variable
+says later, and a tower built without it never does. The state-dict keys
+are ``Conv2d``'s either way.
+
 ``MGLD_FUSED_GN_CONV`` (read at call time; ``1``/``true``/``on``, or
 ``auto`` = on for CUDA tensors) sends every 4-D GroupNorm -> SiLU -> conv3x3
 chain through the one-kernel :func:`gn_silu_conv3x3`; the modules and their
@@ -40,12 +52,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mgldvsr_tpu_torch.ops.kernels.gn_silu_conv import gn_silu_conv3x3
+from mgldvsr_tpu_torch.ops.kernels.gn_silu_conv import gn_silu_conv3x3, tensor_state
 from mgldvsr_tpu_torch.ops.kernels.groupnorm import (
     channel_sums,
     fused_group_norm,
     group_scale_shift,
 )
+from mgldvsr_tpu_torch.ops.kernels.int8_conv import int8_conv3x3, quantize_weight, weight_levels
 from mgldvsr_tpu_torch.parallel.tensor import ColumnParallel, copy_to_group, gather_columns
 
 
@@ -89,7 +102,102 @@ def cast_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return module
 
 
+def int8_conv_enabled() -> bool:
+    """``MGLD_INT8_CONV=1``: :func:`conv3x3` builds :class:`Int8Conv3x3`."""
+    return os.environ.get("MGLD_INT8_CONV") == "1"
+
+
+class Int8Conv3x3(Conv2d):
+    """3x3 conv, padding 1, on int8 levels (``MGLD_INT8_CONV=1``): a dynamic
+    activation scale over the whole input, one weight scale an output
+    channel, int32 sums, float32 dequantisation and bias, the output in the
+    weight's (the tower's) dtype; the input is quantized in its own dtype,
+    as in the JAX module. Keys and shapes are ``Conv2d``'s.
+
+    The levels come from the **float32** weight and bias, as in the JAX
+    package, whose parameters stay float32: a float32 weight gives them at
+    call time (cached until it changes); a weight cast to a low-precision
+    dtype by ``.to()`` (:func:`cast_weights`) keeps the levels, scales and
+    float32 bias derived just before the cast, and ``load_state_dict`` of a
+    float32 state dict into a low-precision module derives them from the
+    incoming tensors. A low-precision weight without them (changed in place
+    since, or loaded from a low-precision state dict) raises: the levels are
+    never taken from a rounded weight. Training is not ported (the JAX
+    module's gradient reaches only the scales and the bias): a call that
+    would record a gradient raises."""
+
+    tensor_parallel_refused = ("an int8 conv has no column-parallel form (int8 training is "
+                               "not ported)")
+
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__(cin, cout, 3, stride=stride, padding=1)
+        self._levels = None   # (states of weight and bias, kq, sw, float32 bias)
+        self._pending = None  # levels of a state dict being loaded
+        self.register_load_state_dict_pre_hook(Int8Conv3x3._levels_from_state_dict)
+        self.register_load_state_dict_post_hook(Int8Conv3x3._levels_after_load)
+
+    def _states(self) -> tuple:
+        return tensor_state(self.weight), tensor_state(self.bias)
+
+    def _keep(self, kq, sw, bias) -> None:
+        dev = self.weight.device
+        self._levels = (self._states(), kq.to(dev), sw.to(dev), bias.detach().float().to(dev))
+
+    def levels(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(kq int8 [Co,C,3,3], sw float32 [Co], bias float32 [Co])."""
+        if self.weight.dtype == torch.float32:
+            return (*weight_levels(self.weight), self.bias.float())
+        lv = self._levels
+        if lv is None or lv[0] != self._states():
+            raise RuntimeError(
+                f"Int8Conv3x3: the {self.weight.dtype} weight has no int8 levels taken from its "
+                f"float32 values; cast the module from float32 (.to()) or load a float32 state "
+                f"dict into it after changing the weight (the levels are never taken from a "
+                f"rounded weight)")
+        return lv[1:]
+
+    def _apply(self, fn, recurse=True):
+        keep = None
+        if not self.weight.is_meta:
+            if self.weight.dtype == torch.float32:
+                keep = (*quantize_weight(self.weight), self.bias.detach().clone())
+            elif self._levels is not None and self._levels[0] == self._states():
+                keep = self._levels[1:]
+        out = super()._apply(fn, recurse)
+        self._levels = None
+        if keep is not None and not self.weight.is_meta:
+            self._keep(*keep)
+        return out
+
+    def _levels_from_state_dict(self, state_dict, prefix, *_):
+        w, b = state_dict.get(prefix + "weight"), state_dict.get(prefix + "bias")
+        self._pending = None
+        if (isinstance(w, torch.Tensor) and w.dtype == torch.float32 and not w.is_meta
+                and isinstance(b, torch.Tensor)):
+            self._pending = (*quantize_weight(w), b.detach().float().clone())
+
+    def _levels_after_load(self, _incompatible):
+        if self._pending is not None:
+            self._keep(*self._pending)
+        self._pending = None
+
+    def forward(self, x):
+        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
+                                        or self.bias.requires_grad):
+            raise RuntimeError(
+                "Int8Conv3x3: MGLD_INT8_CONV has no training path in the port (ROADMAP §1, "
+                "\"int8 training\": the JAX module's gradient reaches only the scales and the "
+                "bias); run it under torch.no_grad() or with frozen weights and inputs")
+        kq, sw, bias = self.levels()
+        return int8_conv3x3(x.contiguous(), kq, sw, bias, self.stride[0], self.weight.dtype)
+
+
 def conv3x3(cin: int, cout: int, stride: int = 1) -> Conv2d:
+    """A 3x3 conv, padding 1: :class:`Int8Conv3x3` when
+    ``MGLD_INT8_CONV=1`` at this call, else ``Conv2d``. Every site where the
+    JAX package calls its ``conv3x3()`` builds through here."""
+    if int8_conv_enabled():
+        return Int8Conv3x3(cin, cout, stride)
     return Conv2d(cin, cout, 3, stride=stride, padding=1)
 
 
@@ -198,11 +306,12 @@ def norm_silu_conv3x3(cin: int, cout: int, dtype, eps: float = 1e-5) -> nn.Seque
 
 
 class Upsample(nn.Module):
-    """2x nearest upsample followed by a 3x3 conv (key ``conv``)."""
+    """2x nearest upsample followed by a 3x3 conv (key ``conv``; never int8:
+    the JAX package's is its phase-decomposed conv, not ``conv3x3()``)."""
 
     def __init__(self, channels: int, out_channels: int | None = None):
         super().__init__()
-        self.conv = conv3x3(channels, out_channels or channels)
+        self.conv = Conv2d(channels, out_channels or channels, 3, padding=1)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))

@@ -6,11 +6,14 @@ Encoder / VideoDecoder_Mix / VideoAutoencoderKLResi (``down.{i}.block.{j}``,
 so the state-dict keys are upstream's. ``ResidualDenseBlock`` is the plain
 concat form; the JAX package's decomposed form is a TPU rewrite of it.
 
-``use_checkpoint`` recomputes each decoder res block and fusion block in the
-backward (non-reentrant ``torch.utils.checkpoint``) instead of keeping its
-activations: the stage-2 memory lever. The JAX package's ``remat_min_res``
-(remat only above a resolution) is a TPU fit lever and is not ported: the
-config takes its default 0 and refuses any other value.
+``use_checkpoint`` recomputes decoder res blocks and fusion blocks in the
+backward (non-reentrant ``torch.utils.checkpoint``) instead of keeping their
+activations: the stage-2 memory lever. ``remat_min_res`` narrows it as the
+JAX package's ``VAEConfig.res_block_cls`` / ``fuse_block_cls`` do: only the
+blocks whose running height (at the level's entry, or the fusion block's
+decoder input) is at least this value are recomputed (0: every one). The
+high-resolution levels hold most of the activations, while the recompute is
+paid a block. The result is the same bit for bit either way.
 
 ``dropout`` is accepted and inert, as it is in the JAX package, whose
 Encoder and Decoder never pass ``deterministic=False`` to their res blocks.
@@ -58,16 +61,14 @@ class VAEConfig:
     enable_fusion: bool = False  # LQ-feature fusion taps at up-levels 1, 2
     num_fuse_block: int = 2
     use_checkpoint: bool = False  # recompute decoder blocks in the backward
-    remat_min_res: int = 0       # the JAX package's TPU-only remat selectivity: 0 only
+    remat_min_res: int = 0       # ... only those at a height >= this (0: every one)
     dtype: torch.dtype = torch.float32
 
-    def __post_init__(self):
-        if self.remat_min_res != 0:
-            raise ValueError(
-                f"VAEConfig.remat_min_res={self.remat_min_res!r}: selective remat by "
-                f"resolution is a TPU-only option of the JAX package and is not ported; "
-                f"use use_checkpoint=True (every decoder block recomputed) and leave "
-                f"remat_min_res at 0")
+    def remat(self, cur_h: int) -> bool:
+        """Whether a decoder block running at height ``cur_h`` is recomputed
+        in the backward (the JAX ``res_block_cls`` / ``fuse_block_cls``
+        rule)."""
+        return self.use_checkpoint and cur_h >= self.remat_min_res
 
 
 class _Level(nn.Module):
@@ -229,29 +230,32 @@ class Decoder(nn.Module):
         self.norm_out = GroupNorm(block_in, eps=1e-6, dtype=dt)
         self.conv_out = conv3x3(block_in, cfg.out_ch)
 
-    def _run(self, block: nn.Module, *args):
-        """``block(*args)``, recomputed in the backward under
-        ``use_checkpoint`` when a gradient is being recorded."""
-        if self.cfg.use_checkpoint and torch.is_grad_enabled():
+    def _run(self, block: nn.Module, cur_h: int, *args):
+        """``block(*args)``, recomputed in the backward when a gradient is
+        being recorded and ``cfg.remat(cur_h)``."""
+        if self.cfg.remat(cur_h) and torch.is_grad_enabled():
             return torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False)
         return block(*args)
 
     def forward(self, z, enc_fea: Optional[Sequence[torch.Tensor]] = None,
                 fusion_w: float = 1.0):
-        h = self._run(self.mid.block_1, self.conv_in(z))
+        h = self.conv_in(z)
+        h = self._run(self.mid.block_1, h.shape[2], h)
         if hasattr(self, "temporal_mixing"):
             h = self.temporal_mixing(h)
-        h = self._run(self.mid.block_2, self.mid.attn_1(h))
+        h = self._run(self.mid.block_2, h.shape[2], self.mid.attn_1(h))
         for i in reversed(range(len(self.up))):
             level = self.up[i]
+            cur_h = h.shape[2]
             for j, block in enumerate(level.block):
-                h = self._run(block, h)
+                h = self._run(block, cur_h, h)
                 if hasattr(level, "temporal_mixing"):
                     h = level.temporal_mixing[j](h)
                 if len(level.attn):
                     h = level.attn[j](h)
             if enc_fea is not None and hasattr(self, f"fusion_layer_{i}"):
-                h = self._run(getattr(self, f"fusion_layer_{i}"), enc_fea[i - 1], h, fusion_w)
+                h = self._run(getattr(self, f"fusion_layer_{i}"), h.shape[2], enc_fea[i - 1], h,
+                              fusion_w)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
         return norm_silu_conv(self.norm_out, self.conv_out, h)

@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels of the restore path, each beside its plain
-PyTorch version. Each wrapper counts the launches it makes in an integer
+"""Hand-written Hopper kernels of the restore path (and of its
+``MGLD_INT8_CONV=1`` convs), each beside its plain PyTorch version. Each wrapper counts the launches it makes in an integer
 attribute ``launches``; :func:`launch_counts` and
 :func:`reset_launch_counts` read and clear them all. The attention wrapper
 also counts which of its four kernels ran and how many calls read their
@@ -14,6 +14,7 @@ from mgldvsr_tpu_torch.ops.kernels import (
     gn_silu_conv,
     groupnorm,
     guidance,
+    int8_conv,
 )
 
 WRAPPERS = {
@@ -27,6 +28,8 @@ WRAPPERS = {
     "fused_group_norm": groupnorm.fused_group_norm,
     "gn_scale_shift": groupnorm.gn_scale_shift,
     "gn_silu_conv3x3": gn_silu_conv.gn_silu_conv3x3,
+    "int8_absmax": int8_conv.int8_absmax,
+    "int8_conv3x3": int8_conv.int8_conv3x3,
 }
 
 

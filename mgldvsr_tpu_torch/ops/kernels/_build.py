@@ -81,6 +81,12 @@ SIGNATURES = {
     "mgld_channel_sums_bf16": (_P, _P, _P, _L, _L, _I, _P),
     "mgld_channel_sums_f16": (_P, _P, _P, _L, _L, _I, _P),
     "mgld_channel_sums_f32": (_P, _P, _P, _L, _L, _I, _P),
+    # x, x's type (0 f32, 1 bf16, 2 f16), element count, 4-byte scratch for max|x|, stream
+    "mgld_int8_absmax": (_P, _I, _L, _P, _P),
+    # x, x's type, max|x| scratch (filled by the chain), levels re-laid [9][co][cp], scales
+    # fp32 [co], bias fp32 [co], out, out's type, n, c, cp, h, w, co, stride, stream
+    "mgld_int8_conv3x3": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "mgld_int8_conv3x3_chain": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, GroupNorm weight, GroupNorm bias, y, samples * groups, channels a group, spatial
     # elements a channel, groups, eps, blocks a slab, shared-memory bytes of a share, stream
     "mgld_group_norm_bf16": (_P, _P, _P, _P, _L, _I, _L, _I, _F, _I, _I, _P),

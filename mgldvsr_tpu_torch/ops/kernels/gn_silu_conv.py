@@ -81,13 +81,19 @@ def relayout_weight(weight: torch.Tensor) -> torch.Tensor:
 _DERIVED: dict[tuple, tuple] = {}  # (id(tensor), what) -> (weak reference, state, copy)
 
 
+def tensor_state(tensor: torch.Tensor) -> tuple:
+    """What changes when a tensor's values may have: its address, version
+    counter, shape, dtype and device."""
+    return (tensor.data_ptr(), tensor._version, tuple(tensor.shape), tensor.dtype, tensor.device)
+
+
 def _derived(tensor: torch.Tensor, what: str, make) -> torch.Tensor:
     """``make(tensor)``, computed at the first call and again after the tensor
-    changed: the cache entry holds the tensor's address, version counter,
-    shape, dtype and device, and goes when the tensor does."""
+    changed (:func:`tensor_state`); the cache entry goes when the tensor
+    does."""
     key = (id(tensor), what)
     entry = _DERIVED.get(key)
-    state = (tensor.data_ptr(), tensor._version, tuple(tensor.shape), tensor.dtype, tensor.device)
+    state = tensor_state(tensor)
     if entry is not None and entry[0]() is tensor and entry[1] == state:
         return entry[2]
     made = make(tensor)
@@ -101,7 +107,8 @@ _derived.made = 0  # copies made so far (a warm path makes none)
 
 def derived_bytes() -> tuple[int, int]:
     """(tensors, bytes) that the cache holds now."""
-    copies = [entry[2] for entry in _DERIVED.values()]
+    copies = [t for entry in _DERIVED.values()
+              for t in (entry[2] if isinstance(entry[2], tuple) else (entry[2],))]
     return len(copies), sum(t.numel() * t.element_size() for t in copies)
 
 

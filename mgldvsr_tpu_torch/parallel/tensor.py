@@ -182,6 +182,9 @@ def shard_module(module: nn.Module, axes: Dict[str, int], grid: mesh.Grid) -> No
         for n in names:
             if todo.pop(prefix + n) != 0:
                 raise ValueError(f"shard_module: {prefix}{n} would be split off its output axis")
+        refused = getattr(m, "tensor_parallel_refused", None)
+        if refused:
+            raise ValueError(f"shard_module: {type(m).__name__} at {path!r}: {refused}")
         if isinstance(m, _LAYERS) and names == ["weight"]:
             m.__class__ = _column_form(type(m))
         elif not set(names) <= set(getattr(m, "column_parallel", ())):

@@ -99,7 +99,7 @@ def apply_to_dataclass(instance, cfg: Optional[Dict]):
     the config as that string; the JAX loader keeps the string, which is
     truthy) and refuses any other string. An unknown key raises
     ``KeyError`` naming the valid ones; a dataclass's own checks (e.g.
-    ``VAEConfig.remat_min_res``) raise ``ValueError``."""
+    ``RAFTConfig.lookup_impl``) raise ``ValueError``."""
     fields = {f.name for f in dataclasses.fields(instance)}
     kwargs: Dict[str, Any] = {}
     for key, value in (cfg or {}).items():

@@ -207,6 +207,34 @@ def test_restore_video_matches_jax(pipes, patch_batch):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-4 * 1.375 ** 2, rtol=0)
 
 
+def test_restore_video_progress_lines_match_jax(pipes, monkeypatch, capsys):
+    """``MGLD_PROGRESS`` set: the port prints the JAX package's stage lines
+    (``[restore_video] <stage> <s>s``), the same stages in the same order,
+    with its own seconds; without guidance no ``flows`` line; unset,
+    nothing."""
+    import re
+
+    jpipe, params, pipe = pipes
+    frames = _clip(3, 13, 11)
+    kw = dict(pch_size=64, pch_stride=48, min_side=64, deterministic=True, **TILE)
+    monkeypatch.setenv("MGLD_PROGRESS", "1")
+    jpipe.restore_video(params, jnp.asarray(frames), jax.random.PRNGKey(0), **kw)
+
+    def stages(out):
+        return [re.sub(r"\d+\.\d\ds", "<s>", line) for line in out.splitlines()]
+
+    want = stages(capsys.readouterr().out)
+    assert want == ["[restore_video] pre-upscale+pad <s>", "[restore_video] flows <s>",
+                    "[restore_video] patch loop (2) + device gather (drain <s>) <s>"]
+    pipe.restore_video(torch.from_numpy(frames), **kw)
+    assert stages(capsys.readouterr().out) == want
+    pipe.restore_video(torch.from_numpy(frames), use_guidance=False, **kw)
+    assert stages(capsys.readouterr().out) == [want[0], want[2]]
+    monkeypatch.delenv("MGLD_PROGRESS")
+    pipe.restore_video(torch.from_numpy(frames), **kw)
+    assert capsys.readouterr().out == ""
+
+
 def test_restore_with_latents_matches_jax(pipes, monkeypatch):
     """The w_latent protocol (flows at full resolution, the swapped masks,
     guidance -1.0). The JAX function always samples, so its gaussian draws

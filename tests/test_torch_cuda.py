@@ -1181,3 +1181,80 @@ def test_tiny_encoders_on_card_match_cpu(dev):
 
     out = chip_smoke.encoders_card_vs_cpu(0, "test")
     assert {"classifier_attention", "clip_image", "textual_inversion_grad"} <= set(out)
+
+
+@pytest.mark.parametrize("shape,co,stride,dtype,out_dtype", [
+    ((2, 3, 17, 23), 32, 1, torch.float32, torch.float32),
+    ((2, 4, 16, 16), 8, 2, torch.bfloat16, torch.bfloat16),
+    ((2, 160, 20, 24), 32, 1, torch.bfloat16, torch.bfloat16),
+    ((2, 288, 9, 11), 128, 2, torch.float16, torch.float32),
+    ((5, 320, 8, 8), 320, 1, torch.bfloat16, torch.bfloat16),
+    ((5, 128, 40, 72), 128, 1, torch.bfloat16, torch.bfloat16)])
+def test_int8_conv_kernels_equal_plain(dev, shape, co, stride, dtype, out_dtype):
+    """MGLD_INT8_CONV's two kernels against the plain version bit for bit:
+    the output, max|x|, and the int32 sums (the conv kernel alone on the
+    levels with both scales 1); Cin off the 32-channel stage, both strides,
+    every tile variant (Co <= 8, <= 32, frames <= 8 wide, the rest)."""
+    from mgldvsr_tpu_torch.ops.kernels import int8_conv as K
+
+    g = _gen(dev)
+    x = (2 * torch.randn(shape, device=dev, generator=g)).to(dtype)
+    wt = torch.randn(co, shape[1], 3, 3, device=dev, generator=g) / (9 * shape[1]) ** 0.5
+    bias = 0.1 * torch.randn(co, device=dev, generator=g)
+    kq, sw = K.quantize_weight(wt)
+    kernels.reset_launch_counts()
+    got = K.int8_conv3x3(x, kq, sw, bias, stride, out_dtype)
+    counts = kernels.launch_counts()
+    assert (counts["int8_absmax"], counts["int8_conv3x3"]) == (1, 1)
+    assert torch.equal(got, K.int8_conv3x3_plain(x, kq, sw, bias, stride, out_dtype))
+    assert torch.equal(K.int8_absmax(x), x.abs().amax().float().reshape(1))
+    xq, _ = K.quantize_activation(x)
+    one = torch.tensor([127.0], device=dev).view(torch.int32)
+    acc = K.conv_alone(xq.to(dtype).contiguous(), one, kq, torch.ones_like(sw),
+                       torch.zeros_like(bias), stride, torch.float32)
+    assert torch.equal(acc, K.int8_accumulate(xq, kq, stride).float())
+
+
+def test_int8_levels_on_card_equal_the_cpu_levels(dev):
+    """The scales divide by 127 on the card as on the CPU (a division by a
+    Python number would be a product with its reciprocal on CUDA): the
+    levels and scales of a weight and of an activation are the CPU's bit
+    for bit."""
+    from mgldvsr_tpu_torch.ops.kernels import int8_conv as K
+
+    g = torch.Generator().manual_seed(0)
+    for _ in range(4):
+        w = torch.randn(320, 64, 3, 3, generator=g) * torch.rand(320, 1, 1, 1, generator=g)
+        x = torch.randn(5, 3, 64, 64, generator=g) * torch.rand(1, generator=g) * 3
+        for got, want in zip((*K.quantize_weight(w.to(dev)), *K.quantize_activation(x.to(dev))),
+                             (*K.quantize_weight(w), *K.quantize_activation(x))):
+            assert torch.equal(got.cpu(), want)
+
+
+def test_int8_conv_module_on_card(dev, monkeypatch):
+    """An ``Int8Conv3x3`` cast to bf16 on the card launches the kernels with
+    the levels of its float32 weight; a view off the 16-byte boundary and a
+    zero input are taken; training raises."""
+    from mgldvsr_tpu_torch.models.layers import Int8Conv3x3, conv3x3
+    from mgldvsr_tpu_torch.ops.kernels import int8_conv as K
+
+    monkeypatch.setenv("MGLD_INT8_CONV", "1")
+    conv = conv3x3(64, 48).to(dev)
+    assert isinstance(conv, Int8Conv3x3)
+    kq, sw = K.quantize_weight(conv.weight)
+    bias = conv.bias.detach().clone()
+    conv.to(torch.bfloat16)
+    x = torch.randn(3, 64, 10, 14, device=dev, generator=_gen(dev)).to(torch.bfloat16)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        got = conv(x)
+        assert kernels.launch_counts()["int8_conv3x3"] == 1
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, K.int8_conv3x3_plain(x, kq, sw, bias, 1, torch.bfloat16))
+        odd = torch.randn(3 * 64 * 10 * 14 + 1, device=dev).to(torch.bfloat16)[1:]
+        assert torch.equal(K.int8_absmax(odd), odd.abs().amax().float().reshape(1))
+        zero = torch.zeros_like(x)
+        assert torch.equal(conv(zero), K.int8_conv3x3_plain(zero, kq, sw, bias, 1,
+                                                            torch.bfloat16))
+    with pytest.raises(RuntimeError, match="int8 training"):
+        conv(x)

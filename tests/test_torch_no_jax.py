@@ -39,7 +39,7 @@ for m in ("cli.infer", "data.video_folder", "utils.config", "io.frames", "io.tor
           "models.heritage", "models.heritage.sr_archs", "models.heritage.video_archs",
           "models.heritage.swinir", "models.heritage.stylegan2", "models.heritage.misc_archs",
           "models.heritage.face_archs", "data.heritage_datasets", "native", "native.loader",
-          "utils.profiling", "tools.loader_bench"):
+          "utils.profiling", "tools.loader_bench", "ops.kernels.int8_conv", "models.layers"):
     assert "mgldvsr_tpu_torch." + m in mods, m
 assert "yaml" not in sys.modules, "yaml was imported at import time"
 for m in ("cv2", "av", "torchvision"):

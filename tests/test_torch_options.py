@@ -453,11 +453,13 @@ def test_config_takes_every_jax_field(name):
 
 
 def test_tpu_only_options_are_refused_by_name():
+    """RAFT's TPU lookup implementations are refused by name; the VAE's
+    ``remat_min_res`` is ported and passes through."""
     cfg = pconfig.pipeline_config_from_dict(
         {"vae": {"remat_min_res": 0}, "raft": {"lookup_impl": "auto"}})
     assert cfg.vae.remat_min_res == 0 and cfg.raft.lookup_impl == "auto"
-    with pytest.raises(ValueError, match="use_checkpoint"):
-        pconfig.pipeline_config_from_dict({"vae": {"remat_min_res": 256}})
+    cfg = pconfig.pipeline_config_from_dict({"vae": {"remat_min_res": 256}})
+    assert cfg.vae.remat_min_res == 256
     for impl in ("xla", "pallas"):
         with pytest.raises(ValueError, match=f"lookup_impl='{impl}'"):
             pconfig.pipeline_config_from_dict({"raft": {"lookup_impl": impl}})
